@@ -1,0 +1,120 @@
+"""Wrapper of the flash-attention CUDA kernel (csrc/flash_attention.cu)."""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ...core.orchestrator import FLASH_TILE_ROWS
+from ...core.orchestrator import H100_SMEM_PER_BLOCK
+from ...core.orchestrator import flash_smem_bytes
+from ..build import load
+from .ref import attention_ref
+
+LAUNCHES = [0]                 # kernel launches made by this wrapper
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load().dco_flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int) -> int:
+    """Q tiles one block walks.  More tiles a block reuse the pinned prefix
+    more often; fewer give more blocks.  Chosen so that about one block per
+    SM exists when the shape allows it."""
+    n_q_tiles = -(-sq // FLASH_TILE_ROWS)
+    chunks = max(1, min(n_q_tiles, sm_count // (b * g)))
+    return -(-n_q_tiles // chunks)
+
+
+def check_pinned_rows(pinned_rows: int, sk: int, head_dim: int, itemsize: int) -> None:
+    """Raise unless ``pinned_rows`` is a prefix the kernel can keep resident."""
+    if not 0 <= pinned_rows <= sk:
+        raise ValueError(f"pinned_rows {pinned_rows} is not a prefix of {sk} KV rows")
+    if pinned_rows != sk and pinned_rows % FLASH_TILE_ROWS:
+        raise ValueError(f"pinned_rows must be the whole KV length or a multiple "
+                         f"of the KV tile ({FLASH_TILE_ROWS} rows), got {pinned_rows}")
+    need = flash_smem_bytes(pinned_rows, head_dim, itemsize)
+    if need > H100_SMEM_PER_BLOCK:
+        raise ValueError(f"pinned_rows {pinned_rows} needs {need} bytes of shared "
+                         f"memory; a block may take {H100_SMEM_PER_BLOCK}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None,
+                    softcap: Optional[float] = None,
+                    pinned_rows: int = 0,
+                    tiles_per_chunk: Optional[int] = None) -> torch.Tensor:
+    """FlashAttention-2 forward with the DCO KV split.
+
+    q (B, Sq, H, D); k/v (B, Sk, G, D), any lengths, read through their
+    strides.  ``pinned_rows`` KV rows (the whole of Sk, or a multiple of the
+    KV tile, from ``CacheOrchestrator.plan_kv_split``) stay in shared memory
+    across a block's Q tiles and query heads; the rest stream per Q tile.
+    It changes the schedule, not the result.
+
+    On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
+    computes the plain version."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("expected q (B, Sq, H, D) and k/v (B, Sk, G, D)")
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError("q and k/v disagree on batch or head_dim")
+    if h % g:
+        raise ValueError("n_heads must be divisible by n_kv_heads")
+    if causal and sq != sk:
+        raise ValueError("causal masking assumes aligned q/k sequences; "
+                         "use decode_attention for cached decoding")
+    check_pinned_rows(pinned_rows, sk, d, q.element_size())
+    if not q.is_cuda:
+        return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
+                        f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be positive")
+    epw = 4 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or any(st % epw for st in t.stride()[:-1]) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"{name}: the kernel reads 32-bit words along "
+                             "head_dim; it needs stride 1 there and 4-byte "
+                             "aligned rows")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if tiles_per_chunk is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        tiles_per_chunk = tiles_per_chunk_for(b, g, sq, sms)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
+        out.stride(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       _DTYPES[q.dtype], b, sq, sk, h, g, d, tiles_per_chunk,
+                       pinned_rows, int(causal), float(scale),
+                       float(softcap or 0.0), strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
+    LAUNCHES[0] += 1
+    return out

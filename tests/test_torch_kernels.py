@@ -1,0 +1,207 @@
+"""The port's attention functions against the JAX package's, on the CPU.
+
+The same numpy inputs (made from a seed) go through the port's plain
+versions (which its wrappers take for CPU tensors), the JAX oracles, and
+the Pallas kernels in interpret mode.  Tolerances: 2e-5 (fp32) and 2e-2
+(bf16), rtol = atol, the JAX package's own for these kernels; the CUDA
+kernels themselves are held to the plain versions on the card by
+``chip_smoke.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import attention_ref as jax_attention_ref
+from repro.kernels import decode_attention as jax_decode_attention
+from repro.kernels import decode_attention_ref as jax_decode_attention_ref
+from repro.kernels import flash_attention as jax_flash_attention
+from repro.models.layers import gqa_attention as jax_gqa_attention
+# the port
+from repro_torch.core.orchestrator import CacheOrchestrator
+from repro_torch.core.orchestrator import FLASH_TILE_ROWS
+from repro_torch.core.orchestrator import hopper_pin_budget_bytes
+from repro_torch.kernels import attention_ref
+from repro_torch.kernels import decode_attention
+from repro_torch.kernels import decode_attention_ref
+from repro_torch.kernels import flash_attention
+from repro_torch.kernels import kernels_built
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import reset_launch_counts
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def both(rng, shape, dtype):
+    """One numpy draw as a JAX array and as a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, G, D, causal, softcap, pinned, dtype)
+    (1, 256, 256, 4, 4, 128, True, None, 0, "float32"),
+    (2, 256, 256, 8, 2, 128, True, None, 0, "bfloat16"),
+    (1, 128, 512, 4, 1, 128, False, None, 0, "float32"),
+    (1, 256, 256, 4, 2, 128, True, 50.0, 0, "float32"),
+    (2, 256, 256, 4, 2, 64, True, None, 128, "float32"),      # pinned prefix
+    (1, 384, 384, 2, 2, 128, True, None, 256, "bfloat16"),    # mostly pinned
+    (1, 128, 128, 4, 4, 128, True, None, 128, "bfloat16"),    # fully pinned
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,g,d,causal,softcap,pinned,dtype", FLASH_CASES)
+def test_flash_attention_matches_jax(b, sq, sk, h, g, d, causal, softcap, pinned, dtype):
+    rng = np.random.default_rng(0)
+    jq, tq = both(rng, (b, sq, h, d), dtype)
+    jk, tk = both(rng, (b, sk, g, d), dtype)
+    jv, tv = both(rng, (b, sk, g, d), dtype)
+    port = f32(flash_attention(tq, tk, tv, causal=causal, softcap=softcap,
+                               pinned_rows=pinned))
+    assert np.array_equal(port, f32(attention_ref(tq, tk, tv, causal=causal,
+                                                  softcap=softcap)))
+    tol = TOL[dtype]
+    oracle = f32(jax_attention_ref(jq, jk, jv, causal=causal, softcap=softcap))
+    np.testing.assert_allclose(port, oracle, rtol=tol, atol=tol)
+    pallas = f32(jax_flash_attention(jq, jk, jv, causal=causal, softcap=softcap,
+                                     pinned_rows=pinned, interpret=True))
+    np.testing.assert_allclose(port, pallas, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s,h,g,d", [(17, 6, 2, 64), (100, 4, 4, 128), (23, 24, 8, 128)])
+def test_flash_attention_ragged_lengths_match_jax_gqa(s, h, g, d):
+    """Prompt lengths that are no multiple of any tile (the serving launcher
+    draws 4 to 23 tokens): the port takes them, the Pallas wrapper would not,
+    so the oracle is the JAX model path's own gqa_attention."""
+    rng = np.random.default_rng(1)
+    jq, tq = both(rng, (2, s, h, d), "float32")
+    jk, tk = both(rng, (2, s, g, d), "float32")
+    jv, tv = both(rng, (2, s, g, d), "float32")
+    port = f32(flash_attention(tq, tk, tv, causal=True, pinned_rows=s))
+    np.testing.assert_allclose(port, f32(jax_gqa_attention(jq, jk, jv, causal=True)),
+                               rtol=2e-5, atol=2e-5)
+
+
+DECODE_CASES = [
+    # (B, S, H, G, D, dtype)
+    (1, 512, 4, 4, 128, "float32"),
+    (2, 1024, 8, 2, 128, "bfloat16"),
+    (2, 512, 4, 1, 64, "float32"),
+    (1, 2048, 16, 4, 128, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,g,d,dtype", DECODE_CASES)
+def test_decode_attention_matches_jax(b, s, h, g, d, dtype):
+    rng = np.random.default_rng(3)
+    jq, tq = both(rng, (b, h, d), dtype)
+    jk, tk = both(rng, (b, s, g, d), dtype)
+    jv, tv = both(rng, (b, s, g, d), dtype)
+    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
+    port = f32(decode_attention(tq, tk, tv, torch.from_numpy(lens)))
+    assert np.array_equal(port, f32(decode_attention_ref(tq, tk, tv,
+                                                         torch.from_numpy(lens))))
+    tol = TOL[dtype]
+    oracle = f32(jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens)))
+    np.testing.assert_allclose(port, oracle, rtol=tol, atol=tol)
+    pallas = f32(jax_decode_attention(jq, jk, jv, jnp.asarray(lens), block_k=256,
+                                      interpret=True))
+    np.testing.assert_allclose(port, pallas, rtol=tol, atol=tol)
+
+
+def test_decode_attention_dead_rows_never_counted():
+    """Rows at or past cache_len must not affect the result, whatever they
+    hold; and the result agrees with the Pallas kernel on the same poison."""
+    rng = np.random.default_rng(4)
+    jq, tq = both(rng, (1, 4, 64), "float32")
+    jk, tk = both(rng, (1, 512, 2, 64), "float32")
+    jv, tv = both(rng, (1, 512, 2, 64), "float32")
+    lens = torch.tensor([300], dtype=torch.int32)
+    out1 = decode_attention(tq, tk, tv, lens)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, 300:] = 1e4
+    tv2[:, 300:] = -1e4
+    out2 = decode_attention(tq, tk2, tv2, lens)
+    np.testing.assert_allclose(f32(out1), f32(out2), rtol=1e-6, atol=1e-6)
+    tv2[:, 300:] = float("nan")
+    assert torch.isfinite(decode_attention(tq, tk2, tv2, lens)).all()
+    pallas = jax_decode_attention(jq, jk.at[:, 300:].set(1e4), jv.at[:, 300:].set(-1e4),
+                                  jnp.asarray([300], jnp.int32), interpret=True,
+                                  block_k=256)
+    np.testing.assert_allclose(f32(out2), f32(pallas), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,lens", [(333, [333, 1, 200]), (7, [7, 3, 0])])
+def test_decode_attention_ragged_cache_matches_jax_gqa(s, lens):
+    """Any cache capacity S >= 1, and cache_len 0 gives zeros (the kernel's
+    ``acc / max(l, 1e-30)`` with nothing accumulated)."""
+    rng = np.random.default_rng(5)
+    jq, tq = both(rng, (3, 6, 64), "float32")
+    jk, tk = both(rng, (3, s, 2, 64), "float32")
+    jv, tv = both(rng, (3, s, 2, 64), "float32")
+    port = f32(decode_attention(tq, tk, tv, torch.tensor(lens, dtype=torch.int32)))
+    qpos = jnp.asarray(lens)[:, None] - 1
+    oracle = f32(jax_gqa_attention(jq[:, None], jk, jv, causal=True,
+                                   q_positions=qpos))[:, 0]
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not port[i].any()
+        else:
+            np.testing.assert_allclose(port[i], oracle[i], rtol=2e-5, atol=2e-5)
+
+
+def test_pinned_rows_is_validated_on_every_device():
+    q = torch.zeros(1, 300, 4, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 300, 2, 128, dtype=torch.bfloat16)
+    for bad in (-1, 100, 301, 320):
+        with pytest.raises(ValueError):
+            flash_attention(q, k, k, pinned_rows=bad)
+    for good in (0, 64, 256, 300):
+        assert flash_attention(q, k, k, pinned_rows=good).shape == q.shape
+    big = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(torch.zeros(1, 1024, 4, 128, dtype=torch.bfloat16), big, big,
+                        pinned_rows=1024)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q[:, :100], k, k, causal=True)
+    with pytest.raises(ValueError, match="divisible"):
+        flash_attention(torch.zeros(1, 300, 3, 128), torch.zeros(1, 300, 2, 128),
+                        torch.zeros(1, 300, 2, 128))
+
+
+def test_orchestrated_split_is_consistent():
+    """The port's counterpart of the JAX package's orchestrated-kernel test:
+    splits shrink with the budget, and every split equals the oracle."""
+    seq, d, g = 512, 128, 2
+    pins = []
+    for budget in (64 * 1024, hopper_pin_budget_bytes(d, 2), 4 * 2**20):
+        orch = CacheOrchestrator(vmem_budget_bytes=budget)
+        pinned, streamed = orch.plan_kv_split(seq, FLASH_TILE_ROWS, 2 * d * 2)
+        assert pinned + streamed == seq and pinned % FLASH_TILE_ROWS == 0
+        pins.append(pinned)
+    assert pins[0] <= pins[1] <= pins[2] == seq
+    rng = np.random.default_rng(6)
+    jq, tq = both(rng, (1, seq, 4, d), "bfloat16")
+    jk, tk = both(rng, (1, seq, g, d), "bfloat16")
+    jv, tv = both(rng, (1, seq, g, d), "bfloat16")
+    oracle = f32(jax_attention_ref(jq, jk, jv, causal=True))
+    for pinned in sorted(set(pins[:2])):
+        out = f32(flash_attention(tq, tk, tv, causal=True, pinned_rows=pinned))
+        np.testing.assert_allclose(out, oracle, rtol=2e-2, atol=2e-2)
+
+
+def test_cpu_calls_launch_no_kernel():
+    reset_launch_counts()
+    q = torch.zeros(1, 8, 2, 64)
+    flash_attention(q, q, q)
+    decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
+    assert launch_counts() == {"decode_attention": 0, "flash_attention": 0}
+    assert not kernels_built()
