@@ -12,10 +12,13 @@ run with a non-zero exit code:
 2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
             card, over dtypes, head sizes, ragged lengths, the poisoned dead
-            region (decode) and the pinned/streamed splits (flash); times each
+            region (decode), the pinned/streamed splits (flash), and group
+            counts, initial states and strided views (SSD scan); times each
             kernel at the serving path's shapes beside its plain version, one
-            library call (``scaled_dot_product_attention``, a yardstick only:
-            the port never calls it) and the card's bound for the same work.
+            library call where one computes the same function
+            (``scaled_dot_product_attention`` for attention, a yardstick only:
+            the port never calls it; none exists for the SSD scan) and the
+            card's bound for the same work.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -23,9 +26,17 @@ run with a non-zero exit code:
             launch counts are set to 0 just before and read just after.
 5. parity   the same weights, 2 layers: prefill + 4 decode steps on the card
             (kernels) against the same calls on the CPU (plain versions).
+6. serve_ssm   mamba2-2.7b at full width and depth (64 layers, bf16, seeded
+            random weights) behind ``ServeEngine(max_batch=8, max_seq=2048)``:
+            8 requests, prompts of 3 to 256 tokens or 512, 768 or 1024 (lengths
+            the reference's chunk rule accepts), 32 new tokens each; counts as
+            in 4.
+7. parity_ssm  its 2-layer cut: prefill of 2 x 64 tokens + 4 decode steps,
+            card against CPU.
 
-The last lines are the ``{"kernels": [...]}`` record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+fp32 products run in full fp32 on the card: TF32 is switched off for
+matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -50,8 +61,10 @@ import torch.nn.functional as F  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # attention: rtol = atol
+SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # SSD scan: rtol = atol, the reference's
 LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol = atol
-PHASES = ("device", "build", "kernels", "serve", "parity")
+PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm")
+SSM_REQUESTS = 8                                     # mamba2-2.7b requests in serve_ssm
 
 
 def emit(phase: str, **fields) -> None:
@@ -122,9 +135,12 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     return smi
 
 
@@ -340,31 +356,171 @@ def time_kernels(gen, flush):
     return records, extra
 
 
+# ---------------------------------------------------------------------------
+def ssd_inputs(gen, b, s, h, g, p, n, dtype):
+    """The reference's SSD test inputs (tests/test_kernels.py::_ssd_inputs):
+    dt = softplus(N(0,1)) * 0.1, A = -exp(U(-1, 1))."""
+    x = randn(gen, (b, s, h, p), dtype)
+    dt = F.softplus(randn(gen, (b, s, h), torch.float32)) * 0.1
+    A = -torch.exp(torch.rand((h,), generator=gen, device="cuda") * 2 - 1)
+    B = randn(gen, (b, s, g, n), dtype)
+    C = randn(gen, (b, s, g, n), dtype)
+    return x, dt, A, B, C
+
+
+def ssd_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # (B, S, H, G, P, N, chunk, dtype, initial_state)
+    return [
+        # the reference's SSD_CASES
+        (1, 128, 2, 1, 64, 32, 32, f32, False),
+        (2, 256, 4, 1, 32, 64, 64, f32, False),
+        (1, 256, 4, 2, 64, 32, 64, bf, False),
+        (1, 512, 2, 1, 64, 128, 128, f32, False),
+        # mamba2-2.7b's prefill of 1024 tokens, and a short prompt (S = chunk)
+        (1, 1024, 80, 1, 64, 128, 256, f32, False),
+        (1, 100, 80, 1, 64, 128, 100, f32, False),
+        (1, 100, 8, 1, 64, 128, 100, bf, False),
+        # groups, batch and a carried state; the reduced model's N 16
+        (2, 256, 8, 2, 64, 64, 64, f32, True),
+        (2, 192, 6, 2, 32, 128, 64, bf, True),
+        (2, 40, 16, 1, 32, 16, 40, f32, True),
+    ]
+
+
+def check_ssd(gen):
+    from repro_torch.kernels import ssd_ref
+    from repro_torch.kernels import ssd_scan
+    worst = {}
+
+    def held(y, st, y_ref, st_ref, dtype, what):
+        e = close(y, y_ref, SSD_TOL[dtype], f"ssd y {what}")
+        e = max(e, close(st, st_ref, SSD_TOL[torch.float32], f"ssd state {what}"))
+        check(y.dtype == dtype and st.dtype == torch.float32, f"ssd types {what}")
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), e)
+
+    for b, s, h, g, p, n, chunk, dtype, with_init in ssd_cases():
+        x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, dtype)
+        init = randn(gen, (b, h, p, n), torch.float32) if with_init else None
+        y, st = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
+        torch.cuda.synchronize()
+        y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk, initial_state=init)
+        held(y, st, y_ref, st_ref, dtype, (b, s, h, g, p, n, chunk, dtype, with_init))
+    # strided views, as the model hands them over: x a slice of a wider
+    # projection, B and C two column ranges of one (B, S, 2GN) tensor
+    b, s, h, g, p, n = 2, 128, 8, 2, 64, 64
+    wide = randn(gen, (b, s, h, 2 * p), torch.float32)
+    bc = randn(gen, (b, s, 2 * g * n), torch.float32)
+    _, dt, A, _, _ = ssd_inputs(gen, b, s, h, g, p, n, torch.float32)
+    x, B, C = wide[..., p:], bc[..., :g * n].view(b, s, g, n), bc[..., g * n:].view(b, s, g, n)
+    y, st = ssd_scan(x, dt, A, B, C, chunk=64)
+    y_ref, st_ref = ssd_ref(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), 64)
+    held(y, st, y_ref, st_ref, torch.float32, "on strided views")
+    return worst
+
+
+def time_ssd(gen, flush):
+    """The SSD scan at mamba2-2.7b's prefill shapes (fp32 inputs, as
+    ``mamba2_block`` hands them over).  The bound counts the chunked
+    algorithm's work at the kernel's own sub-chunk Q (64 rows): per (batch,
+    head, sub-chunk) Q^2 (N + P) FLOP for the two causal Q x Q products and
+    4 Q N P for the two state products.  The model's chunk of 256 would count
+    Q (N + P) more FLOP a row for the same result."""
+    from repro_torch.kernels import ssd_ref
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import SUB_CHUNK as q
+    f32 = torch.float32
+    out = []
+    for s in (1024, 256):
+        b, h, g, p, n, chunk = 1, 80, 1, 64, 128, min(256, s)
+        x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, f32)
+        y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk)
+        y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
+        err = max(close(y, y_ref, SSD_TOL[f32], "ssd at the serving shape"),
+                  close(st, st_ref, SSD_TOL[f32], "ssd state at the serving shape"))
+        n_flops = b * h * (s // q) * (q * q * (n + p) + 4 * q * n * p)
+        n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
+                       + st.numel())
+        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[f32] * 1e3
+        out.append({
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
+            "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
+                      "sub_chunk": q, "dtype": "float32"},
+            "flop": n_flops, "bytes": n_bytes,
+            "max_abs_err": err, "tol": SSD_TOL[f32],
+            "ms": time_ms(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), flush),
+            "plain_ms": time_ms(lambda: ssd_ref(x, dt, A, B, C, chunk), flush),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        })
+    return out[:1], out[1:]
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     worst_decode = check_decode(gen)
     worst_flash = check_flash(gen)
+    worst_ssd = check_ssd(gen)
     records, extra = time_kernels(gen, flush)
+    ssd_records, ssd_extra = time_ssd(gen, flush)
+    records += ssd_records
     emit("kernels", decode_cases_max_abs_err=worst_decode,
-         flash_cases_max_abs_err=worst_flash, tol={str(k): v for k, v in TOL.items()},
-         timed=records + extra)
+         flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
+         tol={str(k): v for k, v in TOL.items()},
+         ssd_tol={str(k): v for k, v in SSD_TOL.items()},
+         timed=records + extra + ssd_extra)
     return records
 
 
 # ---------------------------------------------------------------------------
-def phase_serve(n_requests, max_new):
+# The main paths: (arch, published sizes, phase names, prompt length draw)
+def llama_prompt_len(rng):
+    return int(rng.integers(64, 1025))
+
+
+def mamba2_prompt_len(rng):
+    """A length the reference's chunk rule accepts (S <= 256, or a multiple
+    of 256), half of them long; never 1 or 2 tokens (ROADMAP Queue 3)."""
+    if rng.random() < 0.5:
+        return int(rng.integers(3, 257))
+    return 256 * int(rng.integers(2, 5))
+
+
+PATHS = {
+    "llama3.2-3b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab"),
+        published=(28, 3072, 24, 8, 128, 8192, 128256), serve="serve", parity="parity",
+        prompt_len=llama_prompt_len, kernels=("decode_attention", "flash_attention")),
+    "mamba2-2.7b": dict(
+        sizes=("n_layers", "d_model", "vocab"), published=(64, 2560, 50280),
+        serve="serve_ssm", parity="parity_ssm", prompt_len=mamba2_prompt_len,
+        kernels=("ssd_scan",)),
+}
+
+
+def phase_serve(arch, n_requests, max_new):
+    """Serve ``n_requests`` through the engine at the published size, with the
+    launch counts set to 0 just before and read just after."""
     from repro_torch.configs import get_arch
+    from repro_torch.configs import SSM
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import init_params
     from repro_torch.serve import Request
     from repro_torch.serve import ServeEngine
-    cfg = get_arch("llama3.2-3b")
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-           cfg.d_ff, cfg.vocab) == (28, 3072, 24, 8, 128, 8192, 128256),
-          "llama3.2-3b is not at its published size")
+    path = PATHS[arch]
+    cfg = get_arch(arch)
+    check(tuple(getattr(cfg, k) for k in path["sizes"]) == path["published"],
+          f"{arch} is not at its published size")
+    if cfg.family == SSM:
+        spec = cfg.ssm
+        check((spec.d_state, spec.expand, spec.head_dim, spec.n_groups, spec.d_conv,
+               spec.chunk) == (128, 2, 64, 1, 4, 256), f"{arch}: SSM spec is not published")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params = init_params(cfg, seed=0, device="cuda")
@@ -374,7 +530,7 @@ def phase_serve(n_requests, max_new):
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(n_requests):
-        plen = int(rng.integers(64, 1025))
+        plen = path["prompt_len"](rng)
         prompt = rng.integers(2, cfg.vocab, size=plen).astype(np.int32)
         reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
         engine.add_request(reqs[-1])
@@ -395,15 +551,19 @@ def phase_serve(n_requests, max_new):
               f"request {r.uid} has a token outside the vocabulary")
     check(engine._tmu.live_tiles == 0, "TMU still tracks live slots")
     check(engine.prefill_calls == n_requests, "prefill calls != requests")
-    check(counts["flash_attention"] == n_requests * cfg.n_layers,
-          f"flash launches {counts['flash_attention']} != requests x layers")
-    check(engine.decode_calls > 0
-          and counts["decode_attention"] == cfg.n_layers * engine.decode_calls,
-          f"decode launches {counts['decode_attention']} != layers x "
-          f"{engine.decode_calls} decode_step calls")
+    check(engine.decode_calls > 0, "no decode_step call")
+    if cfg.family == SSM:
+        want = {"ssd_scan": n_requests * cfg.n_layers, "flash_attention": 0,
+                "decode_attention": 0}
+    else:
+        want = {"flash_attention": n_requests * cfg.n_layers, "ssd_scan": 0,
+                "decode_attention": cfg.n_layers * engine.decode_calls}
+    check(counts == want, f"{arch}: launches {counts}, expected {want} "
+          f"({n_requests} prefills, {engine.decode_calls} decode_step calls)")
     check(bool(torch.isfinite(engine.last_logits.float()).all()), "non-finite logits")
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
-         requests=n_requests, prompt_tokens=int(sum(len(r.prompt) for r in reqs)),
+    emit(path["serve"], arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         requests=n_requests, prompt_lens=[len(r.prompt) for r in reqs],
+         prompt_tokens=int(sum(len(r.prompt) for r in reqs)),
          new_tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
          engine_steps=steps, decode_step_calls=engine.decode_calls,
          launches=counts, init_params_seconds=init_s,
@@ -411,7 +571,7 @@ def phase_serve(n_requests, max_new):
     return cfg, params, counts
 
 
-def phase_parity(cfg, params):
+def phase_parity(arch, cfg, params):
     """Prefill + 4 decode steps of a 2-layer cut of the served weights, on the
     card (kernels) and on the CPU (plain versions).
 
@@ -420,33 +580,43 @@ def phase_parity(cfg, params):
     model, free of rounding noise.  In bf16, the serving type, the two devices
     round activations at other places (another summation order in every
     product flips last bits, and the flips travel through the layers), so
-    over 1.3 million logits the largest difference is a tail event, not a
+    over a million logits the largest difference is a tail event, not a
     fault: there the check is the share of logits within the same tolerance,
     the RMS error, and the greedy token wherever the CPU's top-2 margin is
-    clear of the tolerance."""
+    clear of the tolerance.  Leaves the model keeps in fp32 (the SSM's
+    ``a_log``, ``d_skip``) stay fp32 in both runs."""
+    from repro_torch.configs import SSM
     from repro_torch.models import decode_step
     from repro_torch.models import prefill
     cfg2 = replace(cfg, n_layers=2)
+    ssm = cfg.family == SSM
+    plen = 64 if ssm else 48
 
-    def cut_params(dev, dtype):
-        out = {k: v.to(device=dev, dtype=dtype) for k, v in params.items()
-               if not isinstance(v, dict)}
-        out["layers"] = {
-            name: {k: v[:2].to(device=dev, dtype=dtype) for k, v in sub.items()}
-            for name, sub in params["layers"].items()}
+    def cut(tree, dev, dtype, layer):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = cut(v, dev, dtype, layer or k == "layers")
+            else:
+                v = v[:2] if layer else v
+                out[k] = v.to(device=dev, dtype=torch.float32 if v.dtype == torch.float32
+                              else dtype)
         return out
 
     rng = np.random.default_rng(1)
-    prompt = rng.integers(2, cfg.vocab, size=(2, 48))
+    prompt = rng.integers(2, cfg.vocab, size=(2, plen))
     steps = rng.integers(2, cfg.vocab, size=(4, 2, 1))
 
     def run(dev, dtype):
-        p = cut_params(dev, dtype)
-        got, cache = prefill(p, torch.as_tensor(prompt, device=dev), cfg2,
-                             pinned_rows=48)
-        pad = torch.zeros_like(cache.k[:, :, :4])
-        cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
-                               v=torch.cat([cache.v, pad], dim=2))
+        p = cut(params, dev, dtype, False)
+        tok = torch.as_tensor(prompt, device=dev)
+        if ssm:
+            got, cache = prefill(p, tok, cfg2)
+        else:
+            got, cache = prefill(p, tok, cfg2, pinned_rows=plen)
+            pad = torch.zeros_like(cache.k[:, :, :4])
+            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
+                                   v=torch.cat([cache.v, pad], dim=2))
         outs = [got]
         for tok in steps:
             got, cache = decode_step(p, torch.as_tensor(tok, device=dev), cache, cfg2)
@@ -455,7 +625,7 @@ def phase_parity(cfg, params):
 
     card, cpu = run("cuda", torch.float32), run("cpu", torch.float32)
     check(card.shape == (5, 2, cfg.vocab), "parity: wrong logits shape")
-    err32 = close(card, cpu, LOGIT_TOL, "parity fp32: card vs CPU logits")
+    err32 = close(card, cpu, LOGIT_TOL, f"{arch} parity fp32: card vs CPU logits")
 
     card, cpu = run("cuda", torch.bfloat16), run("cpu", torch.bfloat16)
     check(bool(torch.isfinite(card).all()), "parity bf16: non-finite logits")
@@ -465,10 +635,13 @@ def phase_parity(cfg, params):
     top2 = cpu.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * (LOGIT_TOL + LOGIT_TOL * top2[..., 0].abs())
     same = card.argmax(-1) == cpu.argmax(-1)
-    check(share >= 0.999, f"parity bf16: only {share:.5f} of the logits within {LOGIT_TOL}")
-    check(rms <= LOGIT_TOL / 2, f"parity bf16: RMS logit error {rms:.4f}")
-    check(bool(same[clear].all()), "parity bf16: greedy token differs at a clear margin")
-    emit("parity", n_layers=2, calls="prefill(2x48) + 4 decode steps", tol=LOGIT_TOL,
+    check(share >= 0.999, f"{arch} parity bf16: only {share:.5f} of the logits "
+          f"within {LOGIT_TOL}")
+    check(rms <= LOGIT_TOL / 2, f"{arch} parity bf16: RMS logit error {rms:.4f}")
+    check(bool(same[clear].all()), f"{arch} parity bf16: greedy token differs at a "
+          "clear margin")
+    emit(PATHS[arch]["parity"], arch=cfg.name, n_layers=2,
+         calls=f"prefill(2x{plen}) + 4 decode steps", tol=LOGIT_TOL,
          fp32_max_abs_err=err32, bf16_max_abs_err=float(err.max()),
          bf16_share_within_tol=share, bf16_rms_err=rms,
          bf16_clear_margin_tokens=int(clear.sum()), bf16_tokens_equal=int(same.sum()))
@@ -479,7 +652,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=16, help="llama3.2-3b requests")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--build-log", metavar="PATH",
                     help="pass -Xptxas -v to nvcc and write its output to PATH")
@@ -492,15 +665,24 @@ def main() -> None:
     smi = phase_device()
     phase_build(args.build_log)
     records = phase_kernels() if "kernels" in phases else []
-    if "serve" in phases:
-        cfg, params, counts = phase_serve(args.requests, args.max_new)
+    for arch, n_requests in (("llama3.2-3b", args.requests),
+                             ("mamba2-2.7b", SSM_REQUESTS)):
+        path = PATHS[arch]
+        if path["serve"] not in phases:
+            continue
+        cfg, params, counts = phase_serve(arch, n_requests, args.max_new)
         for rec in records:
-            rec["launches"] = counts[rec["name"]]
-            check(rec["launches"] > 0, f"{rec['name']} was not launched by the serve run")
-        if "parity" in phases:
-            phase_parity(cfg, params)
+            if rec["name"] in path["kernels"]:
+                rec["launches"] = counts[rec["name"]]
+                check(rec["launches"] > 0, f"{rec['name']} was not launched by the "
+                      f"{arch} serve run")
+        if path["parity"] in phases:
+            phase_parity(arch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
     complete = set(phases) == set(PHASES)
     if complete:
+        check(all("launches" in rec for rec in records), "a kernel has no launch count")
         print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": complete, "device": {

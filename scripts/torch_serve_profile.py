@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Where a serving step of the PyTorch/CUDA port spends its time on the card.
 
-Builds llama3.2-3b at full width and depth (random bf16 weights) behind
-``ServeEngine(max_batch=8, max_seq=2048)``, fills all eight slots, runs a few
-engine steps to warm up, then traces a window of steps with ``torch.profiler``
-and prints one JSON object: wall time of the window, device-busy time and idle
-share, ``decode_step`` calls, and the kernels that took most device time.
+Builds llama3.2-3b or mamba2-2.7b at full width and depth (random bf16
+weights) behind ``ServeEngine(max_batch=8, max_seq=2048)``, fills all eight
+slots, runs a few engine steps to warm up, then traces a window of steps with
+``torch.profiler`` and prints one JSON object: wall time of the window,
+device-busy time and idle share, ``decode_step`` calls, and the kernels that
+took most device time.
 
-    python scripts/torch_serve_profile.py [--steps 4] [--layers 28]
+    python scripts/torch_serve_profile.py [--arch mamba2-2.7b] [--steps 4] [--layers N]
 
 Needs one CUDA device and nvcc (the kernels are built at first use).
 """
@@ -27,6 +28,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 # the port
+from repro_torch.configs import SSM
 from repro_torch.configs import get_arch
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import reset_launch_counts
@@ -37,8 +39,9 @@ from repro_torch.serve import ServeEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-3b", choices=["llama3.2-3b", "mamba2-2.7b"])
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--layers", type=int, default=28)
+    ap.add_argument("--layers", type=int, help="cut the depth (default: published)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs one CUDA device")
@@ -46,12 +49,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    cfg = replace(get_arch("llama3.2-3b"), n_layers=args.layers)
+    cfg = get_arch(args.arch)
+    cfg = replace(cfg, n_layers=args.layers or cfg.n_layers)
     params = init_params(cfg, seed=0, device="cuda")
     engine = ServeEngine(cfg, params, max_batch=8, max_seq=2048, device="cuda")
     rng = np.random.default_rng(0)
     for i in range(8):
-        plen = int(rng.integers(64, 1025))
+        # an SSM prompt keeps the reference's chunk rule (S <= chunk here)
+        plen = int(rng.integers(3, 257) if cfg.family == SSM else rng.integers(64, 1025))
         prompt = rng.integers(2, cfg.vocab, size=plen).astype(np.int32)
         engine.add_request(Request(uid=i, prompt=prompt, max_new_tokens=10_000))
     for _ in range(3):

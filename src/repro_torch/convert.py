@@ -3,7 +3,8 @@
 The port keeps the JAX package's tree layout (same keys, same stacked
 leading layer axis), so the bridge is a 1:1 map over leaves.  The caller
 hands over numpy arrays; bf16 leaves cross as fp32 (numpy has no bf16) and
-are narrowed again here, which is exact.
+are narrowed again here, which is exact.  The leaves the reference keeps in
+fp32 (the SSM's ``a_log`` and ``d_skip``, the SSM state) stay fp32.
 """
 
 from __future__ import annotations
@@ -19,31 +20,39 @@ from . import require_device
 from .models.model import Cache
 from .models.model import DTYPE
 
+FP32_LEAVES = frozenset({"a_log", "d_skip"})   # parameters the reference keeps in fp32
+
+
+def _put(a, dev, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
+
 
 def params_from_numpy(tree: Mapping[str, Any], device="cuda", *,
                       dtype=DTYPE) -> Dict[str, Any]:
-    """Nested dict of numpy arrays → the same nested dict of tensors of
-    ``dtype`` on ``device``."""
+    """Nested dict of numpy arrays → the same nested dict of tensors on
+    ``device``: of ``dtype``, except the ``FP32_LEAVES``, which stay fp32."""
     dev = require_device(device)
     out: Dict[str, Any] = {}
     for key, leaf in tree.items():
         if isinstance(leaf, Mapping):
             out[key] = params_from_numpy(leaf, dev, dtype=dtype)
         else:
-            arr = np.ascontiguousarray(np.asarray(leaf, dtype=np.float32))
-            out[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+            out[key] = _put(leaf, dev, torch.float32 if key in FP32_LEAVES else dtype)
     return out
 
 
-def cache_from_numpy(k, v, pos, device="cuda", *, dtype=DTYPE) -> Cache:
-    """K/V arrays (L, B, S, G, hd) and the next position → a port ``Cache``."""
+def cache_from_numpy(k=None, v=None, pos=0, device="cuda", *, conv_x=None, conv_bc=None,
+                     ssm=None, dtype=DTYPE) -> Cache:
+    """The arrays of a JAX ``Cache`` and its next position → a port
+    ``Cache``: K/V (L, B, S, G, hd) and the conv histories in ``dtype``, the
+    SSM state (L, B, H, P, N) in fp32.  Fields left ``None`` stay ``None``."""
     dev = require_device(device)
 
-    def put(a):
-        arr = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+    def put(a, dt):
+        return None if a is None else _put(a, dev, dt)
 
-    return Cache(k=put(k), v=put(v), pos=int(pos))
+    return Cache(k=put(k, dtype), v=put(v, dtype), conv_x=put(conv_x, dtype),
+                 conv_bc=put(conv_bc, dtype), ssm=put(ssm, torch.float32), pos=int(pos))
 
 
 def params_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:

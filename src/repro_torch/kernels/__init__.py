@@ -22,12 +22,16 @@ from .decode_attention import ops as _decode_ops
 from .flash_attention import attention_ref
 from .flash_attention import flash_attention
 from .flash_attention import ops as _flash_ops
+from .ssd_scan import ops as _ssd_ops
+from .ssd_scan import ssd_ref
+from .ssd_scan import ssd_scan
 
 __all__ = ["decode_attention", "decode_attention_ref", "attention_ref",
            "flash_attention", "kernels_built", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "ssd_ref", "ssd_scan"]
 
-_WRAPPERS = {"decode_attention": _decode_ops, "flash_attention": _flash_ops}
+_WRAPPERS = {"decode_attention": _decode_ops, "flash_attention": _flash_ops,
+             "ssd_scan": _ssd_ops}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,9 +6,14 @@ smoke size; ``--full`` (or ``--no-reduce``) serves the published widths and
 depth, which the JAX launcher's ``store_true, default=True`` flag cannot
 switch on.
 
-Example:
+Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --full --requests 6 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
+
+The prompts are 4 to 23 tokens long, which every architecture's SSD chunk
+rule accepts (S <= chunk, so chunk = S).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Model assembly of the port (dense family)."""
+"""Model assembly of the port (dense and SSM families)."""
 
 from .model import Cache
 from .model import decode_step

@@ -24,6 +24,13 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 
 
+def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std²) weights drawn in fp32 from ``gen`` on its device, cast to
+    ``dtype``, as the JAX package's ``(normal(key, shape) * std).astype(dtype)``."""
+    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return w.mul_(std).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Model assembly of the port: init / forward / prefill / decode.
 
-The dense family is ported (llama3.2-3b and the other dense configs
-without a sliding window); MoE, SSM and hybrid families raise
-``NotImplementedError`` naming the slice that brings them.
+The dense family (llama3.2-3b and the other dense configs without a
+sliding window) and the SSM family (mamba2-2.7b) are ported; the MoE and
+hybrid families raise ``NotImplementedError`` naming the slice that brings
+them.
 
 Design notes
 ------------
@@ -11,9 +12,10 @@ Design notes
   Python loop that indexes that axis (views, no copies).
 * ``tie_embeddings`` is intent only, as in the JAX package: ``lm_head`` is
   always a separate parameter.
-* **The KV cache is updated in place.**  ``prefill`` allocates a
-  prompt-sized cache and fills it; ``decode_step`` writes one row into the
-  cache it is given and returns a ``Cache`` that holds the same tensors.
+* **The cache is updated in place.**  ``prefill`` allocates a
+  prompt-sized cache and fills it; ``decode_step`` writes one K/V row (dense)
+  or the new conv history and SSM state (SSM) into the cache it is given and
+  returns a ``Cache`` that holds the same tensors.
 * Entry points take an explicit ``device`` (default the card) and raise
   where it is absent; random weights come from an explicit
   ``torch.Generator`` on that device.
@@ -39,20 +41,24 @@ from ..configs import MOE
 from ..configs import SSM
 from .layers import attention_block
 from .layers import block_rope_tables
+from .layers import init_normal
 from .layers import mlp_block
 from .layers import rms_norm
+from .ssm import Mamba2Cache
+from .ssm import init_mamba2_cache
+from .ssm import init_mamba2_params
+from .ssm import mamba2_block
 
 DTYPE = torch.bfloat16
 
 _LATER = {
     MOE: "the MoE family (moe_ffn, expert routing) is a later slice of the port",
-    SSM: "the SSM family (mamba2_block, the SSD scan kernel) is a later slice of the port",
     HYBRID: "the hybrid family (mamba2 groups + shared attention) is a later slice of the port",
 }
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != DENSE:
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in (DENSE, SSM):
         raise NotImplementedError(_LATER.get(cfg.family, f"unknown family {cfg.family!r}"))
 
 
@@ -66,11 +72,6 @@ def make_generator(seed: int, device="cuda") -> torch.Generator:
     return gen
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(std).to(dtype)
-
-
 def _ln_init(cfg: ArchConfig, shape, device, dtype) -> torch.Tensor:
     make = torch.zeros if cfg.gemma_norm else torch.ones
     return make(shape, dtype=dtype, device=device)
@@ -81,10 +82,10 @@ def _init_attn(gen, cfg: ArchConfig, n_layers: int, dtype):
     s = d ** -0.5
     p = {
         "ln": _ln_init(cfg, (n_layers, d), gen.device, dtype),
-        "wq": _normal(gen, (n_layers, d, h, hd), s, dtype),
-        "wk": _normal(gen, (n_layers, d, g, hd), s, dtype),
-        "wv": _normal(gen, (n_layers, d, g, hd), s, dtype),
-        "wo": _normal(gen, (n_layers, h, hd, d), (h * hd) ** -0.5, dtype),
+        "wq": init_normal(gen, (n_layers, d, h, hd), s, dtype),
+        "wk": init_normal(gen, (n_layers, d, g, hd), s, dtype),
+        "wv": init_normal(gen, (n_layers, d, g, hd), s, dtype),
+        "wo": init_normal(gen, (n_layers, h, hd, d), (h * hd) ** -0.5, dtype),
     }
     if cfg.qk_norm:
         p["q_norm"] = _ln_init(cfg, (n_layers, hd), gen.device, dtype)
@@ -96,9 +97,9 @@ def _init_mlp(gen, cfg: ArchConfig, n_layers: int, d_ff: int, dtype):
     d = cfg.d_model
     return {
         "ln": _ln_init(cfg, (n_layers, d), gen.device, dtype),
-        "w_gate": _normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
-        "w_up": _normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
-        "w_down": _normal(gen, (n_layers, d_ff, d), d_ff ** -0.5, dtype),
+        "w_gate": init_normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
+        "w_up": init_normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
+        "w_down": init_normal(gen, (n_layers, d_ff, d), d_ff ** -0.5, dtype),
     }
 
 
@@ -106,19 +107,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, device="cuda", dtype=DTYPE) -> Dict[str, Any]:
     """Random parameters in the JAX package's tree layout, made on the device
     of ``generator`` (or of a new generator seeded with ``seed`` on
-    ``device``)."""
-    _require_dense(cfg)
+    ``device``).  SSM layers keep ``a_log`` and ``d_skip`` in fp32, as the
+    JAX package does."""
+    _require_ported(cfg)
     gen = generator if generator is not None else make_generator(seed, device)
     d, v = cfg.d_model, cfg.vocab
-    return {
-        "embed": _normal(gen, (v, d), d ** -0.5, dtype),
+    params = {
+        "embed": init_normal(gen, (v, d), d ** -0.5, dtype),
         "ln_f": _ln_init(cfg, (d,), gen.device, dtype),
-        "lm_head": _normal(gen, (d, v), d ** -0.5, dtype),
-        "layers": {
+        "lm_head": init_normal(gen, (d, v), d ** -0.5, dtype),
+    }
+    if cfg.family == SSM:
+        params["layers"] = init_mamba2_params(gen, d, cfg.ssm, cfg.n_layers, dtype)
+    else:
+        params["layers"] = {
             "attn": _init_attn(gen, cfg, cfg.n_layers, dtype),
             "mlp": _init_mlp(gen, cfg, cfg.n_layers, cfg.d_ff, dtype),
-        },
-    }
+        }
+    return params
 
 
 def local_flags(cfg: ArchConfig, n_layers: Optional[int] = None) -> Tuple[bool, ...]:
@@ -162,10 +168,15 @@ def lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
 def forward(params, tokens, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             input_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, input_embeds)
-    rope = block_rope_tables(cfg, x.shape[0], x.shape[1], None, x.device)
     layers = params["layers"]
+    if cfg.family == SSM:
+        for i in range(cfg.n_layers):
+            y, _ = mamba2_block(_layer(layers, i), x, cfg.ssm)
+            x = x + y
+        return lm_logits(params, x, cfg)
+    rope = block_rope_tables(cfg, x.shape[0], x.shape[1], None, x.device)
     for i, fl in enumerate(local_flags(cfg)):
         a, _ = attention_block(_layer(layers["attn"], i), x, cfg, layer_is_local=fl,
                                positions=positions, rope=rope)
@@ -178,23 +189,59 @@ def forward(params, tokens, cfg: ArchConfig, *,
 # KV cache
 # ---------------------------------------------------------------------------
 class Cache(NamedTuple):
-    """Attention K/V stacked over layers, and the next position.  The SSM
-    fields keep the JAX package's names and stay ``None`` for the dense family."""
+    """Attention K/V and/or SSM state stacked over layers, and the next
+    position; the fields a family does not use stay ``None``."""
     k: Optional[torch.Tensor] = None          # (L, B, S, G, hd)
     v: Optional[torch.Tensor] = None
-    conv_x: Optional[torch.Tensor] = None
-    conv_bc: Optional[torch.Tensor] = None
-    ssm: Optional[torch.Tensor] = None
+    conv_x: Optional[torch.Tensor] = None     # (L, B, K-1, d_inner)
+    conv_bc: Optional[torch.Tensor] = None    # (L, B, K-1, 2GN)
+    ssm: Optional[torch.Tensor] = None        # (L, B, H, P, N) fp32
     pos: int = 0                              # next position (a Python int)
+
+
+def _ssm_cache(cfg: ArchConfig, batch: int, conv_rows: int, device, dtype) -> Cache:
+    """Zero SSM state for ``batch`` sequences, ``conv_rows`` rows of conv
+    history (``d_conv - 1`` except after a prefill of fewer tokens)."""
+    one = init_mamba2_cache(batch, cfg.d_model, cfg.ssm, device=device, dtype=dtype)
+    L = cfg.n_layers
+    return Cache(
+        conv_x=torch.zeros((L, batch, conv_rows) + one.conv_x.shape[2:], dtype=dtype,
+                           device=device),
+        conv_bc=torch.zeros((L, batch, conv_rows) + one.conv_bc.shape[2:], dtype=dtype,
+                            device=device),
+        ssm=torch.zeros((L,) + tuple(one.ssm.shape), dtype=torch.float32, device=device),
+        pos=0)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
                dtype=DTYPE) -> Cache:
-    _require_dense(cfg)
+    """Dense: K/V for ``max_seq`` rows.  SSM: conv history and fp32 state,
+    whose size does not depend on ``max_seq``."""
+    _require_ported(cfg)
     dev = require_device(device)
+    if cfg.family == SSM:
+        return _ssm_cache(cfg, batch, cfg.ssm.d_conv - 1, dev, dtype)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return Cache(k=torch.zeros(shape, dtype=dtype, device=dev),
                  v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
+
+
+def _ssm_layers(params, x, cfg: ArchConfig, cache: Cache,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the Mamba2 stack with a cache and write each layer's new conv
+    history and state **into the cache's own tensors**, only at batch ``rows``
+    where given."""
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lc = Mamba2Cache(conv_x=cache.conv_x[i], conv_bc=cache.conv_bc[i], ssm=cache.ssm[i])
+        y, new = mamba2_block(_layer(layers, i), x, cfg.ssm, cache=lc)
+        x = x + y
+        for dst, src in zip(lc, new):
+            if rows is None:
+                dst.copy_(src)
+            else:
+                dst[rows] = src[rows]
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -205,17 +252,22 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
                 rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) → (logits (B, 1, V), cache advanced by one position).
 
-    Writes K/V at ``cache.pos`` **into the cache's own tensors**.  With
-    ``rows`` (batch indices) only those sequences write their K/V and attend
-    (over ``cache.pos + 1`` rows); the others keep their cache untouched,
-    attend over nothing, and their logits mean nothing."""
-    _require_dense(cfg)
+    Dense: writes K/V at ``cache.pos`` **into the cache's own tensors**.  SSM:
+    writes the new conv history and state into them.  With ``rows`` (batch
+    indices) only those sequences write their cache (dense: and attend over
+    ``cache.pos + 1`` rows); the others keep their cache untouched and their
+    logits mean nothing."""
+    _require_ported(cfg)
     b = tokens.shape[0]
     pos = int(cache.pos)
     x = embed_tokens(params, tokens, cfg, input_embeds)
     cache_rows = cache_len = None
     if rows is not None:
         cache_rows = torch.as_tensor(list(rows), dtype=torch.long, device=x.device)
+    if cfg.family == SSM:
+        x = _ssm_layers(params, x, cfg, cache, cache_rows)
+        return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
+    if rows is not None:
         cache_len = torch.zeros((b,), dtype=torch.int32, device=x.device)
         cache_len[cache_rows] = pos + 1
     else:
@@ -239,13 +291,22 @@ def prefill(params, tokens, cfg: ArchConfig, *,
             input_embeds: Optional[torch.Tensor] = None,
             pinned_rows: int = 0) -> Tuple[torch.Tensor, Cache]:
     """Returns (last-token logits (B, V), a new cache sized and filled to S).
-    ``pinned_rows`` is handed to the flash kernel of every layer."""
-    _require_dense(cfg)
+    ``pinned_rows`` is handed to the flash kernel of every layer (dense).
+
+    SSM: every layer starts from a zero state, as in the reference; its conv
+    history keeps the last ``min(S, d_conv - 1)`` rows of the prompt (all
+    ``d_conv - 1`` for a 1-token prompt, which takes the decode branch)."""
+    _require_ported(cfg)
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) come with the qwen2-vl slice of the port")
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg, input_embeds)
+    if cfg.family == SSM:
+        k = cfg.ssm.d_conv - 1
+        cache = _ssm_cache(cfg, b, k if s == 1 else min(s, k), x.device, x.dtype)
+        x = _ssm_layers(params, x, cfg, cache)
+        return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
     ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=x.dtype, device=x.device)

@@ -6,16 +6,18 @@ reused by the next queued request — the serving-level dead-block
 prediction (paper §VI-F: "data from completed batches becomes dead and
 pollutes the cache"; here the pollution is reclaimed the moment
 ``accCnt == nAcc``, i.e. at EOS/max-tokens).  A TMU instance tracks the
-slot lifetimes so the analogy is executable, not rhetorical.  The cache
-orchestrator, budgeted with the shared memory the flash kernel keeps for a
-pinned KV prefix, chooses each prefill's pinned/streamed split.
+slot lifetimes so the analogy is executable, not rhetorical.  For a family
+with attention, the cache orchestrator, budgeted with the shared memory the
+flash kernel keeps for a pinned KV prefix, chooses each prefill's
+pinned/streamed split; an attention-free (SSM) model has no KV to plan.
 
 The engine is synchronous.  ``step()`` runs one batched ``decode_step`` of
 the whole padded batch for each distinct slot position.  **The pooled
-cache is updated in place**: a step for one position group writes K/V
-only for that group's rows and reads logits only from them, which is what
-the JAX engine's ``_merge_slots`` (keep the updated rows of the group,
-the old rows of everyone else) amounts to on a cache that is not copied.
+cache is updated in place**: a step for one position group writes K/V (or
+conv history and SSM state) only for that group's rows and reads logits
+only from them, which is what the JAX engine's ``_merge_slots`` (keep the
+updated rows of the group, the old rows of everyone else) amounts to on a
+cache that is not copied.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .. import require_device
 from ..configs import ArchConfig
+from ..configs import SSM
 from ..core.orchestrator import CacheOrchestrator
 from ..core.orchestrator import FLASH_TILE_ROWS
 from ..core.orchestrator import hopper_pin_budget_bytes
@@ -72,11 +75,13 @@ class ServeEngine:
         self._tmu = TMU(tensor_entries=max_batch * 2)
         self._slot_bytes = 1 << 20
         # pinned/streamed split of each prefill's KV, from the shared memory
-        # the flash kernel can keep for a pinned prefix
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        self._kv_row_bytes = 2 * cfg.head_dim * itemsize
-        self._orch = CacheOrchestrator(
-            vmem_budget_bytes=hopper_pin_budget_bytes(cfg.head_dim, itemsize))
+        # the flash kernel can keep for a pinned prefix; none without attention
+        self._orch: Optional[CacheOrchestrator] = None
+        if cfg.family != SSM:
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            self._kv_row_bytes = 2 * cfg.head_dim * itemsize
+            self._orch = CacheOrchestrator(
+                vmem_budget_bytes=hopper_pin_budget_bytes(cfg.head_dim, itemsize))
         self.decode_calls = 0
         self.prefill_calls = 0
         self.last_logits: Optional[torch.Tensor] = None
@@ -104,11 +109,14 @@ class ServeEngine:
             raise ValueError(f"prompt of {plen} tokens exceeds max_seq {self.max_seq}")
         prompt = torch.as_tensor(np.asarray(req.prompt)[None, :], dtype=torch.long,
                                  device=self.device)
-        pinned, _ = self._orch.plan_kv_split(plen, FLASH_TILE_ROWS, self._kv_row_bytes)
-        logits, pcache = prefill(self.params, prompt, self.cfg, pinned_rows=pinned)
+        plan = {}
+        if self._orch is not None:
+            plan["pinned_rows"], _ = self._orch.plan_kv_split(
+                plen, FLASH_TILE_ROWS, self._kv_row_bytes)
+        logits, pcache = prefill(self.params, prompt, self.cfg, **plan)
         self.prefill_calls += 1
-        # splice this request's prefilled KV into the pooled cache
-        _splice(self.cache, pcache, slot, plen)
+        # splice this request's prefilled KV / state into the pooled cache
+        _splice(self.cache, pcache, slot)
         self.slot_pos[slot] = plen
         self.last_logits = logits
         req.tokens_out.append(self._pick(logits[0], req.uid))
@@ -174,10 +182,21 @@ class ServeEngine:
 
 
 # ---------------------------------------------------------------------------
-def _splice(pool: Cache, one: Cache, slot: int, plen: int) -> None:
+def _splice(pool: Cache, one: Cache, slot: int) -> None:
     """Copy a single-sequence prefill cache into pool slot ``slot``, in place,
     and zero-fill the rest of the slot: a reused slot keeps nothing of the
-    request that held it before."""
-    for pool_a, one_a in ((pool.k, one.k), (pool.v, one.v)):
-        pool_a[:, slot, :plen] = one_a[:, 0, :plen]
-        pool_a[:, slot, plen:] = 0
+    request that held it before.
+
+    The prefill's K/V (one row per prompt token) and conv histories fill the
+    first rows of the slot.  After a 2-token prompt the conv history has 2 of
+    the ``d_conv - 1`` rows and they land in rows 0 and 1, where the
+    reference's ``dynamic_update_slice`` puts them."""
+    for pool_a, one_a in ((pool.k, one.k), (pool.v, one.v), (pool.conv_x, one.conv_x),
+                          (pool.conv_bc, one.conv_bc)):
+        if pool_a is None:
+            continue
+        rows = one_a.shape[2]
+        pool_a[:, slot, :rows] = one_a[:, 0]
+        pool_a[:, slot, rows:] = 0
+    if pool.ssm is not None:
+        pool.ssm[:, slot] = one.ssm[:, 0]

@@ -68,5 +68,5 @@ def test_chip_smoke_fails_without_a_card():
 def test_cuda_sources_are_in_the_tree():
     from repro_torch.kernels import build
     names = [p.name for p in build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "ssd_scan.cu"]
     assert not build.kernels_built()          # nothing is built at import time

@@ -203,5 +203,5 @@ def test_cpu_calls_launch_no_kernel():
     q = torch.zeros(1, 8, 2, 64)
     flash_attention(q, q, q)
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
-    assert launch_counts() == {"decode_attention": 0, "flash_attention": 0}
+    assert launch_counts() == {"decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
     assert not kernels_built()

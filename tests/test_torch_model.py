@@ -152,13 +152,15 @@ def test_local_flags_match():
         assert list(tm.local_flags(get_arch(name))) == want
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-2.7b", "zamba2-7b"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "zamba2-7b"])
 def test_other_families_name_their_slice(name):
     cfg = reduce_for_smoke(get_arch(name))
     with pytest.raises(NotImplementedError, match="later slice"):
         tm.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         tm.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tm.forward({}, torch.zeros(1, 4, dtype=torch.long), cfg)
 
 
 def test_windowed_config_raises_on_a_local_layer():

@@ -1,0 +1,192 @@
+"""The port's SSD scan (wrapper on CPU tensors = its plain version) against
+the JAX package's: the Pallas kernel in interpret mode, the chunked oracle
+and the sequential recurrence, on the same numpy inputs.
+
+Tolerances (rtol = atol) are the reference's own: 1e-4 for fp32, 3e-2 for
+bf16 inputs.  The CUDA kernel itself is held to the plain version on the
+card by ``chip_smoke.py``.
+
+torch runs on one thread here: on the CPUs these tests were written on, the
+first multithreaded float32 ``exp`` of a process now and then came out up
+to 1e-4 off (a second identical call was exact), which is the size of the
+fp32 tolerance."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ssd_ref as jax_ssd_ref
+from repro.kernels import ssd_scan as jax_ssd_scan
+from repro.kernels import ssd_sequential_ref as jax_ssd_sequential_ref
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+# the port
+from repro_torch.kernels import kernels_built
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import reset_launch_counts
+from repro_torch.kernels import ssd_ref
+from repro_torch.kernels import ssd_scan
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the reference's SSD_CASES (tests/test_kernels.py)
+SSD_CASES = [
+    # (B, S, H, G, P, N, chunk, dtype)
+    (1, 128, 2, 1, 64, 32, 32, "float32"),
+    (2, 256, 4, 1, 32, 64, 64, "float32"),
+    (1, 256, 4, 2, 64, 32, 64, "bfloat16"),
+    (1, 512, 2, 1, 64, 128, 128, "float32"),
+]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def inputs(seed, b, s, h, g, p, n, dtype="float32", init=False):
+    """The reference's input recipe (dt = softplus(N(0,1)) * 0.1, A =
+    -exp(U(-1,1))) drawn with numpy, as JAX arrays and as torch tensors."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, s, h, p)),
+            np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1,
+            -np.exp(rng.uniform(-1.0, 1.0, h)),
+            rng.standard_normal((b, s, g, n)),
+            rng.standard_normal((b, s, g, n))]
+    arrs = [a.astype(np.float32) for a in arrs]
+    types = [dtype, "float32", "float32", dtype, dtype]
+    jax_in = [jnp.asarray(a, JDT[t]) for a, t in zip(arrs, types)]
+    torch_in = [torch.from_numpy(a).to(TDT[t]) for a, t in zip(arrs, types)]
+    state = rng.standard_normal((b, h, p, n)).astype(np.float32) if init else None
+    return jax_in, torch_in, state
+
+
+def ssd_sequential_ref(x, dt, A, B, C, initial_state=None):
+    """O(S) sequential recurrence in fp32: ground truth for the chunked
+    algorithm and the wrapper."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    Bh = B.float().repeat_interleave(h // g, dim=2)
+    Ch = C.float().repeat_interleave(h // g, dim=2)
+    x, dt, A = x.float(), dt.float(), A.float()
+    state = (initial_state.float().clone() if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32))
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dt[:, t] * A)                                   # (b,h)
+        upd = torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t, :, None], Bh[:, t])
+        state = state * dA[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,dtype", SSD_CASES)
+def test_ssd_scan_matches_jax_pallas(b, s, h, g, p, n, chunk, dtype):
+    jin, tin, _ = inputs(5, b, s, h, g, p, n, dtype)
+    y, state = ssd_scan(*tin, chunk=chunk)
+    assert y.dtype == TDT[dtype] and state.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    tol = TOL[dtype]
+    jy, jstate = jax_ssd_scan(*jin, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(f32(y), f32(jy), rtol=tol, atol=tol)
+    np.testing.assert_allclose(f32(state), f32(jstate), rtol=tol, atol=tol)
+    ry, rstate = jax_ssd_ref(*jin, chunk)
+    np.testing.assert_allclose(f32(y), f32(ry), rtol=tol, atol=tol)
+    np.testing.assert_allclose(f32(state), f32(rstate), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_scan_initial_state_matches_jax_chunked(g):
+    jin, tin, init = inputs(6, 2, 96, 4, g, 32, 16, init=True)
+    y, state = ssd_scan(*tin, chunk=32, initial_state=torch.from_numpy(init))
+    jy, jstate = jax_ssd_chunked(*jin, 32, initial_state=jnp.asarray(init))
+    np.testing.assert_allclose(f32(y), f32(jy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f32(state), f32(jstate), rtol=1e-4, atol=1e-4)
+    # and against the recurrence started from the same state
+    sy, sstate = ssd_sequential_ref(*tin, initial_state=torch.from_numpy(init))
+    np.testing.assert_allclose(f32(y), f32(sy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f32(state), f32(sstate), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_chunked_matches_sequential():
+    """The port of the reference's test of the same name: chunked SSD (the
+    model path's oracle) against the O(S) recurrence, and both against
+    their JAX twins."""
+    jin, tin, _ = inputs(7, 2, 128, 2, 1, 32, 16)
+    y_c, st_c = ssd_ref(*tin, chunk=32)
+    y_s, st_s = ssd_sequential_ref(*tin)
+    np.testing.assert_allclose(f32(y_c), f32(y_s), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f32(st_c), f32(st_s), rtol=1e-4, atol=1e-4)
+    jy_s, jst_s = jax_ssd_sequential_ref(*jin)
+    np.testing.assert_allclose(f32(y_s), f32(jy_s), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f32(st_s), f32(jst_s), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 96])
+def test_result_does_not_depend_on_the_chunk(chunk):
+    """In exact arithmetic the chunk is a schedule parameter (which is why the
+    kernel may walk its own sub-chunks); in fp32 the results agree to 1e-4."""
+    _, tin, init = inputs(8, 1, 96, 4, 2, 32, 16, init=True)
+    base = ssd_ref(*tin, chunk=96, initial_state=torch.from_numpy(init))
+    other = ssd_ref(*tin, chunk=chunk, initial_state=torch.from_numpy(init))
+    for a, b in zip(base, other):
+        np.testing.assert_allclose(f32(a), f32(b), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_reads_strided_views():
+    """B and C as column ranges of one (B, S, 2GN) tensor and x as a slice of
+    a wider one, as mamba2_block hands them over."""
+    rng = np.random.default_rng(9)
+    b, s, h, g, p, n = 2, 64, 4, 2, 32, 16
+    wide = torch.from_numpy(rng.standard_normal((b, s, h, 2 * p)).astype(np.float32))
+    bc = torch.from_numpy(rng.standard_normal((b, s, 2 * g * n)).astype(np.float32))
+    _, (_, dt, A, _, _), _ = inputs(9, b, s, h, g, p, n)
+    x, B, C = wide[..., p:], bc[..., :g * n].view(b, s, g, n), bc[..., g * n:].view(b, s, g, n)
+    assert not x.is_contiguous() and not B.is_contiguous()
+    got = ssd_scan(x, dt, A, B, C, chunk=32)
+    want = ssd_ref(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), 32)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_ssd_scan_rejects_what_the_reference_rejects():
+    _, (x, dt, A, B, C), _ = inputs(10, 1, 40, 4, 1, 32, 16)
+    with pytest.raises(ValueError, match="chunk-aligned.*40.*chunk 32"):
+        ssd_scan(x, dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="n_groups"):
+        ssd_scan(x, dt, A, B[:, :, [0, 0, 0]], C[:, :, [0, 0, 0]], chunk=40)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_scan(x, dt, A, B, C, chunk=40, initial_state=torch.zeros(1, 4, 32, 8))
+    with pytest.raises(ValueError, match="disagree"):
+        ssd_scan(x, dt[:, :20], A, B, C, chunk=20)
+
+
+def test_cpu_calls_launch_nothing():
+    reset_launch_counts()
+    _, tin, _ = inputs(11, 1, 32, 2, 1, 32, 16)
+    ssd_scan(*tin, chunk=32)
+    assert launch_counts()["ssd_scan"] == 0
+    assert ssd_ops.LAUNCHES == [0]
+    assert not kernels_built()
+
+
+def test_wrapper_limits_match_the_kernel_source():
+    """The wrapper's view of what the kernel takes matches csrc/ssd_scan.cu."""
+    from repro_torch.kernels import build
+    src = next(p for p in build.sources() if p.name == "ssd_scan.cu").read_text()
+    assert f"constexpr int PS = {ssd_ops.P_SLICE};" in src
+    assert f"constexpr int Q = {ssd_ops.SUB_CHUNK};" in src
+    for n in ssd_ops.D_STATES:
+        assert f"case {n}:" in src
