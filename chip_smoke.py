@@ -12,8 +12,10 @@ run with a non-zero exit code:
 2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
             card, over dtypes, head sizes, ragged lengths, the poisoned dead
-            region (decode), the pinned/streamed splits (flash), and group
-            counts, initial states and strided views (SSD scan); times each
+            region (decode), the pinned/streamed splits, GQA groups, softcap
+            and chunkings (flash, whose bf16 outputs must be bit-identical
+            across splits and chunkings), and group counts, initial states and
+            strided views (SSD scan); times each
             kernel at the serving path's shapes beside its plain version, one
             library call where one computes the same function
             (``scaled_dot_product_attention`` for attention, a yardstick only:
@@ -45,6 +47,7 @@ import argparse
 from dataclasses import replace
 import json
 from pathlib import Path
+import re
 import statistics
 import subprocess
 import sys
@@ -144,6 +147,39 @@ def phase_device():
     return smi
 
 
+def kernel_name(mangled):
+    """``flash_mma_kernel<Li128>`` from ``_ZN<n><namespace><m><kernel>I<args>EE...``,
+    the mangled name of a kernel template in an anonymous namespace."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos = 3
+    for _ in range(2):  # past the namespace's name, then over the kernel's
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return mangled
+        start, pos = pos + m.end(), pos + m.end() + int(m.group())
+    targs = re.match(r"I(\w*?)EE", mangled[pos:])
+    return mangled[start:pos] + (f"<{targs.group(1)}>" if targs else "")
+
+
+def ptxas_usage(log):
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build(build_log):
     from repro_torch.kernels import build
     from repro_torch.kernels import kernels_built
@@ -151,12 +187,15 @@ def phase_build(build_log):
     build.build(verbose=bool(build_log))
     build.load()
     check(kernels_built(), "kernel library did not load")
+    extra = {}
     if build_log:
+        log = str(build.build_info.get("log", ""))
         Path(build_log).parent.mkdir(parents=True, exist_ok=True)
-        Path(build_log).write_text(str(build.build_info.get("log", "")))
+        Path(build_log).write_text(log)
+        extra["ptxas"] = ptxas_usage(log)
     emit("build", seconds=round(time.time() - t0, 2),
          sources=[p.name for p in build.sources()],
-         library=Path(str(build.build_info["path"])).name)
+         library=Path(str(build.build_info["path"])).name, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -213,42 +252,70 @@ def check_decode(gen):
     return worst
 
 
+def pin_fit(d, dtype):
+    """The longest pinned prefix, in whole KV tiles, that the planner's pin
+    budget holds for K and V rows of this head size and type."""
+    from repro_torch.core.orchestrator import FLASH_TILE_ROWS
+    from repro_torch.core.orchestrator import flash_smem_row_words
+    from repro_torch.core.orchestrator import hopper_pin_budget_bytes
+    isz = torch.empty((), dtype=dtype).element_size()
+    rows = hopper_pin_budget_bytes(d, isz) // (2 * 4 * flash_smem_row_words(d, isz))
+    return rows // FLASH_TILE_ROWS * FLASH_TILE_ROWS
+
+
 def flash_cases():
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    # (B, Sq, Sk, H, G, D, causal, softcap, pinned, dtype)
+    # (B, Sq, Sk, H, G, D, causal, softcap, pinned, dtype, tiles_per_chunk)
     for s in (17, 128, 1000, 1024):
         for dtype in (bf, f32):
-            fit = 256 if dtype == bf else 64
+            fit = pin_fit(128, dtype)
             for pinned in sorted({0, 64 if s >= 64 else s, s if s <= fit else fit}):
-                cases.append((1, s, s, 24, 8, 128, True, None, pinned, dtype))
+                cases.append((1, s, s, 24, 8, 128, True, None, pinned, dtype, None))
     cases += [
-        (2, 128, 512, 4, 1, 128, False, None, 0, f32),
-        (1, 100, 333, 8, 2, 128, False, None, 128, bf),
-        (1, 100, 200, 8, 2, 64, False, None, 200, f32),
-        (1, 256, 256, 4, 2, 128, True, 50.0, 0, f32),
-        (1, 300, 300, 4, 2, 128, True, 50.0, 64, bf),
-        (2, 256, 256, 4, 2, 64, True, None, 128, f32),
-        (2, 257, 257, 8, 2, 64, True, None, 257, bf),
-        (1, 384, 384, 2, 2, 128, True, None, 256, bf),
+        (2, 128, 512, 4, 1, 128, False, None, 0, f32, None),
+        (1, 100, 333, 8, 2, 128, False, None, 128, bf, None),
+        (1, 100, 200, 8, 2, 64, False, None, 200, f32, None),
+        (1, 256, 256, 4, 2, 128, True, 50.0, 0, f32, None),
+        (1, 300, 300, 4, 2, 128, True, 50.0, 64, bf, None),
+        (2, 256, 256, 4, 2, 64, True, None, 128, f32, None),
+        (2, 257, 257, 8, 2, 64, True, None, 257, bf, None),
+        (1, 384, 384, 2, 2, 128, True, None, 256, bf, None),
+        # the bf16 path's block shapes: groups 1 (64-row Q tiles), 3 and 4
+        # (32), 8 (16) and 12 (two passes of heads); D 64; ragged lengths;
+        # softcap; several Q tiles a chunk
+        (1, 17, 17, 4, 4, 128, True, None, 17, bf, None),
+        (1, 1000, 1000, 4, 4, 128, True, 50.0, 0, bf, 4),
+        (1, 257, 257, 12, 4, 128, True, 50.0, 256, bf, 2),
+        (2, 1000, 1000, 12, 3, 64, True, None, 640, bf, 3),
+        (1, 257, 257, 16, 4, 64, True, None, 257, bf, 5),
+        (2, 100, 1000, 16, 4, 128, False, None, 320, bf, 2),
+        (1, 1024, 1024, 32, 8, 128, True, 50.0, 256, bf, 2),
+        (1, 300, 300, 16, 2, 64, True, None, 64, bf, 1),
+        (1, 200, 200, 24, 2, 128, True, None, 0, bf, None),
     ]
     return cases
 
 
 def check_flash(gen):
+    from repro_torch.core.orchestrator import CacheOrchestrator
+    from repro_torch.core.orchestrator import FLASH_TILE_ROWS
+    from repro_torch.core.orchestrator import flash_smem_bytes
+    from repro_torch.core.orchestrator import H100_SMEM_PER_BLOCK
+    from repro_torch.core.orchestrator import hopper_pin_budget_bytes
     from repro_torch.kernels import attention_ref
     from repro_torch.kernels import flash_attention
     worst = {}
-    for b, sq, sk, h, g, d, causal, softcap, pinned, dtype in flash_cases():
+    for case in flash_cases():
+        b, sq, sk, h, g, d, causal, softcap, pinned, dtype, tiles = case
         q = randn(gen, (b, sq, h, d), dtype)
         k = randn(gen, (b, sk, g, d), dtype)
         v = randn(gen, (b, sk, g, d), dtype)
         out = flash_attention(q, k, v, causal=causal, softcap=softcap,
-                              pinned_rows=pinned)
+                              pinned_rows=pinned, tiles_per_chunk=tiles)
         torch.cuda.synchronize()
         ref = attention_ref(q, k, v, causal=causal, softcap=softcap)
-        err = close(out, ref, TOL[dtype],
-                    f"flash {(b, sq, sk, h, g, d, causal, softcap, pinned, dtype)}")
+        err = close(out, ref, TOL[dtype], f"flash {case}")
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
     # pinned_rows is a pure schedule parameter: fp32 outputs agree to 1e-5,
     # also when a block walks several Q tiles with the prefix resident
@@ -260,6 +327,29 @@ def check_flash(gen):
         other = flash_attention(q, k, v, causal=True, pinned_rows=pinned,
                                 tiles_per_chunk=tiles)
         close(other, base, 1e-5, f"flash pinned equivalence {pinned}/{tiles}")
+    # bf16 walks the same tiles in the same order with the same arithmetic
+    # wherever a tile lives: bit-identical across pinned_rows (none, one tile,
+    # the planner's split, all of Sk) and across chunkings
+    for s, h, g, d in ((300, 6, 2, 128), (700, 16, 4, 64)):
+        q = randn(gen, (1, s, h, d), torch.bfloat16)
+        k = randn(gen, (1, s, g, d), torch.bfloat16)
+        v = randn(gen, (1, s, g, d), torch.bfloat16)
+        planned, _ = CacheOrchestrator(
+            vmem_budget_bytes=hopper_pin_budget_bytes(d, 2)).plan_kv_split(
+                s, FLASH_TILE_ROWS, 2 * d * 2)
+        pins = {0, 64, planned}
+        if flash_smem_bytes(s, d, 2) <= H100_SMEM_PER_BLOCK:
+            pins.add(s)
+        check(len(pins) == 4, f"bf16 equivalence at S {s}: pins {sorted(pins)}")
+        base = flash_attention(q, k, v, causal=True, pinned_rows=0, tiles_per_chunk=1)
+        close(base, attention_ref(q, k, v), TOL[torch.bfloat16], f"flash bf16 S {s}")
+        for pinned in sorted(pins):
+            for tiles in (None, 1, 2, 3, 7):
+                other = flash_attention(q, k, v, causal=True, pinned_rows=pinned,
+                                        tiles_per_chunk=tiles)
+                check(torch.equal(other, base), f"flash bf16 S {s}: pinned {pinned}, "
+                      f"tiles {tiles} differs from pinned 0 by "
+                      f"{float((other.float() - base.float()).abs().max()):.3e}")
     # a cache slice longer than the prompt, read through its strides
     pool_k = randn(gen, (1, 512, 8, 128), torch.bfloat16)
     pool_v = randn(gen, (1, 512, 8, 128), torch.bfloat16)
@@ -338,6 +428,7 @@ def time_kernels(gen, flush):
         n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
         n_flops = 4 * sq * sq * d * h // 2
         t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+        ms = time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned), flush)
         rec = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -345,8 +436,11 @@ def time_kernels(gen, flush):
             "shape": {"B": 1, "Sq": sq, "Sk": sq, "H": h, "G": g, "D": d,
                       "dtype": "bfloat16", "causal": True, "pinned_rows": pinned},
             "max_abs_err": err, "tol": TOL[bf],
-            "ms": time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned), flush),
+            "ms": ms, "tflops": n_flops / ms * 1e-9,
             "ms_unpinned": time_ms(lambda: flash_attention(q, k, v, pinned_rows=0), flush),
+            # no heavy/light pairing: one Q tile a block
+            "ms_one_tile_a_chunk": time_ms(lambda: flash_attention(
+                q, k, v, pinned_rows=pinned, tiles_per_chunk=1), flush),
             "plain_ms": time_ms(lambda: attention_ref(q, k, v), flush),
             "library_ms": time_ms(lib_flash, flush),
             "bound_ms": max(t_bytes, t_ops),

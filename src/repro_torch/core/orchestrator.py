@@ -162,27 +162,36 @@ class CacheOrchestrator:
 # Hopper budget: the shared-memory layout of csrc/flash_attention.cu
 # ---------------------------------------------------------------------------
 H100_SMEM_PER_BLOCK = 232448      # bytes of dynamic shared memory a block may take
-FLASH_TILE_ROWS = 64              # Q-tile and KV-tile rows of the flash kernel
+FLASH_TILE_ROWS = 64              # KV-tile rows of the flash kernel (and the fp32 Q tile)
+FLASH_STAGES = 2                  # bf16: streamed K/V tiles in the kernel's ring
 
 
 def flash_smem_row_words(head_dim: int, itemsize: int) -> int:
     """32-bit words one staged Q/K/V row takes in the flash kernel's shared
-    memory: the row's data plus one pad word (odd stride: no bank
+    memory.  bf16: the row's data alone (16-byte chunks XOR-swizzled by
+    row, no pad).  fp32: the data plus one pad word (odd stride: no bank
     conflicts when 16 lanes read 16 consecutive rows)."""
-    return head_dim * itemsize // 4 + 1
+    return head_dim * itemsize // 4 + (itemsize != 2)
 
 
 def flash_smem_work_bytes(head_dim: int, itemsize: int) -> int:
-    """Shared memory the flash kernel needs whatever ``pinned_rows`` is: one
-    Q tile, one streamed K and one streamed V tile, and the fp32
-    probability tile."""
+    """Shared memory the flash kernel needs whatever ``pinned_rows`` is.
+    bf16: a ring of ``FLASH_STAGES`` streamed K and V tiles, through which Q
+    is staged as well.  fp32: one Q tile, one streamed K and one streamed V
+    tile, and the fp32 probability tile."""
     row = 4 * flash_smem_row_words(head_dim, itemsize)
+    if itemsize == 2:
+        return FLASH_STAGES * 2 * FLASH_TILE_ROWS * row
     return 3 * FLASH_TILE_ROWS * row + 4 * FLASH_TILE_ROWS * (FLASH_TILE_ROWS + 1)
 
 
 def flash_smem_bytes(pinned_rows: int, head_dim: int, itemsize: int) -> int:
-    """Total dynamic shared memory of one flash-kernel block."""
+    """Total dynamic shared memory of one flash-kernel block.  bf16 stages
+    the pinned prefix in whole KV tiles, so a prefix of any length takes
+    whole tiles."""
     row = 4 * flash_smem_row_words(head_dim, itemsize)
+    if itemsize == 2:
+        pinned_rows = -(-pinned_rows // FLASH_TILE_ROWS) * FLASH_TILE_ROWS
     return 2 * pinned_rows * row + flash_smem_work_bytes(head_dim, itemsize)
 
 
@@ -191,7 +200,9 @@ def hopper_pin_budget_bytes(head_dim: int, itemsize: int) -> int:
     for the pinned KV prefix: what is left of the 227 KB a block may take
     after the kernel's working tiles.  Hand it to
     ``CacheOrchestrator(vmem_budget_bytes=...)``: the planner's 1/8
-    reserve more than covers the one pad word per staged row, so every
-    split it returns for ``bytes_per_row = 2 * head_dim * itemsize`` fits
-    the kernel."""
+    reserve covers the one pad word per staged fp32 row, and a bf16 prefix
+    that is the whole KV length (at most 285 rows at head_dim 128, 682 at
+    64) still fits once rounded up to whole tiles, so every split it
+    returns for ``bytes_per_row = 2 * head_dim * itemsize`` fits the
+    kernel."""
     return H100_SMEM_PER_BLOCK - flash_smem_work_bytes(head_dim, itemsize)

@@ -15,6 +15,7 @@ from ..build import load
 from .ref import attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
+MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
 
@@ -31,11 +32,28 @@ def _kernel():
     return _fn
 
 
-def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int) -> int:
-    """Q tiles one block walks.  More tiles a block reuse the pinned prefix
-    more often; fewer give more blocks.  Chosen so that about one block per
-    SM exists when the shape allows it."""
-    n_q_tiles = -(-sq // FLASH_TILE_ROWS)
+def q_tile_rows(group: int, itemsize: int) -> int:
+    """Query rows of the kernel's Q tile.  fp32: 64.  bf16: 16 a warp for
+    each of the warps a head gets (4, 2 or 1) when every head of a pass
+    (``group`` heads, in passes of at most ``MAX_WARPS``) has a warp of its
+    own, as ``launch_mma`` in csrc/flash_attention.cu chooses them."""
+    if itemsize != 2:
+        return FLASH_TILE_ROWS
+    passes = -(-group // MAX_WARPS)
+    heads = -(-group // passes)
+    warps = 4
+    while warps > 1 and heads * warps > MAX_WARPS:
+        warps //= 2
+    return 16 * warps
+
+
+def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int,
+                        tile_rows: int = FLASH_TILE_ROWS) -> int:
+    """Q tiles of ``tile_rows`` rows one block walks.  More tiles a block
+    reuse the pinned prefix more often; fewer give more blocks.  Chosen so
+    that about one block per SM exists when the shape allows it; the bf16
+    kernel pairs each chunk's heavy causal tiles with light ones."""
+    n_q_tiles = -(-sq // tile_rows)
     chunks = max(1, min(n_q_tiles, sm_count // (b * g)))
     return -(-n_q_tiles // chunks)
 
@@ -51,6 +69,20 @@ def check_pinned_rows(pinned_rows: int, sk: int, head_dim: int, itemsize: int) -
     if need > H100_SMEM_PER_BLOCK:
         raise ValueError(f"pinned_rows {pinned_rows} needs {need} bytes of shared "
                          f"memory; a block may take {H100_SMEM_PER_BLOCK}")
+
+
+def check_rows_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless the kernel can read ``t``'s rows along head_dim: stride
+    1 there, and each row aligned to the kernel's copies.  bf16 is copied 16
+    bytes a lane, so its data pointer must sit on 16 bytes and its other
+    strides be multiples of 8 elements; fp32 is read in 4-byte words."""
+    align = 16 if t.dtype == torch.bfloat16 else 4
+    elems = align // t.element_size()
+    if t.stride(-1) != 1 or any(st % elems for st in t.stride()[:-1]) \
+            or t.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel reads {align}-byte pieces along "
+                         f"head_dim; it needs stride 1 there and {align}-byte "
+                         f"aligned rows (other strides multiples of {elems})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,17 +124,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must lie on one device")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
-    epw = 4 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(st % epw for st in t.stride()[:-1]) \
-                or t.data_ptr() % 4:
-            raise ValueError(f"{name}: the kernel reads 32-bit words along "
-                             "head_dim; it needs stride 1 there and 4-byte "
-                             "aligned rows")
+        check_rows_aligned(name, t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if tiles_per_chunk is None:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        tiles_per_chunk = tiles_per_chunk_for(b, g, sq, sms)
+        tiles_per_chunk = tiles_per_chunk_for(
+            b, g, sq, sms, q_tile_rows(h // g, q.element_size()))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),

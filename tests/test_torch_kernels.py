@@ -7,6 +7,8 @@ the Pallas kernels in interpret mode.  Tolerances: 2e-5 (fp32) and 2e-2
 kernels themselves are held to the plain versions on the card by
 ``chip_smoke.py``."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,9 @@ from repro.kernels import decode_attention_ref as jax_decode_attention_ref
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.models.layers import gqa_attention as jax_gqa_attention
 # the port
+from repro_torch.configs import get_arch
+from repro_torch.configs import reduce_for_smoke
+from repro_torch.core import orchestrator as port_orch
 from repro_torch.core.orchestrator import CacheOrchestrator
 from repro_torch.core.orchestrator import FLASH_TILE_ROWS
 from repro_torch.core.orchestrator import hopper_pin_budget_bytes
@@ -28,6 +33,12 @@ from repro_torch.kernels import flash_attention
 from repro_torch.kernels import kernels_built
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import reset_launch_counts
+from repro_torch.kernels.build import CSRC
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import init_params
+from repro_torch.models import layers as port_layers
+from repro_torch.serve import Request
+from repro_torch.serve import ServeEngine
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -205,3 +216,97 @@ def test_cpu_calls_launch_no_kernel():
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
     assert launch_counts() == {"decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
     assert not kernels_built()
+
+
+def _flash_source_constants():
+    text = (CSRC / "flash_attention.cu").read_text()
+    return {name: int(val) for name, val in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_flash_layout_constants_match_the_source(head_dim):
+    """The planner's budget describes the kernel's shared memory: the KV tile,
+    the ring of streamed bf16 tiles (unpadded rows), and a bf16 block's warps."""
+    c = _flash_source_constants()
+    assert c["BK"] == c["BQ"] == FLASH_TILE_ROWS
+    assert c["STAGES"] == port_orch.FLASH_STAGES
+    assert c["MAX_WARPS"] == flash_ops.MAX_WARPS
+    assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
+    row = 2 * head_dim                                   # bf16 bytes, no pad word
+    assert port_orch.flash_smem_work_bytes(head_dim, 2) == c["STAGES"] * 2 * c["BK"] * row
+    for pinned in (0, 17, 64, 300):
+        whole_tiles = -(-pinned // c["BK"]) * c["BK"]
+        assert (port_orch.flash_smem_bytes(pinned, head_dim, 2)
+                == 2 * whole_tiles * row + c["STAGES"] * 2 * c["BK"] * row)
+    # fp32 keeps one pad word a row and the probability tile
+    words = head_dim + 1
+    assert port_orch.flash_smem_bytes(64, head_dim, 4) == (
+        4 * (2 * 64 * words + 3 * c["BQ"] * words) + 4 * c["BQ"] * (c["BK"] + 1))
+
+
+@pytest.mark.parametrize("group,rows", [(1, 64), (2, 64), (3, 32), (4, 32), (5, 16),
+                                        (8, 16), (12, 16)])
+def test_q_tile_rows_fill_a_block_with_whole_heads(group, rows):
+    """A bf16 block holds every head of a pass, one warp per 16 query rows of
+    each, within MAX_WARPS; fp32 keeps its 64-row tile."""
+    assert flash_ops.q_tile_rows(group, 2) == rows
+    passes = -(-group // flash_ops.MAX_WARPS)
+    assert -(-group // passes) * rows // 16 <= flash_ops.MAX_WARPS
+    assert flash_ops.q_tile_rows(group, 4) == FLASH_TILE_ROWS
+
+
+def test_serving_shape_chunks_pair_the_causal_tiles():
+    """llama3.2-3b (8 KV heads, group 3) on 132 SMs: 1024 tokens give 16 chunks
+    of two 32-row tiles a KV head (a heavy one with a light one), 256 tokens
+    64 blocks of one tile."""
+    rows = flash_ops.q_tile_rows(3, 2)
+    assert flash_ops.tiles_per_chunk_for(1, 8, 1024, 132, rows) == 2
+    assert flash_ops.tiles_per_chunk_for(1, 8, 256, 132, rows) == 1
+    assert 8 * -(-256 // rows) == 64
+
+
+def test_bf16_rows_must_sit_on_16_bytes():
+    """The bf16 kernel copies 16 bytes a lane: views whose rows are not on 16
+    bytes are refused before any launch; fp32 needs 4-byte words only."""
+    base = torch.zeros(1, 10, 2, 136, dtype=torch.bfloat16)
+    flash_ops.check_rows_aligned("k", base[..., :128])          # strides 2720, 136
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.check_rows_aligned("k", base[..., 4:132])     # pointer off by 8 bytes
+    odd = torch.zeros(1, 10, 2, 132, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.check_rows_aligned("k", odd[..., :128])       # head stride 132
+    with pytest.raises(ValueError, match="stride 1"):
+        flash_ops.check_rows_aligned("q", torch.zeros(1, 4, 2, 64,
+                                                      dtype=torch.bfloat16).transpose(2, 3))
+    flash_ops.check_rows_aligned("q", torch.zeros(1, 10, 2, 132)[..., 1:129])  # fp32
+    # on the CPU the wrapper still returns the plain version for such a view
+    q = odd[:, :, :, :128]
+    out = flash_attention(q, q, q, causal=True)
+    assert torch.equal(out, attention_ref(q, q, q, causal=True))
+
+
+def test_main_path_tensors_meet_the_alignment_rule(monkeypatch):
+    """Every q, k and v that the serving path hands the flash kernel (fresh
+    projections, slices of the slot pool) passes the bf16 rule."""
+    cfg = reduce_for_smoke(get_arch("llama3.2-3b"))
+    params = init_params(cfg, seed=0, device="cpu")
+    seen = []
+    real = port_layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(port_layers, "flash_attention", spy)
+    engine = ServeEngine(cfg, params, max_batch=2, max_seq=48, device="cpu")
+    for uid, n in enumerate((13, 30)):
+        engine.add_request(Request(uid=uid, prompt=np.arange(2, 2 + n, dtype=np.int32),
+                                   max_new_tokens=1))
+    engine.run_to_completion(max_steps=10)
+    assert len(seen) == 2 * cfg.n_layers
+    for q, k, v in seen:
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+        assert k.stride(1) == cfg.n_kv_heads * cfg.head_dim     # a slice of the pool
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            flash_ops.check_rows_aligned(name, t)
