@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                      # every phase, as a release check
     python3 chip_smoke.py --phases build,kernels --build-log nvcc.log
+    python3 chip_smoke.py --phases build,kernels --baseline DIR   # DIR: an earlier
+        # tree's decode_attention.cu and ssd_scan.cu, timed in turns with today's
 
 Phases, each printing one JSON line; any exception or failed check ends the
 run with a non-zero exit code:
@@ -11,16 +13,19 @@ run with a non-zero exit code:
             power limit as nvidia-smi gives them.
 2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
-            card, over dtypes, head sizes, ragged lengths, the poisoned dead
-            region (decode), the pinned/streamed splits, GQA groups, softcap
-            and chunkings (flash, whose bf16 outputs must be bit-identical
-            across splits and chunkings), and group counts, initial states and
-            strided views (SSD scan); times each
-            kernel at the serving path's shapes beside its plain version, one
-            library call where one computes the same function
-            (``scaled_dot_product_attention`` for attention, a yardstick only:
-            the port never calls it; none exists for the SSD scan) and the
-            card's bound for the same work.
+            card, over dtypes, head sizes, ragged and mostly-zero lengths,
+            lengths at the edges of a work unit, the poisoned dead region and
+            one work unit against many (decode, whose merge counters must be
+            back at 0), the pinned/streamed splits, GQA groups, softcap and
+            chunkings (flash, whose bf16 outputs must be bit-identical across
+            splits and chunkings), and group counts, initial states, strided
+            views and both depths of the staging ring (SSD scan, bit-identical
+            across them); times each kernel at the serving path's shapes
+            (decode also at a serving call's one live position group) beside
+            its plain version, one library call where one computes the same
+            function (``scaled_dot_product_attention`` for attention, a
+            yardstick only: the port never calls it; none exists for the SSD
+            scan) and the card's bound for the same work.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -63,6 +68,10 @@ import torch.nn.functional as F  # noqa: E402
 # published peaks of one H100 SXM (dense): bytes/s of device memory and FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the fastest product rate that keeps fp32 accuracy: 3xTF32, three TF32
+# tensor-core products (495 TFLOP/s dense) for each fp32 one
+PEAK_FP32_ACCURATE_MMA = 495e12 / 3
+SSD_COUNT_Q = 64   # counting convention for the SSD scan's operations (see time_ssd)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # attention: rtol = atol
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # SSD scan: rtol = atol, the reference's
 LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol = atol
@@ -200,6 +209,7 @@ def phase_build(build_log):
 
 # ---------------------------------------------------------------------------
 def decode_cases():
+    from repro_torch.kernels.decode_attention.ops import ROWS_PER_SPLIT as r
     bf, f32 = torch.bfloat16, torch.float32
     main_lens = [1, 2048, 777, 64, 1500, 300, 2047, 1024]
     # (B, S, H, G, D, dtype, lens)
@@ -210,12 +220,21 @@ def decode_cases():
         (2, 1000, 8, 2, 64, bf, [999, 1]),
         (1, 333, 16, 2, 128, f32, [333]),          # group 8: two head blocks
         (3, 129, 10, 2, 128, bf, [129, 5, 64]),    # group 5: one head a block
+        # the serving path's calls: one position group live, the other rows 0
+        (8, 2048, 24, 8, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
+        (8, 2048, 24, 8, 128, f32, [0, 0, 0, 0, 0, 0, 0, 33]),
+        # lengths at the edges of a work unit of r rows, and the capacity S
+        (5, 2048, 24, 8, 128, bf, [r - 1, r, r + 1, 2048, 0]),
+        (4, 2 * r + 1, 8, 2, 64, f32, [0, r + 1, 2 * r + 1, r]),
+        (3, 3 * r, 12, 4, 128, f32, [3 * r, r - 1, 2 * r + 1]),
+        (2, r - 1, 8, 1, 64, bf, [r - 1, 0]),      # group 8, S below one unit
     ]
 
 
 def check_decode(gen):
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import decode_attention_ref
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     worst = {}
     for b, s, h, g, d, dtype, lens in decode_cases():
         q = randn(gen, (b, h, d), dtype)
@@ -225,18 +244,21 @@ def check_decode(gen):
         out = decode_attention(q, k, v, cl)
         torch.cuda.synchronize()
         err = close(out, decode_attention_ref(q, k, v, cl), TOL[dtype],
-                    f"decode {(b, s, h, g, d, dtype)}")
+                    f"decode {(b, s, h, g, d, dtype, lens)}")
+        for i, n in enumerate(lens):
+            check(n > 0 or bool((out[i] == 0).all()), "decode: cache_len 0 must give zeros")
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-    # a strided view of a larger pool, and one split against many
+    # a strided view of a larger pool, one work unit against many
     pool_k = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
     pool_v = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
     q = randn(gen, (4, 6, 128), torch.bfloat16)
     cl = torch.tensor([700, 0, 123, 17], dtype=torch.int32, device="cuda")
     ref = decode_attention_ref(q, pool_k[1], pool_v[1], cl)
-    for n_splits in (1, 7):
-        out = decode_attention(q, pool_k[1], pool_v[1], cl, n_splits=n_splits)
-        close(out, ref, TOL[torch.bfloat16], f"decode pool view, {n_splits} split(s)")
-    check(bool((out[1] == 0).all()), "decode: cache_len 0 must give zeros")
+    step = decode_ops.STEP_ROWS
+    for rows in (-(-700 // step) * step, step, 3 * step):
+        out = decode_attention(q, pool_k[1], pool_v[1], cl, rows_per_split=rows)
+        close(out, ref, TOL[torch.bfloat16], f"decode pool view, {rows} rows a unit")
+        check(bool((out[1] == 0).all()), "decode: cache_len 0 must give zeros")
     # rows at or past cache_len are dead: poisoning them changes nothing
     q = randn(gen, (1, 4, 64), torch.float32)
     k = randn(gen, (1, 512, 2, 64), torch.float32)
@@ -249,6 +271,13 @@ def check_decode(gen):
     out2 = decode_attention(q, k2, v2, cl)
     check(bool((out1 - out2).abs().max() <= 1e-6), "decode: poisoned dead rows leaked")
     close(out2, decode_attention_ref(q, k2, v2, cl), 2e-5, "decode poison vs plain")
+    v2[:, 300:] = float("nan")
+    check(bool(torch.isfinite(decode_attention(q, k2, v2, cl)).all()),
+          "decode: a NaN in a dead row leaked")
+    # the units that merged set their counters back to 0 for the next call
+    torch.cuda.synchronize()
+    check(all(int(c.abs().sum()) == 0 for c in decode_ops._counters.values()),
+          "decode: merge counters not back at 0")
     return worst
 
 
@@ -360,22 +389,77 @@ def check_flash(gen):
     return worst
 
 
-def time_kernels(gen, flush):
-    """Times at the serving path's shapes.  Returns the two records of the
-    ``kernels`` line, without their launch counts."""
-    from repro_torch.core.orchestrator import CacheOrchestrator
-    from repro_torch.core.orchestrator import FLASH_TILE_ROWS
-    from repro_torch.core.orchestrator import hopper_pin_budget_bytes
-    from repro_torch.kernels import attention_ref
+def timed(new, flush, old=None):
+    """``ms`` of ``new`` and, with the baseline's ``old`` given, its
+    ``baseline_ms``, taken in turns old, new, new, old within this run."""
+    if old is None:
+        return {"ms": time_ms(new, flush)}
+    turns = [time_ms(fn, flush) for fn in (old, new, new, old)]
+    return {"ms": (turns[1] + turns[2]) / 2, "baseline_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": turns}
+
+
+class Baseline:
+    """The decode and SSD kernels of an earlier tree (``--baseline DIR``: DIR
+    holds that tree's ``decode_attention.cu`` and ``ssd_scan.cu``), built into a
+    library of their own and called through their own C interfaces, so that
+    one run times them beside the current kernels on the same inputs."""
+
+    def __init__(self, csrc):
+        import ctypes
+        from repro_torch.kernels import build
+        self.ct = ctypes
+        self.lib = ctypes.CDLL(str(build.build(csrc=Path(csrc).resolve())))
+        self.lib.dco_decode_attention.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        self.lib.dco_ssd_scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p] * 2)
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def decode(self, q, k, v, cl):
+        """The two-launch decode interface: the valid range cut into n_splits
+        pieces (two blocks an SM, 64 rows a piece at least, 32 pieces at most),
+        a partial kernel and a combine kernel."""
+        b, h, d = q.shape
+        _, s, g, _ = k.shape
+        n_splits = max(1, min(-(-2 * self.sms // (b * g)), s // 64, 32))
+        out = torch.empty_like(q)
+        scratch = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32, device="cuda")
+        st = (self.ct.c_longlong * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
+                                      *v.stride()[:3])
+        rc = self.lib.dco_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), 0 if q.dtype == torch.bfloat16 else 1, b, s, h, g, d,
+            n_splits, 1.0 / d ** 0.5, st, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"baseline decode launch failed ({rc})")
+        return out
+
+    def ssd(self, x, dt, A, B, C):
+        """The SSD interface without a ring depth (fp32 dt and A, no initial
+        state)."""
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        y = torch.empty_like(x)
+        state = torch.empty((b, h, p, n), dtype=torch.float32, device="cuda")
+        st = (self.ct.c_longlong * 12)(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                                       *C.stride()[:3])
+        rc = self.lib.dco_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), None,
+            y.data_ptr(), state.data_ptr(), 0 if x.dtype == torch.bfloat16 else 1,
+            b, s, h, g, p, n, st, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"baseline ssd launch failed ({rc})")
+        return y, state
+
+
+def time_decode(gen, flush, lens, baseline):
+    """The decode kernel on the engine's pool (8 slots x 2048 rows) with the
+    slots at ``lens``; the bound counts only rows below ``cache_len``."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import decode_attention_ref
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.decode_attention.ops import ROWS_PER_SPLIT
     bf = torch.bfloat16
-    records = []
-
-    # decode: the engine's pool (8 slots x 2048 rows), slots at mixed positions
     b, s, h, g, d = 8, 2048, 24, 8, 128
-    lens = [97, 1056, 540, 801, 333, 1000, 650, 128]
     q = randn(gen, (b, h, d), bf)
     k = randn(gen, (b, s, g, d), bf)
     v = randn(gen, (b, s, g, d), bf)
@@ -388,28 +472,48 @@ def time_kernels(gen, flush):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
 
     ref = decode_attention_ref(q, k, v, cl)
-    err = close(decode_attention(q, k, v, cl), ref, TOL[bf], "decode at the serving shape")
-    close(lib_decode()[:, :, 0], ref, TOL[bf], "library decode vs plain")
+    err = close(decode_attention(q, k, v, cl), ref, TOL[bf], f"decode at {lens}")
+    # the library call gives NaN for a row with no valid key: compare the rest
+    live = cl > 0
+    close(lib_decode()[:, :, 0][live], ref[live], TOL[bf], "library decode vs plain")
+    old = None
+    if baseline is not None:
+        close(baseline.decode(q, k, v, cl), ref, TOL[bf], "baseline decode vs plain")
+        old = lambda: baseline.decode(q, k, v, cl)  # noqa: E731
     n_bytes = (2 * g * d * 2 * sum(lens)) + 2 * q.numel() * 2 + cl.numel() * 4
     n_flops = 4 * h * d * sum(lens)
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
-    records.append({
+    return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
-                  "cache_len": lens},
+                  "cache_len": lens, "rows_per_split": ROWS_PER_SPLIT},
         "max_abs_err": err, "tol": TOL[bf],
-        "ms": time_ms(lambda: decode_attention(q, k, v, cl), flush),
+        **timed(lambda: decode_attention(q, k, v, cl), flush, old),
         "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, cl), flush),
         "library_ms": time_ms(lib_decode, flush),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    })
+    }
+
+
+def time_kernels(gen, flush, baseline=None):
+    """Times at the serving path's shapes.  Returns the records of the
+    ``kernels`` line, without their launch counts, and the extra records."""
+    from repro_torch.core.orchestrator import CacheOrchestrator
+    from repro_torch.core.orchestrator import FLASH_TILE_ROWS
+    from repro_torch.core.orchestrator import hopper_pin_budget_bytes
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    bf = torch.bfloat16
+    h, g, d = 24, 8, 128
+    # decode: slots at mixed positions, and a serving call's one position group
+    records = [time_decode(gen, flush, [97, 1056, 540, 801, 333, 1000, 650, 128], baseline)]
+    extra = [time_decode(gen, flush, [0, 0, 801, 0, 0, 0, 0, 0], baseline)]
 
     # flash: one request's prefill, split as the engine's orchestrator plans it
     orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(d, 2))
-    extra = []
     for sq in (1024, 256):
         pinned, _ = orch.plan_kv_split(sq, FLASH_TILE_ROWS, 2 * d * 2)
         q = randn(gen, (1, sq, h, d), bf)
@@ -485,6 +589,7 @@ def ssd_cases():
 def check_ssd(gen):
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     worst = {}
 
     def held(y, st, y_ref, st_ref, dtype, what):
@@ -499,7 +604,14 @@ def check_ssd(gen):
         y, st = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
         torch.cuda.synchronize()
         y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk, initial_state=init)
-        held(y, st, y_ref, st_ref, dtype, (b, s, h, g, p, n, chunk, dtype, with_init))
+        case = (b, s, h, g, p, n, chunk, dtype, with_init)
+        held(y, st, y_ref, st_ref, dtype, case)
+        # the depth of the staging ring is a schedule, not a change of result
+        for stages in range(1, ssd_ops.MAX_STAGES + 1):
+            y2, st2 = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init,
+                               ring_stages=stages)
+            check(torch.equal(y2, y) and torch.equal(st2, st),
+                  f"ssd {case}: {stages} ring stage(s) differ from the default")
     # strided views, as the model hands them over: x a slice of a wider
     # projection, B and C two column ranges of one (B, S, 2GN) tensor
     b, s, h, g, p, n = 2, 128, 8, 2, 64, 64
@@ -513,16 +625,17 @@ def check_ssd(gen):
     return worst
 
 
-def time_ssd(gen, flush):
+def time_ssd(gen, flush, baseline=None):
     """The SSD scan at mamba2-2.7b's prefill shapes (fp32 inputs, as
-    ``mamba2_block`` hands them over).  The bound counts the chunked
-    algorithm's work at the kernel's own sub-chunk Q (64 rows): per (batch,
-    head, sub-chunk) Q^2 (N + P) FLOP for the two causal Q x Q products and
-    4 Q N P for the two state products.  The model's chunk of 256 would count
-    Q (N + P) more FLOP a row for the same result."""
+    ``mamba2_block`` hands them over).  The operations are counted by a fixed
+    convention, whatever sub-chunk the kernel walks: the chunked algorithm at
+    SSD_COUNT_Q rows, per (batch, head, sub-chunk) Q^2 (N + P) FLOP for the two
+    causal Q x Q products and 4 Q N P for the two state products.  They are
+    held against the card's fastest product rate that keeps fp32 accuracy
+    (3xTF32, ``bound_ms``) and, beside it, the fp32 FMA peak (``bound_fma_ms``)."""
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
-    from repro_torch.kernels.ssd_scan.ops import SUB_CHUNK as q
+    q = SSD_COUNT_Q
     f32 = torch.float32
     out = []
     for s in (1024, 256):
@@ -532,42 +645,56 @@ def time_ssd(gen, flush):
         y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
         err = max(close(y, y_ref, SSD_TOL[f32], "ssd at the serving shape"),
                   close(st, st_ref, SSD_TOL[f32], "ssd state at the serving shape"))
+        old = None
+        if baseline is not None:
+            yb, stb = baseline.ssd(x, dt, A, B, C)
+            close(yb, y_ref, SSD_TOL[f32], "baseline ssd vs plain")
+            close(stb, st_ref, SSD_TOL[f32], "baseline ssd state vs plain")
+            old = lambda: baseline.ssd(x, dt, A, B, C)  # noqa: E731
         n_flops = b * h * (s // q) * (q * q * (n + p) + 4 * q * n * p)
         n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
                        + st.numel())
-        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[f32] * 1e3
-        out.append({
+        t_bytes = n_bytes / PEAK_BYTES * 1e3
+        t_ops = n_flops / PEAK_FP32_ACCURATE_MMA * 1e3
+        rec = {
             "name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
             "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
-                      "sub_chunk": q, "dtype": "float32"},
+                      "count_q": q, "dtype": "float32"},
             "flop": n_flops, "bytes": n_bytes,
             "max_abs_err": err, "tol": SSD_TOL[f32],
-            "ms": time_ms(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), flush),
+            **timed(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), flush, old),
+            # one block an SM with a two-stage ring against two an SM with one
+            "ms_ring_stages": {str(k): time_ms(lambda: ssd_scan(
+                x, dt, A, B, C, chunk=chunk, ring_stages=k), flush) for k in (1, 2)},
             "plain_ms": time_ms(lambda: ssd_ref(x, dt, A, B, C, chunk), flush),
             "library_ms": None,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        })
+            "bound_fma_ms": max(t_bytes, n_flops / PEAK_FLOPS[f32] * 1e3),
+        }
+        rec["tflops"] = n_flops / rec["ms"] * 1e-9
+        out.append(rec)
     return out[:1], out[1:]
 
 
-def phase_kernels():
+def phase_kernels(baseline_dir=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     worst_decode = check_decode(gen)
     worst_flash = check_flash(gen)
     worst_ssd = check_ssd(gen)
-    records, extra = time_kernels(gen, flush)
-    ssd_records, ssd_extra = time_ssd(gen, flush)
+    baseline = Baseline(baseline_dir) if baseline_dir else None
+    records, extra = time_kernels(gen, flush, baseline)
+    ssd_records, ssd_extra = time_ssd(gen, flush, baseline)
     records += ssd_records
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
          tol={str(k): v for k, v in TOL.items()},
          ssd_tol={str(k): v for k, v in SSD_TOL.items()},
-         timed=records + extra + ssd_extra)
+         baseline=baseline_dir, timed=records + extra + ssd_extra)
     return records
 
 
@@ -750,6 +877,9 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--build-log", metavar="PATH",
                     help="pass -Xptxas -v to nvcc and write its output to PATH")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="also time an earlier tree's decode_attention.cu and "
+                         "ssd_scan.cu, found in DIR, in turns with the current ones")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -758,7 +888,7 @@ def main() -> None:
 
     smi = phase_device()
     phase_build(args.build_log)
-    records = phase_kernels() if "kernels" in phases else []
+    records = phase_kernels(args.baseline) if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests),
                              ("mamba2-2.7b", SSM_REQUESTS)):
         path = PATHS[arch]

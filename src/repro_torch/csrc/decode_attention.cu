@@ -1,5 +1,5 @@
 // Decode attention for Hopper (sm_90a): one query token per sequence against a
-// KV cache.
+// KV cache, in one launch.
 //
 // Replaces the Pallas-TPU kernel `decode_kernel`
 // (src/repro/kernels/decode_attention/kernel.py, built by build_decode_call,
@@ -8,24 +8,45 @@
 // Bound on an H100: bytes.  Every cached K and V row below cache_len is read
 // once (2 * B * G * cache_len * D * itemsize bytes) and each row feeds only
 // `group = H / G` dot products, far below the card's operations-per-byte
-// ridge, so the least time is those bytes over the memory rate.
+// ridge, so the least time is those bytes over the memory rate.  The rate
+// needs some 20 KB in flight on every SM all the time, and the work is ragged:
+// one sequence may hold ten times the rows of another, and on the serving path
+// most rows of a call have cache_len 0.
 //
 // What the design does about it:
-//  * K/V are read in the cache's own (B, S, G, D) layout through strides, 16
-//    bytes a lane, 8 lanes side by side on one row: no transposed copy of the
-//    cache is ever made.
-//  * All query heads of a GQA group (up to 4 per block) share each fetched row,
-//    as the TPU kernel shares each fetched block.
-//  * The TPU grid walks the KV axis in order and carries (m, l, acc) between
-//    grid steps.  Blocks on a GPU run unordered, so the KV walk is a loop
-//    inside the block, and because B * G blocks cannot fill 132 SMs the valid
-//    range [0, cache_len) is cut into `n_splits` pieces: each block writes a
-//    partial (m, l, acc) to scratch the wrapper allocated, and a small second
-//    kernel combines them.  This is the split version, always two launches.
-//  * Each block reads its own cache_len[b]; rows at or past it are never
-//    loaded, and a sequence with cache_len 0 yields zeros.
-//  * `group` is below any tensor-core tile height, so the products are
-//    multiply-reduce in fp32 registers (no TF32 for fp32 inputs).
+//  * Work is cut by rows, not by count.  A work item is a unit of R rows
+//    (`rows_per_split`, a multiple of STEP_ROWS) of one (batch, KV head, block
+//    of HPB query heads), so the longest sequence takes ceil(len / R) items of
+//    at most R rows each instead of setting the time for everyone.  Only live
+//    units are items: a 1-D grid of at most BLOCKS_PER_SM blocks an SM walks
+//    them in order (block i takes items i, i + gridDim.x, ...), and every block
+//    finds the place of its item from cache_len alone.  The grid is sized from
+//    shapes (the cache's capacity S bounds the items), so the host never reads
+//    cache_len (no synchronisation, nothing that a CUDA graph could not
+//    replay), and the busy blocks are the first ones dispatched: a serving call
+//    with one live row of eight has no wave of empty blocks to get through.
+//  * Loads stay in flight.  Each lane stages its own 16-byte chunks of K and V
+//    with cp.async into a ring of up to MAX_STAGES steps in shared memory
+//    (RING_BYTES a block: a whole 128-row unit of bf16 at D 128 is requested
+//    before the first score).  A lane reads back only what it copied itself,
+//    so the ring needs no barrier: cp.async.wait_group alone orders it.
+//  * A lane group of 8 lanes scores ROWS_PER_GROUP rows a step for all HPB query
+//    heads that share the KV head (16 bytes a lane along D, fp32 products, a
+//    3-shuffle reduction), then takes one max and one rescale per step, with
+//    exp2 on scores scaled by log2(e).  Rows at or past cache_len are never
+//    loaded (zero-filled, masked) and a sequence with cache_len 0 yields zeros.
+//  * One launch.  A sequence that fits one unit is written to `out` by that
+//    unit.  Otherwise each unit writes its partial (m, l, acc) to scratch, and
+//    the last unit of its (batch, head block) to finish, found with a counter
+//    (__threadfence before the atomic), merges the partials and writes `out`.
+//    It also sets the counter back to 0, so that the next call, or a replay of
+//    a captured graph, finds it there; the wrapper zeroes the counters once,
+//    when it allocates them.
+//  * A block merges its 16 lane groups with warp shuffles and one small
+//    shared-memory array per warp.
+//  * K/V are read in the cache's own (B, S, G, D) layout through strides: no
+//    transposed copy of the cache is ever made.  `group` is below any
+//    tensor-core tile height, so the products are fp32 multiply-adds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,9 +55,18 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 constexpr int LANES_PER_ROW = 8;
-constexpr int ROWS_PER_ITER = THREADS / LANES_PER_ROW;  // 16 rows a block step
+constexpr int ROW_GROUPS = THREADS / LANES_PER_ROW;    // 16 lane groups
+constexpr int ROWS_PER_GROUP = 2;                      // rows a lane group scores a step
+constexpr int STEP_ROWS = ROW_GROUPS * ROWS_PER_GROUP;  // 32 rows a block step
+constexpr int RING_BYTES = 64 * 1024;                  // cp.async ring of a block
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_HPB = 4;
+constexpr int MAX_UNITS = 1024;   // units a sequence at most: ceil(S / R)
+constexpr int BLOCKS_PER_SM = 3;  // 3 x (ring + merge arrays) fit the SM's shared memory
 
 // 16 bytes of T widened to floats.
 template <typename T>
@@ -45,12 +75,11 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+  static __device__ __forceinline__ void widen(uint4 v, float* out) {
+    out[0] = __uint_as_float(v.x);
+    out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z);
+    out[3] = __uint_as_float(v.w);
   }
   static __device__ __forceinline__ float to(float x) { return x; }
 };
@@ -58,8 +87,7 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+  static __device__ __forceinline__ void widen(uint4 v, float* out) {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -72,53 +100,141 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-// Partial attention of HPB query heads of one KV group over one split of the
-// valid KV range.  grid = (n_splits, G * (group / HPB), B).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory; zeros, and nothing read, when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, int D>
+struct Ring {
+  static constexpr int VEC = Vec<T>::N;
+  static constexpr int NCH = D / (VEC * LANES_PER_ROW);  // 16-byte chunks of a row a lane owns
+  static constexpr int EPL = NCH * VEC;                   // elements of a row a lane owns
+  static constexpr int CHUNKS = ROWS_PER_GROUP * 2 * NCH;  // a lane's chunks of K and V a step
+  static constexpr int STEP_BYTES = CHUNKS * THREADS * 16;
+  static constexpr int STAGES =
+      RING_BYTES / STEP_BYTES < MAX_STAGES ? RING_BYTES / STEP_BYTES : MAX_STAGES;
+  static constexpr int BYTES = STAGES * STEP_BYTES;
+  static_assert(STAGES >= 2, "the ring holds two steps or more");
+  static_assert(BYTES >= 2 * MAX_HPB * MAX_UNITS * 4, "the merge's weights fit the ring");
+  // chunk ci of a lane's step sits at ((stage * CHUNKS + ci) * THREADS + tid):
+  // a warp's lanes write and read 16 consecutive bytes each, no bank conflict
+};
+
+// Arguments of one call, shared by every work unit.
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const int* cache_len;
+  T* out;
+  float* part_m;    // (B, H, units)
+  float* part_l;    // (B, H, units)
+  float* part_acc;  // (B, H, units, D)
+  int* counters;    // (B, head_blocks), 0 between calls
+  int B, S, H, G, R, units, head_blocks;
+  float scale;
+  long long q_sb, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg;
+};
+
+__device__ __forceinline__ int clamp_len(const int* cache_len, int b, int S) {
+  const int len = cache_len[b];
+  return len < 0 ? 0 : (len > S ? S : len);
+}
+
+// Unit `unit` of the sequence of length `len` (live units, `live` > 0) for the
+// HPB query heads h0.. of KV head g of batch row b.
 template <typename T, int D, int HPB>
-__global__ void __launch_bounds__(THREADS)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ cache_len,
-                      float* __restrict__ part_m, float* __restrict__ part_l,
-                      float* __restrict__ part_acc, int S, int H, int G,
-                      int n_splits, float scale, long long q_sb, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sg,
-                      long long v_sb, long long v_ss, long long v_sg) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int NCH = D / (VEC * LANES_PER_ROW);  // 16-byte chunks a lane owns
-  constexpr int EPL = NCH * VEC;                   // elements a lane owns
+__device__ __forceinline__ void attend_unit(const Args<T>& a, int b, int hb, int unit,
+                                            int len, int live, uint4* ring,
+                                            float (&sm_m)[WARPS][HPB],
+                                            float (&sm_l)[WARPS][HPB],
+                                            float (&sm_acc)[WARPS][HPB][D], int& sm_last) {
+  using L = Ring<T, D>;
+  constexpr int VEC = L::VEC;
+  constexpr int NCH = L::NCH;
+  constexpr int EPL = L::EPL;
+  constexpr int STAGES = L::STAGES;
 
-  __shared__ float sm_m[ROWS_PER_ITER][HPB];
-  __shared__ float sm_l[ROWS_PER_ITER][HPB];
-  __shared__ float sm_acc[ROWS_PER_ITER][HPB][D];
-
-  const int split = blockIdx.x;
-  const int b = blockIdx.z;
-  const int group = H / G;
+  const int group = a.H / a.G;
   const int blocks_per_group = group / HPB;
-  const int g = blockIdx.y / blocks_per_group;
-  const int h0 = g * group + (blockIdx.y % blocks_per_group) * HPB;
+  const int g = hb / blocks_per_group;
+  const int h0 = g * group + (hb % blocks_per_group) * HPB;
+  const int start = unit * a.R;
+  const int end = min(len, start + a.R);
+  const bool direct = live == 1;
 
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
   const int sub = tid % LANES_PER_ROW;
   const int rgrp = tid / LANES_PER_ROW;
 
-  int len = cache_len[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  int chunk = (len + n_splits - 1) / n_splits;
-  chunk = (chunk + ROWS_PER_ITER - 1) / ROWS_PER_ITER * ROWS_PER_ITER;
-  const int start = split * chunk;
-  const int end = min(len, start + chunk);
+  const T* kb = a.k + b * a.k_sb + g * a.k_sg;
+  const T* vb = a.v + b * a.v_sb + g * a.v_sg;
+  const int n_steps = (end - start + STEP_ROWS - 1) / STEP_ROWS;
+  const uint32_t ring_base = smem_addr(ring);
 
+  // step t: lane group rgrp copies rows start + t * STEP_ROWS + r * ROW_GROUPS + rgrp
+  auto issue = [&](int t) {
+    const int stage = t % STAGES;
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_GROUP; ++r) {
+      const int row = start + t * STEP_ROWS + r * ROW_GROUPS + rgrp;
+      const bool ok = row < end;
+      const T* kp = kb + (long long)(ok ? row : start) * a.k_ss;
+      const T* vp = vb + (long long)(ok ? row : start) * a.v_ss;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int col = (sub + c * LANES_PER_ROW) * VEC;
+        const int ck = (stage * L::CHUNKS + (2 * r) * NCH + c) * THREADS + tid;
+        const int cv = (stage * L::CHUNKS + (2 * r + 1) * NCH + c) * THREADS + tid;
+        cp_async16(ring_base + 16 * ck, kp + col, ok);
+        cp_async16(ring_base + 16 * cv, vp + col, ok);
+      }
+    }
+  };
+
+  // q is requested first, ahead of the unit's K/V rows in the memory queue
+  uint4 qraw[HPB][NCH];
+#pragma unroll
+  for (int hh = 0; hh < HPB; ++hh) {
+    const T* qp = a.q + b * a.q_sb + (long long)(h0 + hh) * a.q_sh;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      qraw[hh][c] = *reinterpret_cast<const uint4*>(qp + (sub + c * LANES_PER_ROW) * VEC);
+  }
+  asm volatile("" ::: "memory");
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_steps) issue(t);
+    cp_async_commit();
+  }
+
+  // q, scaled so that scores are in log2 units
   float qr[HPB][EPL];
 #pragma unroll
   for (int hh = 0; hh < HPB; ++hh) {
-    const T* qp = q + b * q_sb + (long long)(h0 + hh) * q_sh;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      Vec<T>::load(qp + (sub + c * LANES_PER_ROW) * VEC, &qr[hh][c * VEC]);
-    }
+    for (int c = 0; c < NCH; ++c) Vec<T>::widen(qraw[hh][c], &qr[hh][c * VEC]);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[hh][e] *= scale;
+    for (int e = 0; e < EPL; ++e) qr[hh][e] *= a.scale * LOG2E;
   }
 
   float m[HPB], l[HPB], acc[HPB][EPL];
@@ -130,172 +246,311 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < EPL; ++e) acc[hh][e] = 0.f;
   }
 
-  const T* kb = k + b * k_sb + g * k_sg;
-  const T* vb = v + b * v_sb + g * v_sg;
-  for (int base = start; base < end; base += ROWS_PER_ITER) {
-    const int row = base + rgrp;
-    const bool valid = row < end;
-    float kf[EPL], vf[EPL];
-    if (valid) {
-      const T* kp = kb + (long long)row * k_ss;
-      const T* vp = vb + (long long)row * v_ss;
+  for (int t = 0; t < n_steps; ++t) {
+    if (t + STAGES - 1 < n_steps) issue(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // this lane's copies of step t have landed
+    const uint4* st = ring + (t % STAGES) * L::CHUNKS * THREADS + tid;
+
+    float s[ROWS_PER_GROUP][HPB];
+    bool valid[ROWS_PER_GROUP];
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_GROUP; ++r) {
+      valid[r] = start + t * STEP_ROWS + r * ROW_GROUPS + rgrp < end;
+#pragma unroll
+      for (int hh = 0; hh < HPB; ++hh) s[r][hh] = 0.f;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
-        Vec<T>::load(kp + (sub + c * LANES_PER_ROW) * VEC, &kf[c * VEC]);
-        Vec<T>::load(vp + (sub + c * LANES_PER_ROW) * VEC, &vf[c * VEC]);
-      }
-    } else {
+        float kf[VEC];
+        Vec<T>::widen(st[((2 * r) * NCH + c) * THREADS], kf);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        kf[e] = 0.f;
-        vf[e] = 0.f;
+        for (int hh = 0; hh < HPB; ++hh)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) s[r][hh] = fmaf(qr[hh][c * VEC + e], kf[e], s[r][hh]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < HPB; ++hh) {
+        float x = s[r][hh];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        s[r][hh] = valid[r] ? x : NEG_INF;
       }
     }
+
+    // one max and one rescale per step
+    float p[ROWS_PER_GROUP][HPB];
 #pragma unroll
     for (int hh = 0; hh < HPB; ++hh) {
-      float s = 0.f;
+      float m_new = m[hh];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) s += qr[hh][e] * kf[e];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      if (valid) {
-        const float m_new = fmaxf(m[hh], s);
-        const float alpha = expf(m[hh] - m_new);
-        const float p = expf(s - m_new);
-        l[hh] = l[hh] * alpha + p;
+      for (int r = 0; r < ROWS_PER_GROUP; ++r) m_new = fmaxf(m_new, s[r][hh]);
+      const float alpha = exp2f(m[hh] - m_new);
+      float psum = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[hh][e] = acc[hh][e] * alpha + p * vf[e];
-        m[hh] = m_new;
+      for (int r = 0; r < ROWS_PER_GROUP; ++r) {
+        p[r][hh] = valid[r] ? exp2f(s[r][hh] - m_new) : 0.f;
+        psum += p[r][hh];
+      }
+      l[hh] = fmaf(l[hh], alpha, psum);
+      m[hh] = m_new;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[hh][e] *= alpha;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_GROUP; ++r) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        float vf[VEC];
+        Vec<T>::widen(st[((2 * r + 1) * NCH + c) * THREADS], vf);
+#pragma unroll
+        for (int hh = 0; hh < HPB; ++hh)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[hh][c * VEC + e] = fmaf(p[r][hh], vf[e], acc[hh][c * VEC + e]);
       }
     }
   }
+  cp_async_wait<0>();
 
-  // merge the 16 row groups of the block
+  // merge the four lane groups of a warp (lanes 8 apart own the same columns),
+  // then the warps through shared memory
 #pragma unroll
   for (int hh = 0; hh < HPB; ++hh) {
-    if (sub == 0) {
-      sm_m[rgrp][hh] = m[hh];
-      sm_l[rgrp][hh] = l[hh];
+    float mx = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float w = exp2f(m[hh] - mx);
+    float ls = l[hh] * w;
+    ls += __shfl_xor_sync(0xffffffffu, ls, 8);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 16);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      float x = acc[hh][e] * w;
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      acc[hh][e] = x;
     }
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        sm_acc[rgrp][hh][(sub + c * LANES_PER_ROW) * VEC + e] = acc[hh][c * VEC + e];
+    if (lane < LANES_PER_ROW) {
+      if (lane == 0) {
+        sm_m[warp][hh] = mx;
+        sm_l[warp][hh] = ls;
       }
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][hh][(sub + c * LANES_PER_ROW) * VEC + e] = acc[hh][c * VEC + e];
     }
   }
   __syncthreads();
+
   for (int idx = tid; idx < HPB * D; idx += THREADS) {
     const int hh = idx / D;
     const int d = idx % D;
     float mx = NEG_INF;
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_ITER; ++r) mx = fmaxf(mx, sm_m[r][hh]);
-    float lsum = 0.f, a = 0.f;
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][hh]);
+    float ls = 0.f, x = 0.f;
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_ITER; ++r) {
-      const float w = expf(sm_m[r][hh] - mx);
-      lsum += sm_l[r][hh] * w;
-      a += sm_acc[r][hh][d] * w;
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = exp2f(sm_m[w][hh] - mx);
+      ls = fmaf(sm_l[w][hh], wt, ls);
+      x = fmaf(sm_acc[w][hh][d], wt, x);
     }
-    const long long slot = ((long long)b * H + (h0 + hh)) * n_splits + split;
-    part_acc[slot * D + d] = a;
-    if (d == 0) {
-      part_m[slot] = mx;
-      part_l[slot] = lsum;
+    const long long bh = (long long)b * a.H + h0 + hh;
+    if (direct) {
+      a.out[bh * D + d] = Vec<T>::to(x / fmaxf(ls, 1e-30f));
+    } else {
+      const long long slot = bh * a.units + unit;
+      a.part_acc[slot * D + d] = x;
+      if (d == 0) {
+        a.part_m[slot] = mx;
+        a.part_l[slot] = ls;
+      }
     }
+  }
+  if (direct) return;
+
+  // the last unit of this (batch, head block) to finish merges the partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ctr = a.counters + (long long)b * a.head_blocks + hb;
+    const int done = atomicAdd(ctr, 1);
+    sm_last = done == live - 1;
+    if (sm_last) atomicExch(ctr, 0);  // every live unit has counted: back to 0
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  // weights 2^(m_i - M) / sum_i l_i 2^(m_i - M) of the live partials, one warp
+  // a head, in the ring (free now), then out = sum_i weight_i acc_i
+  float* wts = reinterpret_cast<float*>(ring);
+  float* lsum = wts + HPB * live;
+  const long long bh0 = (long long)b * a.H + h0;
+  for (int idx = tid; idx < HPB * live; idx += THREADS) {
+    const long long slot = (bh0 + idx / live) * a.units + idx % live;
+    wts[idx] = __ldcg(a.part_m + slot);
+    lsum[idx] = __ldcg(a.part_l + slot);
+  }
+  __syncthreads();
+  if (warp < HPB) {
+    float* w = wts + warp * live;
+    const float* lw = lsum + warp * live;
+    float mx = NEG_INF;
+    for (int i = lane; i < live; i += 32) mx = fmaxf(mx, w[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float ls = 0.f;
+    for (int i = lane; i < live; i += 32) ls = fmaf(lw[i], exp2f(w[i] - mx), ls);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    const float inv = 1.f / fmaxf(ls, 1e-30f);
+    __syncwarp();
+    for (int i = lane; i < live; i += 32) w[i] = exp2f(w[i] - mx) * inv;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < HPB * D; idx += THREADS) {
+    const int hh = idx / D;
+    const int d = idx % D;
+    const float* w = wts + hh * live;
+    const float* pa = a.part_acc + (bh0 + hh) * a.units * D + d;
+    float x = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < live; ++i) x = fmaf(__ldcg(pa + (long long)i * D), w[i], x);
+    a.out[(bh0 + hh) * D + d] = Vec<T>::to(x);
   }
 }
 
-// out[b, h, :] = sum_i acc_i * exp(m_i - M) / max(sum_i l_i * exp(m_i - M), 1e-30)
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-decode_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                      const float* __restrict__ part_acc, T* __restrict__ out,
-                      int n_splits) {
-  const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  float mx = NEG_INF;
-  for (int i = 0; i < n_splits; ++i) mx = fmaxf(mx, part_m[bh * n_splits + i]);
-  float lsum = 0.f, a = 0.f;
-  for (int i = 0; i < n_splits; ++i) {
-    const float w = expf(part_m[bh * n_splits + i] - mx);
-    lsum += part_l[bh * n_splits + i] * w;
-    a += part_acc[(bh * n_splits + i) * D + d] * w;
+// A 1-D grid of at most BLOCKS_PER_SM blocks an SM walks the work items in
+// order: for each batch row b, for each head block, its live units (one item
+// for cache_len 0, which writes zeros).  Block i takes items i, i + gridDim.x,
+// ...; every block finds the place of its item from cache_len alone.
+template <typename T, int D, int HPB>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+decode_kernel(const Args<T> a) {
+  extern __shared__ uint4 ring[];
+  __shared__ float sm_m[WARPS][HPB];
+  __shared__ float sm_l[WARPS][HPB];
+  __shared__ float sm_acc[WARPS][HPB][D];
+  __shared__ int sm_last;
+
+  int b = 0, base = 0;  // first item of batch row b
+  for (int item = blockIdx.x;; item += gridDim.x) {
+    int len = 0, live = 1;
+    for (; b < a.B; ++b) {
+      len = clamp_len(a.cache_len, b, a.S);
+      live = len > 0 ? (len + a.R - 1) / a.R : 1;
+      if (item < base + live * a.head_blocks) break;
+      base += live * a.head_blocks;
+    }
+    if (b >= a.B) return;
+    const int hb = (item - base) / live;
+    const int unit = (item - base) % live;
+    if (len == 0) {  // nothing to attend to: zeros
+      const int group = a.H / a.G;
+      const int blocks_per_group = group / HPB;
+      const int h0 = hb / blocks_per_group * group + (hb % blocks_per_group) * HPB;
+      for (int idx = threadIdx.x; idx < HPB * D; idx += THREADS)
+        a.out[((long long)b * a.H + h0) * D + idx] = Vec<T>::to(0.f);
+      continue;
+    }
+    attend_unit<T, D, HPB>(a, b, hb, unit, len, live, ring, sm_m, sm_l, sm_acc, sm_last);
+    __syncthreads();  // the next item reuses the merge arrays
   }
-  out[bh * D + d] = Vec<T>::to(a / fmaxf(lsum, 1e-30f));
 }
 
 template <typename T, int D, int HPB>
-int launch(const void* q, const void* k, const void* v, const int* cache_len,
-           void* out, float* scratch, int B, int S, int H, int G, int n_splits,
-           float scale, const long long* st, cudaStream_t stream) {
-  const int group = H / G;
-  const long long n_part = (long long)B * H * n_splits;
-  float* part_m = scratch;
-  float* part_l = scratch + n_part;
-  float* part_acc = scratch + 2 * n_part;
-  const dim3 grid(n_splits, G * (group / HPB), B);
-  decode_partial_kernel<T, D, HPB><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      cache_len, part_m, part_l, part_acc, S, H, G, n_splits, scale, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7]);
-  cudaError_t err = cudaGetLastError();
+int launch(Args<T> a, int blocks, cudaStream_t stream) {
+  constexpr int smem = Ring<T, D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_kernel<T, D, HPB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T, D><<<B * H, D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), n_splits);
+  decode_kernel<T, D, HPB><<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_hpb(int hpb, const void* q, const void* k, const void* v,
-               const int* cache_len, void* out, float* scratch, int B, int S, int H,
-               int G, int n_splits, float scale, const long long* st,
-               cudaStream_t stream) {
+int launch_hpb(int hpb, const Args<T>& a, int blocks, cudaStream_t stream) {
   switch (hpb) {
     case 1:
-      return launch<T, D, 1>(q, k, v, cache_len, out, scratch, B, S, H, G, n_splits, scale, st, stream);
+      return launch<T, D, 1>(a, blocks, stream);
     case 2:
-      return launch<T, D, 2>(q, k, v, cache_len, out, scratch, B, S, H, G, n_splits, scale, st, stream);
+      return launch<T, D, 2>(a, blocks, stream);
     case 3:
-      return launch<T, D, 3>(q, k, v, cache_len, out, scratch, B, S, H, G, n_splits, scale, st, stream);
+      return launch<T, D, 3>(a, blocks, stream);
+    case 4:
+      return launch<T, D, 4>(a, blocks, stream);
     default:
-      return launch<T, D, 4>(q, k, v, cache_len, out, scratch, B, S, H, G, n_splits, scale, st, stream);
+      return -1;
   }
+}
+
+template <typename T>
+int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
+             const void* cache_len, void* out, void* scratch, void* counters, int B, int S,
+             int H, int G, int R, float scale, const long long* st, int blocks,
+             cudaStream_t stream) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.cache_len = static_cast<const int*>(cache_len);
+  a.out = static_cast<T*>(out);
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.G = G;
+  a.R = R;
+  a.units = (S + R - 1) / R;
+  a.head_blocks = H / hpb;
+  const long long n_part = (long long)B * H * a.units;
+  a.part_m = static_cast<float*>(scratch);
+  a.part_l = a.part_m + n_part;
+  a.part_acc = a.part_m + 2 * n_part;
+  a.counters = static_cast<int*>(counters);
+  a.scale = scale;
+  a.q_sb = st[0];
+  a.q_sh = st[1];
+  a.k_sb = st[2];
+  a.k_ss = st[3];
+  a.k_sg = st[4];
+  a.v_sb = st[5];
+  a.v_ss = st[6];
+  a.v_sg = st[7];
+  if (D == 128) return launch_hpb<T, 128>(hpb, a, blocks, stream);
+  if (D == 64) return launch_hpb<T, 64>(hpb, a, blocks, stream);
+  return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32.  `strides` (in elements): q batch, q head, k batch,
-// k row, k kv-head, v batch, v row, v kv-head; the last dimension of q, k and v
-// has stride 1, `out` is contiguous (B, H, D).  `scratch` holds
-// B * H * n_splits * (D + 2) floats.  Returns 0, a cudaError_t of the launch, or
-// -1 for arguments the kernel does not take.
+// dtype: 0 = bf16, 1 = fp32.  `hpb` query heads of one KV head share a block
+// (1 to MAX_HPB, dividing H / G); `rows_per_split` is R, a positive multiple of
+// STEP_ROWS, with ceil(S / R) at most MAX_UNITS; `blocks` is the 1-D grid
+// (the wrapper gives BLOCKS_PER_SM an SM, or fewer when there are fewer work
+// items).  `strides` (in elements): q
+// batch, q head, k batch, k row, k kv-head, v batch, v row, v kv-head; the
+// last dimension of q, k and v has stride 1, `out` is contiguous (B, H, D).
+// `scratch` holds B * H * ceil(S / R) * (D + 2) floats and needs no initial
+// value; `counters` holds B * H / hpb ints that are 0 before the call and 0
+// again after it.  Returns 0, a cudaError_t of the launch, or -1 for arguments
+// the kernel does not take.
 extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
                                     const void* cache_len, void* out, void* scratch,
-                                    int dtype, int B, int S, int H, int G, int D,
-                                    int n_splits, float scale,
-                                    const long long* strides, void* stream) {
-  if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || n_splits <= 0) return -1;
-  if (B > 65535 || (long long)G * (H / G) > 65535) return -1;
-  const int group = H / G;
-  int hpb = 1;
-  if (group <= 4) hpb = group;
-  else if (group % 4 == 0) hpb = 4;
-  else if (group % 3 == 0) hpb = 3;
-  else if (group % 2 == 0) hpb = 2;
+                                    void* counters, int dtype, int B, int S, int H, int G,
+                                    int D, int hpb, int rows_per_split, int blocks,
+                                    float scale, const long long* strides, void* stream) {
+  if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || blocks <= 0) return -1;
+  if (rows_per_split <= 0 || rows_per_split % STEP_ROWS != 0) return -1;
+  if ((S + rows_per_split - 1) / rows_per_split > MAX_UNITS) return -1;
+  if (hpb < 1 || hpb > MAX_HPB || (H / G) % hpb != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(cache_len);
-  float* scr = static_cast<float*>(scratch);
-  if (dtype == 0 && D == 128)
-    return launch_hpb<__nv_bfloat16, 128>(hpb, q, k, v, lens, out, scr, B, S, H, G, n_splits, scale, strides, s);
-  if (dtype == 0 && D == 64)
-    return launch_hpb<__nv_bfloat16, 64>(hpb, q, k, v, lens, out, scr, B, S, H, G, n_splits, scale, strides, s);
-  if (dtype == 1 && D == 128)
-    return launch_hpb<float, 128>(hpb, q, k, v, lens, out, scr, B, S, H, G, n_splits, scale, strides, s);
-  if (dtype == 1 && D == 64)
-    return launch_hpb<float, 64>(hpb, q, k, v, lens, out, scr, B, S, H, G, n_splits, scale, strides, s);
+  if (dtype == 0)
+    return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S,
+                                   H, G, rows_per_split, scale, strides, blocks, s);
+  if (dtype == 1)
+    return launch_d<float>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S, H, G,
+                           rows_per_split, scale, strides, blocks, s);
   return -1;
 }

@@ -7,6 +7,10 @@ library's name carries a hash of the sources: an edited kernel is rebuilt,
 an unchanged one is loaded from ``build/``.  Nothing here runs at import
 time, and a failed build raises: there is no quiet switch to the plain
 versions.
+
+``build(csrc=...)`` builds another directory of sources the same way into a
+library of its own (``chip_smoke.py --baseline`` times an earlier tree's
+kernels with it); ``load()`` only ever loads this package's own.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def build_dir() -> Path:
     return Path(env) if env else CSRC.parents[2] / "build"
 
 
-def sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -52,22 +56,22 @@ def _nvcc() -> str:
                        "(looked on PATH, $CUDA_HOME and /usr/local/cuda)")
 
 
-def _digest(srcs: List[Path]) -> str:
+def _digest(srcs: List[Path], csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs + sorted(CSRC.glob("*.cuh")):
+    for p in srcs + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile and link the kernels if the library for these sources is not
-    in the build directory yet; returns the library's path."""
-    srcs = sources()
+def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
+    """Compile and link the kernels of ``csrc`` if the library for these
+    sources is not in the build directory yet; returns the library's path."""
+    srcs = sources(csrc)
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     out_dir = build_dir()
-    lib_path = out_dir / f"libdco_kernels_{_digest(srcs)}.so"
+    lib_path = out_dir / f"libdco_kernels_{_digest(srcs, csrc)}.so"
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path

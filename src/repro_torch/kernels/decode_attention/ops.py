@@ -4,7 +4,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict
+from typing import List
+from typing import NamedTuple
 from typing import Optional
+from typing import Sequence
+from typing import Tuple
 
 import torch
 
@@ -12,30 +17,106 @@ from ..build import load
 from .ref import decode_attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
-TARGET_BLOCKS_PER_SM = 2       # the KV range is split until the card is this full
-MIN_ROWS_PER_SPLIT = 64
-MAX_SPLITS = 32
+STEP_ROWS = 32                 # rows a block scores a step (csrc: STEP_ROWS)
+MAX_HPB = 4                    # query heads a block at most (csrc: MAX_HPB)
+BLOCKS_PER_SM = 3              # resident blocks an SM (csrc: BLOCKS_PER_SM)
+MAX_UNITS = 1024               # units a sequence at most (csrc: MAX_UNITS)
+ROWS_PER_SPLIT = 128           # rows of one work unit on the main path
+MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per device
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
+_counters: Dict[torch.device, torch.Tensor] = {}
+_retired: List[torch.Tensor] = []   # outgrown counters: a captured graph may hold them
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = load().dco_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def n_splits_for(b: int, g: int, s: int, sm_count: int) -> int:
-    """Pieces the KV range is cut into so that ``b * g * n_splits`` blocks
-    fill the card, each piece at least ``MIN_ROWS_PER_SPLIT`` rows of the
-    cache's capacity ``s``."""
-    want = -(-TARGET_BLOCKS_PER_SM * sm_count // (b * g))
-    return max(1, min(want, s // MIN_ROWS_PER_SPLIT, MAX_SPLITS))
+def heads_per_block(group: int) -> int:
+    """Query heads of one KV head that share a block (each fetched K/V row
+    serves all of them): the whole group up to ``MAX_HPB``, else the largest
+    divisor of the group that fits."""
+    if group <= MAX_HPB:
+        return group
+    return next(d for d in range(MAX_HPB, 0, -1) if group % d == 0)
+
+
+class DecodePlan(NamedTuple):
+    """How the kernel cuts one call into work items, from shapes alone (the
+    host never reads ``cache_len``).  An item is a unit of ``rows`` cache rows
+    of one (batch row, head block); a 1-D grid of ``blocks`` blocks walks the
+    items in order, block i taking items i, i + blocks, ..."""
+    rows: int            # R: cache rows of one unit
+    capacity: int        # S: rows of the cache; cache_len is clamped to it
+    units: int           # ceil(S / R): units a (batch row, head block) at most
+    hpb: int             # query heads a block
+    head_blocks: int     # G * group / hpb
+    batch: int
+    blocks: int          # the grid: BLOCKS_PER_SM an SM, or the most items there can be
+    scratch_floats: int  # partial (m, l, acc) of every unit: B * H * units * (D + 2)
+    counters: int        # one merge counter a (batch row, head block)
+
+    def live_units(self, length: int) -> int:
+        """Units that hold rows below ``length``."""
+        return -(-self._clamp(length) // self.rows)
+
+    def unit_rows(self, unit: int, length: int) -> range:
+        """The cache rows unit ``unit`` reads for a sequence of ``length``."""
+        start = unit * self.rows
+        return range(start, max(start, min(self._clamp(length), start + self.rows)))
+
+    def _clamp(self, length: int) -> int:
+        return max(0, min(length, self.capacity))
+
+    def merges(self, length: int) -> bool:
+        """Whether the last unit to finish merges partials (more than one
+        live unit), rather than the one unit writing ``out`` itself."""
+        return self.live_units(length) > 1
+
+    def items(self, lengths: Sequence[int]) -> List[Tuple[int, int, int]]:
+        """(batch row, head block, unit) of every work item, in the kernel's
+        order: a row with cache_len 0 has one item (it writes zeros)."""
+        return [(b, hb, u) for b, n in enumerate(lengths)
+                for hb in range(self.head_blocks)
+                for u in range(max(self.live_units(n), 1))]
+
+
+def decode_plan(b: int, s: int, h: int, g: int, d: int,
+                rows_per_split: Optional[int] = None, sm_count: int = 132) -> DecodePlan:
+    rows = ROWS_PER_SPLIT if rows_per_split is None else rows_per_split
+    if rows <= 0 or rows % STEP_ROWS:
+        raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
+                         f"got {rows}")
+    hpb = heads_per_block(h // g)
+    units = -(-s // rows)
+    if units > MAX_UNITS:
+        raise ValueError(f"a cache of {s} rows is {units} units of {rows} rows; the "
+                         f"kernel merges at most {MAX_UNITS}: raise rows_per_split")
+    head_blocks = h // hpb
+    return DecodePlan(rows=rows, capacity=s, units=units, hpb=hpb,
+                      head_blocks=head_blocks, batch=b,
+                      blocks=min(b * head_blocks * units, BLOCKS_PER_SM * sm_count),
+                      scratch_floats=b * h * units * (d + 2), counters=b * head_blocks)
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed ints for the merge counters, kept per device: the kernel sets
+    each counter it used back to 0, so they are zeroed only here, once."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
+        buf = torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _check(q, k, v, cache_len):
@@ -51,13 +132,17 @@ def _check(q, k, v, cache_len):
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      cache_len: torch.Tensor, *,
                      scale: Optional[float] = None,
-                     n_splits: Optional[int] = None) -> torch.Tensor:
+                     rows_per_split: Optional[int] = None) -> torch.Tensor:
     """q (B, H, D) single new token; k/v (B, S, G, D) KV cache, read in place
     through its strides (any S >= 1, no transposed copy); cache_len (B,)
     valid lengths, read on the device.  Returns (B, H, D).
 
-    On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
-    computes the plain version."""
+    ``rows_per_split`` (a multiple of ``STEP_ROWS``, default
+    ``ROWS_PER_SPLIT``) sets the rows of one work unit; it changes the
+    schedule, not the result.  On a CUDA tensor this launches the kernel (one
+    launch) or raises; on a CPU tensor it computes the plain version.  Calls
+    on one device share its merge counters, so they must not run concurrently
+    on two streams."""
     _check(q, k, v, cache_len)
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, cache_len, scale=scale)
@@ -77,23 +162,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: the kernel reads 16-byte vectors along "
                              "head_dim; it needs stride 1 there and 16-byte "
                              "aligned rows")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = decode_plan(b, s, h, g, d, rows_per_split, sms)
     lens = cache_len if cache_len.dtype == torch.int32 else cache_len.to(torch.int32)
     lens = lens.contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if n_splits is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_splits = n_splits_for(b, g, s, sms)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    scratch = torch.empty((b * h * n_splits * (d + 2),), dtype=torch.float32,
-                          device=q.device)
+    scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=q.device)
+    counters = _counter_buffer(q.device, plan.counters)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                       out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype],
-                       b, s, h, g, d, n_splits, float(scale), strides, stream)
+                       out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+                       _DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.rows,
+                       plan.blocks, float(scale), strides, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
     LAUNCHES[0] += 1

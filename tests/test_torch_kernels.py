@@ -34,6 +34,7 @@ from repro_torch.kernels import kernels_built
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import reset_launch_counts
 from repro_torch.kernels.build import CSRC
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import init_params
 from repro_torch.models import layers as port_layers
@@ -310,3 +311,152 @@ def test_main_path_tensors_meet_the_alignment_rule(monkeypatch):
         assert k.stride(1) == cfg.n_kv_heads * cfg.head_dim     # a slice of the pool
         for name, t in (("q", q), ("k", k), ("v", v)):
             flash_ops.check_rows_aligned(name, t)
+
+
+# --- the decode kernel's work partition and merge (csrc/decode_attention.cu) ---
+
+def _decode_source_constants():
+    text = (CSRC / "decode_attention.cu").read_text()
+    return {name: int(val) for name, val in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_decode_wrapper_constants_match_the_source():
+    c = _decode_source_constants()
+    assert c["THREADS"] // c["LANES_PER_ROW"] * c["ROWS_PER_GROUP"] == decode_ops.STEP_ROWS
+    assert c["MAX_HPB"] == decode_ops.MAX_HPB
+    assert c["BLOCKS_PER_SM"] == decode_ops.BLOCKS_PER_SM
+    assert c["MAX_UNITS"] == decode_ops.MAX_UNITS
+    assert decode_ops.ROWS_PER_SPLIT % decode_ops.STEP_ROWS == 0
+    assert 64 <= decode_ops.ROWS_PER_SPLIT <= 128
+
+
+R = decode_ops.ROWS_PER_SPLIT
+
+
+@pytest.mark.parametrize("group", range(1, 9))
+@pytest.mark.parametrize("s", [1, R - 1, R, R + 1, 2048])
+def test_decode_partition_covers_every_live_row_once(s, group):
+    """Every row below cache_len lies in exactly one work item, a row of the
+    batch with cache_len 0 has one item (its zeros), and the grid, scratch and
+    counters follow from the shapes alone."""
+    b, g, d = 3, 2, 128
+    h = g * group
+    plan = decode_ops.decode_plan(b, s, h, g, d, sm_count=132)
+    assert plan.rows == R and plan.units == -(-s // R)
+    assert group % plan.hpb == 0 and 1 <= plan.hpb <= decode_ops.MAX_HPB
+    assert plan.hpb == min(group, 4) or group % min(group, 4)
+    assert plan.head_blocks == g * group // plan.hpb
+    assert plan.blocks == min(b * plan.head_blocks * plan.units,
+                              decode_ops.BLOCKS_PER_SM * 132)
+    assert plan.scratch_floats == b * h * plan.units * (d + 2)
+    assert plan.counters == b * plan.head_blocks
+    lengths = sorted({0, 1, R - 1, R, R + 1, s - 1, s, s + 5} - {-1})
+    for batch in (lengths[:b], lengths[-b:], [0] * b):
+        items = plan.items(batch)
+        assert len(items) <= b * plan.head_blocks * plan.units
+        for bi, length in enumerate(batch):
+            for hb in range(plan.head_blocks):
+                units = [u for b2, hb2, u in items if (b2, hb2) == (bi, hb)]
+                assert units == list(range(max(plan.live_units(length), 1)))
+                seen = [r for u in units for r in plan.unit_rows(u, length)]
+                assert seen == list(range(min(length, s)))
+                assert all(len(plan.unit_rows(u, length)) <= R for u in units)
+                assert plan.merges(length) == (len(units) > 1)
+
+
+def test_decode_rows_per_split_must_be_whole_steps():
+    for bad in (0, -32, decode_ops.STEP_ROWS + 1, 100):
+        with pytest.raises(ValueError, match="rows_per_split"):
+            decode_ops.decode_plan(1, 256, 8, 2, 128, bad)
+    assert decode_ops.decode_plan(1, 256, 8, 2, 128, 32).units == 8
+    assert decode_ops.decode_plan(1, 256, 8, 2, 128, 512).units == 1
+    with pytest.raises(ValueError, match="units"):
+        decode_ops.decode_plan(1, 32 * decode_ops.MAX_UNITS + 1, 8, 2, 128, 32)
+
+
+def emulate_decode(q, k, v, cache_len, rows_per_split=None):
+    """The kernel's arithmetic in torch: per work item (a unit of rows), 16
+    lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group)
+    in log2 units with one max and one rescale a step; lane groups merged into
+    warps (4 each), warps into the unit; a unit alone writes ``out``, several
+    write partials that the last of them merges with the weights
+    2^(m_i - M) / max(sum_i l_i 2^(m_i - M), 1e-30)."""
+    b, h, d = q.shape
+    _, s, g, _ = k.shape
+    plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split)
+    step, lanes, hpb = decode_ops.STEP_ROWS, 16, plan.hpb
+    neg = torch.tensor(-1e30)
+    qf = q.float() * (1.0 / d ** 0.5) * 1.4426950408889634
+    out = torch.zeros((b, h, d), dtype=torch.float32)
+    lens = [int(n) for n in cache_len]
+
+    def combine(m, den, acc, dim):
+        mx = m.amax(dim=dim, keepdim=True)
+        w = torch.exp2(m - mx)
+        return mx.squeeze(dim), (den * w).sum(dim), (acc * w[..., None]).sum(dim)
+
+    partials = {}
+    for bi, hb, u in plan.items(lens):
+        kv = hb // ((h // g) // hpb)
+        heads = slice(hb * hpb, (hb + 1) * hpb)
+        if lens[bi] == 0:
+            continue                                              # zeros
+        rows = plan.unit_rows(u, lens[bi])
+        m = torch.full((lanes, hpb), -1e30)
+        den = torch.zeros((lanes, hpb))
+        acc = torch.zeros((lanes, hpb, d))
+        for t in range(-(-len(rows) // step)):
+            idx = (rows.start + t * step + 16 * torch.arange(2)[:, None]
+                   + torch.arange(lanes)[None, :])                # (2, lanes)
+            valid = idx < rows.stop
+            kk = k[bi, idx.clamp(max=s - 1), kv].float() * valid[..., None]
+            vv = v[bi, idx.clamp(max=s - 1), kv].float() * valid[..., None]
+            sc = torch.where(valid[..., None], torch.einsum("rjd,hd->rjh", kk, qf[bi, heads]),
+                             neg)
+            m_new = torch.maximum(m, sc.amax(0))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(valid[..., None], torch.exp2(sc - m_new), torch.tensor(0.0))
+            den = den * alpha + p.sum(0)
+            acc = acc * alpha[..., None] + torch.einsum("rjh,rjd->jhd", p, vv)
+            m = m_new
+        m, den, acc = combine(m.view(4, 4, hpb), den.view(4, 4, hpb),
+                              acc.view(4, 4, hpb, d), 1)          # lane groups -> warps
+        partials.setdefault((bi, heads.start), []).append(combine(m, den, acc, 0))
+    for (bi, h0), parts in partials.items():
+        m, den, acc = (torch.stack(x) for x in zip(*parts))     # (units, hpb, ...)
+        if len(parts) == 1:                                      # the unit writes out
+            out[bi, h0:h0 + hpb] = acc[0] / den[0].clamp_min(1e-30)[..., None]
+            continue
+        w = torch.exp2(m - m.amax(0))                            # the last unit merges
+        w = w / (den * w).sum(0).clamp_min(1e-30)
+        out[bi, h0:h0 + hpb] = (acc * w[..., None]).sum(0)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("lens,rows,dtype", [
+    ([97, 300, 0, 255, 129], None, "float32"),
+    ([0, 0, 300, 0, 0], None, "bfloat16"),               # one position group live
+    ([R - 1, R, R + 1, 300, 1], None, "float32"),
+    ([0, 0, 0, 0, 33], 32, "float32"),
+    ([300, 64, 0, 200, 31], 64, "bfloat16"),
+    ([300, 299, 1, 0, 160], 96, "float32"),
+])
+def test_decode_partial_merge_matches_plain_and_jax(lens, rows, dtype):
+    """The kernel's partition and merge, emulated on the CPU, against the
+    port's plain version and the JAX package's oracle (rtol = atol = 2e-5 in
+    fp32, 2e-2 in bf16)."""
+    rng = np.random.default_rng(12)
+    b, s, h, g, d = 5, 300, 12, 4, 64
+    jq, tq = both(rng, (b, h, d), dtype)
+    jk, tk = both(rng, (b, s, g, d), dtype)
+    jv, tv = both(rng, (b, s, g, d), dtype)
+    cl = torch.tensor(lens, dtype=torch.int32)
+    got = f32(emulate_decode(tq, tk, tv, cl, rows))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, f32(decode_attention_ref(tq, tk, tv, cl)),
+                               rtol=tol, atol=tol)
+    oracle = f32(jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens, jnp.int32)))
+    live = np.asarray(lens) > 0
+    np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
+    assert not got[~live].any()

@@ -163,6 +163,8 @@ def test_ssd_scan_reads_strided_views():
 
 def test_ssd_scan_rejects_what_the_reference_rejects():
     _, (x, dt, A, B, C), _ = inputs(10, 1, 40, 4, 1, 32, 16)
+    with pytest.raises(ValueError, match="ring_stages"):
+        ssd_scan(x, dt, A, B, C, chunk=40, ring_stages=3)
     with pytest.raises(ValueError, match="chunk-aligned.*40.*chunk 32"):
         ssd_scan(x, dt, A, B, C, chunk=32)
     with pytest.raises(ValueError, match="n_groups"):
@@ -188,5 +190,92 @@ def test_wrapper_limits_match_the_kernel_source():
     src = next(p for p in build.sources() if p.name == "ssd_scan.cu").read_text()
     assert f"constexpr int PS = {ssd_ops.P_SLICE};" in src
     assert f"constexpr int Q = {ssd_ops.SUB_CHUNK};" in src
+    assert f"constexpr int MAX_STAGES = {ssd_ops.MAX_STAGES};" in src
+    assert 1 <= ssd_ops.RING_STAGES <= ssd_ops.MAX_STAGES
     for n in ssd_ops.D_STATES:
         assert f"case {n}:" in src
+
+
+# --- the kernel's arithmetic: 3xTF32 tensor-core products (csrc/ssd_scan.cu) ---
+
+def tf32(x):
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties away
+    from zero, on the 13 low mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b from TF32 parts, a = hi + lo with hi = tf32(a), lo = tf32(a - hi):
+    lo hi' + hi lo' + hi hi', fp32 sums (the lo lo' term is dropped)."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def mm_1xtf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def ssd_as_the_kernel(x, dt, A, B, C, mm, q=64):
+    """The kernel's schedule in torch: 64-row sub-chunks, the running state
+    carried from one to the next, the four products through ``mm``."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    xs = x.float().permute(0, 2, 1, 3)                                 # (b,h,s,p)
+    dts = dt.float().permute(0, 2, 1)                                  # (b,h,s)
+    Bs = B.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)   # (b,h,s,n)
+    Cs = C.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    state = torch.zeros((b, h, p, n))
+    ys = []
+    for c0 in range(0, s, q):
+        xc, dc = xs[:, :, c0:c0 + q], dts[:, :, c0:c0 + q]
+        Bc, Cc = Bs[:, :, c0:c0 + q], Cs[:, :, c0:c0 + q]
+        cum = torch.cumsum(dc * A.float()[None, :, None], dim=-1)     # (b,h,q)
+        total = cum[..., -1:]
+        rows = cum.shape[-1]
+        mask = torch.ones((rows, rows), dtype=torch.bool).tril()
+        L = torch.where(mask, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        torch.tensor(0.0))
+        scores = mm(Cc, Bc.transpose(-1, -2)) * L
+        xdt = xc * dc[..., None]
+        y = mm(scores, xdt) + torch.exp(cum)[..., None] * mm(Cc, state.transpose(-1, -2))
+        xw = xdt * torch.exp(total - cum)[..., None]
+        state = state * torch.exp(total)[..., None] + mm(xw.transpose(-1, -2), Bc)
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), state
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                      -(1.0 + 2 ** -11), 3.0e-3, -7.25], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10)], dtype=torch.float32)
+    assert torch.equal(tf32(x)[:5], want)          # ties away from zero
+    for v in tf32(x):
+        assert int(v.view(torch.int32)) & 0x1FFF == 0
+    r = torch.from_numpy(np.random.default_rng(13).standard_normal(4096).astype(np.float32))
+    assert float(((r - tf32(r)) / r).abs().max()) <= 2 ** -11
+    hi = tf32(r)
+    assert float(((r - hi - tf32(r - hi)) / r).abs().max()) <= 2 ** -21
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_3xtf32_products_meet_the_reference_tolerance(dtype):
+    """The kernel's arithmetic (3xTF32 products at its 64-row sub-chunks) at
+    a reduced serving shape, against the JAX package's chunked oracle at the
+    reference's unchanged tolerance; plain TF32 does not meet it in fp32."""
+    b, s, h, g, p, n = 1, 256, 4, 1, 64, 128
+    jin, tin, _ = inputs(14, b, s, h, g, p, n, dtype)
+    ry, rstate = jax_ssd_ref(*jin, 256)
+    y, state = ssd_as_the_kernel(*tin, mm_3xtf32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(f32(y), f32(ry), rtol=tol, atol=tol)
+    np.testing.assert_allclose(f32(state), f32(rstate), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    if dtype == "float32":
+        y1, state1 = ssd_as_the_kernel(*tin, mm_1xtf32)
+        err = max(float(np.abs(f32(y1) - f32(ry)).max()),
+                  float(np.abs(f32(state1) - f32(rstate)).max()))
+        assert err > TOL["float32"]
