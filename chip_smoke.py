@@ -3,8 +3,6 @@
 
     python3 chip_smoke.py                      # every phase, as a release check
     python3 chip_smoke.py --phases build,kernels --build-log nvcc.log
-    python3 chip_smoke.py --phases build,kernels --baseline DIR   # DIR: an earlier
-        # tree's decode_attention.cu and ssd_scan.cu, timed in turns with today's
 
 Phases, each printing one JSON line; any exception or failed check ends the
 run with a non-zero exit code:
@@ -18,9 +16,8 @@ run with a non-zero exit code:
             one work unit against many (decode, whose merge counters must be
             back at 0), the pinned/streamed splits, GQA groups, softcap and
             chunkings (flash, whose bf16 outputs must be bit-identical across
-            splits and chunkings), and group counts, initial states, strided
-            views and both depths of the staging ring (SSD scan, bit-identical
-            across them); times each kernel at the serving path's shapes
+            splits and chunkings), and group counts, initial states and
+            strided views (SSD scan); times each kernel at the serving path's shapes
             (decode also at a serving call's one live position group) beside
             its plain version, one library call where one computes the same
             function (``scaled_dot_product_attention`` for attention, a
@@ -71,7 +68,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the fastest product rate that keeps fp32 accuracy: 3xTF32, three TF32
 # tensor-core products (495 TFLOP/s dense) for each fp32 one
 PEAK_FP32_ACCURATE_MMA = 495e12 / 3
-SSD_COUNT_Q = 64   # counting convention for the SSD scan's operations (see time_ssd)
+SSD_COUNT_Q = 64   # counting convention for the SSD scan's operations (see ssd_record)
+# the decode kernel's timed calls: slots at mixed positions, and a serving
+# call's one live position group (most of the serve phase's launches)
+DECODE_RAGGED = [97, 1056, 540, 801, 333, 1000, 650, 128]
+DECODE_ONE_GROUP = [0, 0, 801, 0, 0, 0, 0, 0]
+SSD_PROMPTS = (1024, 256)   # mamba2-2.7b prompt lengths the SSD scan is timed at
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # attention: rtol = atol
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # SSD scan: rtol = atol, the reference's
 LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol = atol
@@ -208,8 +210,11 @@ def phase_build(build_log):
 
 
 # ---------------------------------------------------------------------------
+UNIT_ROWS = 128   # a unit length the edge cases straddle, also run fixed at it
+
+
 def decode_cases():
-    from repro_torch.kernels.decode_attention.ops import ROWS_PER_SPLIT as r
+    r = UNIT_ROWS
     bf, f32 = torch.bfloat16, torch.float32
     main_lens = [1, 2048, 777, 64, 1500, 300, 2047, 1024]
     # (B, S, H, G, D, dtype, lens)
@@ -224,6 +229,7 @@ def decode_cases():
         (8, 2048, 24, 8, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
         (8, 2048, 24, 8, 128, f32, [0, 0, 0, 0, 0, 0, 0, 33]),
         # lengths at the edges of a work unit of r rows, and the capacity S
+        # (each case also runs with the unit fixed at r rows)
         (5, 2048, 24, 8, 128, bf, [r - 1, r, r + 1, 2048, 0]),
         (4, 2 * r + 1, 8, 2, 64, f32, [0, r + 1, 2 * r + 1, r]),
         (3, 3 * r, 12, 4, 128, f32, [3 * r, r - 1, 2 * r + 1]),
@@ -241,13 +247,15 @@ def check_decode(gen):
         k = randn(gen, (b, s, g, d), dtype)
         v = randn(gen, (b, s, g, d), dtype)
         cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = decode_attention(q, k, v, cl)
-        torch.cuda.synchronize()
-        err = close(out, decode_attention_ref(q, k, v, cl), TOL[dtype],
-                    f"decode {(b, s, h, g, d, dtype, lens)}")
-        for i, n in enumerate(lens):
-            check(n > 0 or bool((out[i] == 0).all()), "decode: cache_len 0 must give zeros")
-        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+        ref = decode_attention_ref(q, k, v, cl)
+        for rows in (None, UNIT_ROWS):   # R chosen per call, and fixed
+            out = decode_attention(q, k, v, cl, rows_per_split=rows)
+            torch.cuda.synchronize()
+            err = close(out, ref, TOL[dtype], f"decode {(b, s, h, g, d, dtype, lens, rows)}")
+            for i, n in enumerate(lens):
+                check(n > 0 or bool((out[i] == 0).all()),
+                      "decode: cache_len 0 must give zeros")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
     # a strided view of a larger pool, one work unit against many
     pool_k = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
     pool_v = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
@@ -389,81 +397,27 @@ def check_flash(gen):
     return worst
 
 
-def timed(new, flush, old=None):
-    """``ms`` of ``new`` and, with the baseline's ``old`` given, its
-    ``baseline_ms``, taken in turns old, new, new, old within this run."""
-    if old is None:
-        return {"ms": time_ms(new, flush)}
-    turns = [time_ms(fn, flush) for fn in (old, new, new, old)]
-    return {"ms": (turns[1] + turns[2]) / 2, "baseline_ms": (turns[0] + turns[3]) / 2,
-            "turns_ms": turns}
-
-
-class Baseline:
-    """The decode and SSD kernels of an earlier tree (``--baseline DIR``: DIR
-    holds that tree's ``decode_attention.cu`` and ``ssd_scan.cu``), built into a
-    library of their own and called through their own C interfaces, so that
-    one run times them beside the current kernels on the same inputs."""
-
-    def __init__(self, csrc):
-        import ctypes
-        from repro_torch.kernels import build
-        self.ct = ctypes
-        self.lib = ctypes.CDLL(str(build.build(csrc=Path(csrc).resolve())))
-        self.lib.dco_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-        self.lib.dco_ssd_scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                                          + [ctypes.c_void_p] * 2)
-        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def decode(self, q, k, v, cl):
-        """The two-launch decode interface: the valid range cut into n_splits
-        pieces (two blocks an SM, 64 rows a piece at least, 32 pieces at most),
-        a partial kernel and a combine kernel."""
-        b, h, d = q.shape
-        _, s, g, _ = k.shape
-        n_splits = max(1, min(-(-2 * self.sms // (b * g)), s // 64, 32))
-        out = torch.empty_like(q)
-        scratch = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32, device="cuda")
-        st = (self.ct.c_longlong * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
-                                      *v.stride()[:3])
-        rc = self.lib.dco_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), 0 if q.dtype == torch.bfloat16 else 1, b, s, h, g, d,
-            n_splits, 1.0 / d ** 0.5, st, torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"baseline decode launch failed ({rc})")
-        return out
-
-    def ssd(self, x, dt, A, B, C):
-        """The SSD interface without a ring depth (fp32 dt and A, no initial
-        state)."""
-        b, s, h, p = x.shape
-        g, n = B.shape[2], B.shape[3]
-        y = torch.empty_like(x)
-        state = torch.empty((b, h, p, n), dtype=torch.float32, device="cuda")
-        st = (self.ct.c_longlong * 12)(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
-                                       *C.stride()[:3])
-        rc = self.lib.dco_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), None,
-            y.data_ptr(), state.data_ptr(), 0 if x.dtype == torch.bfloat16 else 1,
-            b, s, h, g, p, n, st, torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"baseline ssd launch failed ({rc})")
-        return y, state
-
-
-def time_decode(gen, flush, lens, baseline):
-    """The decode kernel on the engine's pool (8 slots x 2048 rows) with the
-    slots at ``lens``; the bound counts only rows below ``cache_len``."""
-    from repro_torch.kernels import decode_attention
-    from repro_torch.kernels import decode_attention_ref
-    from repro_torch.kernels.decode_attention.ops import ROWS_PER_SPLIT
+def decode_inputs(gen, lens):
+    """q, k, v and cache_len on the engine's pool (8 slots x 2048 rows, the
+    llama3.2-3b heads, bf16) with the slots at ``lens``."""
     bf = torch.bfloat16
     b, s, h, g, d = 8, 2048, 24, 8, 128
-    q = randn(gen, (b, h, d), bf)
-    k = randn(gen, (b, s, g, d), bf)
-    v = randn(gen, (b, s, g, d), bf)
-    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return (randn(gen, (b, h, d), bf), randn(gen, (b, s, g, d), bf),
+            randn(gen, (b, s, g, d), bf), torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def decode_record(q, k, v, cl, flush):
+    """The decode kernel's record on these inputs: its time beside the plain
+    version's and the library call's, and the bound, which counts only rows
+    below ``cache_len``."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import decode_attention_ref
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    bf = torch.bfloat16
+    (b, h, d), (_, s, g, _) = q.shape, k.shape
+    lens = cl.tolist()
+    plan = decode_ops.decode_plan(b, s, h, g, d,
+                                  sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
     mask = (torch.arange(s, device="cuda")[None, :] < cl[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
@@ -476,10 +430,6 @@ def time_decode(gen, flush, lens, baseline):
     # the library call gives NaN for a row with no valid key: compare the rest
     live = cl > 0
     close(lib_decode()[:, :, 0][live], ref[live], TOL[bf], "library decode vs plain")
-    old = None
-    if baseline is not None:
-        close(baseline.decode(q, k, v, cl), ref, TOL[bf], "baseline decode vs plain")
-        old = lambda: baseline.decode(q, k, v, cl)  # noqa: E731
     n_bytes = (2 * g * d * 2 * sum(lens)) + 2 * q.numel() * 2 + cl.numel() * 4
     n_flops = 4 * h * d * sum(lens)
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
@@ -488,9 +438,9 @@ def time_decode(gen, flush, lens, baseline):
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
-                  "cache_len": lens, "rows_per_split": ROWS_PER_SPLIT},
+                  "cache_len": lens, "rows_chosen": plan.rows_for(lens)},
         "max_abs_err": err, "tol": TOL[bf],
-        **timed(lambda: decode_attention(q, k, v, cl), flush, old),
+        "ms": time_ms(lambda: decode_attention(q, k, v, cl), flush),
         "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, cl), flush),
         "library_ms": time_ms(lib_decode, flush),
         "bound_ms": max(t_bytes, t_ops),
@@ -498,7 +448,11 @@ def time_decode(gen, flush, lens, baseline):
     }
 
 
-def time_kernels(gen, flush, baseline=None):
+def time_decode(gen, flush, lens):
+    return decode_record(*decode_inputs(gen, lens), flush)
+
+
+def time_kernels(gen, flush):
     """Times at the serving path's shapes.  Returns the records of the
     ``kernels`` line, without their launch counts, and the extra records."""
     from repro_torch.core.orchestrator import CacheOrchestrator
@@ -509,8 +463,8 @@ def time_kernels(gen, flush, baseline=None):
     bf = torch.bfloat16
     h, g, d = 24, 8, 128
     # decode: slots at mixed positions, and a serving call's one position group
-    records = [time_decode(gen, flush, [97, 1056, 540, 801, 333, 1000, 650, 128], baseline)]
-    extra = [time_decode(gen, flush, [0, 0, 801, 0, 0, 0, 0, 0], baseline)]
+    records = [time_decode(gen, flush, DECODE_RAGGED)]
+    extra = [time_decode(gen, flush, DECODE_ONE_GROUP)]
 
     # flash: one request's prefill, split as the engine's orchestrator plans it
     orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(d, 2))
@@ -589,7 +543,6 @@ def ssd_cases():
 def check_ssd(gen):
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     worst = {}
 
     def held(y, st, y_ref, st_ref, dtype, what):
@@ -604,14 +557,7 @@ def check_ssd(gen):
         y, st = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
         torch.cuda.synchronize()
         y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk, initial_state=init)
-        case = (b, s, h, g, p, n, chunk, dtype, with_init)
-        held(y, st, y_ref, st_ref, dtype, case)
-        # the depth of the staging ring is a schedule, not a change of result
-        for stages in range(1, ssd_ops.MAX_STAGES + 1):
-            y2, st2 = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init,
-                               ring_stages=stages)
-            check(torch.equal(y2, y) and torch.equal(st2, st),
-                  f"ssd {case}: {stages} ring stage(s) differ from the default")
+        held(y, st, y_ref, st_ref, dtype, (b, s, h, g, p, n, chunk, dtype, with_init))
     # strided views, as the model hands them over: x a slice of a wider
     # projection, B and C two column ranges of one (B, S, 2GN) tensor
     b, s, h, g, p, n = 2, 128, 8, 2, 64, 64
@@ -625,76 +571,69 @@ def check_ssd(gen):
     return worst
 
 
-def time_ssd(gen, flush, baseline=None):
-    """The SSD scan at mamba2-2.7b's prefill shapes (fp32 inputs, as
-    ``mamba2_block`` hands them over).  The operations are counted by a fixed
-    convention, whatever sub-chunk the kernel walks: the chunked algorithm at
-    SSD_COUNT_Q rows, per (batch, head, sub-chunk) Q^2 (N + P) FLOP for the two
-    causal Q x Q products and 4 Q N P for the two state products.  They are
-    held against the card's fastest product rate that keeps fp32 accuracy
-    (3xTF32, ``bound_ms``) and, beside it, the fp32 FMA peak (``bound_fma_ms``)."""
+def ssd_record(x, dt, A, B, C, chunk, flush):
+    """The SSD scan's record on these inputs (fp32 at mamba2-2.7b's prefill
+    shapes, as ``mamba2_block`` hands them over).  The operations are counted
+    by a fixed convention, whatever sub-chunk the kernel walks: the chunked
+    algorithm at SSD_COUNT_Q rows, per (batch, head, sub-chunk) Q^2 (N + P)
+    FLOP for the two causal Q x Q products and 4 Q N P for the two state
+    products.  They are held against the card's fastest product rate that
+    keeps fp32 accuracy (3xTF32, ``bound_ms``) and, beside it, the fp32 FMA
+    peak (``bound_fma_ms``)."""
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
     q = SSD_COUNT_Q
     f32 = torch.float32
-    out = []
-    for s in (1024, 256):
-        b, h, g, p, n, chunk = 1, 80, 1, 64, 128, min(256, s)
-        x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, f32)
-        y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk)
-        y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
-        err = max(close(y, y_ref, SSD_TOL[f32], "ssd at the serving shape"),
-                  close(st, st_ref, SSD_TOL[f32], "ssd state at the serving shape"))
-        old = None
-        if baseline is not None:
-            yb, stb = baseline.ssd(x, dt, A, B, C)
-            close(yb, y_ref, SSD_TOL[f32], "baseline ssd vs plain")
-            close(stb, st_ref, SSD_TOL[f32], "baseline ssd state vs plain")
-            old = lambda: baseline.ssd(x, dt, A, B, C)  # noqa: E731
-        n_flops = b * h * (s // q) * (q * q * (n + p) + 4 * q * n * p)
-        n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
-                       + st.numel())
-        t_bytes = n_bytes / PEAK_BYTES * 1e3
-        t_ops = n_flops / PEAK_FP32_ACCURATE_MMA * 1e3
-        rec = {
-            "name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
-            "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
-                      "count_q": q, "dtype": "float32"},
-            "flop": n_flops, "bytes": n_bytes,
-            "max_abs_err": err, "tol": SSD_TOL[f32],
-            **timed(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), flush, old),
-            # one block an SM with a two-stage ring against two an SM with one
-            "ms_ring_stages": {str(k): time_ms(lambda: ssd_scan(
-                x, dt, A, B, C, chunk=chunk, ring_stages=k), flush) for k in (1, 2)},
-            "plain_ms": time_ms(lambda: ssd_ref(x, dt, A, B, C, chunk), flush),
-            "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_fma_ms": max(t_bytes, n_flops / PEAK_FLOPS[f32] * 1e3),
-        }
-        rec["tflops"] = n_flops / rec["ms"] * 1e-9
-        out.append(rec)
+    (b, s, h, p), (g, n) = x.shape, B.shape[2:]
+    y_ref, st_ref = ssd_ref(x, dt, A, B, C, chunk)
+    y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    err = max(close(y, y_ref, SSD_TOL[f32], "ssd at the serving shape"),
+              close(st, st_ref, SSD_TOL[f32], "ssd state at the serving shape"))
+    n_flops = b * h * (s // q) * (q * q * (n + p) + 4 * q * n * p)
+    n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
+                   + st.numel())
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_flops / PEAK_FP32_ACCURATE_MMA * 1e3
+    ms = time_ms(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), flush)
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
+        "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
+                  "count_q": q, "dtype": "float32"},
+        "flop": n_flops, "bytes": n_bytes,
+        "max_abs_err": err, "tol": SSD_TOL[f32],
+        "ms": ms, "tflops": n_flops / ms * 1e-9,
+        "plain_ms": time_ms(lambda: ssd_ref(x, dt, A, B, C, chunk), flush),
+        "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_fma_ms": max(t_bytes, n_flops / PEAK_FLOPS[f32] * 1e3),
+    }
+
+
+def time_ssd(gen, flush):
+    """The SSD records at prompts of 1024 and 256 tokens."""
+    out = [ssd_record(*ssd_inputs(gen, 1, s, 80, 1, 64, 128, torch.float32),
+                      min(256, s), flush) for s in SSD_PROMPTS]
     return out[:1], out[1:]
 
 
-def phase_kernels(baseline_dir=None):
+def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     worst_decode = check_decode(gen)
     worst_flash = check_flash(gen)
     worst_ssd = check_ssd(gen)
-    baseline = Baseline(baseline_dir) if baseline_dir else None
-    records, extra = time_kernels(gen, flush, baseline)
-    ssd_records, ssd_extra = time_ssd(gen, flush, baseline)
+    records, extra = time_kernels(gen, flush)
+    ssd_records, ssd_extra = time_ssd(gen, flush)
     records += ssd_records
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
          tol={str(k): v for k, v in TOL.items()},
          ssd_tol={str(k): v for k, v in SSD_TOL.items()},
-         baseline=baseline_dir, timed=records + extra + ssd_extra)
+         timed=records + extra + ssd_extra)
     return records
 
 
@@ -877,9 +816,6 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--build-log", metavar="PATH",
                     help="pass -Xptxas -v to nvcc and write its output to PATH")
-    ap.add_argument("--baseline", metavar="DIR",
-                    help="also time an earlier tree's decode_attention.cu and "
-                         "ssd_scan.cu, found in DIR, in turns with the current ones")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -888,7 +824,7 @@ def main() -> None:
 
     smi = phase_device()
     phase_build(args.build_log)
-    records = phase_kernels(args.baseline) if "kernels" in phases else []
+    records = phase_kernels() if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests),
                              ("mamba2-2.7b", SSM_REQUESTS)):
         path = PATHS[arch]

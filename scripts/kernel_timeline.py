@@ -40,6 +40,9 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke
 
 STAMP = ('do {{ if ({cond}) {{ unsigned long long t_; asm volatile("mov.u64 %0, '
          '%%globaltimer;" : "=l"(t_) :: "memory"); dco_timeline[{index}] = t_; }} }} while (0);')
@@ -48,7 +51,8 @@ SLOTS = 1 << 16
 # (anchor line in the source, where the stamp goes, stamp number, extra condition)
 FIRST = " && item == blockIdx.x"
 DECODE_MARKS = [
-    ("  int b = 0, base = 0;  // first item of batch row b", "before", 0, ""),
+    ("  // R: the caller's, or chosen from this call's lengths (every block reads",
+     "before", 0, ""),
     ("  float m[HPB], l[HPB], acc[HPB][EPL];", "before", 1, FIRST),
     ("    const uint4* st = ring + (t % STAGES) * L::CHUNKS * THREADS + tid;", "after", 2,
      FIRST + " && t == 0"),
@@ -56,7 +60,8 @@ DECODE_MARKS = [
     ("  // the last unit of this (batch, head block) to finish merges the partials",
      "before", 4, FIRST),
     ("  if (!sm_last) return;", "after", 5, FIRST),
-    ("    a.out[(bh0 + hh) * D + d] = Vec<T>::to(x);\n  }", "after", 6, FIRST),
+    ("    for (int e = 0; e < 4; ++e) a.out[(bh0 + hh) * D + 4 * d4 + e] = Vec<T>::to(x[e]);"
+     "\n  }", "after", 6, FIRST),
 ]
 DECODE_PHASES = ["to q", "to the first rows", "row loop", "block merge and partial",
                  "partial counted", "last unit's merge"]
@@ -102,6 +107,15 @@ def build(name: str, src: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(kbuild.build(csrc=d)))
 
 
+def on_wrapper(ops, lib, name: str) -> None:
+    """Point the wrapper module ``ops`` at ``name`` of the instrumented
+    library ``lib``, which has the same C interface as the package's own."""
+    real = ops._kernel()
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = real.argtypes, real.restype
+    ops._fn = fn
+
+
 def read(lib) -> list:
     buf = (ctypes.c_ulonglong * SLOTS)()
     lib.dco_timeline_read.argtypes = [ctypes.c_void_p]
@@ -128,38 +142,30 @@ def decode_timeline(flush, gen):
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     src = (ROOT / "src/repro_torch/csrc/decode_attention.cu").read_text()
-    lib = build("decode_attention", instrument(
-        src, DECODE_MARKS, "threadIdx.x == 0 && blockIdx.x < 8192", "blockIdx.x * 8 + {k}")
-        .replace("    attend_unit<T, D, HPB>(a, b, hb, unit,",
-                 "    attend_unit<T, D, HPB>(item, a, b, hb, unit,")
-        .replace("__device__ __forceinline__ void attend_unit(const Args<T>& a,",
-                 "__device__ __forceinline__ void attend_unit(int item, const Args<T>& a,"))
-    fn = lib.dco_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    src = instrument(src, DECODE_MARKS, "threadIdx.x == 0 && blockIdx.x < 8192",
+                     "blockIdx.x * 8 + {k}")
+    # attend_unit's stamps need the item: pass it in
+    for old, new in (("    attend_unit<T, D, HPB>(a, ", "    attend_unit<T, D, HPB>(item, a, "),
+                     ("__device__ __forceinline__ void attend_unit(const Args<T>& a,",
+                      "__device__ __forceinline__ void attend_unit(int item, const Args<T>& a,")):
+        if src.count(old) != 1:
+            raise RuntimeError(f"not found once in the source: {old!r}")
+        src = src.replace(old, new)
+    lib = build("decode_attention", src)
+    on_wrapper(ops, lib, "dco_decode_attention")
     b, s, h, g, d = 8, 2048, 24, 8, 128
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((b, s, g, d), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn((b, s, g, d), generator=gen, device="cuda").to(torch.bfloat16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    counters = torch.zeros(ops.MIN_COUNTERS, dtype=torch.int32, device="cuda")
-    for lens in ([97, 1056, 540, 801, 333, 1000, 650, 128], [0, 0, 801, 0, 0, 0, 0, 0]):
+    for lens in (chip_smoke.DECODE_RAGGED, chip_smoke.DECODE_ONE_GROUP):
         cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         plan = ops.decode_plan(b, s, h, g, d, None, sms)
-        out = torch.empty_like(q)
-        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device="cuda")
-        st = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
-                                     *v.stride()[:3])
 
         def launch():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr(),
-                    scratch.data_ptr(), counters.data_ptr(), 0, b, s, h, g, d, plan.hpb,
-                    plan.rows, plan.blocks, 1.0 / d ** 0.5, st,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"launch failed ({rc})")
+            ops.decode_attention(q, k, v, cl)
 
-        launch()
+        out = ops.decode_attention(q, k, v, cl)
         torch.cuda.synchronize()
         err = float((out.float() - decode_attention_ref(q, k, v, cl).float()).abs().max())
         ms = flushed_launch(lib, launch, flush)
@@ -181,7 +187,7 @@ def decode_timeline(flush, gen):
                   if t[i * 8 + 6] > t[i * 8 + 5] > 0]
         phases["last unit's merge"] = merges
         print(json.dumps({
-            "kernel": "decode_attention", "cache_len": lens, "rows_per_split": plan.rows,
+            "kernel": "decode_attention", "cache_len": lens, "rows": plan.rows_for(lens),
             "event_ms": ms, "max_abs_err": err, "busy_blocks": len(phases["to q"]),
             "phase_ns_median_max": {k2: [int(statistics.median(v2)), int(max(v2))]
                                     for k2, v2 in phases.items() if v2},
@@ -195,8 +201,7 @@ def ssd_timeline(flush, gen):
     lib = build("ssd_scan", instrument(
         src, SSD_MARKS, "blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && "
         "threadIdx.x % 32 == 0 && c < 256", "(c * 8 + threadIdx.x / 32) * 8 + {k}"))
-    fn = lib.dco_ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    on_wrapper(ops, lib, "dco_ssd_scan")
     for s in (1024, 256):
         b, h, g, p, n = 1, 80, 1, 64, 128
         x = torch.randn((b, s, h, p), generator=gen, device="cuda")
@@ -204,19 +209,11 @@ def ssd_timeline(flush, gen):
         A = -torch.exp(torch.rand((h,), generator=gen, device="cuda") * 2 - 1)
         B = torch.randn((b, s, g, n), generator=gen, device="cuda")
         C = torch.randn((b, s, g, n), generator=gen, device="cuda")
-        y = torch.empty_like(x)
-        state = torch.empty((b, h, p, n), device="cuda")
-        st = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
-                                      *C.stride()[:3])
 
         def launch():
-            rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                    None, y.data_ptr(), state.data_ptr(), 1, b, s, h, g, p, n,
-                    ops.RING_STAGES, st, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"launch failed ({rc})")
+            ops.ssd_scan(x, dt, A, B, C, chunk=min(256, s))
 
-        launch()
+        y, _ = ops.ssd_scan(x, dt, A, B, C, chunk=min(256, s))
         torch.cuda.synchronize()
         y_ref, _ = ssd_ref(x, dt, A, B, C, min(256, s))
         err = float((y - y_ref).abs().max())
@@ -235,7 +232,7 @@ def ssd_timeline(flush, gen):
             per_warp[f"warp{w}"] = {k2: int(statistics.median(v2)) for k2, v2 in durs.items()}
         block_ns = t[((n_sub - 1) * 8) * 8 + 5] - t[0]
         print(json.dumps({
-            "kernel": "ssd_scan", "S": s, "ring_stages": ops.RING_STAGES, "event_ms": ms,
+            "kernel": "ssd_scan", "S": s, "event_ms": ms,
             "max_abs_err": err, "block_000_ns": block_ns,
             "sub_chunk_ns": block_ns // max(n_sub - 1, 1),
             "phase_ns_median": per_warp}), flush=True)

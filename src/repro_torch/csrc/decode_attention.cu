@@ -14,17 +14,30 @@
 // most rows of a call have cache_len 0.
 //
 // What the design does about it:
-//  * Work is cut by rows, not by count.  A work item is a unit of R rows
-//    (`rows_per_split`, a multiple of STEP_ROWS) of one (batch, KV head, block
-//    of HPB query heads), so the longest sequence takes ceil(len / R) items of
-//    at most R rows each instead of setting the time for everyone.  Only live
-//    units are items: a 1-D grid of at most BLOCKS_PER_SM blocks an SM walks
-//    them in order (block i takes items i, i + gridDim.x, ...), and every block
-//    finds the place of its item from cache_len alone.  The grid is sized from
-//    shapes (the cache's capacity S bounds the items), so the host never reads
-//    cache_len (no synchronisation, nothing that a CUDA graph could not
-//    replay), and the busy blocks are the first ones dispatched: a serving call
-//    with one live row of eight has no wave of empty blocks to get through.
+//  * Work is cut by rows, not by count.  A work item is a unit of R rows (a
+//    multiple of STEP_ROWS) of one (batch, KV head, block of HPB query heads),
+//    so the longest sequence takes ceil(len / R) items of at most R rows each
+//    instead of setting the time for everyone.  Only live units are items: a
+//    1-D grid of at most ITEMS_PER_SM blocks an SM walks them in order (block
+//    i takes items i, i + gridDim.x, ...), and every block finds the place of
+//    its item from cache_len alone.  The grid is sized from shapes (the cache's
+//    capacity S bounds the items), so the host never reads cache_len (no
+//    synchronisation, nothing that a CUDA graph could not replay), and the busy
+//    blocks are the first ones dispatched: a serving call with one live row of
+//    eight has no wave of empty blocks to get through.  An SM can hold
+//    BLOCKS_PER_SM blocks (shared memory, __launch_bounds__).
+//  * R is chosen per call on the device (rows_for): every block sums the
+//    call's lengths and takes the least R, at least MIN_ROWS, that gives at
+//    most ITEMS_PER_SM items an SM, so that no SM holds a third block of a
+//    long sequence while others idle, and each block one item at most.  A
+//    sequence's rows are then cut evenly into its ceil(len / R) units.  Short
+//    sequences stay one unit (a merge costs more than a few steps: at one
+//    live row of 97, one unit beat four), long ones are cut into as many
+//    units as keep the SMs evenly loaded, each streamed through the ring.
+//    The grid is `target` blocks, one item each when R is chosen.  (With R
+//    fixed at 128, [2048] x 8 took several items a block and lost to the
+//    two-launch kernel this one replaces; PERF.md.)  The caller may fix R
+//    instead, which tests use.
 //  * Loads stay in flight.  Each lane stages its own 16-byte chunks of K and V
 //    with cp.async into a ring of up to MAX_STAGES steps in shared memory
 //    (RING_BYTES a block: a whole 128-row unit of bf16 at D 128 is requested
@@ -41,7 +54,10 @@
 //    (__threadfence before the atomic), merges the partials and writes `out`.
 //    It also sets the counter back to 0, so that the next call, or a replay of
 //    a captured graph, finds it there; the wrapper zeroes the counters once,
-//    when it allocates them.
+//    when it allocates them for a (device, stream).  A launch that faults
+//    leaves counters set, and the context with them: a new context needs
+//    them zeroed anew.  The merge keeps MERGE_LOADS float4 loads of partials
+//    in flight a thread.
 //  * A block merges its 16 lane groups with warp shuffles and one small
 //    shared-memory array per warp.
 //  * K/V are read in the cache's own (B, S, G, D) layout through strides: no
@@ -67,6 +83,9 @@ constexpr int MAX_STAGES = 4;
 constexpr int MAX_HPB = 4;
 constexpr int MAX_UNITS = 1024;   // units a sequence at most: ceil(S / R)
 constexpr int BLOCKS_PER_SM = 3;  // 3 x (ring + merge arrays) fit the SM's shared memory
+constexpr int MERGE_LOADS = 8;    // partials a thread of the last unit loads at once
+constexpr int MIN_ROWS = 128;     // the least R chosen per call
+constexpr int ITEMS_PER_SM = 2;   // work items an SM that a chosen R aims at, at most
 
 // 16 bytes of T widened to floats.
 template <typename T>
@@ -143,24 +162,51 @@ struct Args {
   const T* v;
   const int* cache_len;
   T* out;
+  float* part_acc;  // (B, H, units, D)
   float* part_m;    // (B, H, units)
   float* part_l;    // (B, H, units)
-  float* part_acc;  // (B, H, units, D)
   int* counters;    // (B, head_blocks), 0 between calls
-  int B, S, H, G, R, units, head_blocks;
+  int B, S, H, G;
+  int rows;         // R, or 0: chosen on the device from cache_len
+  int min_rows;     // the least R; units = ceil(S / min_rows)
+  int target;       // work items the chosen R aims at, at most
+  int units, head_blocks;
   float scale;
   long long q_sb, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg;
 };
 
+// cache_len is read-only here and read twice a block (the per-call sum, then
+// the walk): through the read-only path
 __device__ __forceinline__ int clamp_len(const int* cache_len, int b, int S) {
-  const int len = cache_len[b];
+  const int len = __ldg(cache_len + b);
   return len < 0 ? 0 : (len > S ? S : len);
+}
+
+__device__ __forceinline__ long long round_up(long long x, int to) {
+  return (x + to - 1) / to * to;
+}
+
+// R for a call whose live rows sum to `total`: the least multiple of STEP_ROWS
+// (at least min_rows) that keeps the work items within `target`, so that every
+// block takes one item at most and no SM more than target / SMs.  A (batch
+// row, head block) has at most len / R + 1 items (one for cache_len 0), so
+// head_blocks * (total / R + B) <= target holds for
+// R >= head_blocks * total / (target - head_blocks * B).  With nothing to
+// spare, every sequence is one unit.
+__device__ __forceinline__ int rows_for(long long total, int B, int head_blocks, int target,
+                                        int S, int min_rows) {
+  const long long whole = round_up(S, STEP_ROWS);
+  const long long spare = (long long)target - (long long)head_blocks * B;
+  long long r = whole;
+  if (spare > 0) r = round_up((head_blocks * total + spare - 1) / spare, STEP_ROWS);
+  r = r < whole ? r : whole;
+  return (int)(r > min_rows ? r : min_rows);
 }
 
 // Unit `unit` of the sequence of length `len` (live units, `live` > 0) for the
 // HPB query heads h0.. of KV head g of batch row b.
 template <typename T, int D, int HPB>
-__device__ __forceinline__ void attend_unit(const Args<T>& a, int b, int hb, int unit,
+__device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int hb, int unit,
                                             int len, int live, uint4* ring,
                                             float (&sm_m)[WARPS][HPB],
                                             float (&sm_l)[WARPS][HPB],
@@ -175,8 +221,8 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int b, int hb, int
   const int blocks_per_group = group / HPB;
   const int g = hb / blocks_per_group;
   const int h0 = g * group + (hb % blocks_per_group) * HPB;
-  const int start = unit * a.R;
-  const int end = min(len, start + a.R);
+  const int start = unit * R;
+  const int end = min(len, start + R);
   const bool direct = live == 1;
 
   const int tid = threadIdx.x;
@@ -410,19 +456,36 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int b, int hb, int
     for (int i = lane; i < live; i += 32) w[i] = exp2f(w[i] - mx) * inv;
   }
   __syncthreads();
-  for (int idx = tid; idx < HPB * D; idx += THREADS) {
-    const int hh = idx / D;
-    const int d = idx % D;
+  // a thread takes 4 columns of one head, MERGE_LOADS partials' loads in flight
+  constexpr int COLS4 = D / 4;
+  for (int idx = tid; idx < HPB * COLS4; idx += THREADS) {
+    const int hh = idx / COLS4;
+    const int d4 = idx % COLS4;
     const float* w = wts + hh * live;
-    const float* pa = a.part_acc + (bh0 + hh) * a.units * D + d;
-    float x = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < live; ++i) x = fmaf(__ldcg(pa + (long long)i * D), w[i], x);
-    a.out[(bh0 + hh) * D + d] = Vec<T>::to(x);
+    const float4* pa =
+        reinterpret_cast<const float4*>(a.part_acc + (bh0 + hh) * a.units * D) + d4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i0 = 0; i0 < live; i0 += MERGE_LOADS) {
+      float4 r[MERGE_LOADS];
+#pragma unroll
+      for (int j = 0; j < MERGE_LOADS; ++j)
+        r[j] = i0 + j < live ? __ldcg(pa + (long long)(i0 + j) * COLS4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < MERGE_LOADS; ++j) {
+        const float wj = i0 + j < live ? w[i0 + j] : 0.f;
+        x[0] = fmaf(r[j].x, wj, x[0]);
+        x[1] = fmaf(r[j].y, wj, x[1]);
+        x[2] = fmaf(r[j].z, wj, x[2]);
+        x[3] = fmaf(r[j].w, wj, x[3]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a.out[(bh0 + hh) * D + 4 * d4 + e] = Vec<T>::to(x[e]);
   }
 }
 
-// A 1-D grid of at most BLOCKS_PER_SM blocks an SM walks the work items in
+// A 1-D grid of at most ITEMS_PER_SM blocks an SM walks the work items in
 // order: for each batch row b, for each head block, its live units (one item
 // for cache_len 0, which writes zeros).  Block i takes items i, i + gridDim.x,
 // ...; every block finds the place of its item from cache_len alone.
@@ -434,19 +497,38 @@ decode_kernel(const Args<T> a) {
   __shared__ float sm_l[WARPS][HPB];
   __shared__ float sm_acc[WARPS][HPB][D];
   __shared__ int sm_last;
+  __shared__ long long sm_total[WARPS];
+
+  // R: the caller's, or chosen from this call's lengths (every block reads
+  // them all and comes to the same R)
+  int R = a.rows;
+  if (R == 0) {
+    long long total = 0;
+    for (int i = threadIdx.x; i < a.B; i += THREADS) total += clamp_len(a.cache_len, i, a.S);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+    if (threadIdx.x % 32 == 0) sm_total[threadIdx.x / 32] = total;
+    __syncthreads();
+    total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += sm_total[w];
+    R = rows_for(total, a.B, a.head_blocks, a.target, a.S, a.min_rows);
+  }
 
   int b = 0, base = 0;  // first item of batch row b
   for (int item = blockIdx.x;; item += gridDim.x) {
     int len = 0, live = 1;
     for (; b < a.B; ++b) {
       len = clamp_len(a.cache_len, b, a.S);
-      live = len > 0 ? (len + a.R - 1) / a.R : 1;
+      live = len > 0 ? (len + R - 1) / R : 1;
       if (item < base + live * a.head_blocks) break;
       base += live * a.head_blocks;
     }
     if (b >= a.B) return;
     const int hb = (item - base) / live;
     const int unit = (item - base) % live;
+    // the sequence's rows cut evenly into its `live` units (still <= R each)
+    const int rows = (int)round_up((len + live - 1) / live, STEP_ROWS);
     if (len == 0) {  // nothing to attend to: zeros
       const int group = a.H / a.G;
       const int blocks_per_group = group / HPB;
@@ -455,7 +537,8 @@ decode_kernel(const Args<T> a) {
         a.out[((long long)b * a.H + h0) * D + idx] = Vec<T>::to(0.f);
       continue;
     }
-    attend_unit<T, D, HPB>(a, b, hb, unit, len, live, ring, sm_m, sm_l, sm_acc, sm_last);
+    attend_unit<T, D, HPB>(a, rows, b, hb, unit, len, live, ring, sm_m, sm_l, sm_acc,
+                           sm_last);
     __syncthreads();  // the next item reuses the merge arrays
   }
 }
@@ -489,8 +572,8 @@ int launch_hpb(int hpb, const Args<T>& a, int blocks, cudaStream_t stream) {
 template <typename T>
 int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
              const void* cache_len, void* out, void* scratch, void* counters, int B, int S,
-             int H, int G, int R, float scale, const long long* st, int blocks,
-             cudaStream_t stream) {
+             int H, int G, int rows, int min_rows, int target, float scale,
+             const long long* st, int blocks, cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -501,13 +584,15 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
   a.S = S;
   a.H = H;
   a.G = G;
-  a.R = R;
-  a.units = (S + R - 1) / R;
+  a.rows = rows;
+  a.min_rows = min_rows;
+  a.target = target;
+  a.units = (S + min_rows - 1) / min_rows;
   a.head_blocks = H / hpb;
   const long long n_part = (long long)B * H * a.units;
-  a.part_m = static_cast<float*>(scratch);
+  a.part_acc = static_cast<float*>(scratch);
+  a.part_m = a.part_acc + n_part * D;
   a.part_l = a.part_m + n_part;
-  a.part_acc = a.part_m + 2 * n_part;
   a.counters = static_cast<int*>(counters);
   a.scale = scale;
   a.q_sb = st[0];
@@ -526,31 +611,41 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  `hpb` query heads of one KV head share a block
-// (1 to MAX_HPB, dividing H / G); `rows_per_split` is R, a positive multiple of
-// STEP_ROWS, with ceil(S / R) at most MAX_UNITS; `blocks` is the 1-D grid
-// (the wrapper gives BLOCKS_PER_SM an SM, or fewer when there are fewer work
-// items).  `strides` (in elements): q
-// batch, q head, k batch, k row, k kv-head, v batch, v row, v kv-head; the
-// last dimension of q, k and v has stride 1, `out` is contiguous (B, H, D).
-// `scratch` holds B * H * ceil(S / R) * (D + 2) floats and needs no initial
-// value; `counters` holds B * H / hpb ints that are 0 before the call and 0
-// again after it.  Returns 0, a cudaError_t of the launch, or -1 for arguments
-// the kernel does not take.
+// (1 to MAX_HPB, dividing H / G).  `rows` is R, a positive multiple of
+// STEP_ROWS, or 0 for R chosen on the device from cache_len (rows_for);
+// `min_rows`, a positive multiple of STEP_ROWS with ceil(S / min_rows) at most
+// MAX_UNITS, bounds R from below (with `rows` given, it equals `rows`);
+// `target` is the most work items a chosen R may give.  Either way a
+// sequence's rows are cut evenly into ceil(len / R) units of a multiple of
+// STEP_ROWS rows.  `blocks` is the 1-D grid (the wrapper gives `target`
+// blocks, or fewer when there are fewer work items).  `strides` (in elements): q batch, q head,
+// k batch, k row, k kv-head, v batch, v row, v kv-head; the last dimension of
+// q, k and v has stride 1, `out` is contiguous (B, H, D).  `scratch` holds
+// B * H * ceil(S / min_rows) * (D + 2) floats, starts on 16 bytes and needs no
+// initial value; `counters` holds B * H / hpb ints that are 0 before the call
+// and 0 again after it, provided that every launch on them runs to its end
+// (a launch that faults leaves the context unusable, and a new context needs
+// the counters zeroed anew) and that no two launches on them run at once.
+// Returns 0, a cudaError_t of the launch, or -1 for arguments the kernel does
+// not take.
 extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
                                     const void* cache_len, void* out, void* scratch,
                                     void* counters, int dtype, int B, int S, int H, int G,
-                                    int D, int hpb, int rows_per_split, int blocks,
-                                    float scale, const long long* strides, void* stream) {
+                                    int D, int hpb, int rows, int min_rows, int target,
+                                    int blocks, float scale, const long long* strides,
+                                    void* stream) {
   if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || blocks <= 0) return -1;
-  if (rows_per_split <= 0 || rows_per_split % STEP_ROWS != 0) return -1;
-  if ((S + rows_per_split - 1) / rows_per_split > MAX_UNITS) return -1;
+  if (min_rows <= 0 || min_rows % STEP_ROWS != 0) return -1;
+  if (rows != 0 && rows != min_rows) return -1;
+  if (target <= 0) return -1;
+  if ((S + min_rows - 1) / min_rows > MAX_UNITS) return -1;
   if (hpb < 1 || hpb > MAX_HPB || (H / G) % hpb != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S,
-                                   H, G, rows_per_split, scale, strides, blocks, s);
+                                   H, G, rows, min_rows, target, scale, strides, blocks, s);
   if (dtype == 1)
     return launch_d<float>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S, H, G,
-                           rows_per_split, scale, strides, blocks, s);
+                           rows, min_rows, target, scale, strides, blocks, s);
   return -1;
 }

@@ -46,15 +46,15 @@
 //    recomputes its sub-chunk's C B^T o L, which is exact.
 //  * Staging by cp.async.  The rows of B, C and x of a 64-row sub-chunk
 //    (16-byte copies, in the input's own type) and of dt (4-byte copies) go
-//    into a ring of `stages` sub-chunks, so that with two stages sub-chunk
-//    c + 1 arrives while c computes; the six warps that carry the lighter half
+//    into a ring of two sub-chunks, so that sub-chunk c + 1 arrives while c
+//    computes; the six warps that carry the lighter half
 //    of C B^T request it while the other two finish theirs.  bf16 is widened
 //    into fp32 tiles after it arrives.  fp32 rows keep their 16-byte chunks
 //    XOR-swizzled by ((r % 4) * 2 + (r / 4) % 2), which lets the products read
 //    a tile both ways, along its rows (ldmatrix) and down its columns (4-byte
-//    loads), from distinct banks.  At N 128 in fp32 a stage is 72 KB: two
-//    stages hold a block to one an SM, one stage lets two share an SM; the
-//    wrapper chooses.
+//    loads), from distinct banks.  At N 128 in fp32 a stage is 72 KB, so the
+//    two stages hold a block to one an SM (on the card this beat two blocks
+//    an SM with one stage each, which spilled).
 //  * The decay factors L of the scores are exp2 of differences of the cumsum,
 //    which one warp keeps in log2 units.
 //  * x, dt, B and C are read in the model's own layouts through strides; head h
@@ -74,7 +74,7 @@ constexpr int Q = 64;         // rows of a sub-chunk
 constexpr int PS = 32;        // columns of P a block owns
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_STAGES = 2;
+constexpr int STAGES = 2;     // sub-chunks in the staging ring
 constexpr int LDSC = Q + 4;   // row stride (floats) of the score tile
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -116,8 +116,7 @@ __device__ __forceinline__ void ldsm4(uint32_t addr, float (&r)[4]) {
 }
 
 // fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: the
-// result of cvt.rna.tf32.f32 for finite values, in two integer operations (the
-// conversion instruction cost a third of the kernel's time on the card)
+// result of cvt.rna.tf32.f32 for finite values, in two integer operations
 __device__ __forceinline__ uint32_t tf32_rna(float a) {
   return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
 }
@@ -303,8 +302,8 @@ struct Staged {
   }
 };
 
-// Shared memory of a block (bytes) for input type T, state size N, `stages`.
-template <typename T, int N, int STAGES>
+// Shared memory of a block (bytes) for input type T and state size N.
+template <typename T, int N>
 struct Smem {
   using SB = Staged<T, N>;
   using SX = Staged<T, PS>;
@@ -330,8 +329,8 @@ struct Smem {
 
 // grid = (P / PS, H, B).  y is contiguous (B, S, H, P); init and final_state
 // are contiguous (B, H, P, N).
-template <typename T, int N, int STAGES>
-__global__ void __launch_bounds__(THREADS, STAGES == 1 ? 2 : 1)
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS, 1)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ init,
@@ -339,7 +338,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 int P, long long x_sb, long long x_ss, long long x_sh, long long dt_sb,
                 long long dt_ss, long long dt_sh, long long b_sb, long long b_ss,
                 long long b_sg, long long c_sb, long long c_ss, long long c_sg) {
-  using L = Smem<T, N, STAGES>;
+  using L = Smem<T, N>;
   using TN = FTile<N>;
   using TX = FTile<PS>;
   constexpr int LDST = L::LDST;
@@ -497,9 +496,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       scores_mma<N, 4>(cs, bs, ga_row, gb_row, mi, gacc, gcor);
     else
       scores_mma<N, 2>(cs, bs, ga_row, gb_row, mi, gacc2, gcor2);
-    // with two stages the next sub-chunk is requested here, by the warps that
-    // carry the lighter half of C B^T, into the stage that c - 1 has freed
-    if (STAGES == 2 && warp >= 2 && c + 1 < n_sub) issue(c + 1, tid - 64, THREADS - 64);
+    // the next sub-chunk is requested here, by the warps that carry the
+    // lighter half of C B^T, into the stage that c - 1 has freed
+    if (warp >= 2 && c + 1 < n_sub) issue(c + 1, tid - 64, THREADS - 64);
 
     // 3. C state^T with the state of the rows before this sub-chunk
     float yoff[2][4], yoff_c[2][4], yin[2][4], yin_c[2][4];
@@ -593,7 +592,6 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         }
     }
     __syncthreads();  // the next sub-chunk overwrites this stage, the scores and the state
-    if (STAGES == 1 && c + 1 < n_sub) issue(c + 1, tid, THREADS);
   }
 
   if (state_warp) {
@@ -608,50 +606,38 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int N, int STAGES>
+template <typename T, int N>
 int launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
            const float* init, void* y, float* final_state, int B, int S, int H, int G,
            int P, const long long* st, cudaStream_t stream) {
-  constexpr int smem = Smem<T, N, STAGES>::BYTES;
+  constexpr int smem = Smem<T, N>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, N, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(P / PS, H, B);
-  ssd_scan_kernel<T, N, STAGES><<<grid, THREADS, smem, stream>>>(
+  ssd_scan_kernel<T, N><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       init, static_cast<T*>(y), final_state, S, H, G, P, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int STAGES>
+template <typename T>
 int launch_n(int N, const void* x, const float* dt, const float* A, const void* Bm,
              const void* Cm, const float* init, void* y, float* final_state, int B, int S,
              int H, int G, int P, const long long* st, cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch<T, 16, STAGES>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
+      return launch<T, 16>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
     case 32:
-      return launch<T, 32, STAGES>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
+      return launch<T, 32>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
     case 64:
-      return launch<T, 64, STAGES>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
+      return launch<T, 64>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
     case 128:
-      return launch<T, 128, STAGES>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
+      return launch<T, 128>(x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
     default:
       return -1;
   }
-}
-
-template <typename T>
-int launch_stages(int stages, int N, const void* x, const float* dt, const float* A,
-                  const void* Bm, const void* Cm, const float* init, void* y,
-                  float* final_state, int B, int S, int H, int G, int P, const long long* st,
-                  cudaStream_t stream) {
-  if (stages == 1)
-    return launch_n<T, 1>(N, x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
-  if (stages == 2)
-    return launch_n<T, 2>(N, x, dt, A, Bm, Cm, init, y, final_state, B, S, H, G, P, st, stream);
-  return -1;
 }
 
 }  // namespace
@@ -659,26 +645,23 @@ int launch_stages(int stages, int N, const void* x, const float* dt, const float
 // dtype of x, B, C and y: 0 = bf16, 1 = fp32; dt and A are fp32.  `strides` (in
 // elements): batch, row and head strides of x, then of dt, then batch, row and
 // group strides of B and of C; the last dimension of x, B and C has stride 1,
-// and their rows start on 16 bytes.  `init` may be null (zeros).  `stages` (1
-// to MAX_STAGES) is the depth of the staging ring.  Returns 0, a cudaError_t of
-// the launch, or -1 for arguments the kernel does not take.
+// and their rows start on 16 bytes.  `init` may be null (zeros).  Returns 0, a
+// cudaError_t of the launch, or -1 for arguments the kernel does not take.
 extern "C" int dco_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* init, void* y, void* final_state,
-                            int dtype, int B, int S, int H, int G, int P, int N, int stages,
+                            int dtype, int B, int S, int H, int G, int P, int N,
                             const long long* strides, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -1;
   if (P <= 0 || P % PS != 0 || B > 65535 || H > 65535) return -1;
-  if (stages < 1 || stages > MAX_STAGES) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(A);
   const float* in = static_cast<const float*>(init);
   float* fs = static_cast<float*>(final_state);
   if (dtype == 0)
-    return launch_stages<__nv_bfloat16>(stages, N, x, dtf, af, Bm, Cm, in, y, fs, B, S, H,
-                                        G, P, strides, s);
+    return launch_n<__nv_bfloat16>(N, x, dtf, af, Bm, Cm, in, y, fs, B, S, H, G, P,
+                                   strides, s);
   if (dtype == 1)
-    return launch_stages<float>(stages, N, x, dtf, af, Bm, Cm, in, y, fs, B, S, H, G, P,
-                                strides, s);
+    return launch_n<float>(N, x, dtf, af, Bm, Cm, in, y, fs, B, S, H, G, P, strides, s);
   return -1;
 }

@@ -9,8 +9,9 @@ time, and a failed build raises: there is no quiet switch to the plain
 versions.
 
 ``build(csrc=...)`` builds another directory of sources the same way into a
-library of its own (``chip_smoke.py --baseline`` times an earlier tree's
-kernels with it); ``load()`` only ever loads this package's own.
+library of its own (``scripts/kernel_compare.py`` times an earlier tree's
+kernels with it, ``scripts/kernel_timeline.py`` instrumented copies);
+``load()`` only ever loads this package's own.
 """
 
 from __future__ import annotations

@@ -19,13 +19,15 @@ from .ref import decode_attention_ref
 LAUNCHES = [0]                 # kernel launches made by this wrapper
 STEP_ROWS = 32                 # rows a block scores a step (csrc: STEP_ROWS)
 MAX_HPB = 4                    # query heads a block at most (csrc: MAX_HPB)
-BLOCKS_PER_SM = 3              # resident blocks an SM (csrc: BLOCKS_PER_SM)
+BLOCKS_PER_SM = 3              # blocks an SM can hold (csrc: BLOCKS_PER_SM)
 MAX_UNITS = 1024               # units a sequence at most (csrc: MAX_UNITS)
-ROWS_PER_SPLIT = 128           # rows of one work unit on the main path
-MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per device
+MIN_ROWS = 128                 # the least R chosen per call (csrc: MIN_ROWS)
+ITEMS_PER_SM = 2               # work items an SM a chosen R aims at (csrc: ITEMS_PER_SM)
+MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per stream
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
-_counters: Dict[torch.device, torch.Tensor] = {}
+# merge counters of each (device, stream); zeroed once, when allocated
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _retired: List[torch.Tensor] = []   # outgrown counters: a captured graph may hold them
 
 
@@ -33,7 +35,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = load().dco_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -49,73 +51,106 @@ def heads_per_block(group: int) -> int:
     return next(d for d in range(MAX_HPB, 0, -1) if group % d == 0)
 
 
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
 class DecodePlan(NamedTuple):
-    """How the kernel cuts one call into work items, from shapes alone (the
-    host never reads ``cache_len``).  An item is a unit of ``rows`` cache rows
-    of one (batch row, head block); a 1-D grid of ``blocks`` blocks walks the
-    items in order, block i taking items i, i + blocks, ..."""
-    rows: int            # R: cache rows of one unit
+    """How the kernel cuts one call into work items.  The grid, scratch and
+    counters follow from shapes alone (the host never reads ``cache_len``);
+    the rows R of a unit are fixed by the caller or chosen on the device from
+    the call's lengths (``rows_for``, as csrc's rows_for).  A sequence of
+    ``n`` rows is cut evenly into ceil(n / R) units of a multiple of
+    STEP_ROWS rows (at most R) of one (batch row, head block), each a work
+    item; a 1-D grid of ``blocks`` blocks walks the items in order, block i
+    taking items i, i + blocks, ..."""
+    fixed_rows: int      # R given by the caller, or 0: chosen per call
+    min_rows: int        # the least R
     capacity: int        # S: rows of the cache; cache_len is clamped to it
-    units: int           # ceil(S / R): units a (batch row, head block) at most
+    units: int           # ceil(S / min_rows): units a (batch row, head block) at most
     hpb: int             # query heads a block
     head_blocks: int     # G * group / hpb
     batch: int
-    blocks: int          # the grid: BLOCKS_PER_SM an SM, or the most items there can be
-    scratch_floats: int  # partial (m, l, acc) of every unit: B * H * units * (D + 2)
+    blocks: int          # the grid: ITEMS_PER_SM an SM, or the most items there can be
+    target: int          # work items a chosen R gives at most: ITEMS_PER_SM an SM
+    scratch_floats: int  # partial (acc, m, l) of every unit: B * H * units * (D + 2)
     counters: int        # one merge counter a (batch row, head block)
-
-    def live_units(self, length: int) -> int:
-        """Units that hold rows below ``length``."""
-        return -(-self._clamp(length) // self.rows)
-
-    def unit_rows(self, unit: int, length: int) -> range:
-        """The cache rows unit ``unit`` reads for a sequence of ``length``."""
-        start = unit * self.rows
-        return range(start, max(start, min(self._clamp(length), start + self.rows)))
 
     def _clamp(self, length: int) -> int:
         return max(0, min(length, self.capacity))
 
-    def merges(self, length: int) -> bool:
+    def rows_for(self, lengths: Sequence[int]) -> int:
+        """R for a call at ``lengths``: the caller's, or the least multiple of
+        STEP_ROWS (at least ``min_rows``, at most S rounded up) that gives at
+        most ``target`` items."""
+        if self.fixed_rows:
+            return self.fixed_rows
+        whole = _round_up(self.capacity, STEP_ROWS)
+        total = sum(self._clamp(n) for n in lengths)
+        spare = self.target - self.head_blocks * self.batch
+        r = whole
+        if spare > 0:
+            r = _round_up(-(-self.head_blocks * total // spare), STEP_ROWS)
+        return max(min(r, whole), self.min_rows)
+
+    def live_units(self, length: int, rows: int) -> int:
+        """Units of ``rows`` rows that hold rows below ``length``."""
+        return -(-self._clamp(length) // rows)
+
+    def unit_rows(self, unit: int, length: int, rows: int) -> range:
+        """The cache rows unit ``unit`` reads for a sequence of ``length``:
+        its rows cut evenly into ``live_units`` units of a multiple of
+        STEP_ROWS rows."""
+        n = self._clamp(length)
+        even = _round_up(-(-n // max(self.live_units(length, rows), 1)), STEP_ROWS)
+        start = unit * even
+        return range(start, max(start, min(n, start + even)))
+
+    def merges(self, length: int, rows: int) -> bool:
         """Whether the last unit to finish merges partials (more than one
         live unit), rather than the one unit writing ``out`` itself."""
-        return self.live_units(length) > 1
+        return self.live_units(length, rows) > 1
 
     def items(self, lengths: Sequence[int]) -> List[Tuple[int, int, int]]:
         """(batch row, head block, unit) of every work item, in the kernel's
         order: a row with cache_len 0 has one item (it writes zeros)."""
+        rows = self.rows_for(lengths)
         return [(b, hb, u) for b, n in enumerate(lengths)
                 for hb in range(self.head_blocks)
-                for u in range(max(self.live_units(n), 1))]
+                for u in range(max(self.live_units(n, rows), 1))]
 
 
 def decode_plan(b: int, s: int, h: int, g: int, d: int,
                 rows_per_split: Optional[int] = None, sm_count: int = 132) -> DecodePlan:
-    rows = ROWS_PER_SPLIT if rows_per_split is None else rows_per_split
-    if rows <= 0 or rows % STEP_ROWS:
+    if rows_per_split is not None and (rows_per_split <= 0 or rows_per_split % STEP_ROWS):
         raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
-                         f"got {rows}")
+                         f"got {rows_per_split}")
+    min_rows = rows_per_split or max(MIN_ROWS, _round_up(-(-s // MAX_UNITS), STEP_ROWS))
     hpb = heads_per_block(h // g)
-    units = -(-s // rows)
+    units = -(-s // min_rows)
     if units > MAX_UNITS:
-        raise ValueError(f"a cache of {s} rows is {units} units of {rows} rows; the "
+        raise ValueError(f"a cache of {s} rows is {units} units of {min_rows} rows; the "
                          f"kernel merges at most {MAX_UNITS}: raise rows_per_split")
     head_blocks = h // hpb
-    return DecodePlan(rows=rows, capacity=s, units=units, hpb=hpb,
-                      head_blocks=head_blocks, batch=b,
-                      blocks=min(b * head_blocks * units, BLOCKS_PER_SM * sm_count),
+    return DecodePlan(fixed_rows=rows_per_split or 0, min_rows=min_rows, capacity=s,
+                      units=units, hpb=hpb, head_blocks=head_blocks, batch=b,
+                      blocks=min(b * head_blocks * units, ITEMS_PER_SM * sm_count),
+                      target=ITEMS_PER_SM * sm_count,
                       scratch_floats=b * h * units * (d + 2), counters=b * head_blocks)
 
 
-def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """Zeroed ints for the merge counters, kept per device: the kernel sets
-    each counter it used back to 0, so they are zeroed only here, once."""
-    buf = _counters.get(device)
+def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed ints for the merge counters of one (device, stream): the kernel
+    sets each counter it used back to 0, so they are zeroed only here, once.
+    Launches on one stream run one after another; a second stream gets a
+    buffer of its own."""
+    key = (device, stream)
+    buf = _counters.get(key)
     if buf is None or buf.numel() < n:
         if buf is not None:
             _retired.append(buf)
         buf = torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32, device=device)
-        _counters[device] = buf
+        _counters[key] = buf
     return buf
 
 
@@ -137,12 +172,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through its strides (any S >= 1, no transposed copy); cache_len (B,)
     valid lengths, read on the device.  Returns (B, H, D).
 
-    ``rows_per_split`` (a multiple of ``STEP_ROWS``, default
-    ``ROWS_PER_SPLIT``) sets the rows of one work unit; it changes the
-    schedule, not the result.  On a CUDA tensor this launches the kernel (one
-    launch) or raises; on a CPU tensor it computes the plain version.  Calls
-    on one device share its merge counters, so they must not run concurrently
-    on two streams."""
+    ``rows_per_split`` (a multiple of ``STEP_ROWS``) fixes the rows of one
+    work unit, which the kernel otherwise chooses per call from ``cache_len``;
+    it changes the schedule, not the result.  On a CUDA tensor this launches
+    the kernel (one launch) or raises; on a CPU tensor it computes the plain
+    version.  Each (device, stream) has merge counters of its own."""
     _check(q, k, v, cache_len)
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, cache_len, scale=scale)
@@ -169,16 +203,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=q.device)
-    counters = _counter_buffer(q.device, plan.counters)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        counters = _counter_buffer(q.device, stream, plan.counters)
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
-                       _DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.rows,
-                       plan.blocks, float(scale), strides, stream)
+                       _DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.fixed_rows,
+                       plan.min_rows, plan.target, plan.blocks, float(scale), strides,
+                       stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
     LAUNCHES[0] += 1

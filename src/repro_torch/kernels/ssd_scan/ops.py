@@ -15,8 +15,6 @@ LAUNCHES = [0]                 # kernel launches made by this wrapper
 P_SLICE = 32                   # columns of P one block owns (csrc/ssd_scan.cu: PS)
 SUB_CHUNK = 64                 # rows of the kernel's sub-chunk (csrc/ssd_scan.cu: Q)
 D_STATES = (16, 32, 64, 128)   # state sizes N the kernel is compiled for
-RING_STAGES = 2                # sub-chunks in the staging ring on the main path
-MAX_STAGES = 2                 # (csrc/ssd_scan.cu: MAX_STAGES)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
 
@@ -25,7 +23,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = load().dco_ssd_scan
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -50,8 +48,7 @@ def _check(x, dt, A, B, C, chunk, initial_state) -> None:
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
-             initial_state: Optional[torch.Tensor] = None,
-             ring_stages: Optional[int] = None
+             initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD chunked scan.  x (B,S,H,P); dt (B,S,H); A (H,); B/C
     (B,S,G,N); ``initial_state`` (B,H,P,N) or zeros.  Returns (y (B,S,H,P)
@@ -62,15 +59,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     the same result.  x and B/C are read through their strides (head h reads
     group ``h // (H/G)``): no transposed or repeated copy is made; their rows
     must start on 16 bytes (the kernel stages them with 16-byte copies).
-    ``ring_stages`` (1 or 2, default ``RING_STAGES``) is the depth of the
-    kernel's staging ring: a schedule parameter, not a change of result.
 
     On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
     computes the plain version."""
     _check(x, dt, A, B, C, chunk, initial_state)
-    stages = RING_STAGES if ring_stages is None else ring_stages
-    if not 1 <= stages <= MAX_STAGES:
-        raise ValueError(f"ring_stages must be 1 to {MAX_STAGES}, got {stages}")
     if not x.is_cuda:
         y, state = ssd_ref(x, dt, A, B, C, chunk, initial_state=initial_state)
         return y.to(x.dtype), state
@@ -107,7 +99,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         rc = _kernel()(x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), B.data_ptr(),
                        C.data_ptr(), init.data_ptr() if init is not None else None,
                        y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], b, s, h, g, p,
-                       n, stages, strides, stream)
+                       n, strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (code {rc})")
     LAUNCHES[0] += 1

@@ -327,42 +327,56 @@ def test_decode_wrapper_constants_match_the_source():
     assert c["MAX_HPB"] == decode_ops.MAX_HPB
     assert c["BLOCKS_PER_SM"] == decode_ops.BLOCKS_PER_SM
     assert c["MAX_UNITS"] == decode_ops.MAX_UNITS
-    assert decode_ops.ROWS_PER_SPLIT % decode_ops.STEP_ROWS == 0
-    assert 64 <= decode_ops.ROWS_PER_SPLIT <= 128
+    assert c["MIN_ROWS"] == decode_ops.MIN_ROWS == decode_ops.decode_plan(
+        1, 2048, 8, 2, 128).min_rows
+    assert c["ITEMS_PER_SM"] == decode_ops.ITEMS_PER_SM <= decode_ops.BLOCKS_PER_SM
+    assert decode_ops.MIN_ROWS % decode_ops.STEP_ROWS == 0 and c["MERGE_LOADS"] >= 1
 
 
-R = decode_ops.ROWS_PER_SPLIT
+R = 128   # a unit length the edge cases straddle
 
 
 @pytest.mark.parametrize("group", range(1, 9))
 @pytest.mark.parametrize("s", [1, R - 1, R, R + 1, 2048])
 def test_decode_partition_covers_every_live_row_once(s, group):
     """Every row below cache_len lies in exactly one work item, a row of the
-    batch with cache_len 0 has one item (its zeros), and the grid, scratch and
-    counters follow from the shapes alone."""
+    batch with cache_len 0 has one item (its zeros), the grid, scratch and
+    counters follow from the shapes alone, and the rows chosen per call give
+    every block one item at most, whether R is chosen or fixed at R."""
     b, g, d = 3, 2, 128
     h = g * group
-    plan = decode_ops.decode_plan(b, s, h, g, d, sm_count=132)
-    assert plan.rows == R and plan.units == -(-s // R)
-    assert group % plan.hpb == 0 and 1 <= plan.hpb <= decode_ops.MAX_HPB
-    assert plan.hpb == min(group, 4) or group % min(group, 4)
-    assert plan.head_blocks == g * group // plan.hpb
-    assert plan.blocks == min(b * plan.head_blocks * plan.units,
-                              decode_ops.BLOCKS_PER_SM * 132)
-    assert plan.scratch_floats == b * h * plan.units * (d + 2)
-    assert plan.counters == b * plan.head_blocks
     lengths = sorted({0, 1, R - 1, R, R + 1, s - 1, s, s + 5} - {-1})
-    for batch in (lengths[:b], lengths[-b:], [0] * b):
-        items = plan.items(batch)
-        assert len(items) <= b * plan.head_blocks * plan.units
-        for bi, length in enumerate(batch):
-            for hb in range(plan.head_blocks):
-                units = [u for b2, hb2, u in items if (b2, hb2) == (bi, hb)]
-                assert units == list(range(max(plan.live_units(length), 1)))
-                seen = [r for u in units for r in plan.unit_rows(u, length)]
-                assert seen == list(range(min(length, s)))
-                assert all(len(plan.unit_rows(u, length)) <= R for u in units)
-                assert plan.merges(length) == (len(units) > 1)
+    for sms in (132, 2):
+        for fixed in (None, R):
+            plan = decode_ops.decode_plan(b, s, h, g, d, fixed, sm_count=sms)
+            step = decode_ops.STEP_ROWS
+            assert plan.min_rows == (fixed or decode_ops.MIN_ROWS)
+            assert plan.units == -(-s // plan.min_rows)
+            assert group % plan.hpb == 0 and 1 <= plan.hpb <= decode_ops.MAX_HPB
+            assert plan.hpb == min(group, 4) or group % min(group, 4)
+            assert plan.head_blocks == g * group // plan.hpb
+            assert plan.blocks == min(b * plan.head_blocks * plan.units,
+                                      decode_ops.ITEMS_PER_SM * sms)
+            assert plan.scratch_floats == b * h * plan.units * (d + 2)
+            assert plan.counters == b * plan.head_blocks
+            assert plan.target == decode_ops.ITEMS_PER_SM * sms
+            for batch in (lengths[:b], lengths[-b:], [0] * b):
+                rows = plan.rows_for(batch)
+                assert rows % step == 0 and rows >= plan.min_rows
+                assert fixed is None or rows == fixed
+                items = plan.items(batch)
+                assert len(items) <= b * plan.head_blocks * plan.units
+                if fixed is None and plan.target > b * plan.head_blocks:
+                    assert len(items) <= plan.target              # the SMs evenly loaded
+                for bi, length in enumerate(batch):
+                    for hb in range(plan.head_blocks):
+                        units = [u for b2, hb2, u in items if (b2, hb2) == (bi, hb)]
+                        assert units == list(range(max(plan.live_units(length, rows), 1)))
+                        seen = [r for u in units for r in plan.unit_rows(u, length, rows)]
+                        assert seen == list(range(min(length, s)))
+                        assert all(len(plan.unit_rows(u, length, rows)) <= rows
+                                   for u in units)
+                        assert plan.merges(length, rows) == (len(units) > 1)
 
 
 def test_decode_rows_per_split_must_be_whole_steps():
@@ -373,9 +387,12 @@ def test_decode_rows_per_split_must_be_whole_steps():
     assert decode_ops.decode_plan(1, 256, 8, 2, 128, 512).units == 1
     with pytest.raises(ValueError, match="units"):
         decode_ops.decode_plan(1, 32 * decode_ops.MAX_UNITS + 1, 8, 2, 128, 32)
+    # R chosen per call: its least value grows with S to keep the units bounded
+    big = decode_ops.decode_plan(1, 128 * decode_ops.MAX_UNITS + 1, 8, 2, 128)
+    assert big.min_rows == 160 and big.units <= decode_ops.MAX_UNITS
 
 
-def emulate_decode(q, k, v, cache_len, rows_per_split=None):
+def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
     """The kernel's arithmetic in torch: per work item (a unit of rows), 16
     lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group)
     in log2 units with one max and one rescale a step; lane groups merged into
@@ -384,12 +401,13 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None):
     2^(m_i - M) / max(sum_i l_i 2^(m_i - M), 1e-30)."""
     b, h, d = q.shape
     _, s, g, _ = k.shape
-    plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split)
+    plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split, sm_count)
     step, lanes, hpb = decode_ops.STEP_ROWS, 16, plan.hpb
     neg = torch.tensor(-1e30)
     qf = q.float() * (1.0 / d ** 0.5) * 1.4426950408889634
     out = torch.zeros((b, h, d), dtype=torch.float32)
     lens = [int(n) for n in cache_len]
+    rows_per_unit = plan.rows_for(lens)
 
     def combine(m, den, acc, dim):
         mx = m.amax(dim=dim, keepdim=True)
@@ -402,7 +420,7 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None):
         heads = slice(hb * hpb, (hb + 1) * hpb)
         if lens[bi] == 0:
             continue                                              # zeros
-        rows = plan.unit_rows(u, lens[bi])
+        rows = plan.unit_rows(u, lens[bi], rows_per_unit)
         m = torch.full((lanes, hpb), -1e30)
         den = torch.zeros((lanes, hpb))
         acc = torch.zeros((lanes, hpb, d))
@@ -460,3 +478,27 @@ def test_decode_partial_merge_matches_plain_and_jax(lens, rows, dtype):
     live = np.asarray(lens) > 0
     np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
     assert not got[~live].any()
+
+
+@pytest.mark.parametrize("sm_count,lens", [
+    (24, [300, 300, 300, 300, 300]),     # R 224: two units of 160 rows a sequence
+    (8, [300, 12, 0, 299, 64]),          # no block to spare: one unit each
+])
+def test_decode_rows_chosen_per_call_match_plain_and_jax(sm_count, lens):
+    """Units longer than one step, as a call with more rows than blocks gets
+    them, emulated on the CPU against the plain version and the JAX oracle."""
+    rng = np.random.default_rng(13)
+    b, s, h, g, d = 5, 300, 12, 4, 64
+    jq, tq = both(rng, (b, h, d), "float32")
+    jk, tk = both(rng, (b, s, g, d), "float32")
+    jv, tv = both(rng, (b, s, g, d), "float32")
+    plan = decode_ops.decode_plan(b, s, h, g, d, sm_count=sm_count)
+    assert plan.rows_for(lens) > decode_ops.STEP_ROWS
+    cl = torch.tensor(lens, dtype=torch.int32)
+    got = f32(emulate_decode(tq, tk, tv, cl, sm_count=sm_count))
+    np.testing.assert_allclose(got, f32(decode_attention_ref(tq, tk, tv, cl)),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+    oracle = f32(jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens, jnp.int32)))
+    live = np.asarray(lens) > 0
+    np.testing.assert_allclose(got[live], oracle[live], rtol=TOL["float32"],
+                               atol=TOL["float32"])

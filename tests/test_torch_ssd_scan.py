@@ -163,8 +163,6 @@ def test_ssd_scan_reads_strided_views():
 
 def test_ssd_scan_rejects_what_the_reference_rejects():
     _, (x, dt, A, B, C), _ = inputs(10, 1, 40, 4, 1, 32, 16)
-    with pytest.raises(ValueError, match="ring_stages"):
-        ssd_scan(x, dt, A, B, C, chunk=40, ring_stages=3)
     with pytest.raises(ValueError, match="chunk-aligned.*40.*chunk 32"):
         ssd_scan(x, dt, A, B, C, chunk=32)
     with pytest.raises(ValueError, match="n_groups"):
@@ -190,8 +188,6 @@ def test_wrapper_limits_match_the_kernel_source():
     src = next(p for p in build.sources() if p.name == "ssd_scan.cu").read_text()
     assert f"constexpr int PS = {ssd_ops.P_SLICE};" in src
     assert f"constexpr int Q = {ssd_ops.SUB_CHUNK};" in src
-    assert f"constexpr int MAX_STAGES = {ssd_ops.MAX_STAGES};" in src
-    assert 1 <= ssd_ops.RING_STAGES <= ssd_ops.MAX_STAGES
     for n in ssd_ops.D_STATES:
         assert f"case {n}:" in src
 
