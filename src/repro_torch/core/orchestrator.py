@@ -164,14 +164,26 @@ class CacheOrchestrator:
 H100_SMEM_PER_BLOCK = 232448      # bytes of dynamic shared memory a block may take
 FLASH_TILE_ROWS = 64              # KV-tile rows of the flash kernel (and the fp32 Q tile)
 FLASH_STAGES = 2                  # bf16: streamed K/V tiles in the kernel's ring
+FLASH_ROW_ALIGN = 128             # bf16: bytes a staged row is rounded up to (row_bytes)
 
 
 def flash_smem_row_words(head_dim: int, itemsize: int) -> int:
     """32-bit words one staged Q/K/V row takes in the flash kernel's shared
-    memory.  bf16: the row's data alone (16-byte chunks XOR-swizzled by
-    row, no pad).  fp32: the data plus one pad word (odd stride: no bank
-    conflicts when 16 lanes read 16 consecutive rows)."""
-    return head_dim * itemsize // 4 + (itemsize != 2)
+    memory.  bf16: the row's data rounded up to ``FLASH_ROW_ALIGN`` bytes
+    (16-byte chunks XOR-swizzled by row inside it; no pad at head_dim 64 and
+    128, 224 bytes staged at 256 at head_dim 112).  fp32: the data plus one
+    pad word (odd stride: no bank conflicts when 16 lanes read 16
+    consecutive rows)."""
+    if itemsize == 2:
+        return -(-2 * head_dim // FLASH_ROW_ALIGN) * FLASH_ROW_ALIGN // 4
+    return head_dim * itemsize // 4 + 1
+
+
+def flash_kv_row_bytes(head_dim: int, itemsize: int) -> int:
+    """Shared-memory bytes one pinned KV position takes (its K row and its V
+    row as the kernel stages them): the ``bytes_per_row`` to hand
+    ``CacheOrchestrator.plan_kv_split``."""
+    return 2 * 4 * flash_smem_row_words(head_dim, itemsize)
 
 
 def flash_smem_work_bytes(head_dim: int, itemsize: int) -> int:
@@ -199,10 +211,9 @@ def hopper_pin_budget_bytes(head_dim: int, itemsize: int) -> int:
     """Bytes of an H100 block's shared memory that the flash kernel keeps
     for the pinned KV prefix: what is left of the 227 KB a block may take
     after the kernel's working tiles.  Hand it to
-    ``CacheOrchestrator(vmem_budget_bytes=...)``: the planner's 1/8
-    reserve covers the one pad word per staged fp32 row, and a bf16 prefix
-    that is the whole KV length (at most 285 rows at head_dim 128, 682 at
-    64) still fits once rounded up to whole tiles, so every split it
-    returns for ``bytes_per_row = 2 * head_dim * itemsize`` fits the
-    kernel."""
+    ``CacheOrchestrator(vmem_budget_bytes=...)`` with ``bytes_per_row =
+    flash_kv_row_bytes(head_dim, itemsize)``: a prefix that is the whole KV
+    length (at most 285 rows at head_dim 112 and 128, 682 at 64, in bf16)
+    still fits once rounded up to whole tiles, and every split the planner
+    returns fits the kernel."""
     return H100_SMEM_PER_BLOCK - flash_smem_work_bytes(head_dim, itemsize)

@@ -60,6 +60,11 @@
 //    in flight a thread.
 //  * A block merges its 16 lane groups with warp shuffles and one small
 //    shared-memory array per warp.
+//  * Head sizes 64, 112 and 128.  At D 112 (zamba2-7b) a row is 14 chunks of
+//    bf16 (28 of fp32), which 8 lanes do not share evenly: lanes 0-5 (0-3)
+//    own one chunk more than the others, and a chunk a lane does not own is
+//    never copied, never read and counts zero in its q (Ring::TAIL), so the
+//    ring, the 3-shuffle reduction and the merge keep one shape for all D.
 //  * K/V are read in the cache's own (B, S, G, D) layout through strides: no
 //    transposed copy of the cache is ever made.  `group` is below any
 //    tensor-core tile height, so the products are fp32 multiply-adds.
@@ -138,11 +143,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A row's 16-byte chunks are dealt to the 8 lanes of a lane group: lane l
+// owns chunks l, l + 8, ... below ROW_CHUNKS.  Where 8 does not divide
+// ROW_CHUNKS (D 112: 14 chunks of bf16, 28 of fp32) only the first TAIL lanes
+// own a last chunk; the others never copy or read it, and their q holds zeros
+// there, so the 3-shuffle reduction over the 8 lanes stays as it is.
 template <typename T, int D>
 struct Ring {
   static constexpr int VEC = Vec<T>::N;
-  static constexpr int NCH = D / (VEC * LANES_PER_ROW);  // 16-byte chunks of a row a lane owns
+  static constexpr int ROW_CHUNKS = D / VEC;              // 16-byte chunks of a row
+  static constexpr int NCH =                              // chunks a lane owns, at most
+      (ROW_CHUNKS + LANES_PER_ROW - 1) / LANES_PER_ROW;
+  static constexpr int TAIL = ROW_CHUNKS - (NCH - 1) * LANES_PER_ROW;  // lanes owning NCH
   static constexpr int EPL = NCH * VEC;                   // elements of a row a lane owns
+  static_assert(D % VEC == 0, "rows of whole 16-byte chunks");
   static constexpr int CHUNKS = ROWS_PER_GROUP * 2 * NCH;  // a lane's chunks of K and V a step
   static constexpr int STEP_BYTES = CHUNKS * THREADS * 16;
   static constexpr int STAGES =
@@ -231,6 +245,11 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
   const int sub = tid % LANES_PER_ROW;
   const int rgrp = tid / LANES_PER_ROW;
 
+  // chunk c of a row is this lane's (always, but the last where 8 lanes do
+  // not divide the row's chunks)
+  const bool owns_last = sub < L::TAIL;
+  auto owns = [&](int c) { return c + 1 < NCH || owns_last; };
+
   const T* kb = a.k + b * a.k_sb + g * a.k_sg;
   const T* vb = a.v + b * a.v_sb + g * a.v_sg;
   const int n_steps = (end - start + STEP_ROWS - 1) / STEP_ROWS;
@@ -247,6 +266,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
       const T* vp = vb + (long long)(ok ? row : start) * a.v_ss;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
+        if (!owns(c)) continue;
         const int col = (sub + c * LANES_PER_ROW) * VEC;
         const int ck = (stage * L::CHUNKS + (2 * r) * NCH + c) * THREADS + tid;
         const int cv = (stage * L::CHUNKS + (2 * r + 1) * NCH + c) * THREADS + tid;
@@ -263,7 +283,9 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
     const T* qp = a.q + b * a.q_sb + (long long)(h0 + hh) * a.q_sh;
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-      qraw[hh][c] = *reinterpret_cast<const uint4*>(qp + (sub + c * LANES_PER_ROW) * VEC);
+      qraw[hh][c] = owns(c) ? *reinterpret_cast<const uint4*>(
+                                  qp + (sub + c * LANES_PER_ROW) * VEC)
+                            : make_uint4(0u, 0u, 0u, 0u);
   }
   asm volatile("" ::: "memory");
 
@@ -307,6 +329,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
       for (int hh = 0; hh < HPB; ++hh) s[r][hh] = 0.f;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
+        if (!owns(c)) continue;
         float kf[VEC];
         Vec<T>::widen(st[((2 * r) * NCH + c) * THREADS], kf);
 #pragma unroll
@@ -347,6 +370,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
     for (int r = 0; r < ROWS_PER_GROUP; ++r) {
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
+        if (!owns(c)) continue;
         float vf[VEC];
         Vec<T>::widen(st[((2 * r + 1) * NCH + c) * THREADS], vf);
 #pragma unroll
@@ -383,9 +407,10 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
       }
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
+        if (owns(c))
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          sm_acc[warp][hh][(sub + c * LANES_PER_ROW) * VEC + e] = acc[hh][c * VEC + e];
+          for (int e = 0; e < VEC; ++e)
+            sm_acc[warp][hh][(sub + c * LANES_PER_ROW) * VEC + e] = acc[hh][c * VEC + e];
     }
   }
   __syncthreads();
@@ -604,6 +629,7 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
   a.v_ss = st[6];
   a.v_sg = st[7];
   if (D == 128) return launch_hpb<T, 128>(hpb, a, blocks, stream);
+  if (D == 112) return launch_hpb<T, 112>(hpb, a, blocks, stream);
   if (D == 64) return launch_hpb<T, 64>(hpb, a, blocks, stream);
   return -1;
 }

@@ -36,8 +36,12 @@
 //    heads.  Each K/V tile reaches shared memory once per Q tile and pass, not
 //    once per head.
 //  * Asynchronous copies.  cp.async moves 16 bytes a lane into rows kept with
-//    an XOR swizzle of their 16-byte chunks (chunk ^ row % 8, no pad word), so
-//    that ldmatrix reads 8 rows of one chunk from 8 distinct bank groups.
+//    an XOR swizzle of their 16-byte chunks (chunk ^ row % 8), so that
+//    ldmatrix reads 8 rows of one chunk from 8 distinct bank groups.  A row
+//    takes 2 * D bytes rounded up to 128 (row_bytes): no pad at D 64 and 128;
+//    at D 112 (zamba2-7b) its 14 chunks sit in 16 slots, the swizzle stays
+//    inside the row, and the two spare slots are never copied or read (7
+//    QK^T steps and 14 output column blocks, nothing computed on padding).
 //    Streamed tiles go through a ring of STAGES tiles: tile t + 1 loads while
 //    tile t computes.  Q is staged through the ring before the KV loop and
 //    needs no buffer of its own.  The pinned prefix is staged once, with the
@@ -128,6 +132,7 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
   constexpr int WPR = D / EPW;  // words of one row
   constexpr int LD = WPR + 1;   // padded row stride in shared memory
   constexpr int NJ = WPR / 16;  // output words a thread owns in each row
+  static_assert(WPR % 16 == 0, "16 lanes share a row's words evenly");
 
   extern __shared__ uint32_t smem[];
   uint32_t* pinK = smem;
@@ -381,6 +386,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// Bytes of a staged bf16 row: 2 * D rounded up to 128, so that a row holds
+// whole groups of eight 16-byte slots and the swizzle below stays inside it.
+// D 112 (224 bytes) is staged at 256: slots 14 and 15 of a row are never
+// copied or read, and no arithmetic runs on them.
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  return (2 * D + 127) / 128 * 128;
+}
+
 // Byte offset of 16-byte chunk c of row r in swizzled rows of ROWB bytes.
 template <int ROWB>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -397,7 +411,7 @@ __device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src, long l
     const int r = i / CPR;
     const int c = i % CPR;
     const bool ok = r < nvalid;
-    cp_async16(dst + swz<2 * D>(r, c), src + (ok ? r * stride + c * 8 : 0), ok);
+    cp_async16(dst + swz<row_bytes<D>()>(r, c), src + (ok ? r * stride + c * 8 : 0), ok);
   }
 }
 
@@ -418,10 +432,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long k_sb, long long k_ss, long long k_sg, long long v_sb,
                  long long v_ss, long long v_sg, long long o_sb, long long o_ss,
                  long long o_sh) {
-  constexpr int ROWB = 2 * D;       // bytes of a staged row
+  constexpr int ROWB = row_bytes<D>();  // bytes of a staged row
   constexpr int TILEB = BK * ROWB;  // bytes of a staged K or V tile
   constexpr int KS = D / 16;        // 16-deep steps of Q K^T
   constexpr int NO = D / 8;         // 8-wide column blocks of O
+  static_assert(D % 16 == 0 && ROWB % 128 == 0 && ROWB >= 2 * D, "row layout");
 
   extern __shared__ __align__(128) unsigned char smem_mma[];
   const int pin_alloc = (pinned_rows + BK - 1) / BK * BK;
@@ -656,7 +671,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   int wph = 4;
   while (wph > 1 && hp * wph > MAX_WARPS) wph >>= 1;
   const long long pin_alloc = (pinned_rows + BK - 1) / BK * BK;
-  const long long smem = 2ll * pin_alloc * 2 * D + STAGES * 2ll * BK * 2 * D;
+  const long long smem = (2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>();
   if (smem > SMEM_LIMIT) return -2;
   for (int i = 0; i < 12; ++i)
     if (st[i] % 8 != 0) return -1;  // 16-byte rows for the 16-byte copies
@@ -697,10 +712,14 @@ extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 128)
     return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+  if (dtype == 0 && D == 112)
+    return launch_mma<112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
   if (dtype == 0 && D == 64)
     return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
   if (dtype == 1 && D == 128)
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+  if (dtype == 1 && D == 112)
+    return launch<float, 112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
   if (dtype == 1 && D == 64)
     return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
   return -1;

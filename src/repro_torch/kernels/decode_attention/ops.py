@@ -24,6 +24,8 @@ MAX_UNITS = 1024               # units a sequence at most (csrc: MAX_UNITS)
 MIN_ROWS = 128                 # the least R chosen per call (csrc: MIN_ROWS)
 ITEMS_PER_SM = 2               # work items an SM a chosen R aims at (csrc: ITEMS_PER_SM)
 MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per stream
+HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
+LANES_PER_ROW = 8              # lanes that share a row's chunks (csrc: LANES_PER_ROW)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
 # merge counters of each (device, stream); zeroed once, when allocated
@@ -49,6 +51,16 @@ def heads_per_block(group: int) -> int:
     if group <= MAX_HPB:
         return group
     return next(d for d in range(MAX_HPB, 0, -1) if group % d == 0)
+
+
+def lane_chunks(d: int, itemsize: int) -> List[List[int]]:
+    """The 16-byte chunks of a K/V row (and of q) that each of the
+    ``LANES_PER_ROW`` lanes of a lane group copies and reads, as the kernel's
+    ``Ring`` deals them: lane l owns chunks l, l + 8, ... of the row's
+    ``d * itemsize / 16``.  At head_dim 112 the last chunk of a lane exists
+    for some lanes only; every chunk of the row has exactly one owner."""
+    row_chunks = d * itemsize // 16
+    return [list(range(lane, row_chunks, LANES_PER_ROW)) for lane in range(LANES_PER_ROW)]
 
 
 def _round_up(x: int, to: int) -> int:
@@ -185,8 +197,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("decode_attention kernel takes bf16 or fp32, one type "
                         f"for q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"decode_attention kernel takes head_dim 64 or 128, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if k.device != q.device or v.device != q.device or cache_len.device != q.device:
         raise ValueError("q, k, v and cache_len must lie on one device")
     vec = 16 // q.element_size()

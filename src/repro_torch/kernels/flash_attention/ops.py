@@ -16,6 +16,7 @@ from .ref import attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
+HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
 
@@ -118,8 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if softcap is not None and softcap <= 0:

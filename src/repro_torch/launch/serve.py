@@ -11,9 +11,10 @@ Examples:
         --full --requests 6 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full
 
 The prompts are 4 to 23 tokens long, which every architecture's SSD chunk
-rule accepts (S <= chunk, so chunk = S).
+rule accepts (S <= chunk, so chunk = S), the hybrid zamba2-7b's too.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Model assembly of the port: init / forward / prefill / decode.
 
 The dense family (llama3.2-3b and the other dense configs without a
-sliding window) and the SSM family (mamba2-2.7b) are ported; the MoE and
-hybrid families raise ``NotImplementedError`` naming the slice that brings
-them.
+sliding window), the SSM family (mamba2-2.7b) and the hybrid family
+(zamba2-7b: groups of Mamba2 layers, each followed by one weight-shared
+attention + MLP block, and a tail of Mamba2 layers) are ported; the MoE
+family raises ``NotImplementedError`` naming the slice that brings it.
 
 Design notes
 ------------
@@ -15,7 +16,9 @@ Design notes
 * **The cache is updated in place.**  ``prefill`` allocates a
   prompt-sized cache and fills it; ``decode_step`` writes one K/V row (dense)
   or the new conv history and SSM state (SSM) into the cache it is given and
-  returns a ``Cache`` that holds the same tensors.
+  returns a ``Cache`` that holds the same tensors.  A hybrid's cache holds
+  K/V for each application of the shared block and conv history and state
+  for each Mamba2 layer.
 * Entry points take an explicit ``device`` (default the card) and raise
   where it is absent; random weights come from an explicit
   ``torch.Generator`` on that device.
@@ -53,12 +56,11 @@ DTYPE = torch.bfloat16
 
 _LATER = {
     MOE: "the MoE family (moe_ffn, expert routing) is a later slice of the port",
-    HYBRID: "the hybrid family (mamba2 groups + shared attention) is a later slice of the port",
 }
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, SSM):
+    if cfg.family not in (DENSE, SSM, HYBRID):
         raise NotImplementedError(_LATER.get(cfg.family, f"unknown family {cfg.family!r}"))
 
 
@@ -108,7 +110,10 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
     """Random parameters in the JAX package's tree layout, made on the device
     of ``generator`` (or of a new generator seeded with ``seed`` on
     ``device``).  SSM layers keep ``a_log`` and ``d_skip`` in fp32, as the
-    JAX package does."""
+    JAX package does.  A hybrid's ``mamba_groups`` leaves are stacked
+    ``(n_groups, hybrid_period, ...)``, ``mamba_tail`` (present when
+    ``hybrid_period`` does not divide ``n_layers``) ``(tail, ...)``, and the
+    shared block's leaves have no layer axis."""
     _require_ported(cfg)
     gen = generator if generator is not None else make_generator(seed, device)
     d, v = cfg.d_model, cfg.vocab
@@ -119,6 +124,17 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
     }
     if cfg.family == SSM:
         params["layers"] = init_mamba2_params(gen, d, cfg.ssm, cfg.n_layers, dtype)
+    elif cfg.family == HYBRID:
+        period = cfg.hybrid_period
+        n_groups = cfg.n_layers // period
+        tail = cfg.n_layers - n_groups * period
+        stacked = init_mamba2_params(gen, d, cfg.ssm, n_groups * period, dtype)
+        params["mamba_groups"] = {k: v.view((n_groups, period) + tuple(v.shape[1:]))
+                                  for k, v in stacked.items()}
+        if tail:
+            params["mamba_tail"] = init_mamba2_params(gen, d, cfg.ssm, tail, dtype)
+        params["shared_attn"] = _layer(_init_attn(gen, cfg, 1, dtype), 0)
+        params["shared_mlp"] = _layer(_init_mlp(gen, cfg, 1, cfg.d_ff, dtype), 0)
     else:
         params["layers"] = {
             "attn": _init_attn(gen, cfg, cfg.n_layers, dtype),
@@ -170,26 +186,75 @@ def forward(params, tokens, cfg: ArchConfig, *,
             input_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, input_embeds)
-    layers = params["layers"]
     if cfg.family == SSM:
         for i in range(cfg.n_layers):
-            y, _ = mamba2_block(_layer(layers, i), x, cfg.ssm)
-            x = x + y
+            x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, None, i)
         return lm_logits(params, x, cfg)
     rope = block_rope_tables(cfg, x.shape[0], x.shape[1], None, x.device)
+    if cfg.family == HYBRID:
+        return lm_logits(params, _hybrid_stack(params, x, cfg, rope=rope,
+                                               positions=positions), cfg)
+    layers = params["layers"]
     for i, fl in enumerate(local_flags(cfg)):
-        a, _ = attention_block(_layer(layers["attn"], i), x, cfg, layer_is_local=fl,
-                               positions=positions, rope=rope)
-        x = x + a
-        x = x + mlp_block(_layer(layers["mlp"], i), x, cfg)
+        x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
+                      layer_is_local=fl, positions=positions, rope=rope)
     return lm_logits(params, x, cfg)
+
+
+def _attn_mlp(attn, mlp, x, cfg: ArchConfig, **attn_kw) -> torch.Tensor:
+    """One transformer block: ``x + attention``, then ``+ mlp``."""
+    a, _ = attention_block(attn, x, cfg, **attn_kw)
+    x = x + a
+    return x + mlp_block(mlp, x, cfg)
+
+
+def _mamba_layer(p, x, cfg: ArchConfig, cache: Optional[Cache], i: int,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mamba2 layer ``i``'s output (to add to ``x``).  With a cache, it runs
+    from that layer's conv history and state and writes the new ones **into
+    the cache's own tensors**, only at batch ``rows`` where given."""
+    if cache is None:
+        return mamba2_block(p, x, cfg.ssm)[0]
+    lc = Mamba2Cache(conv_x=cache.conv_x[i], conv_bc=cache.conv_bc[i], ssm=cache.ssm[i])
+    y, new = mamba2_block(p, x, cfg.ssm, cache=lc)
+    for dst, src in zip(lc, new):
+        if rows is None:
+            dst.copy_(src)
+        else:
+            dst[rows] = src[rows]
+    return y
+
+
+def _hybrid_stack(params, x, cfg: ArchConfig, cache: Optional[Cache] = None,
+                  rows: Optional[torch.Tensor] = None, **attn_kw) -> torch.Tensor:
+    """The reference's ``_hybrid_stack`` / ``_hybrid_prefill`` /
+    ``_hybrid_decode`` in one loop: each group's ``hybrid_period`` Mamba2
+    layers, then the weight-shared attention + MLP block (application ``a``
+    reads and writes K/V slice ``a`` of the cache); the tail's Mamba2 layers
+    after the last group.  Mamba2 layer ``i`` of ``n_layers`` uses conv and
+    state slice ``i``.  ``attn_kw`` go to every ``attention_block`` call."""
+    period = cfg.hybrid_period
+    n_groups = cfg.n_layers // period
+    groups = params["mamba_groups"]
+    tail = params.get("mamba_tail", {})
+    for a in range(n_groups):
+        for j in range(period):
+            p = {k: v[a, j] for k, v in groups.items()}
+            x = x + _mamba_layer(p, x, cfg, cache, a * period + j, rows)
+        kv = None if cache is None else (cache.k[a], cache.v[a])
+        x = _attn_mlp(params["shared_attn"], params["shared_mlp"], x, cfg,
+                      kv_cache=kv, **attn_kw)
+    for j in range(cfg.n_layers - n_groups * period):
+        x = x + _mamba_layer(_layer(tail, j), x, cfg, cache, n_groups * period + j, rows)
+    return x
 
 
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
 class Cache(NamedTuple):
-    """Attention K/V and/or SSM state stacked over layers, and the next
+    """Attention K/V stacked over layers (a hybrid: over applications of the
+    shared block) and/or SSM state stacked over Mamba2 layers, and the next
     position; the fields a family does not use stay ``None``."""
     k: Optional[torch.Tensor] = None          # (L, B, S, G, hd)
     v: Optional[torch.Tensor] = None
@@ -199,49 +264,48 @@ class Cache(NamedTuple):
     pos: int = 0                              # next position (a Python int)
 
 
-def _ssm_cache(cfg: ArchConfig, batch: int, conv_rows: int, device, dtype) -> Cache:
-    """Zero SSM state for ``batch`` sequences, ``conv_rows`` rows of conv
-    history (``d_conv - 1`` except after a prefill of fewer tokens)."""
-    one = init_mamba2_cache(batch, cfg.d_model, cfg.ssm, device=device, dtype=dtype)
-    L = cfg.n_layers
-    return Cache(
-        conv_x=torch.zeros((L, batch, conv_rows) + one.conv_x.shape[2:], dtype=dtype,
-                           device=device),
-        conv_bc=torch.zeros((L, batch, conv_rows) + one.conv_bc.shape[2:], dtype=dtype,
-                            device=device),
-        ssm=torch.zeros((L,) + tuple(one.ssm.shape), dtype=torch.float32, device=device),
-        pos=0)
+def _n_attn_apps(cfg: ArchConfig) -> int:
+    """Entries of the K/V cache's layer axis: one per attention layer, one
+    per application of a hybrid's shared block, none for an SSM."""
+    if cfg.family == HYBRID:
+        return cfg.n_layers // cfg.hybrid_period
+    if cfg.family == SSM:
+        return 0
+    return cfg.n_layers
+
+
+def _empty_cache(cfg: ArchConfig, batch: int, kv_rows: int, conv_rows: int, device,
+                 dtype) -> Cache:
+    """Zero K/V of ``kv_rows`` positions for each attention application and
+    zero SSM state for each Mamba2 layer, as the family has them: fp32 state
+    and ``conv_rows`` rows of conv history (``d_conv - 1`` except after a
+    prefill of fewer tokens)."""
+    cache = Cache()
+    if cfg.family in (SSM, HYBRID):
+        one = init_mamba2_cache(batch, cfg.d_model, cfg.ssm, device=device, dtype=dtype)
+        L = cfg.n_layers
+        cache = Cache(
+            conv_x=torch.zeros((L, batch, conv_rows) + one.conv_x.shape[2:], dtype=dtype,
+                               device=device),
+            conv_bc=torch.zeros((L, batch, conv_rows) + one.conv_bc.shape[2:], dtype=dtype,
+                                device=device),
+            ssm=torch.zeros((L,) + tuple(one.ssm.shape), dtype=torch.float32, device=device))
+    n_attn = _n_attn_apps(cfg)
+    if n_attn:
+        shape = (n_attn, batch, kv_rows, cfg.n_kv_heads, cfg.head_dim)
+        cache = cache._replace(k=torch.zeros(shape, dtype=dtype, device=device),
+                               v=torch.zeros(shape, dtype=dtype, device=device))
+    return cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
                dtype=DTYPE) -> Cache:
     """Dense: K/V for ``max_seq`` rows.  SSM: conv history and fp32 state,
-    whose size does not depend on ``max_seq``."""
+    whose size does not depend on ``max_seq``.  Hybrid: both, K/V for each
+    application of the shared block."""
     _require_ported(cfg)
-    dev = require_device(device)
-    if cfg.family == SSM:
-        return _ssm_cache(cfg, batch, cfg.ssm.d_conv - 1, dev, dtype)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return Cache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                 v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
-
-
-def _ssm_layers(params, x, cfg: ArchConfig, cache: Cache,
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run the Mamba2 stack with a cache and write each layer's new conv
-    history and state **into the cache's own tensors**, only at batch ``rows``
-    where given."""
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lc = Mamba2Cache(conv_x=cache.conv_x[i], conv_bc=cache.conv_bc[i], ssm=cache.ssm[i])
-        y, new = mamba2_block(_layer(layers, i), x, cfg.ssm, cache=lc)
-        x = x + y
-        for dst, src in zip(lc, new):
-            if rows is None:
-                dst.copy_(src)
-            else:
-                dst[rows] = src[rows]
-    return x
+    return _empty_cache(cfg, batch, max_seq, cfg.ssm.d_conv - 1 if cfg.ssm else 0,
+                        require_device(device), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +317,10 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     """tokens (B, 1) → (logits (B, 1, V), cache advanced by one position).
 
     Dense: writes K/V at ``cache.pos`` **into the cache's own tensors**.  SSM:
-    writes the new conv history and state into them.  With ``rows`` (batch
-    indices) only those sequences write their cache (dense: and attend over
-    ``cache.pos + 1`` rows); the others keep their cache untouched and their
-    logits mean nothing."""
+    writes the new conv history and state into them.  Hybrid: both.  With
+    ``rows`` (batch indices) only those sequences write their cache (and
+    attend over ``cache.pos + 1`` rows); the others keep their cache
+    untouched and their logits mean nothing."""
     _require_ported(cfg)
     b = tokens.shape[0]
     pos = int(cache.pos)
@@ -265,21 +329,23 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     if rows is not None:
         cache_rows = torch.as_tensor(list(rows), dtype=torch.long, device=x.device)
     if cfg.family == SSM:
-        x = _ssm_layers(params, x, cfg, cache, cache_rows)
+        for i in range(cfg.n_layers):
+            x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i, cache_rows)
         return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
     if rows is not None:
         cache_len = torch.zeros((b,), dtype=torch.int32, device=x.device)
         cache_len[cache_rows] = pos + 1
     else:
         cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    rope = block_rope_tables(cfg, b, 1, pos, x.device)
+    attn = dict(cache_pos=pos, cache_rows=cache_rows, cache_len=cache_len,
+                rope=block_rope_tables(cfg, b, 1, pos, x.device))
+    if cfg.family == HYBRID:
+        x = _hybrid_stack(params, x, cfg, cache, cache_rows, **attn)
+        return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
     layers = params["layers"]
     for i, fl in enumerate(local_flags(cfg)):
-        a, _ = attention_block(_layer(layers["attn"], i), x, cfg, layer_is_local=fl,
-                               kv_cache=(cache.k[i], cache.v[i]), cache_pos=pos,
-                               cache_rows=cache_rows, cache_len=cache_len, rope=rope)
-        x = x + a
-        x = x + mlp_block(_layer(layers["mlp"], i), x, cfg)
+        x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
+                      layer_is_local=fl, kv_cache=(cache.k[i], cache.v[i]), **attn)
     return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
 
 
@@ -291,32 +357,32 @@ def prefill(params, tokens, cfg: ArchConfig, *,
             input_embeds: Optional[torch.Tensor] = None,
             pinned_rows: int = 0) -> Tuple[torch.Tensor, Cache]:
     """Returns (last-token logits (B, V), a new cache sized and filled to S).
-    ``pinned_rows`` is handed to the flash kernel of every layer (dense).
+    ``pinned_rows`` is handed to the flash kernel of every attention call
+    (dense, and each application of a hybrid's shared block).
 
-    SSM: every layer starts from a zero state, as in the reference; its conv
-    history keeps the last ``min(S, d_conv - 1)`` rows of the prompt (all
-    ``d_conv - 1`` for a 1-token prompt, which takes the decode branch)."""
+    SSM and hybrid: every Mamba2 layer starts from a zero state, as in the
+    reference; its conv history keeps the last ``min(S, d_conv - 1)`` rows of
+    the prompt (all ``d_conv - 1`` for a 1-token prompt, which takes the
+    decode branch)."""
     _require_ported(cfg)
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) come with the qwen2-vl slice of the port")
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg, input_embeds)
+    conv = cfg.ssm.d_conv - 1 if cfg.ssm else 0
+    cache = _empty_cache(cfg, b, s, conv if s == 1 else min(s, conv), x.device, x.dtype)
     if cfg.family == SSM:
-        k = cfg.ssm.d_conv - 1
-        cache = _ssm_cache(cfg, b, k if s == 1 else min(s, k), x.device, x.dtype)
-        x = _ssm_layers(params, x, cfg, cache)
+        for i in range(cfg.n_layers):
+            x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i)
         return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-    ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    rope = block_rope_tables(cfg, b, s, 0, x.device)
-    layers = params["layers"]
-    for i, fl in enumerate(local_flags(cfg)):
-        a, _ = attention_block(_layer(layers["attn"], i), x, cfg, layer_is_local=fl,
-                               kv_cache=(ck[i], cv[i]), cache_pos=0,
-                               pinned_rows=pinned_rows, rope=rope)
-        x = x + a
-        x = x + mlp_block(_layer(layers["mlp"], i), x, cfg)
-    logits = lm_logits(params, x[:, -1:], cfg)[:, 0]
-    return logits, Cache(k=ck, v=cv, pos=s)
+    attn = dict(cache_pos=0, pinned_rows=pinned_rows,
+                rope=block_rope_tables(cfg, b, s, 0, x.device))
+    if cfg.family == HYBRID:
+        x = _hybrid_stack(params, x, cfg, cache, **attn)
+    else:
+        layers = params["layers"]
+        for i, fl in enumerate(local_flags(cfg)):
+            x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
+                          layer_is_local=fl, kv_cache=(cache.k[i], cache.v[i]), **attn)
+    return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)

@@ -36,6 +36,7 @@ from ..configs import ArchConfig
 from ..configs import SSM
 from ..core.orchestrator import CacheOrchestrator
 from ..core.orchestrator import FLASH_TILE_ROWS
+from ..core.orchestrator import flash_kv_row_bytes
 from ..core.orchestrator import hopper_pin_budget_bytes
 from ..core.tmu import TMU
 from ..core.tmu import TensorMeta
@@ -79,7 +80,7 @@ class ServeEngine:
         self._orch: Optional[CacheOrchestrator] = None
         if cfg.family != SSM:
             itemsize = torch.empty((), dtype=dtype).element_size()
-            self._kv_row_bytes = 2 * cfg.head_dim * itemsize
+            self._kv_row_bytes = flash_kv_row_bytes(cfg.head_dim, itemsize)
             self._orch = CacheOrchestrator(
                 vmem_budget_bytes=hopper_pin_budget_bytes(cfg.head_dim, itemsize))
         self.decode_calls = 0

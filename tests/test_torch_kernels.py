@@ -67,6 +67,8 @@ FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, None, 128, "float32"),      # pinned prefix
     (1, 384, 384, 2, 2, 128, True, None, 256, "bfloat16"),    # mostly pinned
     (1, 128, 128, 4, 4, 128, True, None, 128, "bfloat16"),    # fully pinned
+    (1, 256, 256, 4, 4, 112, True, None, 128, "float32"),     # zamba2-7b's head size
+    (1, 256, 256, 4, 4, 112, True, None, 256, "bfloat16"),
 ]
 
 
@@ -88,7 +90,8 @@ def test_flash_attention_matches_jax(b, sq, sk, h, g, d, causal, softcap, pinned
     np.testing.assert_allclose(port, pallas, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("s,h,g,d", [(17, 6, 2, 64), (100, 4, 4, 128), (23, 24, 8, 128)])
+@pytest.mark.parametrize("s,h,g,d", [(17, 6, 2, 64), (100, 4, 4, 128), (23, 24, 8, 128),
+                                     (23, 4, 4, 112)])
 def test_flash_attention_ragged_lengths_match_jax_gqa(s, h, g, d):
     """Prompt lengths that are no multiple of any tile (the serving launcher
     draws 4 to 23 tokens): the port takes them, the Pallas wrapper would not,
@@ -108,6 +111,8 @@ DECODE_CASES = [
     (2, 1024, 8, 2, 128, "bfloat16"),
     (2, 512, 4, 1, 64, "float32"),
     (1, 2048, 16, 4, 128, "bfloat16"),
+    (2, 512, 4, 4, 112, "float32"),         # zamba2-7b's head size (MHA)
+    (2, 512, 4, 4, 112, "bfloat16"),
 ]
 
 
@@ -153,12 +158,21 @@ def test_decode_attention_dead_rows_never_counted():
 
 @pytest.mark.parametrize("s,lens", [(333, [333, 1, 200]), (7, [7, 3, 0])])
 def test_decode_attention_ragged_cache_matches_jax_gqa(s, lens):
+    _decode_ragged_matches_jax_gqa(s, lens, 64)
+
+
+@pytest.mark.parametrize("s,lens", [(333, [333, 1, 200]), (7, [7, 3, 0])])
+def test_decode_attention_ragged_cache_at_head_dim_112_matches_jax_gqa(s, lens):
+    _decode_ragged_matches_jax_gqa(s, lens, 112)
+
+
+def _decode_ragged_matches_jax_gqa(s, lens, d):
     """Any cache capacity S >= 1, and cache_len 0 gives zeros (the kernel's
     ``acc / max(l, 1e-30)`` with nothing accumulated)."""
     rng = np.random.default_rng(5)
-    jq, tq = both(rng, (3, 6, 64), "float32")
-    jk, tk = both(rng, (3, s, 2, 64), "float32")
-    jv, tv = both(rng, (3, s, 2, 64), "float32")
+    jq, tq = both(rng, (3, 6, d), "float32")
+    jk, tk = both(rng, (3, s, 2, d), "float32")
+    jv, tv = both(rng, (3, s, 2, d), "float32")
     port = f32(decode_attention(tq, tk, tv, torch.tensor(lens, dtype=torch.int32)))
     qpos = jnp.asarray(lens)[:, None] - 1
     oracle = f32(jax_gqa_attention(jq[:, None], jk, jv, causal=True,
@@ -210,6 +224,30 @@ def test_orchestrated_split_is_consistent():
         np.testing.assert_allclose(out, oracle, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("head_dim", [64, 112, 128])
+def test_planned_splits_fit_the_kernels_shared_memory(head_dim, itemsize):
+    """Whatever the prompt length, the pinned prefix the engine's planner
+    grants (budget ``hopper_pin_budget_bytes``, rows of
+    ``flash_kv_row_bytes``) fits the 227 KB a block may take, so the launch
+    never returns -2.  At head_dim 112 in bf16 this needs the padded pitch:
+    rows counted at their 224 data bytes would grant a whole prefix of
+    321-326 rows, which needs more."""
+    orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(head_dim, itemsize))
+    row = port_orch.flash_kv_row_bytes(head_dim, itemsize)
+    for seq in range(1, 2049):
+        pinned, streamed = orch.plan_kv_split(seq, FLASH_TILE_ROWS, row)
+        assert pinned + streamed == seq
+        assert pinned == seq or pinned % FLASH_TILE_ROWS == 0
+        assert (port_orch.flash_smem_bytes(pinned, head_dim, itemsize)
+                <= port_orch.H100_SMEM_PER_BLOCK), (seq, pinned)
+        flash_ops.check_pinned_rows(pinned, seq, head_dim, itemsize)
+    if head_dim == 112 and itemsize == 2:
+        unpadded, _ = orch.plan_kv_split(321, FLASH_TILE_ROWS, 2 * head_dim * itemsize)
+        assert unpadded == 321
+        assert port_orch.flash_smem_bytes(321, 112, 2) > port_orch.H100_SMEM_PER_BLOCK
+
+
 def test_cpu_calls_launch_no_kernel():
     reset_launch_counts()
     q = torch.zeros(1, 8, 2, 64)
@@ -225,16 +263,25 @@ def _flash_source_constants():
             re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 112, 128])
 def test_flash_layout_constants_match_the_source(head_dim):
     """The planner's budget describes the kernel's shared memory: the KV tile,
-    the ring of streamed bf16 tiles (unpadded rows), and a bf16 block's warps."""
+    the ring of streamed bf16 tiles (rows of 2 * D bytes rounded up to 128:
+    no pad at 64 and 128, 224 bytes staged at 256 at 112), and a bf16
+    block's warps."""
     c = _flash_source_constants()
     assert c["BK"] == c["BQ"] == FLASH_TILE_ROWS
     assert c["STAGES"] == port_orch.FLASH_STAGES
     assert c["MAX_WARPS"] == flash_ops.MAX_WARPS
     assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
-    row = 2 * head_dim                                   # bf16 bytes, no pad word
+    text = (CSRC / "flash_attention.cu").read_text()
+    align = port_orch.FLASH_ROW_ALIGN
+    assert f"return (2 * D + {align - 1}) / {align} * {align};" in text
+    assert "constexpr int ROWB = row_bytes<D>();" in text
+    assert "(2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>()" in text
+    row = {64: 128, 112: 256, 128: 256}[head_dim]        # bf16 bytes a staged row
+    assert port_orch.flash_smem_row_words(head_dim, 2) * 4 == row
+    assert port_orch.flash_kv_row_bytes(head_dim, 2) == 2 * row
     assert port_orch.flash_smem_work_bytes(head_dim, 2) == c["STAGES"] * 2 * c["BK"] * row
     for pinned in (0, 17, 64, 300):
         whole_tiles = -(-pinned // c["BK"]) * c["BK"]
@@ -333,6 +380,43 @@ def test_decode_wrapper_constants_match_the_source():
     assert decode_ops.MIN_ROWS % decode_ops.STEP_ROWS == 0 and c["MERGE_LOADS"] >= 1
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
+def test_decode_lanes_own_every_chunk_of_a_row_once(d, itemsize):
+    """The 8 lanes of a lane group share a row's 16-byte chunks as the
+    kernel's ``Ring`` deals them (NCH chunks at most, the last one for TAIL
+    lanes only): every chunk has one owner, at head_dim 112 too, where 8
+    lanes do not divide the row's 14 (bf16) or 28 (fp32) chunks."""
+    c = _decode_source_constants()
+    assert c["LANES_PER_ROW"] == decode_ops.LANES_PER_ROW
+    text = (CSRC / "decode_attention.cu").read_text()
+    assert "if (D == 112) return launch_hpb<T, 112>" in text
+    chunks = decode_ops.lane_chunks(d, itemsize)
+    row = d * itemsize // 16
+    assert sorted(ch for lane in chunks for ch in lane) == list(range(row))
+    nch = -(-row // 8)
+    tail = row - (nch - 1) * 8
+    assert [len(lane) for lane in chunks] == [nch] * tail + [nch - 1] * (8 - tail)
+    if d == 112:
+        assert tail == (6 if itemsize == 2 else 4)
+
+
+def test_decode_plan_at_zamba2s_shapes():
+    """zamba2-7b's pool (8 slots x 2048 rows, 32 heads, MHA, head_dim 112):
+    one query head a block, scratch for head_dim 112."""
+    plan = decode_ops.decode_plan(8, 2048, 32, 32, 112)
+    assert plan.hpb == 1 and plan.head_blocks == 32
+    assert plan.scratch_floats == 8 * 32 * plan.units * (112 + 2)
+    lens = [97, 1056, 540, 801, 333, 1000, 650, 128]
+    items = plan.items(lens)
+    assert len(items) <= plan.target
+    for b, n in enumerate(lens):
+        rows = plan.rows_for(lens)
+        seen = [r for u in range(plan.live_units(n, rows))
+                for r in plan.unit_rows(u, n, rows)]
+        assert seen == list(range(n))
+
+
 R = 128   # a unit length the edge cases straddle
 
 
@@ -394,7 +478,8 @@ def test_decode_rows_per_split_must_be_whole_steps():
 
 def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
     """The kernel's arithmetic in torch: per work item (a unit of rows), 16
-    lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group)
+    lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group;
+    each of a group's 8 lanes sums over the chunks of the row it owns)
     in log2 units with one max and one rescale a step; lane groups merged into
     warps (4 each), warps into the unit; a unit alone writes ``out``, several
     write partials that the last of them merges with the weights
@@ -403,6 +488,10 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
     _, s, g, _ = k.shape
     plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split, sm_count)
     step, lanes, hpb = decode_ops.STEP_ROWS, 16, plan.hpb
+    vec = 16 // q.element_size()
+    lane_cols = [torch.tensor([ch * vec + e for ch in owned for e in range(vec)],
+                              dtype=torch.long)
+                 for owned in decode_ops.lane_chunks(d, q.element_size()) if owned]
     neg = torch.tensor(-1e30)
     qf = q.float() * (1.0 / d ** 0.5) * 1.4426950408889634
     out = torch.zeros((b, h, d), dtype=torch.float32)
@@ -430,8 +519,10 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
             valid = idx < rows.stop
             kk = k[bi, idx.clamp(max=s - 1), kv].float() * valid[..., None]
             vv = v[bi, idx.clamp(max=s - 1), kv].float() * valid[..., None]
-            sc = torch.where(valid[..., None], torch.einsum("rjd,hd->rjh", kk, qf[bi, heads]),
-                             neg)
+            # each lane's dot product over the chunks it owns, then the 8 lanes'
+            dots = sum(torch.einsum("rjd,hd->rjh", kk[..., cols], qf[bi, heads][..., cols])
+                       for cols in lane_cols)
+            sc = torch.where(valid[..., None], dots, neg)
             m_new = torch.maximum(m, sc.amax(0))
             alpha = torch.exp2(m - m_new)
             p = torch.where(valid[..., None], torch.exp2(sc - m_new), torch.tensor(0.0))
@@ -478,6 +569,28 @@ def test_decode_partial_merge_matches_plain_and_jax(lens, rows, dtype):
     live = np.asarray(lens) > 0
     np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
     assert not got[~live].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_merge_at_head_dim_112_matches_plain_and_jax(dtype):
+    """The emulated partition, lane ownership and merge at zamba2-7b's head
+    size (MHA: one head a block), ragged lengths with one of 0."""
+    rng = np.random.default_rng(14)
+    b, s, h, g, d = 4, 300, 4, 4, 112
+    lens = [300, 0, 129, 33]
+    jq, tq = both(rng, (b, h, d), dtype)
+    jk, tk = both(rng, (b, s, g, d), dtype)
+    jv, tv = both(rng, (b, s, g, d), dtype)
+    cl = torch.tensor(lens, dtype=torch.int32)
+    tol = TOL[dtype]
+    for rows in (None, 32):
+        got = f32(emulate_decode(tq, tk, tv, cl, rows))
+        np.testing.assert_allclose(got, f32(decode_attention_ref(tq, tk, tv, cl)),
+                                   rtol=tol, atol=tol)
+        oracle = f32(jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens, jnp.int32)))
+        live = np.asarray(lens) > 0
+        np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
+        assert not got[~live].any()
 
 
 @pytest.mark.parametrize("sm_count,lens", [

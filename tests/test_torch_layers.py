@@ -5,6 +5,7 @@ product), exact where nothing is accumulated."""
 
 from dataclasses import replace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,6 +139,41 @@ def test_mlp_block(act):
     jx, tx = both(rng, (2, 7, d), "bfloat16")
     np.testing.assert_allclose(f32(tl.mlp_block(tp, tx, cfg)), f32(jl.mlp_block(jp, jx, jcfg)),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("scale", [0.3, 3.0, 30.0])
+def test_gelu_matches_jax_bit_for_bit_in_bf16(scale):
+    """zamba2-7b's shared MLP: the port's tanh gelu rounds each bf16 step
+    where ``jax.nn.gelu(approximate=True)`` does, evaluated op by op (and
+    jitted: XLA keeps the same roundings here), so the two agree exactly;
+    ``F.gelu(approximate="tanh")`` rounds once and does not."""
+    rng = np.random.default_rng(8)
+    jx, tx = both(rng, (4096,), "bfloat16", scale)
+    with jax.disable_jit():
+        want = f32(jax.nn.gelu(jx, approximate=True))
+    np.testing.assert_array_equal(f32(tl._gelu_tanh(tx)), want)
+    np.testing.assert_array_equal(want, f32(jax.nn.gelu(jx, approximate=True)))
+    fused = f32(torch.nn.functional.gelu(tx, approximate="tanh"))
+    assert (fused != want).any()
+
+
+def test_gelu_mlp_block_matches_jax_op_by_op_in_bf16():
+    """The whole gated-gelu MLP block in bf16 against the JAX block run op
+    by op: the activation is exact (above), so only the three products'
+    summation order is left, which flips a last bit now and then."""
+    rng = np.random.default_rng(9)
+    cfg, jcfg = replace(CFG, act="gelu"), replace(JCFG, act="gelu")
+    d, f = cfg.d_model, cfg.d_ff
+    jp, tp = {}, {}
+    for key, shape, s in (("ln", (d,), 1.0), ("w_gate", (d, f), d ** -0.5),
+                          ("w_up", (d, f), d ** -0.5), ("w_down", (f, d), f ** -0.5)):
+        jp[key], tp[key] = both(rng, shape, "bfloat16", s)
+    jx, tx = both(rng, (2, 7, d), "bfloat16")
+    with jax.disable_jit():
+        want = f32(jl.mlp_block(jp, jx, jcfg))
+    got = f32(tl.mlp_block(tp, tx, cfg))
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+    assert (got == want).mean() > 0.99
 
 
 @pytest.mark.parametrize("variant", ["llama", "qk_norm_gemma", "softcap_scale"])

@@ -275,3 +275,17 @@ def test_3xtf32_products_meet_the_reference_tolerance(dtype):
         err = max(float(np.abs(f32(y1) - f32(ry)).max()),
                   float(np.abs(f32(state1) - f32(rstate)).max()))
         assert err > TOL["float32"]
+
+
+def test_3xtf32_products_at_zamba2s_state_size():
+    """zamba2-7b's SSD shape (P 64, N 64, one group; heads reduced from 112)
+    through the kernel's 3xTF32 arithmetic, against the JAX package's
+    chunked oracle at the reference's fp32 tolerance."""
+    b, s, h, g, p, n = 1, 256, 4, 1, 64, 64
+    jin, tin, _ = inputs(15, b, s, h, g, p, n, "float32")
+    ry, rstate = jax_ssd_ref(*jin, 256)
+    y, state = ssd_as_the_kernel(*tin, mm_3xtf32)
+    np.testing.assert_allclose(f32(y), f32(ry), rtol=TOL["float32"], atol=TOL["float32"])
+    np.testing.assert_allclose(f32(state), f32(rstate), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    assert n in ssd_ops.D_STATES and p % ssd_ops.P_SLICE == 0
