@@ -44,12 +44,20 @@ run with a non-zero exit code:
             6, 32 new tokens each; all three kernels, counts as in 4.
 9. parity_hybrid  its cut to one group and one tail layer (7 layers):
             prefill of 2 x 64 tokens + 4 decode steps, card against CPU.
+10. serve_moe   deepseek-moe-16b at full width and depth (28 layers: one dense,
+            27 with 64 routed experts, top-6, and 2 shared experts; MHA,
+            head_dim 128; bf16, seeded random weights) behind
+            ``ServeEngine(max_batch=8, max_seq=2048)``: 8 requests drawn as in
+            4, 32 new tokens each; counts as in 4.
+11. parity_moe  its cut to the dense layer and one MoE layer: prefill of
+            2 x 64 tokens + 4 decode steps, card against CPU.
 
 The kernels phase holds the attention kernels at head_dim 64, 112 and 128 and
 the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
-every path that runs it (llama3.2-3b and zamba2-7b for attention, mamba2-2.7b
-and zamba2-7b for the SSD scan); each record of the ``kernels`` line names its
-path and carries the launches of that path's serve phase.
+every path that runs it (llama3.2-3b, zamba2-7b and deepseek-moe-16b for
+attention, mamba2-2.7b and zamba2-7b for the SSD scan); each record of the
+``kernels`` line names its path and carries the launches of that path's serve
+phase.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -90,14 +98,15 @@ DECODE_RAGGED = [97, 1056, 540, 801, 333, 1000, 650, 128]
 DECODE_ONE_GROUP = [0, 0, 801, 0, 0, 0, 0, 0]
 SSD_PROMPTS = (1024, 256)   # prompt lengths the SSD scan is timed at
 # the timed shapes of each path: attention (H, G, D), SSD scan (H, P, N)
-ATTN_SHAPES = {"llama3.2-3b": (24, 8, 128), "zamba2-7b": (32, 32, 112)}
+ATTN_SHAPES = {"llama3.2-3b": (24, 8, 128), "zamba2-7b": (32, 32, 112),
+               "deepseek-moe-16b": (16, 16, 128)}
 SSD_SHAPES = {"mamba2-2.7b": (80, 64, 128), "zamba2-7b": (112, 64, 64)}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # attention: rtol = atol
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # SSD scan: rtol = atol, the reference's
 LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol = atol
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
-          "serve_hybrid", "parity_hybrid")
-SSM_REQUESTS = 8                    # mamba2-2.7b and zamba2-7b requests in their serve phases
+          "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe")
+PATH_REQUESTS = 8   # requests of the mamba2-2.7b, zamba2-7b and deepseek-moe-16b serve phases
 
 
 def emit(phase: str, **fields) -> None:
@@ -261,6 +270,10 @@ def decode_cases():
         (5, 2048, 32, 32, 112, bf, [r - 1, r, r + 1, 2048, 0]),
         (3, 2 * r + 1, 8, 2, 112, f32, [2 * r + 1, 0, 1]),
         (2, 700, 8, 4, 112, bf, [700, 129]),
+        # deepseek-moe-16b: MHA, 16 heads of 128
+        (8, 2048, 16, 16, 128, bf, main_lens),
+        (8, 2048, 16, 16, 128, f32, main_lens),
+        (8, 2048, 16, 16, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
     ]
 
 
@@ -366,6 +379,12 @@ def flash_cases():
             fit = pin_fit(112, dtype)
             for pinned in sorted({0, 64 if s >= 64 else s, s if s <= fit else fit}):
                 cases.append((1, s, s, 32, 32, 112, True, None, pinned, dtype, None))
+    # deepseek-moe-16b: MHA, 16 heads of 128, causal prompts with the planner's pins
+    for s in (17, 1000, 1024):
+        for dtype in (bf, f32):
+            fit = pin_fit(128, dtype)
+            for pinned in sorted({0, s if s <= fit else fit}):
+                cases.append((1, s, s, 16, 16, 128, True, None, pinned, dtype, None))
     cases += [
         (1, 300, 300, 8, 2, 112, True, 50.0, 300, bf, 2),
         (2, 257, 257, 16, 4, 112, True, None, 256, bf, 3),
@@ -409,7 +428,8 @@ def check_flash(gen):
     # bf16 walks the same tiles in the same order with the same arithmetic
     # wherever a tile lives: bit-identical across pinned_rows (none, one tile,
     # the planner's split, all of Sk) and across chunkings
-    for s, h, g, d in ((300, 6, 2, 128), (700, 16, 4, 64), (300, 8, 8, 112), (300, 8, 2, 112)):
+    for s, h, g, d in ((300, 6, 2, 128), (700, 16, 4, 64), (300, 8, 8, 112), (300, 8, 2, 112),
+                       (300, 16, 16, 128)):
         q = randn(gen, (1, s, h, d), torch.bfloat16)
         k = randn(gen, (1, s, g, d), torch.bfloat16)
         v = randn(gen, (1, s, g, d), torch.bfloat16)
@@ -708,8 +728,9 @@ def mamba2_prompt_len(rng):
     return 256 * int(rng.integers(2, 5))
 
 
-# SSM spec fields checked against the published ones
+# SSM and MoE spec fields checked against the published ones
 SSM_SPEC = ("d_state", "expand", "head_dim", "n_groups", "d_conv", "chunk")
+MOE_SPEC = ("n_experts", "top_k", "d_ff_expert", "n_shared", "capacity_factor", "first_dense")
 PATHS = {
     "llama3.2-3b": dict(
         sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab"),
@@ -729,6 +750,13 @@ PATHS = {
         # deep for the bf16 share and RMS across devices (phase_parity)
         parity_cut={"mamba_groups": 1, "mamba_tail": 1}, parity_layers=7,
         bf16_cross_device=False),
+    "deepseek-moe-16b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab"),
+        published=(28, 2048, 16, 16, 128, 10944, 102400),
+        moe=(64, 6, 1408, 2, 1.25, 1), serve="serve_moe", parity="parity_moe",
+        prompt_len=llama_prompt_len,
+        # the dense layer and the first MoE layer
+        parity_cut={"moe_layers": 1}, parity_layers=2),
 }
 
 
@@ -750,6 +778,9 @@ def phase_serve(arch, n_requests, max_new):
     if "ssm" in path:
         check(tuple(getattr(cfg.ssm, k) for k in SSM_SPEC) == path["ssm"],
               f"{arch}: SSM spec is not published")
+    if "moe" in path:
+        check(tuple(getattr(cfg.moe, k) for k in MOE_SPEC) == path["moe"],
+              f"{arch}: MoE spec is not published")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params = init_params(cfg, seed=0, device="cuda")
@@ -781,8 +812,9 @@ def phase_serve(arch, n_requests, max_new):
     check(engine._tmu.live_tiles == 0, "TMU still tracks live slots")
     check(engine.prefill_calls == n_requests, "prefill calls != requests")
     check(engine.decode_calls > 0, "no decode_step call")
-    # attention layers (a hybrid: applications of its shared block) and Mamba2
-    # layers; every prompt has 3 tokens or more, so each prefill scans
+    # attention layers (dense and MoE layers alike; a hybrid: applications of
+    # its shared block) and Mamba2 layers; every prompt has 3 tokens or more,
+    # so each prefill scans
     n_attn, n_ssm = cfg.n_layers, 0
     if cfg.family == HYBRID:
         n_attn, n_ssm = cfg.n_layers // cfg.hybrid_period, cfg.n_layers
@@ -798,6 +830,7 @@ def phase_serve(arch, n_requests, max_new):
          prompt_tokens=int(sum(len(r.prompt) for r in reqs)),
          new_tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
          engine_steps=steps, decode_step_calls=engine.decode_calls,
+         wall_ms_per_decode_step_call=seconds * 1e3 / engine.decode_calls,
          launches=counts, init_params_seconds=init_s,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     return cfg, params, counts
@@ -805,8 +838,8 @@ def phase_serve(arch, n_requests, max_new):
 
 def phase_parity(arch, cfg, params):
     """Prefill + 4 decode steps of a cut of the served weights (2 layers; for
-    the hybrid one group and one tail layer), on the card (kernels) and on
-    the CPU (plain versions).
+    the hybrid one group and one tail layer; for the MoE its dense layer and
+    one MoE layer), on the card (kernels) and on the CPU (plain versions).
 
     In fp32 (the same weights, widened) every logit must agree within
     rtol = atol = 3e-2: that holds the kernels to the plain path inside the
@@ -817,7 +850,7 @@ def phase_parity(arch, cfg, params):
     fault: there the check is the share of logits within the same tolerance,
     the RMS error, and the greedy token wherever the CPU's top-2 margin is
     clear of the tolerance.  Leaves the model keeps in fp32 (the SSM's
-    ``a_log``, ``d_skip``) stay fp32 in both runs.
+    ``a_log``, ``d_skip``, the MoE router) stay fp32 in both runs.
 
     The hybrid's cut is 7 layers deep, and there the bf16 flips grow past
     what the share and RMS checks allow whatever runs the attention and SSD
@@ -828,18 +861,21 @@ def phase_parity(arch, cfg, params):
     same steps (``plain_versions``), which isolates the kernels; the
     card-vs-CPU share and RMS are reported, and the greedy token is checked
     against both."""
+    from repro_torch.configs import DENSE
     from repro_torch.configs import SSM
     from repro_torch.models import decode_step
     from repro_torch.models import prefill
     path = PATHS[arch]
     cfg2 = replace(cfg, n_layers=path["parity_layers"])
-    plen = 64 if cfg.ssm else 48
+    plen = 48 if cfg.family == DENSE else 64
 
     def cut(tree, dev, dtype, keep=None):
+        """The tree with the first ``keep`` layers of each leaf below a key of
+        ``parity_cut`` (all of them elsewhere), on ``dev``."""
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = cut(v, dev, dtype, path["parity_cut"].get(k))
+                out[k] = cut(v, dev, dtype, path["parity_cut"].get(k, keep))
             else:
                 v = v[:keep] if keep else v
                 out[k] = v.to(device=dev, dtype=torch.float32 if v.dtype == torch.float32
@@ -950,8 +986,8 @@ def main() -> None:
     smi = phase_device()
     phase_build(args.build_log)
     records = phase_kernels() if "kernels" in phases else []
-    for arch, n_requests in (("llama3.2-3b", args.requests),
-                             ("mamba2-2.7b", SSM_REQUESTS), ("zamba2-7b", SSM_REQUESTS)):
+    for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
+                             ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS)):
         path = PATHS[arch]
         if path["serve"] not in phases:
             continue

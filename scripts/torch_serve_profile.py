@@ -1,14 +1,15 @@
 #!/usr/bin/env python
 """Where a serving step of the PyTorch/CUDA port spends its time on the card.
 
-Builds llama3.2-3b or mamba2-2.7b at full width and depth (random bf16
-weights) behind ``ServeEngine(max_batch=8, max_seq=2048)``, fills all eight
-slots, runs a few engine steps to warm up, then traces a window of steps with
-``torch.profiler`` and prints one JSON object: wall time of the window,
-device-busy time and idle share, ``decode_step`` calls, and the kernels that
-took most device time.
+Builds llama3.2-3b, mamba2-2.7b or deepseek-moe-16b at full width and depth
+(random bf16 weights) behind ``ServeEngine(max_batch=8, max_seq=2048)``, fills
+all eight slots, runs a few engine steps to warm up, then traces a window of
+steps with ``torch.profiler`` and prints one JSON object: wall time of the
+window, device-busy time and idle share, ``decode_step`` calls, and the
+kernels that took most device time.
 
     python scripts/torch_serve_profile.py [--arch mamba2-2.7b] [--steps 4] [--layers N]
+    python scripts/torch_serve_profile.py --arch deepseek-moe-16b
 
 Needs one CUDA device and nvcc (the kernels are built at first use).
 """
@@ -39,7 +40,8 @@ from repro_torch.serve import ServeEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="llama3.2-3b", choices=["llama3.2-3b", "mamba2-2.7b"])
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    choices=["llama3.2-3b", "mamba2-2.7b", "deepseek-moe-16b"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--layers", type=int, help="cut the depth (default: published)")
     args = ap.parse_args()

@@ -4,7 +4,8 @@ The port keeps the JAX package's tree layout (same keys, same stacked
 leading layer axis), so the bridge is a 1:1 map over leaves.  The caller
 hands over numpy arrays; bf16 leaves cross as fp32 (numpy has no bf16) and
 are narrowed again here, which is exact.  The leaves the reference keeps in
-fp32 (the SSM's ``a_log`` and ``d_skip``, the SSM state) stay fp32.
+fp32 (the SSM's ``a_log`` and ``d_skip``, the MoE router's ``moe/w_gate``,
+the SSM state) stay fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 from typing import Dict
 from typing import Mapping
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -20,7 +22,10 @@ from . import require_device
 from .models.model import Cache
 from .models.model import DTYPE
 
-FP32_LEAVES = frozenset({"a_log", "d_skip"})   # parameters the reference keeps in fp32
+# parameters the reference keeps in fp32, as the ends of their paths in the
+# tree: a dense MLP's ``mlp/w_gate`` takes the model's type, the MoE
+# router's ``moe/w_gate`` does not
+FP32_LEAVES = (("a_log",), ("d_skip",), ("moe", "w_gate"))
 
 
 def _put(a, dev, dtype) -> torch.Tensor:
@@ -30,15 +35,17 @@ def _put(a, dev, dtype) -> torch.Tensor:
 def params_from_numpy(tree: Mapping[str, Any], device="cuda", *,
                       dtype=DTYPE) -> Dict[str, Any]:
     """Nested dict of numpy arrays → the same nested dict of tensors on
-    ``device``: of ``dtype``, except the ``FP32_LEAVES``, which stay fp32."""
+    ``device``: of ``dtype``, except the leaves whose path ends as one of
+    ``FP32_LEAVES``, which stay fp32."""
     dev = require_device(device)
-    out: Dict[str, Any] = {}
-    for key, leaf in tree.items():
-        if isinstance(leaf, Mapping):
-            out[key] = params_from_numpy(leaf, dev, dtype=dtype)
-        else:
-            out[key] = _put(leaf, dev, torch.float32 if key in FP32_LEAVES else dtype)
-    return out
+
+    def put(node, path: Tuple[str, ...]):
+        if isinstance(node, Mapping):
+            return {key: put(leaf, path + (key,)) for key, leaf in node.items()}
+        fp32 = any(path[-len(end):] == end for end in FP32_LEAVES)
+        return _put(node, dev, torch.float32 if fp32 else dtype)
+
+    return put(tree, ())
 
 
 def cache_from_numpy(k=None, v=None, pos=0, device="cuda", *, conv_x=None, conv_bc=None,

@@ -12,6 +12,7 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
 
 The prompts are 4 to 23 tokens long, which every architecture's SSD chunk
 rule accepts (S <= chunk, so chunk = S), the hybrid zamba2-7b's too.

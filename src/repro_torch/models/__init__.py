@@ -1,4 +1,4 @@
-"""Model assembly of the port (dense and SSM families)."""
+"""Model assembly of the port (dense, MoE, SSM and hybrid families)."""
 
 from .model import Cache
 from .model import decode_step

@@ -1,10 +1,10 @@
 """Model assembly of the port: init / forward / prefill / decode.
 
-The dense family (llama3.2-3b and the other dense configs without a
-sliding window), the SSM family (mamba2-2.7b) and the hybrid family
+All four families are ported: dense (llama3.2-3b and the other dense
+configs without a sliding window), MoE (deepseek-moe-16b: ``first_dense``
+dense layers, then attention + MoE FFN layers), SSM (mamba2-2.7b) and hybrid
 (zamba2-7b: groups of Mamba2 layers, each followed by one weight-shared
-attention + MLP block, and a tail of Mamba2 layers) are ported; the MoE
-family raises ``NotImplementedError`` naming the slice that brings it.
+attention + MLP block, and a tail of Mamba2 layers).
 
 Design notes
 ------------
@@ -14,11 +14,11 @@ Design notes
 * ``tie_embeddings`` is intent only, as in the JAX package: ``lm_head`` is
   always a separate parameter.
 * **The cache is updated in place.**  ``prefill`` allocates a
-  prompt-sized cache and fills it; ``decode_step`` writes one K/V row (dense)
-  or the new conv history and SSM state (SSM) into the cache it is given and
-  returns a ``Cache`` that holds the same tensors.  A hybrid's cache holds
-  K/V for each application of the shared block and conv history and state
-  for each Mamba2 layer.
+  prompt-sized cache and fills it; ``decode_step`` writes one K/V row
+  (dense, MoE) or the new conv history and SSM state (SSM) into the cache it
+  is given and returns a ``Cache`` that holds the same tensors.  A hybrid's
+  cache holds K/V for each application of the shared block and conv history
+  and state for each Mamba2 layer.
 * Entry points take an explicit ``device`` (default the card) and raise
   where it is absent; random weights come from an explicit
   ``torch.Generator`` on that device.
@@ -26,6 +26,7 @@ Design notes
 
 from __future__ import annotations
 
+from functools import partial
 import math
 from typing import Any
 from typing import Dict
@@ -47,6 +48,8 @@ from .layers import block_rope_tables
 from .layers import init_normal
 from .layers import mlp_block
 from .layers import rms_norm
+from .moe import init_moe_params
+from .moe import moe_ffn
 from .ssm import Mamba2Cache
 from .ssm import init_mamba2_cache
 from .ssm import init_mamba2_params
@@ -54,14 +57,10 @@ from .ssm import mamba2_block
 
 DTYPE = torch.bfloat16
 
-_LATER = {
-    MOE: "the MoE family (moe_ffn, expert routing) is a later slice of the port",
-}
-
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, SSM, HYBRID):
-        raise NotImplementedError(_LATER.get(cfg.family, f"unknown family {cfg.family!r}"))
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +108,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, device="cuda", dtype=DTYPE) -> Dict[str, Any]:
     """Random parameters in the JAX package's tree layout, made on the device
     of ``generator`` (or of a new generator seeded with ``seed`` on
-    ``device``).  SSM layers keep ``a_log`` and ``d_skip`` in fp32, as the
-    JAX package does.  A hybrid's ``mamba_groups`` leaves are stacked
-    ``(n_groups, hybrid_period, ...)``, ``mamba_tail`` (present when
+    ``device``).  SSM layers keep ``a_log`` and ``d_skip`` in fp32, MoE
+    layers their router ``w_gate``, as the JAX package does.  A MoE model's
+    ``dense_layers`` (``first_dense`` of them, {attn, mlp}) come before its
+    ``moe_layers`` ({attn, moe}).  A hybrid's ``mamba_groups`` leaves are
+    stacked ``(n_groups, hybrid_period, ...)``, ``mamba_tail`` (present when
     ``hybrid_period`` does not divide ``n_layers``) ``(tail, ...)``, and the
     shared block's leaves have no layer axis."""
     _require_ported(cfg)
@@ -135,6 +136,18 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
             params["mamba_tail"] = init_mamba2_params(gen, d, cfg.ssm, tail, dtype)
         params["shared_attn"] = _layer(_init_attn(gen, cfg, 1, dtype), 0)
         params["shared_mlp"] = _layer(_init_mlp(gen, cfg, 1, cfg.d_ff, dtype), 0)
+    elif cfg.family == MOE:
+        nd = cfg.moe.first_dense
+        nm = cfg.n_layers - nd
+        if nd:
+            params["dense_layers"] = {
+                "attn": _init_attn(gen, cfg, nd, dtype),
+                "mlp": _init_mlp(gen, cfg, nd, cfg.d_ff, dtype),
+            }
+        params["moe_layers"] = {
+            "attn": _init_attn(gen, cfg, nm, dtype),
+            "moe": init_moe_params(gen, d, cfg.moe, nm, dtype),
+        }
     else:
         params["layers"] = {
             "attn": _init_attn(gen, cfg, cfg.n_layers, dtype),
@@ -154,6 +167,23 @@ def local_flags(cfg: ArchConfig, n_layers: Optional[int] = None) -> Tuple[bool, 
 
 def _layer(tree, i: int):
     return {k: v[i] for k, v in tree.items()}
+
+
+def _attn_layers(params, cfg: ArchConfig):
+    """(attention params, FFN, FFN params, local flag) of each layer of a
+    dense or MoE model, in the order of the K/V cache's layer axis: a MoE
+    model's ``first_dense`` dense layers, then its MoE layers."""
+    if cfg.family == MOE:
+        nd = cfg.moe.first_dense
+        stacks = [(params["moe_layers"], "moe", partial(moe_ffn, spec=cfg.moe),
+                   (False,) * (cfg.n_layers - nd))]
+        if nd:
+            stacks.insert(0, (params["dense_layers"], "mlp", mlp_block, local_flags(cfg, nd)))
+    else:
+        stacks = [(params["layers"], "mlp", mlp_block, local_flags(cfg))]
+    for layers, kind, ffn, flags in stacks:
+        for i, fl in enumerate(flags):
+            yield _layer(layers["attn"], i), ffn, _layer(layers[kind], i), fl
 
 
 # ---------------------------------------------------------------------------
@@ -194,18 +224,18 @@ def forward(params, tokens, cfg: ArchConfig, *,
     if cfg.family == HYBRID:
         return lm_logits(params, _hybrid_stack(params, x, cfg, rope=rope,
                                                positions=positions), cfg)
-    layers = params["layers"]
-    for i, fl in enumerate(local_flags(cfg)):
-        x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
-                      layer_is_local=fl, positions=positions, rope=rope)
+    for attn, ffn, fp, fl in _attn_layers(params, cfg):
+        x = _attn_mlp(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, positions=positions,
+                      rope=rope)
     return lm_logits(params, x, cfg)
 
 
-def _attn_mlp(attn, mlp, x, cfg: ArchConfig, **attn_kw) -> torch.Tensor:
-    """One transformer block: ``x + attention``, then ``+ mlp``."""
+def _attn_mlp(attn, mlp, x, cfg: ArchConfig, ffn=mlp_block, **attn_kw) -> torch.Tensor:
+    """One transformer block: ``x + attention``, then ``+ ffn`` (the MLP, or
+    a MoE layer's ``moe_ffn``) with parameters ``mlp``."""
     a, _ = attention_block(attn, x, cfg, **attn_kw)
     x = x + a
-    return x + mlp_block(mlp, x, cfg)
+    return x + ffn(mlp, x, cfg)
 
 
 def _mamba_layer(p, x, cfg: ArchConfig, cache: Optional[Cache], i: int,
@@ -300,8 +330,9 @@ def _empty_cache(cfg: ArchConfig, batch: int, kv_rows: int, conv_rows: int, devi
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
                dtype=DTYPE) -> Cache:
-    """Dense: K/V for ``max_seq`` rows.  SSM: conv history and fp32 state,
-    whose size does not depend on ``max_seq``.  Hybrid: both, K/V for each
+    """Dense and MoE: K/V for ``max_seq`` rows, one entry per layer (a MoE
+    model's dense layers first).  SSM: conv history and fp32 state, whose
+    size does not depend on ``max_seq``.  Hybrid: both, K/V for each
     application of the shared block."""
     _require_ported(cfg)
     return _empty_cache(cfg, batch, max_seq, cfg.ssm.d_conv - 1 if cfg.ssm else 0,
@@ -316,23 +347,34 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
                 rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) → (logits (B, 1, V), cache advanced by one position).
 
-    Dense: writes K/V at ``cache.pos`` **into the cache's own tensors**.  SSM:
-    writes the new conv history and state into them.  Hybrid: both.  With
-    ``rows`` (batch indices) only those sequences write their cache (and
-    attend over ``cache.pos + 1`` rows); the others keep their cache
-    untouched and their logits mean nothing."""
+    Dense and MoE: writes K/V at ``cache.pos`` **into the cache's own
+    tensors**.  SSM: writes the new conv history and state into them.
+    Hybrid: both.  With ``rows`` (batch indices) only those sequences write
+    their cache; the others keep their cache untouched and their logits mean
+    nothing.  Dense and hybrid: only the ``rows`` attend (over ``cache.pos +
+    1`` rows), the others get ``cache_len`` 0.  MoE: the tokens of one call
+    compete for the experts' slots, so every row takes the step as the
+    reference's whole-batch step does (K/V written at ``cache.pos``,
+    attention over ``cache.pos + 1`` rows), and then the other rows' K/V at
+    ``cache.pos`` is put back as it was."""
     _require_ported(cfg)
     b = tokens.shape[0]
     pos = int(cache.pos)
     x = embed_tokens(params, tokens, cfg, input_embeds)
-    cache_rows = cache_len = None
+    cache_rows = cache_len = saved = None
     if rows is not None:
         cache_rows = torch.as_tensor(list(rows), dtype=torch.long, device=x.device)
     if cfg.family == SSM:
         for i in range(cfg.n_layers):
             x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i, cache_rows)
         return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
-    if rows is not None:
+    if cfg.family == MOE and rows is not None:
+        group = set(rows)
+        others = torch.as_tensor([i for i in range(b) if i not in group],
+                                 dtype=torch.long, device=x.device)
+        saved = others, cache.k[:, others, pos], cache.v[:, others, pos]
+        cache_rows = None
+    if cache_rows is not None:
         cache_len = torch.zeros((b,), dtype=torch.int32, device=x.device)
         cache_len[cache_rows] = pos + 1
     else:
@@ -342,10 +384,13 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     if cfg.family == HYBRID:
         x = _hybrid_stack(params, x, cfg, cache, cache_rows, **attn)
         return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
-    layers = params["layers"]
-    for i, fl in enumerate(local_flags(cfg)):
-        x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
-                      layer_is_local=fl, kv_cache=(cache.k[i], cache.v[i]), **attn)
+    for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):
+        x = _attn_mlp(la, fp, x, cfg, ffn=ffn, layer_is_local=fl,
+                      kv_cache=(cache.k[i], cache.v[i]), **attn)
+    if saved is not None:
+        others, k, v = saved
+        cache.k[:, others, pos] = k
+        cache.v[:, others, pos] = v
     return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
 
 
@@ -358,7 +403,8 @@ def prefill(params, tokens, cfg: ArchConfig, *,
             pinned_rows: int = 0) -> Tuple[torch.Tensor, Cache]:
     """Returns (last-token logits (B, V), a new cache sized and filled to S).
     ``pinned_rows`` is handed to the flash kernel of every attention call
-    (dense, and each application of a hybrid's shared block).
+    (dense and MoE layers, and each application of a hybrid's shared
+    block).
 
     SSM and hybrid: every Mamba2 layer starts from a zero state, as in the
     reference; its conv history keeps the last ``min(S, d_conv - 1)`` rows of
@@ -381,8 +427,7 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     if cfg.family == HYBRID:
         x = _hybrid_stack(params, x, cfg, cache, **attn)
     else:
-        layers = params["layers"]
-        for i, fl in enumerate(local_flags(cfg)):
-            x = _attn_mlp(_layer(layers["attn"], i), _layer(layers["mlp"], i), x, cfg,
-                          layer_is_local=fl, kv_cache=(cache.k[i], cache.v[i]), **attn)
+        for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):
+            x = _attn_mlp(la, fp, x, cfg, ffn=ffn, layer_is_local=fl,
+                          kv_cache=(cache.k[i], cache.v[i]), **attn)
     return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)

@@ -17,7 +17,9 @@ cache is updated in place**: a step for one position group writes K/V (or
 conv history and SSM state) only for that group's rows and reads logits
 only from them, which is what the JAX engine's ``_merge_slots`` (keep the
 updated rows of the group, the old rows of everyone else) amounts to on a
-cache that is not copied.
+cache that is not copied.  In a MoE model the rows of a call compete for the
+experts' slots, so there every row still takes the step, as in the JAX
+engine, and only the group's rows keep what it wrote (``decode_step``).
 """
 
 from __future__ import annotations
@@ -96,9 +98,14 @@ class ServeEngine:
             self._start(slot, req)
 
     def _pick(self, logits: torch.Tensor, uid: int) -> int:
-        """Next token from one row of logits; a device→host sync per token."""
-        if self.greedy:
-            return int(torch.argmax(logits))
+        """Greedy token from one row of logits; a device→host sync per token."""
+        return int(torch.argmax(logits))
+
+    def _sample(self, logits: torch.Tensor, uid: int) -> int:
+        """A token drawn from one row of logits by a generator seeded with the
+        request's uid.  The reference draws with ``jax.random.categorical``
+        keyed by the uid, a stream that torch cannot reproduce: the draw is
+        the same for the same uid and logits, not the reference's token."""
         gen = torch.Generator(device=logits.device)
         gen.manual_seed(uid)
         probs = torch.softmax(logits.float(), dim=-1)
@@ -106,7 +113,9 @@ class ServeEngine:
 
     def _start(self, slot: int, req: Request) -> None:
         plen = req.prompt.shape[0]
-        if plen > self.max_seq:
+        # max_seq bounds the K/V rows; an SSM's state has no length, and the
+        # reference serves its prompts and decodes past max_seq
+        if self.cache.k is not None and plen > self.max_seq:
             raise ValueError(f"prompt of {plen} tokens exceeds max_seq {self.max_seq}")
         prompt = torch.as_tensor(np.asarray(req.prompt)[None, :], dtype=torch.long,
                                  device=self.device)
@@ -120,7 +129,10 @@ class ServeEngine:
         _splice(self.cache, pcache, slot)
         self.slot_pos[slot] = plen
         self.last_logits = logits
-        req.tokens_out.append(self._pick(logits[0], req.uid))
+        # as in the reference, only this first token is sampled when not
+        # greedy; every decoded token is the argmax (``step``)
+        pick = self._pick if self.greedy else self._sample
+        req.tokens_out.append(pick(logits[0], req.uid))
         self._tmu.register(TensorMeta(
             tensor_id=req.uid, base_addr=slot * self._slot_bytes,
             size_bytes=self._slot_bytes, tile_bytes=self._slot_bytes,
@@ -149,7 +161,7 @@ class ServeEngine:
         for i in active:
             groups.setdefault(int(self.slot_pos[i]), []).append(i)
         for pos, slots in groups.items():
-            if pos >= self.max_seq:
+            if self.cache.k is not None and pos >= self.max_seq:
                 raise ValueError(f"slot(s) {slots} ran past max_seq {self.max_seq}")
             logits, _ = decode_step(self.params, tokens,
                                     self.cache._replace(pos=pos), self.cfg,

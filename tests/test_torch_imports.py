@@ -22,7 +22,7 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 @pytest.mark.parametrize("module", [
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
-    "repro_torch.kernels", "repro_torch.convert", "chip_smoke"])
+    "repro_torch.kernels", "repro_torch.convert", "repro_torch.models.moe", "chip_smoke"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"

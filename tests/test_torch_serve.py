@@ -212,6 +212,46 @@ def test_sampling_engine_runs(setup):
     assert req.done and len(req.tokens_out) == 3
 
 
+def test_sampling_draws_the_first_token_only(setup, monkeypatch):
+    """``greedy=False`` as in the reference engine: the first token is drawn
+    after prefill from a generator seeded with the uid (the same in two runs),
+    and every decoded token is the argmax of the logits it was picked from."""
+    _, cfg, _, params, prompts = setup
+    seen = []
+    inner = engine_mod.decode_step
+
+    def decode_step(p, t, cache, c, **kw):
+        out = inner(p, t, cache, c, **kw)
+        seen.extend(out[0][i, 0].clone() for i in kw["rows"])
+        return out
+
+    monkeypatch.setattr(engine_mod, "decode_step", decode_step)
+    firsts = []
+    for _ in range(2):
+        seen.clear()
+        eng = ServeEngine(cfg, params, max_batch=2, max_seq=32, greedy=False, device="cpu")
+        req = Request(uid=7, prompt=prompts[0], max_new_tokens=6)
+        eng.add_request(req)
+        eng.run_to_completion()
+        assert len(seen) == 5
+        assert req.tokens_out[1:] == [int(torch.argmax(logits)) for logits in seen]
+        firsts.append(req.tokens_out[0])
+    assert firsts[0] == firsts[1]
+
+
+def test_decoding_past_max_seq_is_refused(setup):
+    """An attention model has no K/V row past ``max_seq``: the step that
+    would decode there raises (the reference clamps the write onto the last
+    row instead; ROADMAP Queue 3)."""
+    _, cfg, _, params, prompts = setup
+    eng = ServeEngine(cfg, params, max_batch=1, max_seq=8, device="cpu")
+    req = Request(uid=0, prompt=prompts[2], max_new_tokens=8)       # 5 prompt rows
+    eng.add_request(req)
+    with pytest.raises(ValueError, match="max_seq"):
+        eng.run_to_completion()
+    assert len(req.tokens_out) == 4 and not req.done
+
+
 def test_prompt_longer_than_the_pool_is_refused(setup):
     _, cfg, _, params, _ = setup
     eng = ServeEngine(cfg, params, max_batch=1, max_seq=8, device="cpu")

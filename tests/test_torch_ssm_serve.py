@@ -212,6 +212,26 @@ def test_two_token_prompt_splices_as_the_reference_does(setup):
     assert not port_pool.conv_x[:, 1, 2].any()
 
 
+def test_max_seq_bounds_no_state_as_in_the_reference(setup):
+    """An SSM has no K/V, so ``max_seq`` bounds nothing: with ``max_seq`` 8 a
+    4-token prompt decodes 8 new tokens, and a 12-token prompt (one chunk of
+    the reduced chunk rule) is served, as the reference engine does both."""
+    jparams, params, prompts = setup
+    chosen = [prompts[1][:4], prompts[1][:12]]
+    jeng = JaxServeEngine(JCFG, jparams, max_batch=2, max_seq=8)
+    eng = ServeEngine(CFG, params, max_batch=2, max_seq=8, device="cpu")
+    jreqs = [JaxRequest(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(chosen)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(chosen)]
+    for jr, r in zip(jreqs, reqs):
+        jeng.add_request(jr)
+        eng.add_request(r)
+    jeng.run_to_completion()
+    eng.run_to_completion()
+    for jr, r in zip(jreqs, reqs):
+        assert r.done and len(r.tokens_out) == 8
+        assert r.tokens_out == jr.tokens_out
+
+
 def test_launcher_serves_mamba2_on_the_cpu(capsys):
     launch_serve.main(["--arch", "mamba2-2.7b", "--device", "cpu", "--requests", "3",
                        "--max-new", "3"])
