@@ -51,13 +51,24 @@ run with a non-zero exit code:
             4, 32 new tokens each; counts as in 4.
 11. parity_moe  its cut to the dense layer and one MoE layer: prefill of
             2 x 64 tokens + 4 decode steps, card against CPU.
+12. serve_gemma2   gemma2-27b at full width and depth (46 layers alternating a
+            local layer, window 4096, with a global one; attention softcap
+            50, final softcap 30, score scale 144^-0.5; bf16, seeded random
+            weights, 56.8 GB) behind ``ServeEngine(max_batch=4,
+            max_seq=6144)``: 8 requests, six drawn as in 4 and two of 4160 and
+            5120 tokens, past the window, the second in a reused slot; 32 new
+            tokens each; counts as in 4.
+13. parity_gemma2  its cut to one local and one global layer, with the window
+            set to 64 so that a prefill of 2 x 96 tokens + 4 decode steps
+            overruns it: card against CPU.
 
-The kernels phase holds the attention kernels at head_dim 64, 112 and 128 and
-the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
-every path that runs it (llama3.2-3b, zamba2-7b and deepseek-moe-16b for
-attention, mamba2-2.7b and zamba2-7b for the SSD scan); each record of the
-``kernels`` line names its path and carries the launches of that path's serve
-phase.
+The kernels phase holds the attention kernels at head_dim 64, 112 and 128,
+with and without a sliding window (both) and a softcap (decode too), and the
+SSD scan at d_state 16 to 128, and times each kernel at the shapes of every
+path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b and gemma2-27b
+for attention, mamba2-2.7b and zamba2-7b for the SSD scan); each record of
+the ``kernels`` line names its path and carries the launches of that path's
+serve phase.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -96,17 +107,48 @@ SSD_COUNT_Q = 64   # counting convention for the SSD scan's operations (see ssd_
 # call's one live position group (most of the serve phase's launches)
 DECODE_RAGGED = [97, 1056, 540, 801, 333, 1000, 650, 128]
 DECODE_ONE_GROUP = [0, 0, 801, 0, 0, 0, 0, 0]
+# gemma2-27b: its local layers' window and its score scale, and the decode
+# kernel's timed calls on its pool (8 slots x 6144 rows): two slots past the
+# window, and a serving call's one live group
+GEMMA2_WINDOW = 4096
+GEMMA2_SCALE = 144.0 ** -0.5
+GEMMA2_POOL = 6144
+GEMMA2_DECODE_RAGGED = [97, 1056, 540, 801, 4160, 5120, 650, 128]
+GEMMA2_DECODE_ONE_GROUP = [0, 0, 0, 0, 0, 5120, 0, 0]
 SSD_PROMPTS = (1024, 256)   # prompt lengths the SSD scan is timed at
 # the timed shapes of each path: attention (H, G, D), SSD scan (H, P, N)
 ATTN_SHAPES = {"llama3.2-3b": (24, 8, 128), "zamba2-7b": (32, 32, 112),
-               "deepseek-moe-16b": (16, 16, 128)}
+               "deepseek-moe-16b": (16, 16, 128), "gemma2-27b": (32, 16, 128)}
 SSD_SHAPES = {"mamba2-2.7b": (80, 64, 128), "zamba2-7b": (112, 64, 64)}
+# each path's attention timings: its attention's options (a local layer's
+# window, softcap, score scale), the decode pool's rows, and the cases in
+# order, (kernel, decode lengths or flash tokens, on a local layer); the first
+# case of each kernel is its record in the kernels line.  Decode: slots at
+# mixed positions, and a serving call's one position group; flash: one
+# request's prefill, split as the engine's orchestrator plans it.
+ATTN_TIMED_DEFAULT = dict(cases=(("decode", DECODE_RAGGED, False), ("flash", 1024, False),
+                                 ("decode", DECODE_ONE_GROUP, False), ("flash", 256, False)))
+ATTN_TIMED = {
+    # gemma2-27b: its pool with two slots past the window, as a local and a
+    # global layer, and its one live group; flash at 5120 tokens as a local
+    # and a global layer, and at 1024, where the window does not bind
+    "gemma2-27b": dict(
+        window=GEMMA2_WINDOW, softcap=50.0, scale=GEMMA2_SCALE, pool=GEMMA2_POOL,
+        cases=(("decode", GEMMA2_DECODE_RAGGED, True), ("flash", 5120, True),
+               ("decode", GEMMA2_DECODE_RAGGED, False),
+               ("decode", GEMMA2_DECODE_ONE_GROUP, True), ("flash", 5120, False),
+               ("flash", 1024, True)))}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # attention: rtol = atol
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}  # SSD scan: rtol = atol, the reference's
 LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol = atol
+# a MoE parity run on the CPU follows the card's expert choices; the tokens it
+# would route otherwise must be near-ties, and few (phase_parity)
+ROUTER_NEAR_TIE = 2e-3
+ROUTER_MAX_FLIPS = 0.1
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
-          "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe")
-PATH_REQUESTS = 8   # requests of the mamba2-2.7b, zamba2-7b and deepseek-moe-16b serve phases
+          "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
+          "parity_gemma2")
+PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
 def emit(phase: str, **fields) -> None:
@@ -245,7 +287,7 @@ def decode_cases():
     r = UNIT_ROWS
     bf, f32 = torch.bfloat16, torch.float32
     main_lens = [1, 2048, 777, 64, 1500, 300, 2047, 1024]
-    # (B, S, H, G, D, dtype, lens)
+    # (B, S, H, G, D, dtype, lens[, window, softcap])
     return [
         (8, 2048, 24, 8, 128, bf, main_lens),
         (8, 2048, 24, 8, 128, f32, main_lens),
@@ -274,7 +316,25 @@ def decode_cases():
         (8, 2048, 16, 16, 128, bf, main_lens),
         (8, 2048, 16, 16, 128, f32, main_lens),
         (8, 2048, 16, 16, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
-    ]
+    ] + gemma2_decode_cases()
+
+
+def gemma2_decode_cases():
+    """gemma2-27b's local and global layers (H 32, G 16, D 128, softcap 50):
+    its serving pool with prompts past the 4096-row window, one live group,
+    and windows of 1, 63, 64 and 65 rows with lengths just inside and just
+    past them; a window alone and a softcap alone at other shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    lens = GEMMA2_DECODE_RAGGED
+    edges = [63, 64, 65, 66, 129, 300, 1, 0]
+    cases = [(8, 6144, 32, 16, 128, dtype, lens, window, 50.0)
+             for dtype in (bf, f32) for window in (GEMMA2_WINDOW, None)]
+    cases += [(8, 6144, 32, 16, 128, bf, GEMMA2_DECODE_ONE_GROUP, GEMMA2_WINDOW, 50.0)]
+    cases += [(8, 300, 32, 16, 128, dtype, edges, window, 50.0)
+              for window in (1, 63, 64, 65) for dtype in (bf, f32)]
+    cases += [(3, 1000, 8, 2, 64, f32, [999, 1, 500], 100, None),
+              (4, 700, 8, 4, 112, bf, [700, 129, 0, 64], None, 30.0)]
+    return cases
 
 
 def check_decode(gen):
@@ -282,16 +342,19 @@ def check_decode(gen):
     from repro_torch.kernels import decode_attention_ref
     from repro_torch.kernels.decode_attention import ops as decode_ops
     worst = {}
-    for b, s, h, g, d, dtype, lens in decode_cases():
+    for case in decode_cases():
+        b, s, h, g, d, dtype, lens, window, softcap = (case + (None, None))[:9]
+        kw = dict(window=window, softcap=softcap)
         q = randn(gen, (b, h, d), dtype)
         k = randn(gen, (b, s, g, d), dtype)
         v = randn(gen, (b, s, g, d), dtype)
         cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        ref = decode_attention_ref(q, k, v, cl)
+        ref = decode_attention_ref(q, k, v, cl, **kw)
         for rows in (None, UNIT_ROWS):   # R chosen per call, and fixed
-            out = decode_attention(q, k, v, cl, rows_per_split=rows)
+            out = decode_attention(q, k, v, cl, rows_per_split=rows, **kw)
             torch.cuda.synchronize()
-            err = close(out, ref, TOL[dtype], f"decode {(b, s, h, g, d, dtype, lens, rows)}")
+            err = close(out, ref, TOL[dtype], f"decode {(b, s, h, g, d, dtype, lens, rows)} "
+                        f"window {window} softcap {softcap}")
             for i, n in enumerate(lens):
                 check(n > 0 or bool((out[i] == 0).all()),
                       "decode: cache_len 0 must give zeros")
@@ -322,6 +385,24 @@ def check_decode(gen):
     v2[:, 300:] = float("nan")
     check(bool(torch.isfinite(decode_attention(q, k2, v2, cl)).all()),
           "decode: a NaN in a dead row leaked")
+    # with a window and a softcap, rows below the window are dead too: they
+    # are never read, so poison there leaves every bit as it was
+    q = randn(gen, (4, 32, 128), torch.bfloat16)
+    k = randn(gen, (4, 700, 16, 128), torch.bfloat16)
+    v = randn(gen, (4, 700, 16, 128), torch.bfloat16)
+    cl = torch.tensor([700, 65, 64, 300], dtype=torch.int32, device="cuda")
+    kw = dict(window=64, softcap=50.0, scale=GEMMA2_SCALE)
+    clean = decode_attention(q, k, v, cl, **kw)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(cl.tolist()):
+        k2[i, :max(0, n - 64)], v2[i, :max(0, n - 64)] = 1e4, float("nan")
+        k2[i, n:], v2[i, n:] = -1e4, float("inf")
+    for rows in (None, decode_ops.STEP_ROWS):
+        out = decode_attention(q, k2, v2, cl, rows_per_split=rows, **kw)
+        check(torch.equal(out, clean) if rows is None else bool(torch.isfinite(out).all()),
+              f"decode: a poisoned row outside the window leaked ({rows} rows a unit)")
+        close(out, decode_attention_ref(q, k2, v2, cl, **kw), TOL[torch.bfloat16],
+              "decode window + softcap over poisoned rows vs plain")
     # the units that merged set their counters back to 0 for the next call
     torch.cuda.synchronize()
     check(all(int(c.abs().sum()) == 0 for c in decode_ops._counters.values()),
@@ -391,6 +472,32 @@ def flash_cases():
         (1, 100, 333, 8, 1, 112, False, None, 128, bf, None),
         (1, 256, 256, 4, 2, 112, True, 50.0, 64, f32, 2),
     ]
+    return [c + (None,) for c in cases] + gemma2_flash_cases()
+
+
+def gemma2_flash_cases():
+    """gemma2-27b's prefill shape (H 32, G 16, D 128, softcap 50; the window
+    last): windows of 1, 63, 64 and 65 rows with prompts just inside and just
+    past them, pinned and streamed, both types; the published 4096 at 4096
+    (inside), 4097, 4160 and 5120 tokens (past by one row, one tile and
+    sixteen), and a window at other groups and head sizes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    w = GEMMA2_WINDOW
+    cases = []
+    for window in (1, 63, 64, 65):
+        for s in (window, window + 1, 300):
+            for dtype in (bf, f32):
+                cases.append((1, s, s, 32, 16, 128, True, 50.0, 0 if s < 64 else 64, dtype,
+                              None, window))
+    for s in (w, w + 1, w + 64, 5120):
+        cases.append((1, s, s, 32, 16, 128, True, 50.0, 0, bf, None, w))
+    cases += [
+        (1, w + 64, w + 64, 32, 16, 128, True, 50.0, 256, bf, 3, w),
+        (1, w + 64, w + 64, 32, 16, 128, True, 50.0, 0, f32, None, w),
+        (2, 700, 700, 16, 4, 64, True, None, 640, bf, 3, 100),
+        (1, 300, 300, 8, 8, 112, True, 50.0, 256, bf, 2, 63),
+        (2, 257, 257, 12, 4, 128, True, None, 64, f32, 2, 65),
+    ]
     return cases
 
 
@@ -405,14 +512,16 @@ def check_flash(gen):
     from repro_torch.kernels import flash_attention
     worst = {}
     for case in flash_cases():
-        b, sq, sk, h, g, d, causal, softcap, pinned, dtype, tiles = case
+        b, sq, sk, h, g, d, causal, softcap, pinned, dtype, tiles, window = case
+        scale = GEMMA2_SCALE if window else None
         q = randn(gen, (b, sq, h, d), dtype)
         k = randn(gen, (b, sk, g, d), dtype)
         v = randn(gen, (b, sk, g, d), dtype)
-        out = flash_attention(q, k, v, causal=causal, softcap=softcap,
-                              pinned_rows=pinned, tiles_per_chunk=tiles)
+        out = flash_attention(q, k, v, causal=causal, softcap=softcap, window=window,
+                              scale=scale, pinned_rows=pinned, tiles_per_chunk=tiles)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal, softcap=softcap)
+        ref = attention_ref(q, k, v, causal=causal, softcap=softcap, window=window,
+                            scale=scale)
         err = close(out, ref, TOL[dtype], f"flash {case}")
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
     # pinned_rows is a pure schedule parameter: fp32 outputs agree to 1e-5,
@@ -427,9 +536,14 @@ def check_flash(gen):
         close(other, base, 1e-5, f"flash pinned equivalence {pinned}/{tiles}")
     # bf16 walks the same tiles in the same order with the same arithmetic
     # wherever a tile lives: bit-identical across pinned_rows (none, one tile,
-    # the planner's split, all of Sk) and across chunkings
-    for s, h, g, d in ((300, 6, 2, 128), (700, 16, 4, 64), (300, 8, 8, 112), (300, 8, 2, 112),
-                       (300, 16, 16, 128)):
+    # the planner's split, all of Sk) and across chunkings, with a window too
+    # (a pinned tile older than the window is skipped as a streamed one is)
+    for s, h, g, d, window in ((300, 6, 2, 128, None), (700, 16, 4, 64, None),
+                               (300, 8, 8, 112, None), (300, 8, 2, 112, None),
+                               (300, 16, 16, 128, None), (300, 32, 16, 128, 64),
+                               (700, 16, 4, 64, 65), (300, 8, 8, 112, 63),
+                               (GEMMA2_WINDOW + 64, 32, 16, 128, GEMMA2_WINDOW)):
+        kw = dict(window=window, softcap=50.0, scale=GEMMA2_SCALE) if window else {}
         q = randn(gen, (1, s, h, d), torch.bfloat16)
         k = randn(gen, (1, s, g, d), torch.bfloat16)
         v = randn(gen, (1, s, g, d), torch.bfloat16)
@@ -439,15 +553,18 @@ def check_flash(gen):
         pins = {0, 64, planned}
         if flash_smem_bytes(s, d, 2) <= H100_SMEM_PER_BLOCK:
             pins.add(s)
+        else:   # a long prompt, which the planner streams whole: pin what fits
+            pins |= {128, 256}
         check(len(pins) == 4, f"bf16 equivalence at S {s}: pins {sorted(pins)}")
-        base = flash_attention(q, k, v, causal=True, pinned_rows=0, tiles_per_chunk=1)
-        close(base, attention_ref(q, k, v), TOL[torch.bfloat16], f"flash bf16 S {s}")
+        base = flash_attention(q, k, v, causal=True, pinned_rows=0, tiles_per_chunk=1, **kw)
+        close(base, attention_ref(q, k, v, **kw), TOL[torch.bfloat16],
+              f"flash bf16 S {s} window {window}")
         for pinned in sorted(pins):
             for tiles in (None, 1, 2, 3, 7):
                 other = flash_attention(q, k, v, causal=True, pinned_rows=pinned,
-                                        tiles_per_chunk=tiles)
-                check(torch.equal(other, base), f"flash bf16 S {s}: pinned {pinned}, "
-                      f"tiles {tiles} differs from pinned 0 by "
+                                        tiles_per_chunk=tiles, **kw)
+                check(torch.equal(other, base), f"flash bf16 S {s} window {window}: "
+                      f"pinned {pinned}, tiles {tiles} differs from pinned 0 by "
                       f"{float((other.float() - base.float()).abs().max()):.3e}")
     # a cache slice longer than the prompt, read through its strides
     for h, g, d in ((24, 8, 128), (32, 32, 112)):
@@ -460,52 +577,128 @@ def check_flash(gen):
     return worst
 
 
-def decode_inputs(gen, lens, h, g, d):
-    """q, k, v and cache_len on the engine's pool (8 slots x 2048 rows, a
+def decode_inputs(gen, lens, h, g, d, s=2048):
+    """q, k, v and cache_len on the engine's pool (8 slots x ``s`` rows, a
     path's heads, bf16) with the slots at ``lens``."""
     bf = torch.bfloat16
-    b, s = 8, 2048
+    b = 8
     return (randn(gen, (b, h, d), bf), randn(gen, (b, s, g, d), bf),
             randn(gen, (b, s, g, d), bf), torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
-def decode_record(q, k, v, cl, flush):
+def decode_record(q, k, v, cl, flush, window=None, softcap=None, scale=None):
     """The decode kernel's record on these inputs: its time beside the plain
-    version's and the library call's, and the bound, which counts only rows
-    below ``cache_len``."""
+    version's and the library call's, and the bound, which counts only live
+    rows (below ``cache_len`` and, with a window, among its last ``window``).
+    No library call computes softcapped scores: with a softcap,
+    ``library_ms`` is None and ``library_ms_no_softcap`` times the library
+    call on the same live rows without it, a different function."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import decode_attention_ref
     from repro_torch.kernels.decode_attention import ops as decode_ops
     bf = torch.bfloat16
     (b, h, d), (_, s, g, _) = q.shape, k.shape
     lens = cl.tolist()
-    plan = decode_ops.decode_plan(b, s, h, g, d,
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    plan = decode_ops.decode_plan(b, s, h, g, d, window=window,
                                   sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
-    mask = (torch.arange(s, device="cuda")[None, :] < cl[:, None])[:, None, None, :]
+    t = torch.arange(s, device="cuda")[None, :]
+    live_rows = (t < cl[:, None]) & ((t >= cl[:, None] - window) if window else True)
+    mask = live_rows[:, None, None, :]
     q4 = q[:, :, None, :]
     k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
 
     def lib_decode():
-        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True,
+                                              scale=scale)
 
-    ref = decode_attention_ref(q, k, v, cl)
-    err = close(decode_attention(q, k, v, cl), ref, TOL[bf], f"decode at {lens}")
+    ref = decode_attention_ref(q, k, v, cl, **kw)
+    err = close(decode_attention(q, k, v, cl, **kw), ref, TOL[bf],
+                f"decode at {lens}, window {window}, softcap {softcap}")
     # the library call gives NaN for a row with no valid key: compare the rest
     live = cl > 0
-    close(lib_decode()[:, :, 0][live], ref[live], TOL[bf], "library decode vs plain")
-    n_bytes = (2 * g * d * 2 * sum(lens)) + 2 * q.numel() * 2 + cl.numel() * 4
-    n_flops = 4 * h * d * sum(lens)
+    lib_ref = ref if softcap is None else decode_attention_ref(q, k, v, cl, window=window,
+                                                               scale=scale)
+    close(lib_decode()[:, :, 0][live], lib_ref[live], TOL[bf], "library decode vs plain")
+    n_live = int(live_rows.sum())
+    n_bytes = (2 * g * d * 2 * n_live) + 2 * q.numel() * 2 + cl.numel() * 4
+    n_flops = 4 * h * d * n_live
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+    lib_ms = time_ms(lib_decode, flush)
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
-                  "cache_len": lens, "rows_chosen": plan.rows_for(lens)},
+                  "cache_len": lens, "window": window, "softcap": softcap, "scale": scale,
+                  "live_rows": n_live, "rows_chosen": plan.rows_for(lens)},
         "max_abs_err": err, "tol": TOL[bf],
-        "ms": time_ms(lambda: decode_attention(q, k, v, cl), flush),
-        "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, cl), flush),
-        "library_ms": time_ms(lib_decode, flush),
+        "ms": time_ms(lambda: decode_attention(q, k, v, cl, **kw), flush),
+        "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, cl, **kw), flush),
+        "library_ms": lib_ms if softcap is None else None,
+        **({} if softcap is None else {"library_ms_no_softcap": lib_ms}),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def flash_record(gen, flush, sq, h, g, d, pinned, window=None, softcap=None, scale=None):
+    """The flash kernel's record for one causal prefill of ``sq`` tokens
+    (bf16, ``pinned`` rows as the planner splits them): its time beside the
+    plain version's and the library call's, pinned and unpinned, and the
+    bound, whose operations count only the (row, column) pairs the causal
+    mask and the window leave.  With a softcap, ``library_ms`` is None (no
+    library call computes it) and ``library_ms_no_softcap`` times the library
+    call with the same mask and no softcap, a different function."""
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    bf = torch.bfloat16
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    q = randn(gen, (1, sq, h, d), bf)
+    k = randn(gen, (1, sq, g, d), bf)
+    v = randn(gen, (1, sq, g, d), bf)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows = torch.arange(sq, device="cuda")
+    seen = rows[None, :] <= rows[:, None]
+    if window:
+        seen &= rows[None, :] > rows[:, None] - window
+
+    def lib_flash():
+        if window:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=seen,
+                                                  enable_gqa=True, scale=scale)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True, scale=scale)
+
+    ref = attention_ref(q, k, v, **kw)
+    err = close(flash_attention(q, k, v, pinned_rows=pinned, **kw), ref, TOL[bf],
+                f"flash at the serving shape, S {sq}, window {window}")
+    lib_ref = ref if softcap is None else attention_ref(q, k, v, window=window, scale=scale)
+    close(lib_flash().transpose(1, 2), lib_ref, TOL[bf], "library flash vs plain")
+    n_seen = int(seen.sum())
+    del ref, lib_ref
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    n_flops = 4 * n_seen * d * h
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+    ms = time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned, **kw), flush)
+    lib_ms = time_ms(lib_flash, flush)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+        "shape": {"B": 1, "Sq": sq, "Sk": sq, "H": h, "G": g, "D": d,
+                  "dtype": "bfloat16", "causal": True, "pinned_rows": pinned,
+                  "window": window, "softcap": softcap, "scale": scale,
+                  "visible_pairs": n_seen},
+        "max_abs_err": err, "tol": TOL[bf],
+        "ms": ms, "tflops": n_flops / ms * 1e-9,
+        "ms_unpinned": time_ms(lambda: flash_attention(q, k, v, pinned_rows=0, **kw), flush),
+        # no heavy/light pairing: one Q tile a block
+        "ms_one_tile_a_chunk": time_ms(lambda: flash_attention(
+            q, k, v, pinned_rows=pinned, tiles_per_chunk=1, **kw), flush),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw), flush),
+        "library_ms": lib_ms if softcap is None else None,
+        **({} if softcap is None else {"library_ms_no_softcap": lib_ms}),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
@@ -514,60 +707,30 @@ def decode_record(q, k, v, cl, flush):
 def time_attention(gen, flush, path):
     """Times of the attention kernels at one path's serving shapes.  Returns
     the records of the ``kernels`` line, without their launch counts, and the
-    extra records; each names its path."""
+    extra records, the cases of ``ATTN_TIMED``; each names its path."""
     from repro_torch.core.orchestrator import CacheOrchestrator
     from repro_torch.core.orchestrator import FLASH_TILE_ROWS
     from repro_torch.core.orchestrator import flash_kv_row_bytes
     from repro_torch.core.orchestrator import hopper_pin_budget_bytes
-    from repro_torch.kernels import attention_ref
-    from repro_torch.kernels import flash_attention
-    bf = torch.bfloat16
     h, g, d = ATTN_SHAPES[path]
-    # decode: slots at mixed positions, and a serving call's one position group
-    records = [decode_record(*decode_inputs(gen, DECODE_RAGGED, h, g, d), flush)]
-    extra = [decode_record(*decode_inputs(gen, DECODE_ONE_GROUP, h, g, d), flush)]
-
-    # flash: one request's prefill, split as the engine's orchestrator plans it
     orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(d, 2))
-    for sq in (1024, 256):
-        pinned, _ = orch.plan_kv_split(sq, FLASH_TILE_ROWS, flash_kv_row_bytes(d, 2))
-        q = randn(gen, (1, sq, h, d), bf)
-        k = randn(gen, (1, sq, g, d), bf)
-        v = randn(gen, (1, sq, g, d), bf)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-        def lib_flash():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+    def pins(sq):
+        return orch.plan_kv_split(sq, FLASH_TILE_ROWS, flash_kv_row_bytes(d, 2))[0]
 
-        ref = attention_ref(q, k, v)
-        err = close(flash_attention(q, k, v, pinned_rows=pinned), ref, TOL[bf],
-                    "flash at the serving shape")
-        close(lib_flash().transpose(1, 2), ref, TOL[bf], "library flash vs plain")
-        n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
-        n_flops = 4 * sq * sq * d * h // 2
-        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
-        ms = time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned), flush)
-        rec = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
-            "shape": {"B": 1, "Sq": sq, "Sk": sq, "H": h, "G": g, "D": d,
-                      "dtype": "bfloat16", "causal": True, "pinned_rows": pinned},
-            "max_abs_err": err, "tol": TOL[bf],
-            "ms": ms, "tflops": n_flops / ms * 1e-9,
-            "ms_unpinned": time_ms(lambda: flash_attention(q, k, v, pinned_rows=0), flush),
-            # no heavy/light pairing: one Q tile a block
-            "ms_one_tile_a_chunk": time_ms(lambda: flash_attention(
-                q, k, v, pinned_rows=pinned, tiles_per_chunk=1), flush),
-            "plain_ms": time_ms(lambda: attention_ref(q, k, v), flush),
-            "library_ms": time_ms(lib_flash, flush),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        (records if sq == 1024 else extra).append(rec)
-    for rec in records + extra:
+    timed = ATTN_TIMED.get(path, ATTN_TIMED_DEFAULT)
+    attn = {k: timed[k] for k in ("softcap", "scale") if k in timed}
+    pool = {"s": timed["pool"]} if "pool" in timed else {}
+    records, extra = [], []
+    for kernel, size, local in timed["cases"]:
+        kw = dict(attn, window=timed["window"]) if local else attn
+        if kernel == "decode":
+            rec = decode_record(*decode_inputs(gen, size, h, g, d, **pool), flush, **kw)
+        else:
+            rec = flash_record(gen, flush, size, h, g, d, pins(size), **kw)
         rec["path"] = path
+        first = all(r["name"] != rec["name"] for r in records)
+        (records if first else extra).append(rec)
     return records, extra
 
 
@@ -757,6 +920,21 @@ PATHS = {
         prompt_len=llama_prompt_len,
         # the dense layer and the first MoE layer
         parity_cut={"moe_layers": 1}, parity_layers=2),
+    "gemma2-27b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+               "window", "local_global_period", "attn_softcap", "final_softcap",
+               "attn_scale", "gemma_norm", "act"),
+        published=(46, 4608, 32, 16, 128, 36864, 256000, GEMMA2_WINDOW, 2, 50.0, 30.0,
+                   GEMMA2_SCALE, True, "gelu"),
+        serve="serve_gemma2", parity="parity_gemma2", prompt_len=llama_prompt_len,
+        # two prompts past the window, by one KV tile and by sixteen: the
+        # second lands in a reused slot
+        fixed_prompt_lens={2: GEMMA2_WINDOW + 64, 7: GEMMA2_WINDOW + 1024},
+        max_batch=4, max_seq=GEMMA2_POOL,
+        # one local and one global layer; a window of 64 that 2 x 96 prompt
+        # tokens and 4 decode steps overrun on the CPU in reasonable time
+        parity_cut={"layers": 2}, parity_layers=2, parity_changes={"window": 64},
+        parity_prompt=96),
 }
 
 
@@ -786,11 +964,13 @@ def phase_serve(arch, n_requests, max_new):
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    engine = ServeEngine(cfg, params, max_batch=8, max_seq=2048, device="cuda")
+    engine = ServeEngine(cfg, params, max_batch=path.get("max_batch", 8),
+                         max_seq=path.get("max_seq", 2048), device="cuda")
     rng = np.random.default_rng(0)
     reqs = []
+    fixed = path.get("fixed_prompt_lens", {})
     for i in range(n_requests):
-        plen = path["prompt_len"](rng)
+        plen = fixed[i] if i in fixed else path["prompt_len"](rng)
         prompt = rng.integers(2, cfg.vocab, size=plen).astype(np.int32)
         reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
         engine.add_request(reqs[-1])
@@ -826,6 +1006,7 @@ def phase_serve(arch, n_requests, max_new):
           f"({n_requests} prefills, {engine.decode_calls} decode_step calls)")
     check(bool(torch.isfinite(engine.last_logits.float()).all()), "non-finite logits")
     emit(path["serve"], arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         max_batch=engine.max_batch, max_seq=engine.max_seq,
          requests=n_requests, prompt_lens=[len(r.prompt) for r in reqs],
          prompt_tokens=int(sum(len(r.prompt) for r in reqs)),
          new_tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
@@ -834,6 +1015,86 @@ def phase_serve(arch, n_requests, max_new):
          launches=counts, init_params_seconds=init_s,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     return cfg, params, counts
+
+
+def parity_prompt_len(arch, cfg):
+    from repro_torch.configs import DENSE
+    return PATHS[arch].get("parity_prompt", 48 if cfg.family == DENSE else 64)
+
+
+def parity_logits(arch, cfg, params, dev, dtype, plain=False, routes=None):
+    """Logits (5, 2, vocab) of ``phase_parity``'s calls on ``dev`` in
+    ``dtype``: prefill of 2 prompts into the path's cut of ``params`` + 4
+    decode steps, the tokens drawn from seed 1.  ``plain`` runs the kernels'
+    plain versions; ``routes`` (a MoE path) records or follows expert choices
+    (``routing``)."""
+    from repro_torch.configs import SSM
+    from repro_torch.models import decode_step
+    from repro_torch.models import prefill
+    path = PATHS[arch]
+    cfg2 = replace(cfg, n_layers=path["parity_layers"], **path.get("parity_changes", {}))
+    plen = parity_prompt_len(arch, cfg)
+
+    def cut(tree, keep=None):
+        """The tree with the first ``keep`` layers of each leaf below a key of
+        ``parity_cut`` (all of them elsewhere), on ``dev``."""
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = cut(v, path["parity_cut"].get(k, keep))
+            else:
+                v = v[:keep] if keep else v
+                out[k] = v.to(device=dev, dtype=torch.float32 if v.dtype == torch.float32
+                              else dtype)
+        return out
+
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(2, cfg.vocab, size=(2, plen))
+    steps = rng.integers(2, cfg.vocab, size=(4, 2, 1))
+    p = cut(params)
+    tok = torch.as_tensor(prompt, device=dev)
+    follow = routing(routes) if routes is not None else nullcontext()
+    with plain_versions() if plain else nullcontext(), follow:
+        if cfg.family == SSM:
+            got, cache = prefill(p, tok, cfg2)
+        else:
+            got, cache = prefill(p, tok, cfg2, pinned_rows=plen)
+            pad = torch.zeros_like(cache.k[:, :, :4])
+            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
+                                   v=torch.cat([cache.v, pad], dim=2))
+        outs = [got]
+        for tok in steps:
+            got, cache = decode_step(p, torch.as_tensor(tok, device=dev), cache, cfg2)
+            outs.append(got[:, 0])
+    return torch.stack(outs).float().cpu()
+
+
+def held_logits(got, want):
+    """Share within ``LOGIT_TOL``, RMS and largest error of bf16 logits, and
+    whether the greedy tokens agree where ``want``'s top-2 margin is clear of
+    the tolerance."""
+    err = (got - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * (LOGIT_TOL + LOGIT_TOL * top2[..., 0].abs())
+    same = got.argmax(-1) == want.argmax(-1)
+    return dict(max_abs_err=float(err.max()),
+                share_within_tol=float((err <= LOGIT_TOL + LOGIT_TOL * want.abs())
+                                       .float().mean()),
+                rms_err=float(err.square().mean().sqrt()),
+                clear_margin_tokens=int(clear.sum()), tokens_equal=int(same.sum()),
+                clear_margin_tokens_equal=bool(same[clear].all()))
+
+
+def router_flips(routes):
+    """What a run that followed recorded expert choices (``routing``)
+    replayed: the tokens routed, those it would have sent to other experts,
+    their largest gap in router probability, and whether they are a few
+    near-ties (``ROUTER_MAX_FLIPS``, ``ROUTER_NEAR_TIE``)."""
+    flips, tokens = routes["flips"], sum(int(c.shape[0]) for c in routes["calls"])
+    gap = max(flips, default=0.0)
+    return dict(tokens_routed=tokens, tokens_routed_otherwise_on_cpu=len(flips),
+                largest_gap=gap, near_ties=(len(flips) <= ROUTER_MAX_FLIPS * tokens
+                                            and gap <= ROUTER_NEAR_TIE))
 
 
 def phase_parity(arch, cfg, params):
@@ -860,83 +1121,103 @@ def phase_parity(arch, cfg, params):
     checks hold the card's kernels against the card's plain versions of the
     same steps (``plain_versions``), which isolates the kernels; the
     card-vs-CPU share and RMS are reported, and the greedy token is checked
-    against both."""
-    from repro_torch.configs import DENSE
-    from repro_torch.configs import SSM
-    from repro_torch.models import decode_step
-    from repro_torch.models import prefill
+    against both.
+
+    A MoE layer's router is a discontinuous function of its input: where a
+    token's k-th and (k+1)-th expert are nearly tied, the last bits in which
+    the two devices' bf16 activations differ can tip the choice, and that
+    token's output, logits included, then differs by far more than any
+    tolerance.  So in bf16 the CPU run of a MoE path follows the card's
+    expert choices (``routing``): the logits are held as above with the same
+    choices on both sides, and the tokens the CPU would have routed otherwise
+    must be near-ties, its own choice ahead of the card's by at most
+    ``ROUTER_NEAR_TIE`` in probability, in at most ``ROUTER_MAX_FLIPS`` of
+    the tokens routed (``scripts/moe_router_flips.py`` reads both over
+    several weight draws and planted router faults).  The fp32 runs route on
+    their own."""
+    from repro_torch.configs import MOE
     path = PATHS[arch]
-    cfg2 = replace(cfg, n_layers=path["parity_layers"])
-    plen = 48 if cfg.family == DENSE else 64
-
-    def cut(tree, dev, dtype, keep=None):
-        """The tree with the first ``keep`` layers of each leaf below a key of
-        ``parity_cut`` (all of them elsewhere), on ``dev``."""
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = cut(v, dev, dtype, path["parity_cut"].get(k, keep))
-            else:
-                v = v[:keep] if keep else v
-                out[k] = v.to(device=dev, dtype=torch.float32 if v.dtype == torch.float32
-                              else dtype)
-        return out
-
-    rng = np.random.default_rng(1)
-    prompt = rng.integers(2, cfg.vocab, size=(2, plen))
-    steps = rng.integers(2, cfg.vocab, size=(4, 2, 1))
-
-    def run(dev, dtype, plain=False):
-        p = cut(params, dev, dtype)
-        tok = torch.as_tensor(prompt, device=dev)
-        with plain_versions() if plain else nullcontext():
-            if cfg.family == SSM:
-                got, cache = prefill(p, tok, cfg2)
-            else:
-                got, cache = prefill(p, tok, cfg2, pinned_rows=plen)
-                pad = torch.zeros_like(cache.k[:, :, :4])
-                cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
-                                       v=torch.cat([cache.v, pad], dim=2))
-            outs = [got]
-            for tok in steps:
-                got, cache = decode_step(p, torch.as_tensor(tok, device=dev), cache, cfg2)
-                outs.append(got[:, 0])
-        return torch.stack(outs).float().cpu()
-
-    card, cpu = run("cuda", torch.float32), run("cpu", torch.float32)
+    card = parity_logits(arch, cfg, params, "cuda", torch.float32)
+    cpu = parity_logits(arch, cfg, params, "cpu", torch.float32)
     check(card.shape == (5, 2, cfg.vocab), "parity: wrong logits shape")
     err32 = close(card, cpu, LOGIT_TOL, f"{arch} parity fp32: card vs CPU logits")
 
     def held(got, want, what, statistics=True):
-        """Share, RMS and clear-margin greedy tokens of bf16 logits; the first
-        two checked only where ``statistics``."""
-        err = (got - want).abs()
-        share = float((err <= LOGIT_TOL + LOGIT_TOL * want.abs()).float().mean())
-        rms = float(err.square().mean().sqrt())
-        top2 = want.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 2 * (LOGIT_TOL + LOGIT_TOL * top2[..., 0].abs())
-        same = got.argmax(-1) == want.argmax(-1)
+        """``held_logits``, checked; share and RMS only where ``statistics``."""
+        got = held_logits(got, want)
         if statistics:
-            check(share >= 0.999, f"{arch} parity bf16, {what}: only {share:.5f} of the "
-                  f"logits within {LOGIT_TOL}")
-            check(rms <= LOGIT_TOL / 2, f"{arch} parity bf16, {what}: RMS logit error "
-                  f"{rms:.4f}")
-        check(bool(same[clear].all()), f"{arch} parity bf16, {what}: greedy token differs "
-              "at a clear margin")
-        return dict(max_abs_err=float(err.max()), share_within_tol=share, rms_err=rms,
-                    clear_margin_tokens=int(clear.sum()), tokens_equal=int(same.sum()))
+            check(got["share_within_tol"] >= 0.999, f"{arch} parity bf16, {what}: only "
+                  f"{got['share_within_tol']:.5f} of the logits within {LOGIT_TOL}")
+            check(got["rms_err"] <= LOGIT_TOL / 2, f"{arch} parity bf16, {what}: RMS "
+                  f"logit error {got['rms_err']:.4f}")
+        check(got.pop("clear_margin_tokens_equal"), f"{arch} parity bf16, {what}: "
+              "greedy token differs at a clear margin")
+        return got
 
-    card, cpu = run("cuda", torch.bfloat16), run("cpu", torch.bfloat16)
+    routes = {} if cfg.family == MOE else None
+    card = parity_logits(arch, cfg, params, "cuda", torch.bfloat16, routes=routes)
+    cpu = parity_logits(arch, cfg, params, "cpu", torch.bfloat16, routes=routes)
     check(bool(torch.isfinite(card).all()), "parity bf16: non-finite logits")
     cross = path.get("bf16_cross_device", True)
     fields = {"bf16": held(card, cpu, "card vs CPU", cross)}
     if not cross:
-        fields["bf16_card_plain"] = held(card, run("cuda", torch.bfloat16, plain=True),
-                                         "card kernels vs card plain versions")
-    emit(path["parity"], arch=cfg.name, n_layers=cfg2.n_layers,
-         calls=f"prefill(2x{plen}) + 4 decode steps", tol=LOGIT_TOL,
-         fp32_max_abs_err=err32, **{f"{k}_{f}": v for k, d in fields.items()
-                                    for f, v in d.items()})
+        fields["bf16_card_plain"] = held(
+            card, parity_logits(arch, cfg, params, "cuda", torch.bfloat16, plain=True),
+            "card kernels vs card plain versions")
+    if routes is not None:
+        fields["router_bf16"] = flips = router_flips(routes)
+        check(flips.pop("near_ties"), f"{arch} parity bf16: the CPU would route "
+              f"{flips['tokens_routed_otherwise_on_cpu']} of {flips['tokens_routed']} "
+              f"tokens otherwise, giving up {flips['largest_gap']:.2e} of probability "
+              "at most: not a few near-ties")
+    emit(path["parity"], arch=cfg.name, n_layers=path["parity_layers"],
+         changed=path.get("parity_changes", {}),
+         calls=f"prefill(2x{parity_prompt_len(arch, cfg)}) + 4 decode steps",
+         tol=LOGIT_TOL, fp32_max_abs_err=err32,
+         **{f"{k}_{f}": v for k, d in fields.items() for f, v in d.items()})
+
+
+@contextmanager
+def routing(routes):
+    """A MoE model's router, recording each call's expert choices into
+    ``routes["calls"]`` on the first run, and following them on the next:
+    where that run's own top-k differs for a token, the token takes the
+    recorded experts in the recorded order, weighted by the run's own
+    probabilities renormalised over them; where the experts themselves
+    differ, ``routes["flips"]`` gets the probability the run's own choice had
+    over the recorded one."""
+    from repro_torch.models import moe
+    real = moe._route
+    first = "calls" not in routes
+    calls = routes.setdefault("calls", [])
+    flips = routes.setdefault("flips", [])
+    seen = [0]
+
+    def route(xt, w_gate, top_k):
+        w, idx = real(xt, w_gate, top_k)
+        if first:
+            calls.append(idx.cpu())
+            return w, idx
+        want = calls[seen[0]].to(idx.device)
+        seen[0] += 1
+        other = (idx != want).any(-1)           # other experts, or the same in another order
+        if bool(other.any()):
+            probs = torch.softmax(torch.matmul(xt.float(), w_gate.float()), dim=-1)
+            gap = probs.gather(-1, idx).sum(-1) - probs.gather(-1, want).sum(-1)
+            moved = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+            flips.extend(gap[moved].tolist())
+            w_want = probs.gather(-1, want)
+            w_want = w_want / torch.clamp(w_want.sum(-1, keepdim=True), min=1e-9)
+            w = torch.where(other[:, None], w_want, w)
+            idx = torch.where(other[:, None], want, idx)
+        return w, idx
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+    check(first or seen[0] == len(calls), "routing: the runs routed different calls")
 
 
 @contextmanager
@@ -950,11 +1231,13 @@ def plain_versions():
     from repro_torch.models import layers
     from repro_torch.models import ssm
 
-    def flash(q, k, v, *, causal=True, scale=None, softcap=None, pinned_rows=0):
-        return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap)
+    def flash(q, k, v, *, causal=True, scale=None, softcap=None, window=None, pinned_rows=0):
+        return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
+                             window=window)
 
-    def decode(q, k, v, cache_len, *, scale=None):
-        return decode_attention_ref(q, k, v, cache_len, scale=scale)
+    def decode(q, k, v, cache_len, *, scale=None, window=None, softcap=None):
+        return decode_attention_ref(q, k, v, cache_len, scale=scale, window=window,
+                                    softcap=softcap)
 
     def scan(x, dt, A, B, C, *, chunk=256, initial_state=None):
         y, state = ssd_ref(x, dt, A, B, C, chunk, initial_state=initial_state)
@@ -987,7 +1270,8 @@ def main() -> None:
     phase_build(args.build_log)
     records = phase_kernels() if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
-                             ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS)):
+                             ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS),
+                             ("gemma2-27b", PATH_REQUESTS)):
         path = PATHS[arch]
         if path["serve"] not in phases:
             continue

@@ -1,15 +1,20 @@
 #!/usr/bin/env python
 """Where a serving step of the PyTorch/CUDA port spends its time on the card.
 
-Builds llama3.2-3b, mamba2-2.7b or deepseek-moe-16b at full width and depth
-(random bf16 weights) behind ``ServeEngine(max_batch=8, max_seq=2048)``, fills
-all eight slots, runs a few engine steps to warm up, then traces a window of
-steps with ``torch.profiler`` and prints one JSON object: wall time of the
-window, device-busy time and idle share, ``decode_step`` calls, and the
-kernels that took most device time.
+Builds llama3.2-3b, mamba2-2.7b, deepseek-moe-16b or gemma2-27b at full width
+and depth (random bf16 weights) behind the ``ServeEngine`` pool that
+``chip_smoke.py`` serves it with (its ``PATHS`` entry: ``max_batch=8,
+max_seq=2048``, gemma2-27b ``max_batch=4, max_seq=6144``), fills every slot
+with prompts drawn as there (the entry's fixed lengths where they fall on a
+slot: gemma2-27b's third prompt is 4160 tokens long, past its 4096-row
+window), runs a few engine steps to warm up, then
+traces a window of steps with ``torch.profiler`` and prints one JSON object:
+wall time of the window, device-busy time and idle share, ``decode_step``
+calls, and the kernels that took most device time.
 
     python scripts/torch_serve_profile.py [--arch mamba2-2.7b] [--steps 4] [--layers N]
     python scripts/torch_serve_profile.py --arch deepseek-moe-16b
+    python scripts/torch_serve_profile.py --arch gemma2-27b
 
 Needs one CUDA device and nvcc (the kernels are built at first use).
 """
@@ -27,7 +32,10 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+from chip_smoke import PATHS
 # the port
 from repro_torch.configs import SSM
 from repro_torch.configs import get_arch
@@ -41,7 +49,7 @@ from repro_torch.serve import ServeEngine
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b",
-                    choices=["llama3.2-3b", "mamba2-2.7b", "deepseek-moe-16b"])
+                    choices=["llama3.2-3b", "mamba2-2.7b", "deepseek-moe-16b", "gemma2-27b"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--layers", type=int, help="cut the depth (default: published)")
     args = ap.parse_args()
@@ -54,11 +62,15 @@ def main() -> None:
     cfg = get_arch(args.arch)
     cfg = replace(cfg, n_layers=args.layers or cfg.n_layers)
     params = init_params(cfg, seed=0, device="cuda")
-    engine = ServeEngine(cfg, params, max_batch=8, max_seq=2048, device="cuda")
+    path = PATHS[args.arch]
+    max_batch, max_seq = path.get("max_batch", 8), path.get("max_seq", 2048)
+    engine = ServeEngine(cfg, params, max_batch=max_batch, max_seq=max_seq, device="cuda")
     rng = np.random.default_rng(0)
-    for i in range(8):
+    fixed = path.get("fixed_prompt_lens", {})
+    for i in range(max_batch):
         # an SSM prompt keeps the reference's chunk rule (S <= chunk here)
         plen = int(rng.integers(3, 257) if cfg.family == SSM else rng.integers(64, 1025))
+        plen = fixed.get(i, plen)
         prompt = rng.integers(2, cfg.vocab, size=plen).astype(np.int32)
         engine.add_request(Request(uid=i, prompt=prompt, max_new_tokens=10_000))
     for _ in range(3):

@@ -5,8 +5,9 @@
 // (src/repro/kernels/decode_attention/kernel.py, built by build_decode_call,
 // wrapped by ops.py::decode_attention).
 //
-// Bound on an H100: bytes.  Every cached K and V row below cache_len is read
-// once (2 * B * G * cache_len * D * itemsize bytes) and each row feeds only
+// Bound on an H100: bytes.  Every live cached K and V row (below cache_len and,
+// with a window, among the last `window`) is read once
+// (2 * B * G * live rows * D * itemsize bytes) and each row feeds only
 // `group = H / G` dot products, far below the card's operations-per-byte
 // ridge, so the least time is those bytes over the memory rate.  The rate
 // needs some 20 KB in flight on every SM all the time, and the work is ragged:
@@ -68,6 +69,14 @@
 //  * K/V are read in the cache's own (B, S, G, D) layout through strides: no
 //    transposed copy of the cache is ever made.  `group` is below any
 //    tensor-core tile height, so the products are fp32 multiply-adds.
+//  * A sliding window (gemma2-27b's local layers) makes the rows below
+//    len - window dead for this query and every later one: a sequence's live
+//    rows are [max(0, len - window), len), R is chosen from the live rows,
+//    the units cut only them, and no row below them is ever requested.
+//  * A logit softcap cannot be folded into q as the log2(e) scale is: with
+//    one, q is scaled by scale / softcap and each score becomes
+//    tanh(s) * softcap * log2(e) before the max; without one, the scores are
+//    the products of the log2-scaled q as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -185,7 +194,9 @@ struct Args {
   int min_rows;     // the least R; units = ceil(S / min_rows)
   int target;       // work items the chosen R aims at, at most
   int units, head_blocks;
+  int window;       // live rows a sequence at most, or 0: all of them
   float scale;
+  float softcap;    // 0: none
   long long q_sb, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg;
 };
 
@@ -200,7 +211,13 @@ __device__ __forceinline__ long long round_up(long long x, int to) {
   return (x + to - 1) / to * to;
 }
 
-// R for a call whose live rows sum to `total`: the least multiple of STEP_ROWS
+// The first live row of a sequence of length `len`: rows below it lie outside
+// the window of its query (and of every later one)
+__device__ __forceinline__ int first_live(int len, int window) {
+  return window > 0 && len > window ? len - window : 0;
+}
+
+// R for a call whose live rows (within the window) sum to `total`: the least multiple of STEP_ROWS
 // (at least min_rows) that keeps the work items within `target`, so that every
 // block takes one item at most and no SM more than target / SMs.  A (batch
 // row, head block) has at most len / R + 1 items (one for cache_len 0), so
@@ -217,11 +234,12 @@ __device__ __forceinline__ int rows_for(long long total, int B, int head_blocks,
   return (int)(r > min_rows ? r : min_rows);
 }
 
-// Unit `unit` of the sequence of length `len` (live units, `live` > 0) for the
-// HPB query heads h0.. of KV head g of batch row b.
-template <typename T, int D, int HPB>
+// Unit `unit` of the live rows [lo, len) of a sequence (`live` units, `live`
+// > 0) for the HPB query heads h0.. of KV head g of batch row b; CAP: the
+// scores are softcapped.
+template <typename T, int D, int HPB, bool CAP>
 __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int hb, int unit,
-                                            int len, int live, uint4* ring,
+                                            int lo, int len, int live, uint4* ring,
                                             float (&sm_m)[WARPS][HPB],
                                             float (&sm_l)[WARPS][HPB],
                                             float (&sm_acc)[WARPS][HPB][D], int& sm_last) {
@@ -235,7 +253,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
   const int blocks_per_group = group / HPB;
   const int g = hb / blocks_per_group;
   const int h0 = g * group + (hb % blocks_per_group) * HPB;
-  const int start = unit * R;
+  const int start = lo + unit * R;
   const int end = min(len, start + R);
   const bool direct = live == 1;
 
@@ -295,14 +313,16 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
     cp_async_commit();
   }
 
-  // q, scaled so that scores are in log2 units
+  // q, scaled so that scores are in log2 units; with a softcap, so that a
+  // product is the argument of its tanh
+  const float q_scale = CAP ? a.scale / a.softcap : a.scale * LOG2E;
   float qr[HPB][EPL];
 #pragma unroll
   for (int hh = 0; hh < HPB; ++hh) {
 #pragma unroll
     for (int c = 0; c < NCH; ++c) Vec<T>::widen(qraw[hh][c], &qr[hh][c * VEC]);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[hh][e] *= a.scale * LOG2E;
+    for (int e = 0; e < EPL; ++e) qr[hh][e] *= q_scale;
   }
 
   float m[HPB], l[HPB], acc[HPB][EPL];
@@ -343,6 +363,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
         x += __shfl_xor_sync(0xffffffffu, x, 4);
         x += __shfl_xor_sync(0xffffffffu, x, 2);
         x += __shfl_xor_sync(0xffffffffu, x, 1);
+        if (CAP) x = tanhf(x) * (a.softcap * LOG2E);
         s[r][hh] = valid[r] ? x : NEG_INF;
       }
     }
@@ -514,7 +535,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
 // order: for each batch row b, for each head block, its live units (one item
 // for cache_len 0, which writes zeros).  Block i takes items i, i + gridDim.x,
 // ...; every block finds the place of its item from cache_len alone.
-template <typename T, int D, int HPB>
+template <typename T, int D, int HPB, bool CAP>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 decode_kernel(const Args<T> a) {
   extern __shared__ uint4 ring[];
@@ -529,7 +550,10 @@ decode_kernel(const Args<T> a) {
   int R = a.rows;
   if (R == 0) {
     long long total = 0;
-    for (int i = threadIdx.x; i < a.B; i += THREADS) total += clamp_len(a.cache_len, i, a.S);
+    for (int i = threadIdx.x; i < a.B; i += THREADS) {
+      const int len = clamp_len(a.cache_len, i, a.S);
+      total += len - first_live(len, a.window);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
     if (threadIdx.x % 32 == 0) sm_total[threadIdx.x / 32] = total;
@@ -542,18 +566,19 @@ decode_kernel(const Args<T> a) {
 
   int b = 0, base = 0;  // first item of batch row b
   for (int item = blockIdx.x;; item += gridDim.x) {
-    int len = 0, live = 1;
+    int len = 0, lo = 0, live = 1;
     for (; b < a.B; ++b) {
       len = clamp_len(a.cache_len, b, a.S);
-      live = len > 0 ? (len + R - 1) / R : 1;
+      lo = first_live(len, a.window);
+      live = len > 0 ? (len - lo + R - 1) / R : 1;
       if (item < base + live * a.head_blocks) break;
       base += live * a.head_blocks;
     }
     if (b >= a.B) return;
     const int hb = (item - base) / live;
     const int unit = (item - base) % live;
-    // the sequence's rows cut evenly into its `live` units (still <= R each)
-    const int rows = (int)round_up((len + live - 1) / live, STEP_ROWS);
+    // the sequence's live rows cut evenly into its `live` units (still <= R each)
+    const int rows = (int)round_up((len - lo + live - 1) / live, STEP_ROWS);
     if (len == 0) {  // nothing to attend to: zeros
       const int group = a.H / a.G;
       const int blocks_per_group = group / HPB;
@@ -562,20 +587,28 @@ decode_kernel(const Args<T> a) {
         a.out[((long long)b * a.H + h0) * D + idx] = Vec<T>::to(0.f);
       continue;
     }
-    attend_unit<T, D, HPB>(a, rows, b, hb, unit, len, live, ring, sm_m, sm_l, sm_acc,
+    attend_unit<T, D, HPB, CAP>(a, rows, b, hb, unit, lo, len, live, ring, sm_m, sm_l, sm_acc,
                            sm_last);
     __syncthreads();  // the next item reuses the merge arrays
   }
 }
 
-template <typename T, int D, int HPB>
-int launch(Args<T> a, int blocks, cudaStream_t stream) {
+// A softcap is a template argument: the uncapped kernel keeps its scores'
+// loop as it was.
+template <typename T, int D, int HPB, bool CAP>
+int launch_cap(const Args<T>& a, int blocks, cudaStream_t stream) {
   constexpr int smem = Ring<T, D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, D, HPB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_kernel<T, D, HPB, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_kernel<T, D, HPB><<<blocks, THREADS, smem, stream>>>(a);
+  decode_kernel<T, D, HPB, CAP><<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D, int HPB>
+int launch(const Args<T>& a, int blocks, cudaStream_t stream) {
+  return a.softcap > 0.f ? launch_cap<T, D, HPB, true>(a, blocks, stream)
+                         : launch_cap<T, D, HPB, false>(a, blocks, stream);
 }
 
 template <typename T, int D>
@@ -597,8 +630,8 @@ int launch_hpb(int hpb, const Args<T>& a, int blocks, cudaStream_t stream) {
 template <typename T>
 int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
              const void* cache_len, void* out, void* scratch, void* counters, int B, int S,
-             int H, int G, int rows, int min_rows, int target, float scale,
-             const long long* st, int blocks, cudaStream_t stream) {
+             int H, int G, int rows, int min_rows, int target, int window, float scale,
+             float softcap, const long long* st, int blocks, cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -619,7 +652,9 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
   a.part_m = a.part_acc + n_part * D;
   a.part_l = a.part_m + n_part;
   a.counters = static_cast<int*>(counters);
+  a.window = window;
   a.scale = scale;
+  a.softcap = softcap;
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -641,9 +676,11 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
 // STEP_ROWS, or 0 for R chosen on the device from cache_len (rows_for);
 // `min_rows`, a positive multiple of STEP_ROWS with ceil(S / min_rows) at most
 // MAX_UNITS, bounds R from below (with `rows` given, it equals `rows`);
-// `target` is the most work items a chosen R may give.  Either way a
-// sequence's rows are cut evenly into ceil(len / R) units of a multiple of
-// STEP_ROWS rows.  `blocks` is the 1-D grid (the wrapper gives `target`
+// `target` is the most work items a chosen R may give.  `window` > 0 keeps
+// only a sequence's last `window` rows live (0: all rows); `softcap` > 0 caps
+// the scaled scores at softcap * tanh(s / softcap) (0: none).  Either way a
+// sequence's live rows are cut evenly into ceil(live rows / R) units of a
+// multiple of STEP_ROWS rows.  `blocks` is the 1-D grid (the wrapper gives `target`
 // blocks, or fewer when there are fewer work items).  `strides` (in elements): q batch, q head,
 // k batch, k row, k kv-head, v batch, v row, v kv-head; the last dimension of
 // q, k and v has stride 1, `out` is contiguous (B, H, D).  `scratch` holds
@@ -658,9 +695,10 @@ extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
                                     const void* cache_len, void* out, void* scratch,
                                     void* counters, int dtype, int B, int S, int H, int G,
                                     int D, int hpb, int rows, int min_rows, int target,
-                                    int blocks, float scale, const long long* strides,
-                                    void* stream) {
+                                    int blocks, int window, float scale, float softcap,
+                                    const long long* strides, void* stream) {
   if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || blocks <= 0) return -1;
+  if (window < 0 || !(softcap >= 0.f)) return -1;
   if (min_rows <= 0 || min_rows % STEP_ROWS != 0) return -1;
   if (rows != 0 && rows != min_rows) return -1;
   if (target <= 0) return -1;
@@ -669,9 +707,10 @@ extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S,
-                                   H, G, rows, min_rows, target, scale, strides, blocks, s);
+                                   H, G, rows, min_rows, target, window, scale, softcap,
+                                   strides, blocks, s);
   if (dtype == 1)
     return launch_d<float>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S, H, G,
-                           rows, min_rows, target, scale, strides, blocks, s);
+                           rows, min_rows, target, window, scale, softcap, strides, blocks, s);
   return -1;
 }

@@ -20,6 +20,14 @@
 //    strides: no transposed copies, no dummy operands.
 //  * Any Sq and Sk: ragged Q and KV tails are masked here.  Causal masking is by
 //    absolute position (Sq == Sk); tiles wholly above the diagonal are skipped.
+//  * A sliding window of W rows (gemma2-27b's local layers; causal only): row r
+//    sees columns (r - W, r].  A KV row older than the window of a Q tile's
+//    first row is dead for the whole tile, so a Q tile walks KV tiles from
+//    (q_lo - W + 1) / BK on, the pinned prefix is staged only from the first
+//    tile some Q tile of the block walks, and in-tile masking adds
+//    col <= row - W beside the causal test.  The tile order of a Q tile does
+//    not depend on where a tile lives, so the bf16 result stays bit-identical
+//    across `pinned_rows` and `tiles_per_chunk` with a window too.
 //
 // The bf16 path (flash_mma_kernel), the one the serving path runs:
 //  * Tensor cores.  S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
@@ -107,6 +115,12 @@ struct Word<float> {
   }
 };
 
+// The first KV tile that row q_lo can see under a window of `window` rows (0:
+// none); later rows see no earlier tile.
+__device__ __forceinline__ int first_kv_tile(int q_lo, int window) {
+  return window > 0 ? max(0, q_lo - window + 1) / BK : 0;
+}
+
 // Copy `nrows` rows of WPR words from device memory to padded shared rows.
 template <int WPR, int LD>
 __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
@@ -123,7 +137,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
              const uint32_t* __restrict__ v, uint32_t* __restrict__ o, int Sq, int Sk,
-             int H, int G, int tiles_per_chunk, int pinned_rows, int causal,
+             int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
              float scale, float softcap, long long q_sb, long long q_ss,
              long long q_sh, long long k_sb, long long k_ss, long long k_sg,
              long long v_sb, long long v_ss, long long v_sg, long long o_sb,
@@ -156,16 +170,19 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
   const uint32_t* kb = k + b * k_sb + g * k_sg;
   const uint32_t* vb = v + b * v_sb + g * v_sg;
 
-  // the pinned prefix: staged once, as far as this block's Q rows can see it
+  // the pinned prefix: staged once, as far as this block's Q rows can see it,
+  // from the first tile one of them sees (the block's Q tiles are in order)
   const int kv_need = causal ? min(Sk, qt1 * BQ) : Sk;
   const int pin = min(pinned_rows, kv_need);
-  stage_rows<WPR, LD>(pinK, kb, k_ss, pin);
-  stage_rows<WPR, LD>(pinV, vb, v_ss, pin);
+  const int pin_lo = min(pin, first_kv_tile(qt0 * BQ, window) * BK);
+  stage_rows<WPR, LD>(pinK + pin_lo * LD, kb + (long long)pin_lo * k_ss, k_ss, pin - pin_lo);
+  stage_rows<WPR, LD>(pinV + pin_lo * LD, vb + (long long)pin_lo * v_ss, v_ss, pin - pin_lo);
 
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q_lo = qt * BQ;
     const int kv_end = causal ? min(Sk, q_lo + BQ) : Sk;
     const int n_kv_tiles = (kv_end + BK - 1) / BK;
+    const int t_lo = first_kv_tile(q_lo, window);
     for (int hh = 0; hh < group; ++hh) {
       const int h = g * group + hh;
       __syncthreads();  // Qs free (and the pinned prefix staged)
@@ -187,7 +204,7 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
         for (int e = 0; e < NJ * EPW; ++e) acc[i][e] = 0.f;
       }
 
-      for (int t = 0; t < n_kv_tiles; ++t) {
+      for (int t = t_lo; t < n_kv_tiles; ++t) {
         const int k_lo = t * BK;
         const int ncols = min(BK, kv_end - k_lo);
         const uint32_t* Kt;
@@ -235,7 +252,7 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
             const int col = k_lo + tx + 16 * j;
             float x = s[i][j] * scale;
             if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-            ok[j] = col < kv_end && (!causal || col <= row);
+            ok[j] = col < kv_end && (!causal || col <= row) && (window == 0 || col > row - window);
             s[i][j] = ok[j] ? x : NEG_INF;
             mx = fmaxf(mx, s[i][j]);
           }
@@ -302,8 +319,8 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-           int H, int G, int tiles_per_chunk, int pinned_rows, int causal, float scale,
-           float softcap, const long long* st, cudaStream_t stream) {
+           int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+           float scale, float softcap, const long long* st, cudaStream_t stream) {
   constexpr int EPW = Word<T>::EPW;
   constexpr int LD = D / EPW + 1;
   const long long smem =
@@ -323,7 +340,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   flash_kernel<T, D><<<grid, THREADS, (size_t)smem, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
       static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), Sq, Sk, H, G,
-      tiles_per_chunk, pinned_rows, causal, scale, softcap, w[0], w[1], w[2], w[3],
+      tiles_per_chunk, pinned_rows, causal, window, scale, softcap, w[0], w[1], w[2], w[3],
       w[4], w[5], w[6], w[7], w[8], w[9], w[10], w[11]);
   return (int)cudaGetLastError();
 }
@@ -428,7 +445,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
                  int G, int wph, int hp, int tiles_per_chunk, int pinned_rows, int causal,
-                 float scale, float softcap, long long q_sb, long long q_ss, long long q_sh,
+                 int window, float scale, float softcap, long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sg, long long v_sb,
                  long long v_ss, long long v_sg, long long o_sb, long long o_ss,
                  long long o_sh) {
@@ -459,14 +476,21 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + g * k_sg;
   const bf16* vb = v + b * v_sb + g * v_sg;
 
-  // the pinned prefix: staged once, whole tiles, as far as this block's Q rows
-  // can see it; its rows hold what a streamed tile would hold
-  int kv_need = 0;
-  for (int p = p0; p < p1; ++p)
-    kv_need = max(kv_need, causal ? min(Sk, (tile_at(p, n_q_tiles) + 1) * bq) : Sk);
+  // the pinned prefix: staged once, whole tiles, from the first tile to the
+  // last that this block's Q rows can see; its rows hold what a streamed tile
+  // would hold
+  int kv_need = 0, kv_first = Sk;
+  for (int p = p0; p < p1; ++p) {
+    const int qt = tile_at(p, n_q_tiles);
+    kv_need = max(kv_need, causal ? min(Sk, (qt + 1) * bq) : Sk);
+    kv_first = min(kv_first, first_kv_tile(qt * bq, window) * BK);
+  }
   const int n_pin = min(pin_alloc, (min(pinned_rows, kv_need) + BK - 1) / BK * BK);
-  stage_tile<D>(pinK, kb, k_ss, n_pin, min(n_pin, Sk));
-  stage_tile<D>(pinV, vb, v_ss, n_pin, min(n_pin, Sk));
+  const int pin_lo = min(n_pin, kv_first);
+  stage_tile<D>(pinK + pin_lo * ROWB, kb + (long long)pin_lo * k_ss, k_ss, n_pin - pin_lo,
+                min(n_pin, Sk) - pin_lo);
+  stage_tile<D>(pinV + pin_lo * ROWB, vb + (long long)pin_lo * v_ss, v_ss, n_pin - pin_lo,
+                min(n_pin, Sk) - pin_lo);
   cp_async_commit();
 
   auto load_kv = [&](int t, int st) {
@@ -482,6 +506,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kv_end = causal ? min(Sk, q_lo + bq) : Sk;
     const int n_kv = (kv_end + BK - 1) / BK;
     const int n_pinned = pinned_rows >= Sk ? n_kv : min(n_kv, pinned_rows / BK);
+    const int t_lo = first_kv_tile(q_lo, window);
+    const int t_stream = max(t_lo, n_pinned);  // the first streamed tile
     const int r0 = q_lo + 16 * slice;  // this warp's first query row
     const int ra = r0 + (lane >> 2);   // this thread's rows: ra and ra + 8
     for (int h0 = 0; h0 < group; h0 += hp) {
@@ -507,7 +533,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   qf[s]);
       }
       __syncthreads();  // the ring takes K/V now
-      if (n_pinned < n_kv) load_kv(n_pinned, 0);
+      if (t_stream < n_kv) load_kv(t_stream, 0);
       cp_async_commit();
 
       float acc[NO][4];
@@ -518,11 +544,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-      for (int t = 0; t < n_kv; ++t) {
+      for (int t = t_lo; t < n_kv; ++t) {
         const bool streamed = t >= n_pinned;
         uint32_t kt, vt;
         if (streamed) {
-          const int st = (t - n_pinned) & 1;
+          const int st = (t - t_stream) & 1;
           if (t + 1 < n_kv) load_kv(t + 1, st ^ 1);
           cp_async_commit();
           cp_async_wait<1>();  // tile t has landed
@@ -533,11 +559,14 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         vt = streamed ? kt + TILEB : pinV + t * TILEB;
 
-        if (active) {
-          const int k_lo = t * BK;
+        const int k_lo = t * BK;
+        // columns [0, dead) lie below the window of every row of this warp
+        const int dead = window > 0 ? min(BK, max(0, r0 - window + 1 - k_lo)) : 0;
+        if (active && dead < BK) {
           // columns [lim, BK) lie above every row of this warp
           const int lim = causal ? min(BK, r0 + 16 - k_lo) : BK;
-          const bool need_mask = k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1);
+          const bool need_mask = k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1) ||
+                                 (window > 0 && k_lo + window <= r0 + 15);
 
           // S = Q K^T: 16 x 64, eight 8-column blocks
           float s[8][4];
@@ -549,7 +578,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              if (16 * j < lim) {
+              if (16 * j < lim && 16 * j + 16 > dead) {
                 uint32_t kf[4];
                 ldsm_x4(kt + swz<ROWB>(16 * j + ((lane >> 4) << 3) + (lane & 7),
                                        2 * ks + ((lane >> 3) & 1)),
@@ -580,7 +609,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               for (int e = 0; e < 4; ++e) {
                 const int col = k_lo + 8 * j + 2 * (lane & 3) + (e & 1);
                 const int row = ra + 8 * (e >> 1);
-                if (col >= Sk || (causal && col > row)) s[j][e] = -INFINITY;
+                if (col >= Sk || (causal && col > row) || (window > 0 && col <= row - window))
+                  s[j][e] = -INFINITY;
               }
           }
 
@@ -625,7 +655,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           // O += P V
 #pragma unroll
           for (int s2 = 0; s2 < 4; ++s2) {
-            if (16 * s2 < lim) {
+            if (16 * s2 < lim && 16 * s2 + 16 > dead) {
 #pragma unroll
               for (int j = 0; j < NO / 2; ++j) {
                 uint32_t vf[4];
@@ -662,8 +692,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-               int H, int G, int tiles_per_chunk, int pinned_rows, int causal, float scale,
-               float softcap, const long long* st, cudaStream_t stream) {
+               int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+               float scale, float softcap, const long long* st, cudaStream_t stream) {
   // heads a pass, then warps a head (16 query rows each), within MAX_WARPS
   const int group = H / G;
   const int passes = (group + MAX_WARPS - 1) / MAX_WARPS;
@@ -686,7 +716,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   flash_mma_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows, causal,
-      scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11]);
   return (int)cudaGetLastError();
 }
@@ -696,31 +726,33 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
 // dtype: 0 = bf16, 1 = fp32.  `strides` (in elements): batch, row and head strides
 // of q, then k, v and o; the last dimension of each has stride 1.  bf16 rows
 // must be 16-byte aligned: pointers on 16 bytes, strides multiples of 8.
-// `softcap` 0 means none.  `pinned_rows` is Sk or a multiple of 64.  Returns 0,
+// `softcap` 0 means none.  `window` > 0 lets row r see columns (r - window, r]
+// (causal only); 0 means none.  `pinned_rows` is Sk or a multiple of 64.  Returns 0,
 // a cudaError_t, -1 for arguments the kernel does not take, or -2 when
 // `pinned_rows` does not fit the shared memory a block may take.
 extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int Sq, int Sk, int H, int G, int D,
                                    int tiles_per_chunk, int pinned_rows, int causal,
-                                   float scale, float softcap, const long long* strides,
-                                   void* stream) {
+                                   int window, float scale, float softcap,
+                                   const long long* strides, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || G <= 0 || H % G != 0) return -1;
   if (B > 65535 || G > 65535 || tiles_per_chunk <= 0) return -1;
   if (pinned_rows < 0 || pinned_rows > Sk) return -1;
   if (pinned_rows != Sk && pinned_rows % BK != 0) return -1;
   if (causal && Sq != Sk) return -1;
+  if (window < 0 || (window > 0 && !causal)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 128)
-    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 112)
-    return launch_mma<112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch_mma<112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 64)
-    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 112)
-    return launch<float, 112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch<float, 112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, scale, softcap, strides, s);
+    return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   return -1;
 }

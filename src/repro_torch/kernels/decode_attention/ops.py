@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from ..build import load
+from ..flash_attention.ops import check_window
 from .ref import decode_attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
@@ -27,6 +28,11 @@ MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per stream
 HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
 LANES_PER_ROW = 8              # lanes that share a row's chunks (csrc: LANES_PER_ROW)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# the C interface dco_decode_attention: q, k, v, cache_len, out, scratch,
+# counters; dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, window;
+# scale, softcap; strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
 _fn = None
 # merge counters of each (device, stream); zeroed once, when allocated
 _counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -37,8 +43,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = load().dco_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -71,11 +76,12 @@ class DecodePlan(NamedTuple):
     """How the kernel cuts one call into work items.  The grid, scratch and
     counters follow from shapes alone (the host never reads ``cache_len``);
     the rows R of a unit are fixed by the caller or chosen on the device from
-    the call's lengths (``rows_for``, as csrc's rows_for).  A sequence of
-    ``n`` rows is cut evenly into ceil(n / R) units of a multiple of
-    STEP_ROWS rows (at most R) of one (batch row, head block), each a work
-    item; a 1-D grid of ``blocks`` blocks walks the items in order, block i
-    taking items i, i + blocks, ..."""
+    the call's lengths (``rows_for``, as csrc's rows_for).  A sequence's live
+    rows (the last ``window`` of its ``n``, or all ``n`` without a window)
+    are cut evenly into ceil(live / R) units of a multiple of STEP_ROWS rows
+    (at most R) of one (batch row, head block), each a work item; a 1-D grid
+    of ``blocks`` blocks walks the items in order, block i taking items i,
+    i + blocks, ..."""
     fixed_rows: int      # R given by the caller, or 0: chosen per call
     min_rows: int        # the least R
     capacity: int        # S: rows of the cache; cache_len is clamped to it
@@ -87,18 +93,28 @@ class DecodePlan(NamedTuple):
     target: int          # work items a chosen R gives at most: ITEMS_PER_SM an SM
     scratch_floats: int  # partial (acc, m, l) of every unit: B * H * units * (D + 2)
     counters: int        # one merge counter a (batch row, head block)
+    window: int = 0      # live rows a sequence at most, or 0: all of them
 
     def _clamp(self, length: int) -> int:
         return max(0, min(length, self.capacity))
 
+    def first_live(self, length: int) -> int:
+        """The first row of a sequence of ``length`` inside its query's
+        window (csrc's first_live): no row below it is read."""
+        n = self._clamp(length)
+        return n - self.window if 0 < self.window < n else 0
+
+    def _live(self, length: int) -> int:
+        return self._clamp(length) - self.first_live(length)
+
     def rows_for(self, lengths: Sequence[int]) -> int:
         """R for a call at ``lengths``: the caller's, or the least multiple of
         STEP_ROWS (at least ``min_rows``, at most S rounded up) that gives at
-        most ``target`` items."""
+        most ``target`` items for the call's live rows."""
         if self.fixed_rows:
             return self.fixed_rows
         whole = _round_up(self.capacity, STEP_ROWS)
-        total = sum(self._clamp(n) for n in lengths)
+        total = sum(self._live(n) for n in lengths)
         spare = self.target - self.head_blocks * self.batch
         r = whole
         if spare > 0:
@@ -106,16 +122,17 @@ class DecodePlan(NamedTuple):
         return max(min(r, whole), self.min_rows)
 
     def live_units(self, length: int, rows: int) -> int:
-        """Units of ``rows`` rows that hold rows below ``length``."""
-        return -(-self._clamp(length) // rows)
+        """Units of ``rows`` rows that hold the live rows of ``length``."""
+        return -(-self._live(length) // rows)
 
     def unit_rows(self, unit: int, length: int, rows: int) -> range:
         """The cache rows unit ``unit`` reads for a sequence of ``length``:
-        its rows cut evenly into ``live_units`` units of a multiple of
+        its live rows cut evenly into ``live_units`` units of a multiple of
         STEP_ROWS rows."""
         n = self._clamp(length)
-        even = _round_up(-(-n // max(self.live_units(length, rows), 1)), STEP_ROWS)
-        start = unit * even
+        even = _round_up(-(-self._live(length) // max(self.live_units(length, rows), 1)),
+                         STEP_ROWS)
+        start = self.first_live(length) + unit * even
         return range(start, max(start, min(n, start + even)))
 
     def merges(self, length: int, rows: int) -> bool:
@@ -133,7 +150,8 @@ class DecodePlan(NamedTuple):
 
 
 def decode_plan(b: int, s: int, h: int, g: int, d: int,
-                rows_per_split: Optional[int] = None, sm_count: int = 132) -> DecodePlan:
+                rows_per_split: Optional[int] = None, sm_count: int = 132,
+                window: Optional[int] = None) -> DecodePlan:
     if rows_per_split is not None and (rows_per_split <= 0 or rows_per_split % STEP_ROWS):
         raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
                          f"got {rows_per_split}")
@@ -148,7 +166,8 @@ def decode_plan(b: int, s: int, h: int, g: int, d: int,
                       units=units, hpb=hpb, head_blocks=head_blocks, batch=b,
                       blocks=min(b * head_blocks * units, ITEMS_PER_SM * sm_count),
                       target=ITEMS_PER_SM * sm_count,
-                      scratch_floats=b * h * units * (d + 2), counters=b * head_blocks)
+                      scratch_floats=b * h * units * (d + 2), counters=b * head_blocks,
+                      window=window or 0)
 
 
 def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -166,6 +185,12 @@ def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
+def _check_options(window: Optional[int], softcap: Optional[float]) -> None:
+    check_window(window, causal=True)
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap!r}")
+
+
 def _check(q, k, v, cache_len):
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, H, D) and k/v (B, S, G, D)")
@@ -179,10 +204,17 @@ def _check(q, k, v, cache_len):
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      cache_len: torch.Tensor, *,
                      scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
                      rows_per_split: Optional[int] = None) -> torch.Tensor:
     """q (B, H, D) single new token; k/v (B, S, G, D) KV cache, read in place
     through its strides (any S >= 1, no transposed copy); cache_len (B,)
     valid lengths, read on the device.  Returns (B, H, D).
+
+    ``window``: only the last ``window`` rows below ``cache_len`` are live (the
+    rows the query at position ``cache_len - 1`` sees); the others are never
+    read.  ``softcap``: scaled scores s become ``tanh(s / softcap) * softcap``
+    before the softmax.
 
     ``rows_per_split`` (a multiple of ``STEP_ROWS``) fixes the rows of one
     work unit, which the kernel otherwise chooses per call from ``cache_len``;
@@ -190,8 +222,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel (one launch) or raises; on a CPU tensor it computes the plain
     version.  Each (device, stream) has merge counters of its own."""
     _check(q, k, v, cache_len)
+    _check_options(window, softcap)
     if not q.is_cuda:
-        return decode_attention_ref(q, k, v, cache_len, scale=scale)
+        return decode_attention_ref(q, k, v, cache_len, scale=scale, window=window,
+                                    softcap=softcap)
     b, h, d = q.shape
     _, s, g, _ = k.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -209,7 +243,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "head_dim; it needs stride 1 there and 16-byte "
                              "aligned rows")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = decode_plan(b, s, h, g, d, rows_per_split, sms)
+    plan = decode_plan(b, s, h, g, d, rows_per_split, sms, window)
     lens = cache_len if cache_len.dtype == torch.int32 else cache_len.to(torch.int32)
     lens = lens.contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -224,8 +258,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
                        _DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.fixed_rows,
-                       plan.min_rows, plan.target, plan.blocks, float(scale), strides,
-                       stream)
+                       plan.min_rows, plan.target, plan.blocks, plan.window, float(scale),
+                       float(softcap or 0.0), strides, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
     LAUNCHES[0] += 1

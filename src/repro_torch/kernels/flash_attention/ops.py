@@ -18,6 +18,10 @@ LAUNCHES = [0]                 # kernel launches made by this wrapper
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# the C interface dco_flash_attention: q, k, v, out; dtype, B, Sq, Sk, H, G, D,
+# tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
 _fn = None
 
 
@@ -25,9 +29,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = load().dco_flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                          ctypes.c_void_p])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -57,6 +59,29 @@ def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int,
     n_q_tiles = -(-sq // tile_rows)
     chunks = max(1, min(n_q_tiles, sm_count // (b * g)))
     return -(-n_q_tiles // chunks)
+
+
+def kv_tiles(q_lo: int, q_rows: int, sk: int, *, causal: bool = True,
+             window: Optional[int] = None) -> range:
+    """The KV tiles (of ``FLASH_TILE_ROWS`` rows) that the kernel walks for
+    the Q tile of rows ``[q_lo, q_lo + q_rows)``, in its order: up to the
+    causal end, and from the first tile the tile's first row can see under a
+    ``window`` (row r sees columns (r - window, r]), as ``first_kv_tile`` in
+    csrc/flash_attention.cu."""
+    end = min(sk, q_lo + q_rows) if causal else sk
+    lo = max(0, q_lo - window + 1) // FLASH_TILE_ROWS if window else 0
+    return range(lo, -(-end // FLASH_TILE_ROWS))
+
+
+def check_window(window: Optional[int], causal: bool) -> None:
+    """Raise unless ``window`` is None or a positive int, given with causal
+    masking (a window counts back from each query's own position)."""
+    if window is None:
+        return
+    if isinstance(window, bool) or not isinstance(window, int) or window <= 0:
+        raise ValueError(f"window must be a positive int or None, got {window!r}")
+    if not causal:
+        raise ValueError("a sliding window needs causal masking")
 
 
 def check_pinned_rows(pinned_rows: int, sk: int, head_dim: int, itemsize: int) -> None:
@@ -90,12 +115,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None,
                     softcap: Optional[float] = None,
+                    window: Optional[int] = None,
                     pinned_rows: int = 0,
                     tiles_per_chunk: Optional[int] = None) -> torch.Tensor:
     """FlashAttention-2 forward with the DCO KV split.
 
     q (B, Sq, H, D); k/v (B, Sk, G, D), any lengths, read through their
-    strides.  ``pinned_rows`` KV rows (the whole of Sk, or a multiple of the
+    strides.  ``window`` (causal only) lets query row r see key rows
+    (r - window, r]; tiles wholly older than a Q tile's window are not walked.  ``pinned_rows`` KV rows (the whole of Sk, or a multiple of the
     KV tile, from ``CacheOrchestrator.plan_kv_split``) stay in shared memory
     across a block's Q tiles and query heads; the rest stream per Q tile.
     It changes the schedule, not the result.
@@ -113,9 +140,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and sq != sk:
         raise ValueError("causal masking assumes aligned q/k sequences; "
                          "use decode_attention for cached decoding")
+    check_window(window, causal)
     check_pinned_rows(pinned_rows, sk, d, q.element_size())
     if not q.is_cuda:
-        return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap)
+        return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
+                             window=window)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -141,7 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        _DTYPES[q.dtype], b, sq, sk, h, g, d, tiles_per_chunk,
-                       pinned_rows, int(causal), float(scale),
+                       pinned_rows, int(causal), int(window or 0), float(scale),
                        float(softcap or 0.0), strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")

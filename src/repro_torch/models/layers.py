@@ -30,6 +30,18 @@ def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     return w.mul_(std).to(dtype)
 
 
+def init_stacked(gen: torch.Generator, n_layers: int, shape, std: float,
+                 dtype) -> torch.Tensor:
+    """``init_normal`` of a leaf stacked on a leading layer axis, drawn one
+    layer at a time into the ``dtype`` leaf, so that the fp32 draw never holds
+    more than one layer (gemma2-27b's ``w_down`` in fp32 is 31.3 GB whole, 0.68
+    GB a layer)."""
+    out = torch.empty((n_layers,) + tuple(shape), dtype=dtype, device=gen.device)
+    for i in range(n_layers):
+        out[i] = init_normal(gen, shape, std, dtype)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------
@@ -171,19 +183,19 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     the ``rope_tables`` of this call's positions, which a model makes once
     for all its layers; without them the block makes its own.
 
-    What the two kernels do not compute raises ``NotImplementedError``: a
-    sliding window, a logit softcap at decode, explicit ``positions``
-    (M-RoPE) and chunked prefill.  They belong to later slices of the port.
+    A local layer (``layer_is_local`` with ``cfg.window``, gemma2's
+    alternation) attends over the last ``cfg.window`` positions only, in both
+    kernels; ``cfg.attn_softcap`` caps the scores in both.  What the two
+    kernels do not compute raises ``NotImplementedError``: explicit
+    ``positions`` (M-RoPE) and chunked prefill.  They belong to later slices
+    of the port.
     """
     b, s, dm = x.shape
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) reach neither attention kernel yet; "
             "they come with the qwen2-vl slice of the port")
-    if cfg.window is not None and layer_is_local:
-        raise NotImplementedError(
-            "sliding-window attention is not in the attention kernels yet; "
-            "it comes with the gemma2 slice of the port")
+    window = cfg.window if layer_is_local and cfg.window is not None else None
     n_h, n_g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, params["ln"], plus_one=cfg.gemma_norm)
     q = torch.matmul(h, params["wq"].reshape(dm, n_h * hd)).view(b, s, n_h, hd)
@@ -202,17 +214,14 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
 
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=True, scale=scale,
-                              softcap=cfg.attn_softcap, pinned_rows=pinned_rows)
+                              softcap=cfg.attn_softcap, window=window,
+                              pinned_rows=pinned_rows)
         new_cache = None
     else:
         ck, cv = kv_cache
         if cache_pos is None:
             raise ValueError("kv_cache needs cache_pos")
         if s == 1:
-            if cfg.attn_softcap is not None:
-                raise NotImplementedError(
-                    "the decode kernel has no logit softcap yet; it comes "
-                    "with the gemma2 slice of the port")
             if cache_rows is None:
                 ck[:, cache_pos] = k[:, 0].to(ck.dtype)
                 cv[:, cache_pos] = v[:, 0].to(cv.dtype)
@@ -223,7 +232,8 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
                 cache_len = torch.full((b,), cache_pos + 1, dtype=torch.int32,
                                        device=x.device)
             out = decode_attention(q[:, 0], _as(ck, q.dtype), _as(cv, q.dtype),
-                                   cache_len, scale=scale)[:, None]
+                                   cache_len, scale=scale, window=window,
+                                   softcap=cfg.attn_softcap)[:, None]
         else:
             if cache_pos != 0:
                 raise NotImplementedError(
@@ -233,7 +243,7 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
             cv[:, :s] = v.to(cv.dtype)
             out = flash_attention(q, _as(ck[:, :s], q.dtype), _as(cv[:, :s], q.dtype),
                                   causal=True, scale=scale, softcap=cfg.attn_softcap,
-                                  pinned_rows=pinned_rows)
+                                  window=window, pinned_rows=pinned_rows)
         new_cache = (ck, cv)
 
     out = torch.matmul(out.reshape(b, s, n_h * hd), params["wo"].reshape(n_h * hd, dm))

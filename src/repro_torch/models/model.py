@@ -1,7 +1,8 @@
 """Model assembly of the port: init / forward / prefill / decode.
 
-All four families are ported: dense (llama3.2-3b and the other dense
-configs without a sliding window), MoE (deepseek-moe-16b: ``first_dense``
+All four families are ported: dense (llama3.2-3b, gemma2-27b with its
+sliding window on local layers and its logit softcaps, and the other dense
+configs), MoE (deepseek-moe-16b: ``first_dense``
 dense layers, then attention + MoE FFN layers), SSM (mamba2-2.7b) and hybrid
 (zamba2-7b: groups of Mamba2 layers, each followed by one weight-shared
 attention + MLP block, and a tail of Mamba2 layers).
@@ -46,6 +47,7 @@ from ..configs import SSM
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
+from .layers import init_stacked
 from .layers import mlp_block
 from .layers import rms_norm
 from .moe import init_moe_params
@@ -83,10 +85,10 @@ def _init_attn(gen, cfg: ArchConfig, n_layers: int, dtype):
     s = d ** -0.5
     p = {
         "ln": _ln_init(cfg, (n_layers, d), gen.device, dtype),
-        "wq": init_normal(gen, (n_layers, d, h, hd), s, dtype),
-        "wk": init_normal(gen, (n_layers, d, g, hd), s, dtype),
-        "wv": init_normal(gen, (n_layers, d, g, hd), s, dtype),
-        "wo": init_normal(gen, (n_layers, h, hd, d), (h * hd) ** -0.5, dtype),
+        "wq": init_stacked(gen, n_layers, (d, h, hd), s, dtype),
+        "wk": init_stacked(gen, n_layers, (d, g, hd), s, dtype),
+        "wv": init_stacked(gen, n_layers, (d, g, hd), s, dtype),
+        "wo": init_stacked(gen, n_layers, (h, hd, d), (h * hd) ** -0.5, dtype),
     }
     if cfg.qk_norm:
         p["q_norm"] = _ln_init(cfg, (n_layers, hd), gen.device, dtype)
@@ -98,9 +100,9 @@ def _init_mlp(gen, cfg: ArchConfig, n_layers: int, d_ff: int, dtype):
     d = cfg.d_model
     return {
         "ln": _ln_init(cfg, (n_layers, d), gen.device, dtype),
-        "w_gate": init_normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
-        "w_up": init_normal(gen, (n_layers, d, d_ff), d ** -0.5, dtype),
-        "w_down": init_normal(gen, (n_layers, d_ff, d), d_ff ** -0.5, dtype),
+        "w_gate": init_stacked(gen, n_layers, (d, d_ff), d ** -0.5, dtype),
+        "w_up": init_stacked(gen, n_layers, (d, d_ff), d ** -0.5, dtype),
+        "w_down": init_stacked(gen, n_layers, (d_ff, d), d_ff ** -0.5, dtype),
     }
 
 

@@ -19,7 +19,7 @@ import torch
 
 from .layers import _gelu_tanh
 from .layers import _silu
-from .layers import init_normal
+from .layers import init_stacked
 from .layers import rms_norm
 
 
@@ -120,29 +120,22 @@ def moe_ffn(params, x, cfg, spec) -> torch.Tensor:
 def init_moe_params(gen: torch.Generator, d_model: int, spec, n_layers: int,
                     dtype) -> Dict[str, torch.Tensor]:
     """``n_layers`` MoE blocks' parameters, stacked on a leading layer axis,
-    in the reference's layout; the router ``w_gate`` in fp32.  The expert
-    leaves are drawn one layer at a time, so the fp32 draw of a leaf never
-    holds more than one layer (at deepseek-moe-16b's size, one layer's
-    ``w1`` in fp32 is 0.74 GB, all 27 of them 19.9 GB)."""
+    in the reference's layout; the router ``w_gate`` in fp32.  Every leaf is
+    drawn one layer at a time (``init_stacked``): at deepseek-moe-16b's size,
+    one layer's ``w1`` in fp32 is 0.74 GB, all 27 of them 19.9 GB."""
     e, f = spec.n_experts, spec.d_ff_expert
     fs = spec.n_shared * spec.d_ff_expert
     s_in = d_model ** -0.5
-
-    def per_layer(shape, std):
-        out = torch.empty((n_layers,) + shape, dtype=dtype, device=gen.device)
-        for i in range(n_layers):
-            out[i] = init_normal(gen, shape, std, dtype)
-        return out
-
+    L = n_layers
     p = {
-        "ln": torch.ones((n_layers, d_model), dtype=dtype, device=gen.device),
-        "w_gate": init_normal(gen, (n_layers, d_model, e), s_in, torch.float32),
-        "w1": per_layer((e, d_model, f), s_in),
-        "w3": per_layer((e, d_model, f), s_in),
-        "w2": per_layer((e, f, d_model), f ** -0.5),
+        "ln": torch.ones((L, d_model), dtype=dtype, device=gen.device),
+        "w_gate": init_stacked(gen, L, (d_model, e), s_in, torch.float32),
+        "w1": init_stacked(gen, L, (e, d_model, f), s_in, dtype),
+        "w3": init_stacked(gen, L, (e, d_model, f), s_in, dtype),
+        "w2": init_stacked(gen, L, (e, f, d_model), f ** -0.5, dtype),
     }
     if spec.n_shared:
-        p["sh_gate"] = init_normal(gen, (n_layers, d_model, fs), s_in, dtype)
-        p["sh_up"] = init_normal(gen, (n_layers, d_model, fs), s_in, dtype)
-        p["sh_down"] = init_normal(gen, (n_layers, fs, d_model), fs ** -0.5, dtype)
+        p["sh_gate"] = init_stacked(gen, L, (d_model, fs), s_in, dtype)
+        p["sh_up"] = init_stacked(gen, L, (d_model, fs), s_in, dtype)
+        p["sh_down"] = init_stacked(gen, L, (fs, d_model), fs ** -0.5, dtype)
     return p

@@ -31,7 +31,7 @@ from ..kernels.ssd_scan import ssd_scan
 from ..kernels.ssd_scan.ref import segsum
 from ..kernels.ssd_scan.ref import ssd_chunked
 from .layers import _silu
-from .layers import init_normal
+from .layers import init_stacked
 from .layers import rms_norm
 
 __all__ = ["Mamba2Cache", "init_mamba2_cache", "init_mamba2_params", "mamba2_block",
@@ -161,20 +161,20 @@ def init_mamba2_params(gen: torch.Generator, d_model: int, spec, n_layers: int,
 
     return {
         "ln": torch.ones((L, d_model), dtype=dtype, device=dev),
-        "w_z": init_normal(gen, (L, d_model, d_inner), scale, dtype),
-        "w_x": init_normal(gen, (L, d_model, d_inner), scale, dtype),
-        "w_bc": init_normal(gen, (L, d_model, bc_dim), scale, dtype),
-        "w_dt": init_normal(gen, (L, d_model, h), scale, dtype),
-        "conv_x_w": init_normal(gen, (L, spec.d_conv, d_inner), 0.1, dtype),
+        "w_z": init_stacked(gen, L, (d_model, d_inner), scale, dtype),
+        "w_x": init_stacked(gen, L, (d_model, d_inner), scale, dtype),
+        "w_bc": init_stacked(gen, L, (d_model, bc_dim), scale, dtype),
+        "w_dt": init_stacked(gen, L, (d_model, h), scale, dtype),
+        "conv_x_w": init_stacked(gen, L, (spec.d_conv, d_inner), 0.1, dtype),
         "conv_x_b": torch.zeros((L, d_inner), dtype=dtype, device=dev),
-        "conv_bc_w": init_normal(gen, (L, spec.d_conv, bc_dim), 0.1, dtype),
+        "conv_bc_w": init_stacked(gen, L, (spec.d_conv, bc_dim), 0.1, dtype),
         "conv_bc_b": torch.zeros((L, bc_dim), dtype=dtype, device=dev),
         "dt_bias": per_layer(torch.log(torch.expm1(
             torch.linspace(0.001, 0.1, h, dtype=torch.float32))).to(dtype)),
         "a_log": per_layer(torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32))),
         "d_skip": torch.ones((L, h), dtype=torch.float32, device=dev),
         "out_ln": torch.ones((L, d_inner), dtype=dtype, device=dev),
-        "w_out": init_normal(gen, (L, d_inner, d_model), d_inner ** -0.5, dtype),
+        "w_out": init_stacked(gen, L, (d_inner, d_model), d_inner ** -0.5, dtype),
     }
 
 

@@ -7,6 +7,7 @@ the Pallas kernels in interpret mode.  Tolerances: 2e-5 (fp32) and 2e-2
 kernels themselves are held to the plain versions on the card by
 ``chip_smoke.py``."""
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -476,24 +477,28 @@ def test_decode_rows_per_split_must_be_whole_steps():
     assert big.min_rows == 160 and big.units <= decode_ops.MAX_UNITS
 
 
-def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
-    """The kernel's arithmetic in torch: per work item (a unit of rows), 16
+def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132, window=None,
+                   softcap=None):
+    """The kernel's arithmetic in torch: per work item (a unit of live rows), 16
     lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group;
     each of a group's 8 lanes sums over the chunks of the row it owns)
     in log2 units with one max and one rescale a step; lane groups merged into
     warps (4 each), warps into the unit; a unit alone writes ``out``, several
     write partials that the last of them merges with the weights
-    2^(m_i - M) / max(sum_i l_i 2^(m_i - M), 1e-30)."""
+    2^(m_i - M) / max(sum_i l_i 2^(m_i - M), 1e-30).  With a softcap, q is
+    scaled by scale / softcap and a lane group's sum s becomes
+    tanh(s) * softcap * log2(e)."""
     b, h, d = q.shape
     _, s, g, _ = k.shape
-    plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split, sm_count)
+    plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split, sm_count, window)
     step, lanes, hpb = decode_ops.STEP_ROWS, 16, plan.hpb
     vec = 16 // q.element_size()
     lane_cols = [torch.tensor([ch * vec + e for ch in owned for e in range(vec)],
                               dtype=torch.long)
                  for owned in decode_ops.lane_chunks(d, q.element_size()) if owned]
     neg = torch.tensor(-1e30)
-    qf = q.float() * (1.0 / d ** 0.5) * 1.4426950408889634
+    log2e = 1.4426950408889634
+    qf = q.float() * (1.0 / d ** 0.5) * (1.0 / softcap if softcap else log2e)
     out = torch.zeros((b, h, d), dtype=torch.float32)
     lens = [int(n) for n in cache_len]
     rows_per_unit = plan.rows_for(lens)
@@ -522,6 +527,8 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132):
             # each lane's dot product over the chunks it owns, then the 8 lanes'
             dots = sum(torch.einsum("rjd,hd->rjh", kk[..., cols], qf[bi, heads][..., cols])
                        for cols in lane_cols)
+            if softcap:
+                dots = torch.tanh(dots) * (softcap * log2e)
             sc = torch.where(valid[..., None], dots, neg)
             m_new = torch.maximum(m, sc.amax(0))
             alpha = torch.exp2(m - m_new)
@@ -615,3 +622,168 @@ def test_decode_rows_chosen_per_call_match_plain_and_jax(sm_count, lens):
     live = np.asarray(lens) > 0
     np.testing.assert_allclose(got[live], oracle[live], rtol=TOL["float32"],
                                atol=TOL["float32"])
+
+
+
+# --- gemma2: a sliding window in both kernels, a softcap in the decode kernel ---
+
+W = 64   # the window of reduce_for_smoke(gemma2-27b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [W - 3, 2 * W + 3])
+@pytest.mark.parametrize("window", [1, W - 1, W, W + 1])
+def test_flash_window_matches_jax_gqa(window, s, dtype):
+    """The plain version (what the wrapper computes on the CPU) with a
+    window, on both sides of it, against the JAX model path's gqa_attention
+    with gemma2's softcap and scale."""
+    rng = np.random.default_rng(20)
+    jq, tq = both(rng, (2, s, 4, 64), dtype)
+    jk, tk = both(rng, (2, s, 2, 64), dtype)
+    jv, tv = both(rng, (2, s, 2, 64), dtype)
+    kw = dict(causal=True, softcap=50.0, scale=144.0 ** -0.5)
+    port = f32(flash_attention(tq, tk, tv, window=window, **kw))
+    assert np.array_equal(port, f32(attention_ref(tq, tk, tv, window=window, **kw)))
+    oracle = f32(jax_gqa_attention(jq, jk, jv, window=window, **kw))
+    np.testing.assert_allclose(port, oracle, rtol=TOL[dtype], atol=TOL[dtype])
+    wide = f32(flash_attention(tq, tk, tv, **kw))
+    assert np.array_equal(port[:, :window], wide[:, :window])
+    assert (s <= window) == np.array_equal(port, wide)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("window", [None, 1, W - 1, W, W + 1])
+def test_decode_window_and_softcap_match_jax_gqa(window, softcap, dtype):
+    """One query at position n - 1 of each sequence against a cache of 2W + 3
+    rows, lengths on both sides of the window and 0, against gqa_attention;
+    poisoned rows below the window and at or past cache_len change nothing."""
+    rng = np.random.default_rng(21)
+    s, lens = 2 * W + 3, [1, W - 1, W, W + 1, 2 * W + 3, 0]
+    b = len(lens)
+    jq, tq = both(rng, (b, 6, 64), dtype)
+    jk, tk = both(rng, (b, s, 2, 64), dtype)
+    jv, tv = both(rng, (b, s, 2, 64), dtype)
+    cl = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(softcap=softcap, scale=144.0 ** -0.5)
+    port = f32(decode_attention(tq, tk, tv, cl, window=window, **kw))
+    oracle = f32(jax_gqa_attention(jq[:, None], jk, jv, causal=True, window=window,
+                                   q_positions=jnp.asarray(lens)[:, None] - 1, **kw))[:, 0]
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not port[i].any()
+        else:
+            np.testing.assert_allclose(port[i], oracle[i], rtol=TOL[dtype], atol=TOL[dtype])
+    tk2, tv2 = tk.clone(), tv.clone()
+    for i, n in enumerate(lens):
+        lo = max(0, n - window) if window else 0
+        tk2[i, :lo], tv2[i, :lo] = 1e4, float("nan")
+        tk2[i, n:], tv2[i, n:] = -1e4, float("inf")
+    np.testing.assert_array_equal(
+        f32(decode_attention(tq, tk2, tv2, cl, window=window, **kw)), port)
+
+
+@pytest.mark.parametrize("window", [None, 1, W - 1, W, W + 1, 4096])
+@pytest.mark.parametrize("q_rows", [16, 32, 64])
+def test_flash_kv_tiles_walk_exactly_the_visible_tiles(q_rows, window):
+    """For every Q tile, the KV tiles the kernel walks (``kv_tiles``, the
+    mirror of ``first_kv_tile`` and the causal end) are exactly those holding
+    a key that some row of the tile may see: none wholly older than every
+    row's window, none missing; and the source walks them so."""
+    for sk in (1, 17, W, 5 * W + 7, 4160):
+        for q_lo in range(0, sk, q_rows):
+            rows = np.arange(q_lo, min(sk, q_lo + q_rows))[:, None]
+            cols = np.arange(sk)[None, :]
+            seen = (cols <= rows) & ((cols > rows - window) if window else True)
+            need = sorted({c // FLASH_TILE_ROWS for c in np.nonzero(seen.any(0))[0]})
+            assert list(flash_ops.kv_tiles(q_lo, q_rows, sk, window=window)) == need
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert "return window > 0 ? max(0, q_lo - window + 1) / BK : 0;" in text
+    assert text.count("first_kv_tile(q_lo, window)") == 2          # fp32 and bf16 loops
+
+
+@pytest.mark.parametrize("window", [1, W - 1, W, W + 1, 4096])
+def test_decode_partition_with_a_window_reads_only_live_rows(window):
+    """``DecodePlan`` on windowed lengths, R chosen and fixed: every row of
+    [max(0, n - window), n) is read by exactly one unit, no row below it or
+    at n and beyond is requested, and R is chosen from the live rows only."""
+    lens_sets = ([97, 1056, 540, 801, 4160, 5120, 650, 128],
+                 [0, 0, 0, 0, 0, 5120, 0, 0], [window - 1, window, window + 1, 0])
+    for fixed in (None, 128):
+        for lens in lens_sets:
+            lens = [max(0, n) for n in lens]
+            plan = decode_ops.decode_plan(len(lens), 6144, 32, 16, 128, fixed, window=window)
+            wide = decode_ops.decode_plan(len(lens), 6144, 32, 16, 128, fixed)
+            rows = plan.rows_for(lens)
+            live = [min(n, window) for n in lens]
+            if fixed is None:
+                assert rows == wide.rows_for(live)
+                assert len(plan.items(lens)) <= plan.target
+            for n in lens:
+                assert plan.first_live(n) == max(0, n - window)
+                seen = [r for u in range(plan.live_units(n, rows))
+                        for r in plan.unit_rows(u, n, rows)]
+                assert seen == list(range(max(0, n - window), n))
+    text = (CSRC / "decode_attention.cu").read_text()
+    assert "return window > 0 && len > window ? len - window : 0;" in text
+    assert "const int start = lo + unit * R;" in text
+
+
+@pytest.mark.parametrize("lens,rows,window,softcap,dtype", [
+    ([97, 300, 0, 255, 129], None, 64, None, "float32"),
+    ([97, 300, 0, 255, 129], 32, 100, 30.0, "float32"),
+    ([0, 0, 300, 0, 0], None, 65, 50.0, "bfloat16"),
+    ([R - 1, R, R + 1, 300, 1], 64, R, 20.0, "float32"),
+    ([300, 299, 1, 0, 160], None, None, 10.0, "float32"),
+])
+def test_decode_partition_with_window_and_softcap_matches_plain_and_jax(
+        lens, rows, window, softcap, dtype):
+    """The kernel's windowed partition and softcapped scores, emulated on the
+    CPU, against the plain version and the JAX model path's gqa_attention."""
+    rng = np.random.default_rng(22)
+    b, s, h, g, d = 5, 300, 12, 4, 64
+    jq, tq = both(rng, (b, h, d), dtype)
+    jk, tk = both(rng, (b, s, g, d), dtype)
+    jv, tv = both(rng, (b, s, g, d), dtype)
+    cl = torch.tensor(lens, dtype=torch.int32)
+    got = f32(emulate_decode(tq, tk, tv, cl, rows, window=window, softcap=softcap))
+    tol = TOL[dtype]
+    plain = decode_attention_ref(tq, tk, tv, cl, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, f32(plain), rtol=tol, atol=tol)
+    oracle = f32(jax_gqa_attention(jq[:, None], jk, jv, causal=True, window=window,
+                                   softcap=softcap,
+                                   q_positions=jnp.asarray(lens)[:, None] - 1))[:, 0]
+    live = np.asarray(lens) > 0
+    np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
+    assert not got[~live].any()
+
+
+def test_window_and_softcap_are_validated_on_every_device():
+    q = torch.zeros(1, 80, 4, 64)
+    k = torch.zeros(1, 80, 2, 64)
+    for bad in (0, -1, 2.5, True, "64"):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention(q, k, k, window=bad)
+        with pytest.raises(ValueError, match="window"):
+            decode_attention(q[:, 0], k, k, torch.tensor([5], dtype=torch.int32), window=bad)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, k, causal=False, window=8)
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="softcap"):
+            decode_attention(q[:, 0], k, k, torch.tensor([5], dtype=torch.int32), softcap=bad)
+    assert flash_attention(q, k, k, window=8).shape == q.shape
+
+
+@pytest.mark.parametrize("name,mod", [("dco_flash_attention", flash_ops),
+                                      ("dco_decode_attention", decode_ops)])
+def test_wrapper_argtypes_match_the_c_interface(name, mod):
+    """The wrappers' ctypes signatures follow the sources' ``extern "C"``
+    interfaces parameter for parameter (pointers, ints, floats), the window
+    and the softcap included."""
+    source = (CSRC / (name[4:] + ".cu")).read_text()
+    params = [" ".join(p.split()) for p in re.search(
+        r'extern "C" int ' + name + r"\(([^)]*)\)", source).group(1).split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float")
+             else ctypes.c_int for p in params]
+    assert kinds == mod.ARGTYPES
+    assert "int window" in params and "float softcap" in params

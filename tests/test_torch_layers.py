@@ -249,23 +249,15 @@ def test_attention_block_decode():
     np.testing.assert_allclose(f32(ck[rows]), f32(jk)[[0, 2]], rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("case", ["window", "decode_softcap", "positions", "chunked_prefill"])
+@pytest.mark.parametrize("case", ["positions", "chunked_prefill"])
 def test_attention_block_raises_outside_the_kernels(case):
     """What the two kernels do not compute raises; nothing routes to the
     plain oracle."""
     rng = np.random.default_rng(9)
     cfg = CFG
-    kw = {}
     s = 4
     cache = (torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim, dtype=torch.bfloat16),) * 2
-    if case == "window":
-        cfg = replace(CFG, window=4, local_global_period=2)
-        kw = dict(layer_is_local=True)
-    elif case == "decode_softcap":
-        cfg = replace(CFG, attn_softcap=50.0)
-        kw = dict(kv_cache=cache, cache_pos=3)
-        s = 1
-    elif case == "positions":
+    if case == "positions":
         kw = dict(positions=torch.zeros(1, 4, dtype=torch.long))
     else:
         kw = dict(kv_cache=cache, cache_pos=2)
@@ -284,3 +276,46 @@ def test_global_layer_of_a_windowed_config_runs():
     want, _ = jl.attention_block(jp, jx, jcfg, layer_is_local=jnp.asarray(False))
     got, _ = tl.attention_block(tp, tx, cfg, layer_is_local=False)
     np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=2e-2)
+
+
+LOCAL_CASES = {
+    "window_no_cache": dict(window=4),
+    "window_prefill": dict(window=4),
+    "window_decode": dict(window=4),
+    "softcap_decode": dict(attn_softcap=5.0),
+    "window_softcap_decode": dict(window=4, attn_softcap=5.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL_CASES))
+def test_attention_block_local_layer_and_decode_softcap_match_jax(case):
+    """gemma2's attention in the kernels' place: a local layer's window (4
+    rows, binding: 11 tokens, or a decode at position 11) and the logit
+    softcap at decode (5.0, which bends the scores of these inputs), against
+    the JAX block; the window must change the output."""
+    changes = dict(LOCAL_CASES[case], local_global_period=2, attn_scale=0.2)
+    cfg, jcfg = replace(CFG, **changes), replace(JCFG, **changes)
+    rng = np.random.default_rng(11)
+    jp, tp = attn_params(rng, cfg)
+    s = 1 if case.endswith("decode") else 11
+    jx, tx = both(rng, (3, s, cfg.d_model), "bfloat16", 3.0)
+    shape = (3, 16, cfg.n_kv_heads, cfg.head_dim)
+    jk0, tk0 = both(rng, shape, "bfloat16", 3.0)
+    jv0, tv0 = both(rng, shape, "bfloat16")
+    jkw, kw = dict(layer_is_local=jnp.asarray(True)), dict(layer_is_local=True)
+    if case.endswith("prefill"):
+        jkw.update(kv_cache=(jk0[:, :s] * 0, jv0[:, :s] * 0),
+                   cache_pos=jnp.zeros((), jnp.int32))
+        kw.update(kv_cache=(tk0[:, :s] * 0, tv0[:, :s] * 0), cache_pos=0, pinned_rows=s)
+    elif case.endswith("decode"):
+        jkw.update(kv_cache=(jk0, jv0), cache_pos=jnp.asarray(11, jnp.int32))
+        kw.update(kv_cache=(tk0.clone(), tv0.clone()), cache_pos=11)
+    want, _ = jl.attention_block(jp, jx, jcfg, **jkw)
+    got, _ = tl.attention_block(tp, tx, cfg, **kw)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=2e-2)
+    if "window" in case:
+        kw["layer_is_local"] = False
+        if "kv_cache" in kw:
+            kw["kv_cache"] = tuple(c.clone() for c in kw["kv_cache"])
+        wide, _ = tl.attention_block(tp, tx, cfg, **kw)
+        assert np.abs(f32(wide) - f32(got)).max() > 0.1

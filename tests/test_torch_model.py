@@ -164,11 +164,25 @@ def test_unknown_family_is_refused():
         tm.init_cache(cfg, 1, 8, device="cpu")
 
 
-def test_windowed_config_raises_on_a_local_layer():
-    cfg = reduce_for_smoke(get_arch("gemma2-27b"))
-    params = tm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tm.forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
+@pytest.mark.parametrize("window", [None, 64, 8])
+def test_windowed_config_matches_jax_on_its_local_layer(window):
+    """reduce_for_smoke(gemma2-27b): layer 0 is local, layer 1 global.  With
+    80 tokens a window of 64 (the reduced config's) or 8 binds on layer 0,
+    and the port's logits follow the reference's; they differ from those of
+    the same weights without a window."""
+    jcfg = replace(jax_reduce(jax_get_arch("gemma2-27b")), window=window)
+    cfg = replace(reduce_for_smoke(get_arch("gemma2-27b")), window=window)
+    assert tm.local_flags(cfg) == ((True, False) if window else (False, False))
+    jparams = jm.init_params(jcfg, jax.random.key(3))
+    params = convert.params_from_numpy(to_numpy(jparams), "cpu")
+    tokens = np.random.default_rng(3).integers(2, cfg.vocab, size=(1, 80))
+    want = jm.forward(jparams, jnp.asarray(tokens), jcfg, remat=False)
+    got = tm.forward(params, torch.from_numpy(tokens), cfg)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=TOL, atol=TOL)
+    wide = tm.forward(params, torch.from_numpy(tokens), replace(cfg, window=None))
+    tail = np.abs(f32(wide) - f32(got))[:, 64:]
+    assert (tail.max() > 0.1) == (window is not None)
+    assert np.array_equal(f32(wide)[:, :8], f32(got)[:, :8])
 
 
 def test_entry_points_raise_without_a_card():
