@@ -61,14 +61,22 @@ run with a non-zero exit code:
 13. parity_gemma2  its cut to one local and one global layer, with the window
             set to 64 so that a prefill of 2 x 96 tokens + 4 decode steps
             overruns it: card against CPU.
+14. serve_gemma7b   gemma-7b at full width and depth (28 layers, d_model 3072,
+            16 heads MHA at head_dim 256, GeGLU d_ff 24576, vocab 256000; bf16,
+            seeded random weights, 18.6 GB) behind ``ServeEngine(max_batch=8,
+            max_seq=2048)``: 8 requests drawn as in 4, 32 new tokens each;
+            counts as in 4.
+15. parity_gemma7b  its 2-layer cut: prefill of 2 x 64 tokens + 4 decode
+            steps, card against CPU.
 
-The kernels phase holds the attention kernels at head_dim 64, 112 and 128,
-with and without a sliding window (both) and a softcap (decode too), and the
-SSD scan at d_state 16 to 128, and times each kernel at the shapes of every
-path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b and gemma2-27b
-for attention, mamba2-2.7b and zamba2-7b for the SSD scan); each record of
-the ``kernels`` line names its path and carries the launches of that path's
-serve phase.
+The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
+256, with and without a sliding window (both) and a softcap (decode too), and
+the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
+every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
+and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
+each record of the ``kernels`` line names its path and carries the launches
+of that path's serve phase.  The whole run takes about 4 minutes of command
+time on an H100, the 40-second build included.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -81,6 +89,7 @@ import argparse
 from contextlib import contextmanager
 from contextlib import nullcontext
 from dataclasses import replace
+import gc
 import json
 from pathlib import Path
 import re
@@ -118,7 +127,8 @@ GEMMA2_DECODE_ONE_GROUP = [0, 0, 0, 0, 0, 5120, 0, 0]
 SSD_PROMPTS = (1024, 256)   # prompt lengths the SSD scan is timed at
 # the timed shapes of each path: attention (H, G, D), SSD scan (H, P, N)
 ATTN_SHAPES = {"llama3.2-3b": (24, 8, 128), "zamba2-7b": (32, 32, 112),
-               "deepseek-moe-16b": (16, 16, 128), "gemma2-27b": (32, 16, 128)}
+               "deepseek-moe-16b": (16, 16, 128), "gemma2-27b": (32, 16, 128),
+               "gemma-7b": (16, 16, 256)}
 SSD_SHAPES = {"mamba2-2.7b": (80, 64, 128), "zamba2-7b": (112, 64, 64)}
 # each path's attention timings: its attention's options (a local layer's
 # window, softcap, score scale), the decode pool's rows, and the cases in
@@ -147,7 +157,7 @@ ROUTER_NEAR_TIE = 2e-3
 ROUTER_MAX_FLIPS = 0.1
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
-          "parity_gemma2")
+          "parity_gemma2", "serve_gemma7b", "parity_gemma7b")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -158,6 +168,15 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def refused(fn, what):
+    """Check that ``fn()`` raises ValueError before any launch."""
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{what} was not refused")
 
 
 def randn(gen, shape, dtype):
@@ -316,7 +335,7 @@ def decode_cases():
         (8, 2048, 16, 16, 128, bf, main_lens),
         (8, 2048, 16, 16, 128, f32, main_lens),
         (8, 2048, 16, 16, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
-    ] + gemma2_decode_cases()
+    ] + gemma2_decode_cases() + gemma7b_decode_cases()
 
 
 def gemma2_decode_cases():
@@ -334,6 +353,31 @@ def gemma2_decode_cases():
               for window in (1, 63, 64, 65) for dtype in (bf, f32)]
     cases += [(3, 1000, 8, 2, 64, f32, [999, 1, 500], 100, None),
               (4, 700, 8, 4, 112, bf, [700, 129, 0, 64], None, 30.0)]
+    return cases
+
+
+def gemma7b_decode_cases():
+    """head_dim 256 (gemma-7b: MHA, 16 heads; a lane owns 4 chunks of a bf16
+    row, 8 of fp32, whose ring grows to two 64 KB steps): its serving pool at
+    mixed positions and at one live group, lengths at the edges of a work
+    unit, GQA groups 2 and 4 (two heads a block at most), and windows of 63
+    and 64 rows with a softcap."""
+    r = UNIT_ROWS
+    bf, f32 = torch.bfloat16, torch.float32
+    main_lens = [1, 2048, 777, 64, 1500, 300, 2047, 1024]
+    edges = [63, 64, 65, 66, 129, 300, 1, 0]
+    cases = [(8, 2048, 16, 16, 256, dtype, main_lens) for dtype in (bf, f32)]
+    cases += [
+        (8, 2048, 16, 16, 256, bf, DECODE_ONE_GROUP),
+        (8, 2048, 16, 16, 256, f32, [0, 0, 0, 0, 0, 0, 0, 33]),
+        (5, 2048, 16, 16, 256, bf, [r - 1, r, r + 1, 2048, 0]),
+        (4, 2 * r + 1, 8, 8, 256, f32, [0, r + 1, 2 * r + 1, r]),
+        (2, 700, 8, 2, 256, bf, [700, 129]),
+        (3, 300, 4, 2, 256, f32, [300, 1, 0]),
+    ]
+    cases += [(8, 300, 16, 16, 256, dtype, edges, window, 50.0)
+              for window in (63, 64) for dtype in (bf, f32)]
+    cases += [(3, 1000, 8, 4, 256, bf, [999, 1, 500], 100, 30.0)]
     return cases
 
 
@@ -371,38 +415,46 @@ def check_decode(gen):
         close(out, ref, TOL[torch.bfloat16], f"decode pool view, {rows} rows a unit")
         check(bool((out[1] == 0).all()), "decode: cache_len 0 must give zeros")
     # rows at or past cache_len are dead: poisoning them changes nothing
-    q = randn(gen, (1, 4, 64), torch.float32)
-    k = randn(gen, (1, 512, 2, 64), torch.float32)
-    v = randn(gen, (1, 512, 2, 64), torch.float32)
-    cl = torch.tensor([300], dtype=torch.int32, device="cuda")
-    out1 = decode_attention(q, k, v, cl)
-    k2, v2 = k.clone(), v.clone()
-    k2[:, 300:] = 1e4
-    v2[:, 300:] = -1e4
-    out2 = decode_attention(q, k2, v2, cl)
-    check(bool((out1 - out2).abs().max() <= 1e-6), "decode: poisoned dead rows leaked")
-    close(out2, decode_attention_ref(q, k2, v2, cl), 2e-5, "decode poison vs plain")
-    v2[:, 300:] = float("nan")
-    check(bool(torch.isfinite(decode_attention(q, k2, v2, cl)).all()),
-          "decode: a NaN in a dead row leaked")
+    for h, g, d in ((4, 2, 64), (16, 16, 256)):
+        q = randn(gen, (1, h, d), torch.float32)
+        k = randn(gen, (1, 512, g, d), torch.float32)
+        v = randn(gen, (1, 512, g, d), torch.float32)
+        cl = torch.tensor([300], dtype=torch.int32, device="cuda")
+        out1 = decode_attention(q, k, v, cl)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, 300:] = 1e4
+        v2[:, 300:] = -1e4
+        out2 = decode_attention(q, k2, v2, cl)
+        check(bool((out1 - out2).abs().max() <= 1e-6), f"decode D {d}: poisoned dead rows leaked")
+        close(out2, decode_attention_ref(q, k2, v2, cl), 2e-5, f"decode D {d} poison vs plain")
+        v2[:, 300:] = float("nan")
+        check(bool(torch.isfinite(decode_attention(q, k2, v2, cl)).all()),
+              f"decode D {d}: a NaN in a dead row leaked")
     # with a window and a softcap, rows below the window are dead too: they
     # are never read, so poison there leaves every bit as it was
-    q = randn(gen, (4, 32, 128), torch.bfloat16)
-    k = randn(gen, (4, 700, 16, 128), torch.bfloat16)
-    v = randn(gen, (4, 700, 16, 128), torch.bfloat16)
-    cl = torch.tensor([700, 65, 64, 300], dtype=torch.int32, device="cuda")
-    kw = dict(window=64, softcap=50.0, scale=GEMMA2_SCALE)
-    clean = decode_attention(q, k, v, cl, **kw)
-    k2, v2 = k.clone(), v.clone()
-    for i, n in enumerate(cl.tolist()):
-        k2[i, :max(0, n - 64)], v2[i, :max(0, n - 64)] = 1e4, float("nan")
-        k2[i, n:], v2[i, n:] = -1e4, float("inf")
-    for rows in (None, decode_ops.STEP_ROWS):
-        out = decode_attention(q, k2, v2, cl, rows_per_split=rows, **kw)
-        check(torch.equal(out, clean) if rows is None else bool(torch.isfinite(out).all()),
-              f"decode: a poisoned row outside the window leaked ({rows} rows a unit)")
-        close(out, decode_attention_ref(q, k2, v2, cl, **kw), TOL[torch.bfloat16],
-              "decode window + softcap over poisoned rows vs plain")
+    for h, g, d in ((32, 16, 128), (16, 16, 256)):
+        q = randn(gen, (4, h, d), torch.bfloat16)
+        k = randn(gen, (4, 700, g, d), torch.bfloat16)
+        v = randn(gen, (4, 700, g, d), torch.bfloat16)
+        cl = torch.tensor([700, 65, 64, 300], dtype=torch.int32, device="cuda")
+        kw = dict(window=64, softcap=50.0, scale=GEMMA2_SCALE)
+        clean = decode_attention(q, k, v, cl, **kw)
+        k2, v2 = k.clone(), v.clone()
+        for i, n in enumerate(cl.tolist()):
+            k2[i, :max(0, n - 64)], v2[i, :max(0, n - 64)] = 1e4, float("nan")
+            k2[i, n:], v2[i, n:] = -1e4, float("inf")
+        for rows in (None, decode_ops.STEP_ROWS):
+            out = decode_attention(q, k2, v2, cl, rows_per_split=rows, **kw)
+            check(torch.equal(out, clean) if rows is None else bool(torch.isfinite(out).all()),
+                  f"decode D {d}: a poisoned row outside the window leaked "
+                  f"({rows} rows a unit)")
+            close(out, decode_attention_ref(q, k2, v2, cl, **kw), TOL[torch.bfloat16],
+                  f"decode D {d} window + softcap over poisoned rows vs plain")
+    # a head size the kernel is not built for is refused on the card
+    q, k = randn(gen, (2, 4, 96), torch.bfloat16), randn(gen, (2, 64, 2, 96), torch.bfloat16)
+    refused(lambda: decode_attention(q, k, k, torch.tensor([64, 3], dtype=torch.int32,
+                                                           device="cuda")),
+            "decode at head_dim 96")
     # the units that merged set their counters back to 0 for the next call
     torch.cuda.synchronize()
     check(all(int(c.abs().sum()) == 0 for c in decode_ops._counters.values()),
@@ -472,7 +524,7 @@ def flash_cases():
         (1, 100, 333, 8, 1, 112, False, None, 128, bf, None),
         (1, 256, 256, 4, 2, 112, True, 50.0, 64, f32, 2),
     ]
-    return [c + (None,) for c in cases] + gemma2_flash_cases()
+    return [c + (None,) for c in cases] + gemma2_flash_cases() + gemma7b_flash_cases()
 
 
 def gemma2_flash_cases():
@@ -501,6 +553,33 @@ def gemma2_flash_cases():
     return cases
 
 
+def gemma7b_flash_cases():
+    """head_dim 256 (gemma-7b: MHA, 16 heads; bf16 Q re-read from a buffer
+    of its own, four warps a block; the planner's pin budget holds one 64-row
+    tile in bf16, none in fp32): causal prompts pinned 0, 64 and whole where
+    that fits (fp32 at most 8 rows), GQA groups 3, 4 and 8 (passes of four
+    heads), non-causal, a softcap and windows, several Q tiles a chunk."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for s in (17, 64, 1000, 1024):
+        for pinned in sorted({0, min(s, 64)}):
+            cases.append((1, s, s, 16, 16, 256, True, None, pinned, bf, None, None))
+    cases += [
+        (1, 17, 17, 16, 16, 256, True, None, 0, f32, None, None),
+        (1, 8, 8, 16, 16, 256, True, None, 8, f32, None, None),
+        (1, 1000, 1000, 16, 16, 256, True, None, 0, f32, None, None),
+        (1, 257, 257, 8, 2, 256, True, None, 64, bf, 2, None),
+        (2, 300, 300, 12, 4, 256, True, 50.0, 0, bf, None, None),
+        (1, 200, 200, 16, 2, 256, True, None, 0, bf, None, None),
+        (1, 100, 333, 8, 1, 256, False, None, 64, bf, None, None),
+        (1, 128, 300, 4, 2, 256, False, None, 0, f32, None, None),
+        (1, 300, 300, 16, 16, 256, True, 50.0, 64, bf, 2, 63),
+        (1, 300, 300, 16, 16, 256, True, 50.0, 0, f32, None, 64),
+        (1, 1000, 1000, 16, 16, 256, True, None, 64, bf, 3, 100),
+    ]
+    return cases
+
+
 def check_flash(gen):
     from repro_torch.core.orchestrator import CacheOrchestrator
     from repro_torch.core.orchestrator import FLASH_TILE_ROWS
@@ -524,6 +603,8 @@ def check_flash(gen):
                             scale=scale)
         err = close(out, ref, TOL[dtype], f"flash {case}")
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    q, k = randn(gen, (1, 64, 4, 96), torch.bfloat16), randn(gen, (1, 64, 2, 96), torch.bfloat16)
+    refused(lambda: flash_attention(q, k, k), "flash at head_dim 96")
     # pinned_rows is a pure schedule parameter: fp32 outputs agree to 1e-5,
     # also when a block walks several Q tiles with the prefix resident
     q = randn(gen, (1, 320, 6, 128), torch.float32)
@@ -566,12 +647,32 @@ def check_flash(gen):
                 check(torch.equal(other, base), f"flash bf16 S {s} window {window}: "
                       f"pinned {pinned}, tiles {tiles} differs from pinned 0 by "
                       f"{float((other.float() - base.float()).abs().max()):.3e}")
+    # the same at head_dim 256, where the pin budget holds one 64-row tile:
+    # pinned 0 and 64 (or the whole of a short prompt), with a window and a
+    # softcap too, GQA in passes of four heads
+    for s, h, g, window in ((300, 16, 16, None), (1024, 16, 16, None), (40, 16, 16, None),
+                            (300, 16, 16, 64), (300, 8, 2, None)):
+        kw = dict(window=window, softcap=50.0, scale=GEMMA2_SCALE) if window else {}
+        q = randn(gen, (1, s, h, 256), torch.bfloat16)
+        k = randn(gen, (1, s, g, 256), torch.bfloat16)
+        v = randn(gen, (1, s, g, 256), torch.bfloat16)
+        base = flash_attention(q, k, v, causal=True, pinned_rows=0, tiles_per_chunk=1, **kw)
+        close(base, attention_ref(q, k, v, **kw), TOL[torch.bfloat16],
+              f"flash bf16 D 256 S {s} window {window}")
+        for pinned in (0, min(s, 64)):
+            for tiles in (None, 1, 2, 3, 7):
+                other = flash_attention(q, k, v, causal=True, pinned_rows=pinned,
+                                        tiles_per_chunk=tiles, **kw)
+                check(torch.equal(other, base), f"flash bf16 D 256 S {s} window {window}: "
+                      f"pinned {pinned}, tiles {tiles} differs from pinned 0 by "
+                      f"{float((other.float() - base.float()).abs().max()):.3e}")
     # a cache slice longer than the prompt, read through its strides
-    for h, g, d in ((24, 8, 128), (32, 32, 112)):
+    for h, g, d in ((24, 8, 128), (32, 32, 112), (16, 16, 256)):
         pool_k = randn(gen, (1, 512, g, d), torch.bfloat16)
         pool_v = randn(gen, (1, 512, g, d), torch.bfloat16)
         q = randn(gen, (1, 200, h, d), torch.bfloat16)
-        out = flash_attention(q, pool_k[:, :200], pool_v[:, :200], pinned_rows=200)
+        out = flash_attention(q, pool_k[:, :200], pool_v[:, :200],
+                              pinned_rows=min(200, pin_fit(d, torch.bfloat16)))
         close(out, attention_ref(q, pool_k[:, :200], pool_v[:, :200]), TOL[torch.bfloat16],
               f"flash on a strided cache slice, D {d}")
     return worst
@@ -935,6 +1036,12 @@ PATHS = {
         # tokens and 4 decode steps overrun on the CPU in reasonable time
         parity_cut={"layers": 2}, parity_layers=2, parity_changes={"window": 64},
         parity_prompt=96),
+    "gemma-7b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+               "gemma_norm", "act"),
+        published=(28, 3072, 16, 16, 256, 24576, 256000, True, "gelu"),
+        serve="serve_gemma7b", parity="parity_gemma7b", prompt_len=llama_prompt_len,
+        parity_cut={"layers": 2}, parity_layers=2, parity_prompt=64),
 }
 
 
@@ -1029,6 +1136,8 @@ def parity_logits(arch, cfg, params, dev, dtype, plain=False, routes=None):
     plain versions; ``routes`` (a MoE path) records or follows expert choices
     (``routing``)."""
     from repro_torch.configs import SSM
+    from repro_torch.core.orchestrator import flash_smem_bytes
+    from repro_torch.core.orchestrator import H100_SMEM_PER_BLOCK
     from repro_torch.models import decode_step
     from repro_torch.models import prefill
     path = PATHS[arch]
@@ -1058,7 +1167,10 @@ def parity_logits(arch, cfg, params, dev, dtype, plain=False, routes=None):
         if cfg.family == SSM:
             got, cache = prefill(p, tok, cfg2)
         else:
-            got, cache = prefill(p, tok, cfg2, pinned_rows=plen)
+            # the whole prompt pinned where the kernel's shared memory holds
+            # it (not in fp32 at head_dim 256, which streams it)
+            fits = flash_smem_bytes(plen, cfg.head_dim, dtype.itemsize) <= H100_SMEM_PER_BLOCK
+            got, cache = prefill(p, tok, cfg2, pinned_rows=plen if fits else 0)
             pad = torch.zeros_like(cache.k[:, :, :4])
             cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
                                    v=torch.cat([cache.v, pad], dim=2))
@@ -1271,7 +1383,7 @@ def main() -> None:
     records = phase_kernels() if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
                              ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS),
-                             ("gemma2-27b", PATH_REQUESTS)):
+                             ("gemma2-27b", PATH_REQUESTS), ("gemma-7b", PATH_REQUESTS)):
         path = PATHS[arch]
         if path["serve"] not in phases:
             continue
@@ -1284,6 +1396,7 @@ def main() -> None:
         if path["parity"] in phases:
             phase_parity(arch, cfg, params)
         del params
+        gc.collect()
         torch.cuda.empty_cache()
     complete = set(phases) == set(PHASES)
     if complete:

@@ -165,13 +165,15 @@ H100_SMEM_PER_BLOCK = 232448      # bytes of dynamic shared memory a block may t
 FLASH_TILE_ROWS = 64              # KV-tile rows of the flash kernel (and the fp32 Q tile)
 FLASH_STAGES = 2                  # bf16: streamed K/V tiles in the kernel's ring
 FLASH_ROW_ALIGN = 128             # bf16: bytes a staged row is rounded up to (row_bytes)
+FLASH_Q_REG_DIM = 128             # bf16: the largest head_dim whose Q stays in registers
+FLASH_Q_BUFFER_ROWS = 64          # bf16 above it: rows of Q's own buffer (4 warps x 16)
 
 
 def flash_smem_row_words(head_dim: int, itemsize: int) -> int:
     """32-bit words one staged Q/K/V row takes in the flash kernel's shared
     memory.  bf16: the row's data rounded up to ``FLASH_ROW_ALIGN`` bytes
-    (16-byte chunks XOR-swizzled by row inside it; no pad at head_dim 64 and
-    128, 224 bytes staged at 256 at head_dim 112).  fp32: the data plus one
+    (16-byte chunks XOR-swizzled by row inside it; no pad at head_dim 64,
+    128 and 256, 224 bytes staged at 256 at head_dim 112).  fp32: the data plus one
     pad word (odd stride: no bank conflicts when 16 lanes read 16
     consecutive rows)."""
     if itemsize == 2:
@@ -189,11 +191,14 @@ def flash_kv_row_bytes(head_dim: int, itemsize: int) -> int:
 def flash_smem_work_bytes(head_dim: int, itemsize: int) -> int:
     """Shared memory the flash kernel needs whatever ``pinned_rows`` is.
     bf16: a ring of ``FLASH_STAGES`` streamed K and V tiles, through which Q
-    is staged as well.  fp32: one Q tile, one streamed K and one streamed V
-    tile, and the fp32 probability tile."""
+    is staged as well up to head_dim ``FLASH_Q_REG_DIM``; above it (head_dim
+    256: 160 KB) Q has a buffer of ``FLASH_Q_BUFFER_ROWS`` rows of its own.
+    fp32: one Q tile, one streamed K and one streamed V tile, and the fp32
+    probability tile (214,016 bytes at head_dim 256)."""
     row = 4 * flash_smem_row_words(head_dim, itemsize)
     if itemsize == 2:
-        return FLASH_STAGES * 2 * FLASH_TILE_ROWS * row
+        q_buffer = FLASH_Q_BUFFER_ROWS * row if head_dim > FLASH_Q_REG_DIM else 0
+        return FLASH_STAGES * 2 * FLASH_TILE_ROWS * row + q_buffer
     return 3 * FLASH_TILE_ROWS * row + 4 * FLASH_TILE_ROWS * (FLASH_TILE_ROWS + 1)
 
 
@@ -213,7 +218,7 @@ def hopper_pin_budget_bytes(head_dim: int, itemsize: int) -> int:
     after the kernel's working tiles.  Hand it to
     ``CacheOrchestrator(vmem_budget_bytes=...)`` with ``bytes_per_row =
     flash_kv_row_bytes(head_dim, itemsize)``: a prefix that is the whole KV
-    length (at most 285 rows at head_dim 112 and 128, 682 at 64, in bf16)
-    still fits once rounded up to whole tiles, and every split the planner
-    returns fits the kernel."""
+    length (at most 285 rows at head_dim 112 and 128, 682 at 64, 58 at 256,
+    in bf16) still fits once rounded up to whole tiles, and every split the
+    planner returns fits the kernel."""
     return H100_SMEM_PER_BLOCK - flash_smem_work_bytes(head_dim, itemsize)

@@ -61,11 +61,17 @@
 //    in flight a thread.
 //  * A block merges its 16 lane groups with warp shuffles and one small
 //    shared-memory array per warp.
-//  * Head sizes 64, 112 and 128.  At D 112 (zamba2-7b) a row is 14 chunks of
-//    bf16 (28 of fp32), which 8 lanes do not share evenly: lanes 0-5 (0-3)
-//    own one chunk more than the others, and a chunk a lane does not own is
-//    never copied, never read and counts zero in its q (Ring::TAIL), so the
-//    ring, the 3-shuffle reduction and the merge keep one shape for all D.
+//  * Head sizes 64, 112, 128 and 256.  At D 112 (zamba2-7b) a row is 14
+//    chunks of bf16 (28 of fp32), which 8 lanes do not share evenly: lanes 0-5
+//    (0-3) own one chunk more than the others, and a chunk a lane does not own
+//    is never copied, never read and counts zero in its q (Ring::TAIL), so the
+//    ring, the 3-shuffle reduction and the merge keep one shape for all D.  At
+//    D 256 (gemma-7b) a lane owns 4 chunks of a bf16 row (8 of fp32): its q
+//    and its accumulator take 32 + 32 floats a head, so a block takes one
+//    head there (MAX_HPB_WIDE: two spilled in bf16 at the 168 registers of
+//    BLOCKS_PER_SM blocks an SM); and an fp32 step of 32 rows is 64 KB, so the
+//    ring grows to two steps (Ring::BYTES, 128 KB: one block an SM) where
+//    RING_BYTES would hold one.  Every other variant's ring is RING_BYTES.
 //  * K/V are read in the cache's own (B, S, G, D) layout through strides: no
 //    transposed copy of the cache is ever made.  `group` is below any
 //    tensor-core tile height, so the products are fp32 multiply-adds.
@@ -95,11 +101,15 @@ constexpr int STEP_ROWS = ROW_GROUPS * ROWS_PER_GROUP;  // 32 rows a block step
 constexpr int RING_BYTES = 64 * 1024;                  // cp.async ring of a block
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_HPB = 4;
+constexpr int MAX_HPB_WIDE = 1;   // query heads a block at most above D 128
 constexpr int MAX_UNITS = 1024;   // units a sequence at most: ceil(S / R)
 constexpr int BLOCKS_PER_SM = 3;  // 3 x (ring + merge arrays) fit the SM's shared memory
 constexpr int MERGE_LOADS = 8;    // partials a thread of the last unit loads at once
 constexpr int MIN_ROWS = 128;     // the least R chosen per call
 constexpr int ITEMS_PER_SM = 2;   // work items an SM that a chosen R aims at, at most
+
+// Query heads a block at most at head size D.
+__host__ __device__ constexpr int max_hpb(int D) { return D > 128 ? MAX_HPB_WIDE : MAX_HPB; }
 
 // 16 bytes of T widened to floats.
 template <typename T>
@@ -168,8 +178,9 @@ struct Ring {
   static_assert(D % VEC == 0, "rows of whole 16-byte chunks");
   static constexpr int CHUNKS = ROWS_PER_GROUP * 2 * NCH;  // a lane's chunks of K and V a step
   static constexpr int STEP_BYTES = CHUNKS * THREADS * 16;
-  static constexpr int STAGES =
-      RING_BYTES / STEP_BYTES < MAX_STAGES ? RING_BYTES / STEP_BYTES : MAX_STAGES;
+  static constexpr int RING =  // RING_BYTES, or two steps where it holds fewer (fp32 D 256)
+      2 * STEP_BYTES > RING_BYTES ? 2 * STEP_BYTES : RING_BYTES;
+  static constexpr int STAGES = RING / STEP_BYTES < MAX_STAGES ? RING / STEP_BYTES : MAX_STAGES;
   static constexpr int BYTES = STAGES * STEP_BYTES;
   static_assert(STAGES >= 2, "the ring holds two steps or more");
   static_assert(BYTES >= 2 * MAX_HPB * MAX_UNITS * 4, "the merge's weights fit the ring");
@@ -611,20 +622,12 @@ int launch(const Args<T>& a, int blocks, cudaStream_t stream) {
                          : launch_cap<T, D, HPB, false>(a, blocks, stream);
 }
 
-template <typename T, int D>
+// Variants for 1 to max_hpb(D) heads a block.
+template <typename T, int D, int HPB = 1>
 int launch_hpb(int hpb, const Args<T>& a, int blocks, cudaStream_t stream) {
-  switch (hpb) {
-    case 1:
-      return launch<T, D, 1>(a, blocks, stream);
-    case 2:
-      return launch<T, D, 2>(a, blocks, stream);
-    case 3:
-      return launch<T, D, 3>(a, blocks, stream);
-    case 4:
-      return launch<T, D, 4>(a, blocks, stream);
-    default:
-      return -1;
-  }
+  if (hpb == HPB) return launch<T, D, HPB>(a, blocks, stream);
+  if constexpr (HPB < max_hpb(D)) return launch_hpb<T, D, HPB + 1>(hpb, a, blocks, stream);
+  return -1;
 }
 
 template <typename T>
@@ -663,6 +666,7 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
   a.v_sb = st[5];
   a.v_ss = st[6];
   a.v_sg = st[7];
+  if (D == 256) return launch_hpb<T, 256>(hpb, a, blocks, stream);
   if (D == 128) return launch_hpb<T, 128>(hpb, a, blocks, stream);
   if (D == 112) return launch_hpb<T, 112>(hpb, a, blocks, stream);
   if (D == 64) return launch_hpb<T, 64>(hpb, a, blocks, stream);
@@ -672,7 +676,7 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  `hpb` query heads of one KV head share a block
-// (1 to MAX_HPB, dividing H / G).  `rows` is R, a positive multiple of
+// (1 to max_hpb(D), dividing H / G).  `rows` is R, a positive multiple of
 // STEP_ROWS, or 0 for R chosen on the device from cache_len (rows_for);
 // `min_rows`, a positive multiple of STEP_ROWS with ceil(S / min_rows) at most
 // MAX_UNITS, bounds R from below (with `rows` given, it equals `rows`);
@@ -703,7 +707,7 @@ extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
   if (rows != 0 && rows != min_rows) return -1;
   if (target <= 0) return -1;
   if ((S + min_rows - 1) / min_rows > MAX_UNITS) return -1;
-  if (hpb < 1 || hpb > MAX_HPB || (H / G) % hpb != 0) return -1;
+  if (hpb < 1 || hpb > max_hpb(D) || (H / G) % hpb != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S,

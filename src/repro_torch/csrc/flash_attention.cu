@@ -46,13 +46,13 @@
 //  * Asynchronous copies.  cp.async moves 16 bytes a lane into rows kept with
 //    an XOR swizzle of their 16-byte chunks (chunk ^ row % 8), so that
 //    ldmatrix reads 8 rows of one chunk from 8 distinct bank groups.  A row
-//    takes 2 * D bytes rounded up to 128 (row_bytes): no pad at D 64 and 128;
+//    takes 2 * D bytes rounded up to 128 (row_bytes): no pad at D 64, 128, 256;
 //    at D 112 (zamba2-7b) its 14 chunks sit in 16 slots, the swizzle stays
 //    inside the row, and the two spare slots are never copied or read (7
 //    QK^T steps and 14 output column blocks, nothing computed on padding).
 //    Streamed tiles go through a ring of STAGES tiles: tile t + 1 loads while
-//    tile t computes.  Q is staged through the ring before the KV loop and
-//    needs no buffer of its own.  The pinned prefix is staged once, with the
+//    tile t computes.  Up to Q_REG_DIM, Q is staged through the ring before
+//    the KV loop and needs no buffer of its own.  The pinned prefix is staged once, with the
 //    same copies and in the same layout, so one inner loop reads a pinned or a
 //    streamed tile and only the address differs.  KV rows past Sk are zeros in
 //    both, so the result is bit-identical whatever `pinned_rows` and
@@ -71,6 +71,25 @@
 //    64 at 256 tokens for llama's 8 KV heads, where 64-row tiles gave 32.  A
 //    12-warp block with 64-row tiles for group 3 was tried and lost: capped at
 //    168 registers it spills.
+//  * Head size 256 (gemma-7b).  A warp's 16 x 256 output is 128 fp32 sums a
+//    thread, and Q's fragments held for the whole KV walk would be 64 more:
+//    with the scores that is past the 255 registers a thread may hold.  So
+//    above Q_REG_DIM the output stays in registers and Q's fragments do not
+//    (FlashAttention-2's plan at this size): Q is staged once a tile and pass
+//    into a buffer of its own (MAX_WARPS_Q_SMEM warps' 16 rows) and each
+//    16-deep step of Q K^T reads its fragment back with ldmatrix.  That alone
+//    still spilled at 255 registers, so the online softmax also takes a
+//    64-row KV tile in two steps of 32 columns (scores and P fragments in half
+//    the registers; FlashAttention-2's 64 x 32 tile at this size), skips a
+//    step whose columns the causal mask or the window hide from every row of
+//    the warp, and unrolls half of the Q K^T loop: no spill, 242 registers.
+//    One 64-column step was about 10% faster but spilled at every unroll.  A block has MAX_WARPS_Q_SMEM warps at most, so Q's buffer
+//    is 32 KB whatever the group, and a row is 512 bytes (row_bytes), so the
+//    swizzle stays in it.  The tile walk and the masks are those of the
+//    smaller heads, and the arithmetic does not depend on where a tile
+//    lives: the result is bit-identical across `pinned_rows` and
+//    `tiles_per_chunk` there too.  The ring (128 KB) and Q's buffer leave one
+//    64-row tile of pinned K and V in a block's 227 KB.
 //  * Left for later: wgmma fed by TMA with a producer warp and a consumer
 //    warpgroup per 64 rows, once this version's numbers say whether MMA issue
 //    rate or latency is what remains.
@@ -95,6 +114,8 @@ constexpr int LDP = BK + 1;
 constexpr int SMEM_LIMIT = 232448;
 constexpr int STAGES = 2;     // bf16 path: streamed K/V tiles in the ring
 constexpr int MAX_WARPS = 8;  // bf16 path: warps of a block, one (head, 16 rows) each
+constexpr int Q_REG_DIM = 128;        // bf16 path: the largest D whose Q fragments stay in registers
+constexpr int MAX_WARPS_Q_SMEM = 4;   // bf16 path above Q_REG_DIM: warps of a block
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
@@ -432,6 +453,13 @@ __device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src, long l
   }
 }
 
+// Bytes of Q's own buffer: none where Q's fragments stay in registers (Q is
+// staged through the ring), else the 16 rows of each of MAX_WARPS_Q_SMEM warps.
+template <int D>
+__host__ __device__ constexpr int q_buffer_bytes() {
+  return D > Q_REG_DIM ? MAX_WARPS_Q_SMEM * 16 * row_bytes<D>() : 0;
+}
+
 // The Q tile at place p of the order n-1, 0, n-2, 1, ...
 __device__ __forceinline__ int tile_at(int p, int n) {
   return (p & 1) ? p >> 1 : n - 1 - (p >> 1);
@@ -453,6 +481,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILEB = BK * ROWB;  // bytes of a staged K or V tile
   constexpr int KS = D / 16;        // 16-deep steps of Q K^T
   constexpr int NO = D / 8;         // 8-wide column blocks of O
+  constexpr bool QS = D > Q_REG_DIM;  // Q's fragments read back from its buffer each step
+  constexpr int CB = QS ? 2 : 4;      // 16-column blocks of a KV tile a softmax step takes
   static_assert(D % 16 == 0 && ROWB % 128 == 0 && ROWB >= 2 * D, "row layout");
 
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -460,6 +490,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t pinK = smem_addr(smem_mma);
   const uint32_t pinV = pinK + pin_alloc * ROWB;
   const uint32_t ring = pinV + pin_alloc * ROWB;  // STAGES x (K tile, V tile)
+  const uint32_t qbuf = ring + STAGES * 2 * TILEB;  // QS: Q of the pass's heads
 
   const int g = blockIdx.y;
   const int b = blockIdx.z;
@@ -515,24 +546,27 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int h = g * group + h0 + hh;
       const bool active = hh < nh && r0 < Sq;
 
-      // Q of the pass's heads through the ring, into registers
-      __syncthreads();  // the ring is free
+      // Q of the pass's heads through the ring, into registers; or (QS) into
+      // its own buffer, read back at each step of Q K^T
+      __syncthreads();  // the ring (and Q's buffer) is free
+      const uint32_t qdst = QS ? qbuf : ring;
       for (int j = 0; j < nh; ++j)
-        stage_tile<D>(ring + j * bq * ROWB,
+        stage_tile<D>(qdst + j * bq * ROWB,
                       q + b * q_sb + (long long)(g * group + h0 + j) * q_sh +
                           (long long)q_lo * q_ss,
                       q_ss, bq, min(bq, Sq - q_lo));
       cp_async_commit();
       cp_async_wait<0>();  // Q (and the pinned prefix) staged
       __syncthreads();
-      uint32_t qf[KS][4];
-      if (active) {
+      const int q_row = hh * bq + 16 * slice + (lane & 15);  // this lane's ldmatrix row of Q
+      uint32_t qf[QS ? 1 : KS][4];
+      if constexpr (!QS) {
+        if (active) {
 #pragma unroll
-        for (int s = 0; s < KS; ++s)
-          ldsm_x4(ring + swz<ROWB>(hh * bq + 16 * slice + (lane & 15), 2 * s + (lane >> 4)),
-                  qf[s]);
+          for (int s = 0; s < KS; ++s) ldsm_x4(ring + swz<ROWB>(q_row, 2 * s + (lane >> 4)), qf[s]);
+        }
+        __syncthreads();  // the ring takes K/V now
       }
-      __syncthreads();  // the ring takes K/V now
       if (t_stream < n_kv) load_kv(t_stream, 0);
       cp_async_commit();
 
@@ -568,100 +602,113 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool need_mask = k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1) ||
                                  (window > 0 && k_lo + window <= r0 + 15);
 
-          // S = Q K^T: 16 x 64, eight 8-column blocks
-          float s[8][4];
+          // softmax steps of CB 16-column blocks: the whole tile, or (QS) two
+          // halves, whose scores and P fragments take half the registers
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int c0 = 0; c0 < 4; c0 += CB) {
+            // a step whose columns all lie above or below the warp's rows is
+            // masked whole: skipping it changes nothing
+            if (QS && (16 * c0 >= lim || 16 * (c0 + CB) <= dead)) continue;
+
+            // S = Q K^T: 16 x 16 CB, 2 CB 8-column blocks
+            float s[2 * CB][4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            for (int j = 0; j < 2 * CB; ++j)
 #pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
+              for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            // (QS: half unrolled; unrolled whole, it spilled 4 bytes)
+#pragma unroll (QS ? 8 : KS)
+            for (int ks = 0; ks < KS; ++ks) {
+              if constexpr (QS) ldsm_x4(qbuf + swz<ROWB>(q_row, 2 * ks + (lane >> 4)), qf[0]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (16 * j < lim && 16 * j + 16 > dead) {
-                uint32_t kf[4];
-                ldsm_x4(kt + swz<ROWB>(16 * j + ((lane >> 4) << 3) + (lane & 7),
-                                       2 * ks + ((lane >> 3) & 1)),
-                        kf);
-                mma_bf16(s[2 * j], qf[ks], kf[0], kf[1]);
-                mma_bf16(s[2 * j + 1], qf[ks], kf[2], kf[3]);
+              for (int j = 0; j < CB; ++j) {
+                const int jb = c0 + j;  // 16-column block of the tile
+                if (16 * jb < lim && 16 * jb + 16 > dead) {
+                  uint32_t kf[4];
+                  ldsm_x4(kt + swz<ROWB>(16 * jb + ((lane >> 4) << 3) + (lane & 7),
+                                         2 * ks + ((lane >> 3) & 1)),
+                          kf);
+                  mma_bf16(s[2 * j], qf[QS ? 0 : ks], kf[0], kf[1]);
+                  mma_bf16(s[2 * j + 1], qf[QS ? 0 : ks], kf[2], kf[3]);
+                }
               }
             }
-          }
 
-          // scale (in log2 units), softcap, mask
-          if (softcap > 0.f) {
+            // scale (in log2 units), softcap, mask
+            if (softcap > 0.f) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+              for (int j = 0; j < 2 * CB; ++j)
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                s[j][e] = tanhf(s[j][e] * (scale / softcap)) * (softcap * LOG2E);
-          } else {
+                for (int e = 0; e < 4; ++e)
+                  s[j][e] = tanhf(s[j][e] * (scale / softcap)) * (softcap * LOG2E);
+            } else {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+              for (int j = 0; j < 2 * CB; ++j)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) s[j][e] *= scale * LOG2E;
-          }
-          if (need_mask) {
+                for (int e = 0; e < 4; ++e) s[j][e] *= scale * LOG2E;
+            }
+            if (need_mask) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+              for (int j = 0; j < 2 * CB; ++j)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int col = k_lo + 8 * j + 2 * (lane & 3) + (e & 1);
-                const int row = ra + 8 * (e >> 1);
-                if (col >= Sk || (causal && col > row) || (window > 0 && col <= row - window))
-                  s[j][e] = -INFINITY;
-              }
-          }
+                for (int e = 0; e < 4; ++e) {
+                  const int col = k_lo + 16 * c0 + 8 * j + 2 * (lane & 3) + (e & 1);
+                  const int row = ra + 8 * (e >> 1);
+                  if (col >= Sk || (causal && col > row) || (window > 0 && col <= row - window))
+                    s[j][e] = -INFINITY;
+                }
+            }
 
-          // online softmax; P as bf16 A fragments of four 16-deep steps
-          float mx[2] = {-INFINITY, -INFINITY};
+            // online softmax; P as bf16 A fragments of CB 16-deep steps
+            float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-            mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-          }
-          float mu[2], alpha[2];
+            for (int j = 0; j < 2 * CB; ++j) {
+              mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+              mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+            }
+            float mu[2], alpha[2];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-            const float m_new = fmaxf(m[i], mx[i]);
-            mu[i] = m_new == -INFINITY ? 0.f : m_new;
-            alpha[i] = fast_exp2(m[i] - mu[i]);
-            m[i] = m_new;
-            l[i] *= alpha[i];
-          }
-          uint32_t pf[4][4];
+            for (int i = 0; i < 2; ++i) {
+              mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+              mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+              const float m_new = fmaxf(m[i], mx[i]);
+              mu[i] = m_new == -INFINITY ? 0.f : m_new;
+              alpha[i] = fast_exp2(m[i] - mu[i]);
+              m[i] = m_new;
+              l[i] *= alpha[i];
+            }
+            uint32_t pf[CB][4];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float e0 = fast_exp2(s[j][0] - mu[0]);
-            const float e1 = fast_exp2(s[j][1] - mu[0]);
-            const float e2 = fast_exp2(s[j][2] - mu[1]);
-            const float e3 = fast_exp2(s[j][3] - mu[1]);
-            l[0] += e0 + e1;
-            l[1] += e2 + e3;
-            pf[j >> 1][2 * (j & 1)] = pack_bf16(e0, e1);
-            pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(e2, e3);
-          }
+            for (int j = 0; j < 2 * CB; ++j) {
+              const float e0 = fast_exp2(s[j][0] - mu[0]);
+              const float e1 = fast_exp2(s[j][1] - mu[0]);
+              const float e2 = fast_exp2(s[j][2] - mu[1]);
+              const float e3 = fast_exp2(s[j][3] - mu[1]);
+              l[0] += e0 + e1;
+              l[1] += e2 + e3;
+              pf[j >> 1][2 * (j & 1)] = pack_bf16(e0, e1);
+              pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(e2, e3);
+            }
 #pragma unroll
-          for (int j = 0; j < NO; ++j) {
-            acc[j][0] *= alpha[0];
-            acc[j][1] *= alpha[0];
-            acc[j][2] *= alpha[1];
-            acc[j][3] *= alpha[1];
-          }
+            for (int j = 0; j < NO; ++j) {
+              acc[j][0] *= alpha[0];
+              acc[j][1] *= alpha[0];
+              acc[j][2] *= alpha[1];
+              acc[j][3] *= alpha[1];
+            }
 
-          // O += P V
+            // O += P V
 #pragma unroll
-          for (int s2 = 0; s2 < 4; ++s2) {
-            if (16 * s2 < lim && 16 * s2 + 16 > dead) {
+            for (int s2 = 0; s2 < CB; ++s2) {
+              const int jb = c0 + s2;
+              if (16 * jb < lim && 16 * jb + 16 > dead) {
 #pragma unroll
-              for (int j = 0; j < NO / 2; ++j) {
-                uint32_t vf[4];
-                ldsm_x4_trans(vt + swz<ROWB>(16 * s2 + (lane & 15), 2 * j + (lane >> 4)), vf);
-                mma_bf16(acc[2 * j], pf[s2], vf[0], vf[1]);
-                mma_bf16(acc[2 * j + 1], pf[s2], vf[2], vf[3]);
+                for (int j = 0; j < NO / 2; ++j) {
+                  uint32_t vf[4];
+                  ldsm_x4_trans(vt + swz<ROWB>(16 * jb + (lane & 15), 2 * j + (lane >> 4)), vf);
+                  mma_bf16(acc[2 * j], pf[s2], vf[0], vf[1]);
+                  mma_bf16(acc[2 * j + 1], pf[s2], vf[2], vf[3]);
+                }
               }
             }
           }
@@ -694,14 +741,16 @@ template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
                float scale, float softcap, const long long* st, cudaStream_t stream) {
-  // heads a pass, then warps a head (16 query rows each), within MAX_WARPS
+  // heads a pass, then warps a head (16 query rows each), within the block's warps
+  const int max_warps = D > Q_REG_DIM ? MAX_WARPS_Q_SMEM : MAX_WARPS;
   const int group = H / G;
-  const int passes = (group + MAX_WARPS - 1) / MAX_WARPS;
+  const int passes = (group + max_warps - 1) / max_warps;
   const int hp = (group + passes - 1) / passes;
   int wph = 4;
-  while (wph > 1 && hp * wph > MAX_WARPS) wph >>= 1;
+  while (wph > 1 && hp * wph > max_warps) wph >>= 1;
   const long long pin_alloc = (pinned_rows + BK - 1) / BK * BK;
-  const long long smem = (2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>();
+  const long long smem =
+      (2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>() + q_buffer_bytes<D>();
   if (smem > SMEM_LIMIT) return -2;
   for (int i = 0; i < 12; ++i)
     if (st[i] % 8 != 0) return -1;  // 16-byte rows for the 16-byte copies
@@ -742,12 +791,16 @@ extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, 
   if (causal && Sq != Sk) return -1;
   if (window < 0 || (window > 0 && !causal)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 256)
+    return launch_mma<256>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 128)
     return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 112)
     return launch_mma<112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 64)
     return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+  if (dtype == 1 && D == 256)
+    return launch<float, 256>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 128)
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 112)

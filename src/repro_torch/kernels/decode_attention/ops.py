@@ -20,12 +20,13 @@ from .ref import decode_attention_ref
 LAUNCHES = [0]                 # kernel launches made by this wrapper
 STEP_ROWS = 32                 # rows a block scores a step (csrc: STEP_ROWS)
 MAX_HPB = 4                    # query heads a block at most (csrc: MAX_HPB)
+MAX_HPB_WIDE = 1               # ... above head_dim 128 (csrc: MAX_HPB_WIDE)
 BLOCKS_PER_SM = 3              # blocks an SM can hold (csrc: BLOCKS_PER_SM)
 MAX_UNITS = 1024               # units a sequence at most (csrc: MAX_UNITS)
 MIN_ROWS = 128                 # the least R chosen per call (csrc: MIN_ROWS)
 ITEMS_PER_SM = 2               # work items an SM a chosen R aims at (csrc: ITEMS_PER_SM)
 MIN_COUNTERS = 1 << 16         # merge counters allocated at least, per stream
-HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
+HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
 LANES_PER_ROW = 8              # lanes that share a row's chunks (csrc: LANES_PER_ROW)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C interface dco_decode_attention: q, k, v, cache_len, out, scratch,
@@ -49,13 +50,16 @@ def _kernel():
     return _fn
 
 
-def heads_per_block(group: int) -> int:
+def heads_per_block(group: int, head_dim: int) -> int:
     """Query heads of one KV head that share a block (each fetched K/V row
-    serves all of them): the whole group up to ``MAX_HPB``, else the largest
-    divisor of the group that fits."""
-    if group <= MAX_HPB:
+    serves all of them): the whole group up to the kernel's cap, else the
+    largest divisor of the group that fits.  The cap is ``MAX_HPB``, and
+    ``MAX_HPB_WIDE`` (one) above head_dim 128, where a lane's q and
+    accumulator take 32 + 32 floats a head (csrc's max_hpb)."""
+    cap = MAX_HPB_WIDE if head_dim > 128 else MAX_HPB
+    if group <= cap:
         return group
-    return next(d for d in range(MAX_HPB, 0, -1) if group % d == 0)
+    return next(d for d in range(cap, 0, -1) if group % d == 0)
 
 
 def lane_chunks(d: int, itemsize: int) -> List[List[int]]:
@@ -63,7 +67,8 @@ def lane_chunks(d: int, itemsize: int) -> List[List[int]]:
     ``LANES_PER_ROW`` lanes of a lane group copies and reads, as the kernel's
     ``Ring`` deals them: lane l owns chunks l, l + 8, ... of the row's
     ``d * itemsize / 16``.  At head_dim 112 the last chunk of a lane exists
-    for some lanes only; every chunk of the row has exactly one owner."""
+    for some lanes only; at 256 every lane owns 4 (bf16) or 8 (fp32); every
+    chunk of the row has exactly one owner."""
     row_chunks = d * itemsize // 16
     return [list(range(lane, row_chunks, LANES_PER_ROW)) for lane in range(LANES_PER_ROW)]
 
@@ -156,7 +161,7 @@ def decode_plan(b: int, s: int, h: int, g: int, d: int,
         raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
                          f"got {rows_per_split}")
     min_rows = rows_per_split or max(MIN_ROWS, _round_up(-(-s // MAX_UNITS), STEP_ROWS))
-    hpb = heads_per_block(h // g)
+    hpb = heads_per_block(h // g, d)
     units = -(-s // min_rows)
     if units > MAX_UNITS:
         raise ValueError(f"a cache of {s} rows is {units} units of {min_rows} rows; the "

@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from ...core.orchestrator import FLASH_Q_REG_DIM
 from ...core.orchestrator import FLASH_TILE_ROWS
 from ...core.orchestrator import H100_SMEM_PER_BLOCK
 from ...core.orchestrator import flash_smem_bytes
@@ -16,7 +17,8 @@ from .ref import attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
-HEAD_DIMS = (64, 112, 128)     # head sizes the kernel is compiled for
+MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
+HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C interface dco_flash_attention: q, k, v, out; dtype, B, Sq, Sk, H, G, D,
 # tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
@@ -35,17 +37,26 @@ def _kernel():
     return _fn
 
 
-def q_tile_rows(group: int, itemsize: int) -> int:
+def max_warps(head_dim: int) -> int:
+    """Warps of a bf16 block at most: ``MAX_WARPS``, or ``MAX_WARPS_Q_SMEM``
+    above ``FLASH_Q_REG_DIM``, where Q's fragments are read from a buffer of
+    that many warps' rows instead of held in registers."""
+    return MAX_WARPS_Q_SMEM if head_dim > FLASH_Q_REG_DIM else MAX_WARPS
+
+
+def q_tile_rows(group: int, itemsize: int, head_dim: int) -> int:
     """Query rows of the kernel's Q tile.  fp32: 64.  bf16: 16 a warp for
     each of the warps a head gets (4, 2 or 1) when every head of a pass
-    (``group`` heads, in passes of at most ``MAX_WARPS``) has a warp of its
-    own, as ``launch_mma`` in csrc/flash_attention.cu chooses them."""
+    (``group`` heads, in passes of at most ``max_warps(head_dim)``) has a
+    warp of its own, as ``launch_mma`` in csrc/flash_attention.cu chooses
+    them."""
     if itemsize != 2:
         return FLASH_TILE_ROWS
-    passes = -(-group // MAX_WARPS)
+    most = max_warps(head_dim)
+    passes = -(-group // most)
     heads = -(-group // passes)
     warps = 4
-    while warps > 1 and heads * warps > MAX_WARPS:
+    while warps > 1 and heads * warps > most:
         warps //= 2
     return 16 * warps
 
@@ -160,7 +171,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tiles_per_chunk is None:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         tiles_per_chunk = tiles_per_chunk_for(
-            b, g, sq, sms, q_tile_rows(h // g, q.element_size()))
+            b, g, sq, sms, q_tile_rows(h // g, q.element_size(), d))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),

@@ -15,12 +15,14 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b --full
 
 The prompts are 4 to 23 tokens long, which every architecture's SSD chunk
 rule accepts (S <= chunk, so chunk = S), the hybrid zamba2-7b's too; they
 stay inside gemma2-27b's window (4096 rows; 64 reduced), which the local
 layers apply all the same.  gemma2-27b at full size takes 56.8 GB of bf16
-weights: it fits one 80 GB card.
+weights: it fits one 80 GB card.  gemma-7b at full size runs both attention
+kernels at head_dim 256 (the reduced configs have 64).
 """
 
 from __future__ import annotations

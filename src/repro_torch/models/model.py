@@ -1,8 +1,8 @@
 """Model assembly of the port: init / forward / prefill / decode.
 
 All four families are ported: dense (llama3.2-3b, gemma2-27b with its
-sliding window on local layers and its logit softcaps, and the other dense
-configs), MoE (deepseek-moe-16b: ``first_dense``
+sliding window on local layers and its logit softcaps, gemma-7b with its
+16 heads of 256, and the other dense configs), MoE (deepseek-moe-16b: ``first_dense``
 dense layers, then attention + MoE FFN layers), SSM (mamba2-2.7b) and hybrid
 (zamba2-7b: groups of Mamba2 layers, each followed by one weight-shared
 attention + MLP block, and a tail of Mamba2 layers).

@@ -106,6 +106,57 @@ def test_flash_attention_ragged_lengths_match_jax_gqa(s, h, g, d):
                                rtol=2e-5, atol=2e-5)
 
 
+FLASH_256_CASES = [
+    # (S, H, G, pinned, dtype) at gemma-7b's head size, causal: pinned 0, one
+    # 64-row tile, and the whole prompt where the kernel holds it (fp32: at
+    # most 8 rows)
+    (128, 4, 4, 0, "float32"),
+    (128, 4, 4, 0, "bfloat16"),
+    (128, 4, 4, 64, "bfloat16"),
+    (64, 4, 4, 64, "bfloat16"),
+    (8, 4, 4, 8, "float32"),
+    (128, 8, 2, 64, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("s,h,g,pinned,dtype", FLASH_256_CASES)
+def test_flash_attention_at_head_dim_256_matches_jax(s, h, g, pinned, dtype):
+    """The wrapper at head_dim 256 against the JAX oracle and the Pallas
+    kernel in interpret mode, at the same pinned prefix (Pallas blocks of
+    min(S, 64) rows, so that a 64-row pin is block-aligned there too)."""
+    rng = np.random.default_rng(8)
+    jq, tq = both(rng, (1, s, h, 256), dtype)
+    jk, tk = both(rng, (1, s, g, 256), dtype)
+    jv, tv = both(rng, (1, s, g, 256), dtype)
+    port = f32(flash_attention(tq, tk, tv, causal=True, pinned_rows=pinned))
+    assert np.array_equal(port, f32(attention_ref(tq, tk, tv, causal=True)))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(port, f32(jax_attention_ref(jq, jk, jv, causal=True)),
+                               rtol=tol, atol=tol)
+    block = min(s, 64)
+    pallas = f32(jax_flash_attention(jq, jk, jv, causal=True, pinned_rows=pinned,
+                                     block_q=block, block_k=block, interpret=True))
+    np.testing.assert_allclose(port, pallas, rtol=tol, atol=tol)
+
+
+def test_pinned_rows_at_head_dim_256_are_validated_on_every_device():
+    """At head_dim 256 a bf16 block holds one 64-row tile of K and V beside
+    the ring and Q's buffer, an fp32 block 8 rows beside its tiles: a larger
+    prefix is refused before any launch."""
+    q = torch.zeros(1, 300, 4, 256, dtype=torch.bfloat16)
+    for good in (0, 64):
+        assert flash_attention(q, q, q, pinned_rows=good).shape == q.shape
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(q, q, q, pinned_rows=128)
+    short = q[:, :65]                      # two tiles, once rounded up
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(short, short, short, pinned_rows=65)
+    q32 = torch.zeros(1, 300, 4, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(q32, q32, q32, pinned_rows=64)
+    assert flash_attention(q32[:, :8], q32[:, :8], q32[:, :8], pinned_rows=8).shape[1] == 8
+
+
 DECODE_CASES = [
     # (B, S, H, G, D, dtype)
     (1, 512, 4, 4, 128, "float32"),
@@ -114,6 +165,9 @@ DECODE_CASES = [
     (1, 2048, 16, 4, 128, "bfloat16"),
     (2, 512, 4, 4, 112, "float32"),         # zamba2-7b's head size (MHA)
     (2, 512, 4, 4, 112, "bfloat16"),
+    (2, 512, 4, 4, 256, "float32"),         # gemma-7b's head size (MHA)
+    (2, 512, 4, 4, 256, "bfloat16"),
+    (2, 512, 8, 2, 256, "bfloat16"),
 ]
 
 
@@ -165,6 +219,11 @@ def test_decode_attention_ragged_cache_matches_jax_gqa(s, lens):
 @pytest.mark.parametrize("s,lens", [(333, [333, 1, 200]), (7, [7, 3, 0])])
 def test_decode_attention_ragged_cache_at_head_dim_112_matches_jax_gqa(s, lens):
     _decode_ragged_matches_jax_gqa(s, lens, 112)
+
+
+@pytest.mark.parametrize("s,lens", [(333, [333, 1, 200]), (7, [7, 3, 0])])
+def test_decode_attention_ragged_cache_at_head_dim_256_matches_jax_gqa(s, lens):
+    _decode_ragged_matches_jax_gqa(s, lens, 256)
 
 
 def _decode_ragged_matches_jax_gqa(s, lens, d):
@@ -226,14 +285,16 @@ def test_orchestrated_split_is_consistent():
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("head_dim", [64, 112, 128])
+@pytest.mark.parametrize("head_dim", [64, 112, 128, 256])
 def test_planned_splits_fit_the_kernels_shared_memory(head_dim, itemsize):
     """Whatever the prompt length, the pinned prefix the engine's planner
     grants (budget ``hopper_pin_budget_bytes``, rows of
     ``flash_kv_row_bytes``) fits the 227 KB a block may take, so the launch
     never returns -2.  At head_dim 112 in bf16 this needs the padded pitch:
     rows counted at their 224 data bytes would grant a whole prefix of
-    321-326 rows, which needs more."""
+    321-326 rows, which needs more.  At head_dim 256 the budget holds a
+    whole prompt of up to 58 rows in bf16 and no 64-row tile of a longer one
+    (Q's own buffer takes 32 KB), and up to 7 rows in fp32."""
     orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(head_dim, itemsize))
     row = port_orch.flash_kv_row_bytes(head_dim, itemsize)
     for seq in range(1, 2049):
@@ -247,6 +308,11 @@ def test_planned_splits_fit_the_kernels_shared_memory(head_dim, itemsize):
         unpadded, _ = orch.plan_kv_split(321, FLASH_TILE_ROWS, 2 * head_dim * itemsize)
         assert unpadded == 321
         assert port_orch.flash_smem_bytes(321, 112, 2) > port_orch.H100_SMEM_PER_BLOCK
+    if head_dim == 256:
+        whole = {2: 58, 4: 7}[itemsize]
+        assert orch.plan_kv_split(whole, FLASH_TILE_ROWS, row) == (whole, 0)
+        assert orch.plan_kv_split(whole + 1, FLASH_TILE_ROWS, row) == (0, whole + 1)
+        assert orch.plan_kv_split(2048, FLASH_TILE_ROWS, row) == (0, 2048)
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -264,30 +330,38 @@ def _flash_source_constants():
             re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
-@pytest.mark.parametrize("head_dim", [64, 112, 128])
+@pytest.mark.parametrize("head_dim", [64, 112, 128, 256])
 def test_flash_layout_constants_match_the_source(head_dim):
     """The planner's budget describes the kernel's shared memory: the KV tile,
     the ring of streamed bf16 tiles (rows of 2 * D bytes rounded up to 128:
-    no pad at 64 and 128, 224 bytes staged at 256 at 112), and a bf16
+    no pad at 64, 128 and 256, 224 bytes staged at 256 at 112), Q's own
+    buffer above Q_REG_DIM (four warps' 16 rows at head_dim 256), and a bf16
     block's warps."""
     c = _flash_source_constants()
     assert c["BK"] == c["BQ"] == FLASH_TILE_ROWS
     assert c["STAGES"] == port_orch.FLASH_STAGES
     assert c["MAX_WARPS"] == flash_ops.MAX_WARPS
+    assert c["MAX_WARPS_Q_SMEM"] == flash_ops.MAX_WARPS_Q_SMEM
+    assert c["Q_REG_DIM"] == port_orch.FLASH_Q_REG_DIM
+    assert 16 * c["MAX_WARPS_Q_SMEM"] == port_orch.FLASH_Q_BUFFER_ROWS
     assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
     text = (CSRC / "flash_attention.cu").read_text()
     align = port_orch.FLASH_ROW_ALIGN
     assert f"return (2 * D + {align - 1}) / {align} * {align};" in text
     assert "constexpr int ROWB = row_bytes<D>();" in text
-    assert "(2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>()" in text
-    row = {64: 128, 112: 256, 128: 256}[head_dim]        # bf16 bytes a staged row
+    assert ("(2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>() + q_buffer_bytes<D>()"
+            in text)
+    assert "return D > Q_REG_DIM ? MAX_WARPS_Q_SMEM * 16 * row_bytes<D>() : 0;" in text
+    row = {64: 128, 112: 256, 128: 256, 256: 512}[head_dim]   # bf16 bytes a staged row
+    q_buffer = 16 * c["MAX_WARPS_Q_SMEM"] * row if head_dim > c["Q_REG_DIM"] else 0
     assert port_orch.flash_smem_row_words(head_dim, 2) * 4 == row
     assert port_orch.flash_kv_row_bytes(head_dim, 2) == 2 * row
-    assert port_orch.flash_smem_work_bytes(head_dim, 2) == c["STAGES"] * 2 * c["BK"] * row
+    assert (port_orch.flash_smem_work_bytes(head_dim, 2)
+            == c["STAGES"] * 2 * c["BK"] * row + q_buffer)
     for pinned in (0, 17, 64, 300):
         whole_tiles = -(-pinned // c["BK"]) * c["BK"]
         assert (port_orch.flash_smem_bytes(pinned, head_dim, 2)
-                == 2 * whole_tiles * row + c["STAGES"] * 2 * c["BK"] * row)
+                == 2 * whole_tiles * row + c["STAGES"] * 2 * c["BK"] * row + q_buffer)
     # fp32 keeps one pad word a row and the probability tile
     words = head_dim + 1
     assert port_orch.flash_smem_bytes(64, head_dim, 4) == (
@@ -299,17 +373,35 @@ def test_flash_layout_constants_match_the_source(head_dim):
 def test_q_tile_rows_fill_a_block_with_whole_heads(group, rows):
     """A bf16 block holds every head of a pass, one warp per 16 query rows of
     each, within MAX_WARPS; fp32 keeps its 64-row tile."""
-    assert flash_ops.q_tile_rows(group, 2) == rows
+    assert flash_ops.q_tile_rows(group, 2, 128) == rows
     passes = -(-group // flash_ops.MAX_WARPS)
     assert -(-group // passes) * rows // 16 <= flash_ops.MAX_WARPS
-    assert flash_ops.q_tile_rows(group, 4) == FLASH_TILE_ROWS
+    assert flash_ops.q_tile_rows(group, 4, 128) == FLASH_TILE_ROWS
+
+
+@pytest.mark.parametrize("group,rows", [(1, 64), (2, 32), (3, 16), (4, 16), (8, 16),
+                                        (16, 16)])
+def test_q_tile_rows_at_head_dim_256_fill_a_block_of_four_warps(group, rows):
+    """At head_dim 256 a bf16 block has four warps at most (Q's buffer holds
+    their 64 rows), so heads go in passes of four; fp32 keeps its 64-row
+    tile.  gemma-7b (MHA, 16 heads): 64-row tiles, two a chunk at 1024
+    tokens, 128 blocks, as deepseek-moe-16b at head_dim 128."""
+    assert flash_ops.max_warps(256) == flash_ops.MAX_WARPS_Q_SMEM == 4
+    assert flash_ops.max_warps(128) == flash_ops.MAX_WARPS
+    assert flash_ops.q_tile_rows(group, 2, 256) == rows
+    passes = -(-group // 4)
+    assert -(-group // passes) * rows // 16 <= 4
+    assert flash_ops.q_tile_rows(group, 4, 256) == FLASH_TILE_ROWS
+    if group == 1:
+        assert flash_ops.tiles_per_chunk_for(1, 16, 1024, 132, rows) == 2
+        assert 16 * -(-1024 // (2 * rows)) == 128
 
 
 def test_serving_shape_chunks_pair_the_causal_tiles():
     """llama3.2-3b (8 KV heads, group 3) on 132 SMs: 1024 tokens give 16 chunks
     of two 32-row tiles a KV head (a heavy one with a light one), 256 tokens
     64 blocks of one tile."""
-    rows = flash_ops.q_tile_rows(3, 2)
+    rows = flash_ops.q_tile_rows(3, 2, 128)
     assert flash_ops.tiles_per_chunk_for(1, 8, 1024, 132, rows) == 2
     assert flash_ops.tiles_per_chunk_for(1, 8, 256, 132, rows) == 1
     assert 8 * -(-256 // rows) == 64
@@ -373,6 +465,7 @@ def test_decode_wrapper_constants_match_the_source():
     c = _decode_source_constants()
     assert c["THREADS"] // c["LANES_PER_ROW"] * c["ROWS_PER_GROUP"] == decode_ops.STEP_ROWS
     assert c["MAX_HPB"] == decode_ops.MAX_HPB
+    assert c["MAX_HPB_WIDE"] == decode_ops.MAX_HPB_WIDE
     assert c["BLOCKS_PER_SM"] == decode_ops.BLOCKS_PER_SM
     assert c["MAX_UNITS"] == decode_ops.MAX_UNITS
     assert c["MIN_ROWS"] == decode_ops.MIN_ROWS == decode_ops.decode_plan(
@@ -416,6 +509,51 @@ def test_decode_plan_at_zamba2s_shapes():
         seen = [r for u in range(plan.live_units(n, rows))
                 for r in plan.unit_rows(u, n, rows)]
         assert seen == list(range(n))
+
+
+def test_decode_plan_at_gemma7bs_shapes():
+    """gemma-7b's pool (8 slots x 2048 rows, 16 heads, MHA, head_dim 256):
+    one query head a block, as at any group above head_dim 128 (csrc's
+    max_hpb), scratch for head_dim 256, and the R that deepseek-moe-16b's
+    pool of the same heads gets at head_dim 128."""
+    text = (CSRC / "decode_attention.cu").read_text()
+    assert "if (D == 256) return launch_hpb<T, 256>" in text
+    assert "return D > 128 ? MAX_HPB_WIDE : MAX_HPB;" in text
+    for group in range(1, 9):
+        assert decode_ops.heads_per_block(group, 256) == 1
+        assert decode_ops.heads_per_block(group, 128) == decode_ops.decode_plan(
+            1, 512, 2 * group, 2, 128).hpb
+    assert decode_ops.decode_plan(1, 512, 8, 2, 256).hpb == 1
+    plan = decode_ops.decode_plan(8, 2048, 16, 16, 256)
+    assert plan.hpb == 1 and plan.head_blocks == 16
+    assert plan.scratch_floats == 8 * 16 * plan.units * (256 + 2)
+    lens = [97, 1056, 540, 801, 333, 1000, 650, 128]
+    rows = plan.rows_for(lens)
+    assert rows == decode_ops.decode_plan(8, 2048, 16, 16, 128).rows_for(lens) == 544
+    assert len(plan.items(lens)) <= plan.target
+    for n in lens:
+        seen = [r for u in range(plan.live_units(n, rows)) for r in plan.unit_rows(u, n, rows)]
+        assert seen == list(range(n))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
+def test_decode_ring_holds_two_steps_at_every_head_size(d, itemsize):
+    """The kernel's ``Ring``: a step is 32 rows of each lane's chunks of K and
+    V; the ring is RING_BYTES (64 KB) and holds 2 to MAX_STAGES steps, but
+    for fp32 at head_dim 256, where one step is 64 KB and the ring grows to
+    two (128 KB); the merge's weights fit every ring."""
+    c = _decode_source_constants()
+    text = (CSRC / "decode_attention.cu").read_text()
+    assert "constexpr int RING_BYTES = 64 * 1024;" in text
+    assert "2 * STEP_BYTES > RING_BYTES ? 2 * STEP_BYTES : RING_BYTES;" in text
+    nch = -(-(d * itemsize // 16) // c["LANES_PER_ROW"])
+    step = c["ROWS_PER_GROUP"] * 2 * nch * c["THREADS"] * 16
+    ring = max(64 * 1024, 2 * step)
+    stages = min(ring // step, c["MAX_STAGES"])
+    assert stages >= 2 and stages * step >= 2 * c["MAX_HPB"] * c["MAX_UNITS"] * 4
+    assert (ring == 128 * 1024 and stages == 2) if (d, itemsize) == (256, 4) else (
+        ring == 64 * 1024)
 
 
 R = 128   # a unit length the edge cases straddle
@@ -600,6 +738,30 @@ def test_decode_partial_merge_at_head_dim_112_matches_plain_and_jax(dtype):
         assert not got[~live].any()
 
 
+@pytest.mark.parametrize("h,g", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_merge_at_head_dim_256_matches_plain_and_jax(h, g, dtype):
+    """The emulated partition, lane ownership (4 chunks a lane in bf16, 8 in
+    fp32) and merge at gemma-7b's head size: one head a block, MHA and
+    GQA, ragged lengths with one of 0, R chosen and fixed."""
+    rng = np.random.default_rng(15)
+    b, s, d = 4, 300, 256
+    lens = [300, 0, 129, 33]
+    jq, tq = both(rng, (b, h, d), dtype)
+    jk, tk = both(rng, (b, s, g, d), dtype)
+    jv, tv = both(rng, (b, s, g, d), dtype)
+    cl = torch.tensor(lens, dtype=torch.int32)
+    tol = TOL[dtype]
+    oracle = f32(jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens, jnp.int32)))
+    live = np.asarray(lens) > 0
+    for rows in (None, 32):
+        got = f32(emulate_decode(tq, tk, tv, cl, rows))
+        np.testing.assert_allclose(got, f32(decode_attention_ref(tq, tk, tv, cl)),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(got[live], oracle[live], rtol=tol, atol=tol)
+        assert not got[~live].any()
+
+
 @pytest.mark.parametrize("sm_count,lens", [
     (24, [300, 300, 300, 300, 300]),     # R 224: two units of 160 rows a sequence
     (8, [300, 12, 0, 299, 64]),          # no block to spare: one unit each
@@ -637,10 +799,20 @@ def test_flash_window_matches_jax_gqa(window, s, dtype):
     """The plain version (what the wrapper computes on the CPU) with a
     window, on both sides of it, against the JAX model path's gqa_attention
     with gemma2's softcap and scale."""
+    _flash_window_matches_jax_gqa(window, s, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [W - 1, W + 1])
+def test_flash_window_and_softcap_at_head_dim_256_match_jax_gqa(window, dtype):
+    _flash_window_matches_jax_gqa(window, 2 * W + 3, dtype, 256)
+
+
+def _flash_window_matches_jax_gqa(window, s, dtype, d):
     rng = np.random.default_rng(20)
-    jq, tq = both(rng, (2, s, 4, 64), dtype)
-    jk, tk = both(rng, (2, s, 2, 64), dtype)
-    jv, tv = both(rng, (2, s, 2, 64), dtype)
+    jq, tq = both(rng, (2, s, 4, d), dtype)
+    jk, tk = both(rng, (2, s, 2, d), dtype)
+    jv, tv = both(rng, (2, s, 2, d), dtype)
     kw = dict(causal=True, softcap=50.0, scale=144.0 ** -0.5)
     port = f32(flash_attention(tq, tk, tv, window=window, **kw))
     assert np.array_equal(port, f32(attention_ref(tq, tk, tv, window=window, **kw)))
@@ -658,12 +830,23 @@ def test_decode_window_and_softcap_match_jax_gqa(window, softcap, dtype):
     """One query at position n - 1 of each sequence against a cache of 2W + 3
     rows, lengths on both sides of the window and 0, against gqa_attention;
     poisoned rows below the window and at or past cache_len change nothing."""
+    _decode_window_and_softcap_match_jax_gqa(window, softcap, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("window", [None, W + 1])
+def test_decode_window_and_softcap_at_head_dim_256_match_jax_gqa(window, softcap, dtype):
+    _decode_window_and_softcap_match_jax_gqa(window, softcap, dtype, 256)
+
+
+def _decode_window_and_softcap_match_jax_gqa(window, softcap, dtype, d):
     rng = np.random.default_rng(21)
     s, lens = 2 * W + 3, [1, W - 1, W, W + 1, 2 * W + 3, 0]
     b = len(lens)
-    jq, tq = both(rng, (b, 6, 64), dtype)
-    jk, tk = both(rng, (b, s, 2, 64), dtype)
-    jv, tv = both(rng, (b, s, 2, 64), dtype)
+    jq, tq = both(rng, (b, 6, d), dtype)
+    jk, tk = both(rng, (b, s, 2, d), dtype)
+    jv, tv = both(rng, (b, s, 2, d), dtype)
     cl = torch.tensor(lens, dtype=torch.int32)
     kw = dict(softcap=softcap, scale=144.0 ** -0.5)
     port = f32(decode_attention(tq, tk, tv, cl, window=window, **kw))
