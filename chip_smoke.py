@@ -22,7 +22,12 @@ run with a non-zero exit code:
             its plain version, one library call where one computes the same
             function (``scaled_dot_product_attention`` for attention, a
             yardstick only: the port never calls it; none exists for the SSD
-            scan) and the card's bound for the same work.
+            scan) and the card's bound for the same work.  The flash backward
+            (training) against its plain version over both types, head sizes
+            64 and 128, GQA groups 1–8 and lengths 17–1024; the forward's
+            per-row LSE against the plain one, O unchanged by it and the LSE
+            bit-identical across splits; calls without a backward kernel
+            refused under grad; the backward timed at llama's training shape.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -68,6 +73,16 @@ run with a non-zero exit code:
             counts as in 4.
 15. parity_gemma7b  its 2-layer cut: prefill of 2 x 64 tokens + 4 decode
             steps, card against CPU.
+16. train   llama3.2-3b trained at full width and depth (bf16, seeded random
+            weights, 8 x 512 tokens a step, remat, AdamW as launch/train.py
+            builds it): 6 steps, the last 2 in 2 microbatches; losses finite
+            and falling, launch counts (set to 0 just before, read just
+            after) exactly those of the forward, its recomputation and the
+            backward of every layer and microbatch.
+17. parity_train  one train step of its 2-layer cut at full width on the
+            card against the CPU (fp32 gradients elementwise, bf16 by share),
+            then the card's state checkpointed and restored on the CPU,
+            bit-equal.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -75,8 +90,9 @@ the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
 every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
-of that path's serve phase.  The whole run takes about 4 minutes of command
-time on an H100, the 40-second build included.
+of that path's serve phase (the backward's: of the train phase).  The whole
+run takes about 6 minutes of command time on an H100, the 35-second build
+included.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -157,7 +173,7 @@ ROUTER_NEAR_TIE = 2e-3
 ROUTER_MAX_FLIPS = 0.1
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
-          "parity_gemma2", "serve_gemma7b", "parity_gemma7b")
+          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -794,6 +810,9 @@ def flash_record(gen, flush, sq, h, g, d, pinned, window=None, softcap=None, sca
         "max_abs_err": err, "tol": TOL[bf],
         "ms": ms, "tflops": n_flops / ms * 1e-9,
         "ms_unpinned": time_ms(lambda: flash_attention(q, k, v, pinned_rows=0, **kw), flush),
+        # the same call also writing the per-row log-sum-exp, as training's forward
+        "ms_with_lse": time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned,
+                                                       return_lse=True, **kw), flush),
         # no heavy/light pairing: one Q tile a block
         "ms_one_tile_a_chunk": time_ms(lambda: flash_attention(
             q, k, v, pinned_rows=pinned, tiles_per_chunk=1, **kw), flush),
@@ -954,6 +973,242 @@ def time_ssd(gen, flush, path):
     return out[:1], out[1:]
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention backward kernel (training) and the forward's LSE
+TRAIN_SHAPE = dict(b=8, s=512, h=24, g=8, d=128)   # llama3.2-3b's train phase, one microbatch
+
+
+def close_scaled(out, ref, tol, what):
+    """max |out - ref|, after asserting it is within ``tol`` times the larger
+    of 1 and ref's largest magnitude (a gradient's own scale)."""
+    out, ref = out.float(), ref.float()
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    err = float((out - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    check(err <= tol * scale, f"{what}: max abs err {err:.3e} beyond {tol} x {scale:.3g}")
+    return err
+
+
+def flash_bwd_cases():
+    """(B, S, H, G, D, dtype): both types, D 64 and 128, GQA groups 1, 2, 3,
+    4 and 8, lengths 17, 64, 100, 1000 and 1024 (ragged, one tile, many)."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (64, 128):
+            for h, g in ((4, 4), (4, 2), (6, 2), (8, 2), (16, 2)):
+                for i, s in enumerate((17, 64, 100, 1000, 1024)):
+                    cases.append((1 + i % 2, s, h, g, d, dtype))
+    return cases
+
+
+def check_flash_bwd(gen):
+    """The backward kernel against ``attention_bwd_ref`` on the same inputs
+    (the forward kernel's own O and LSE): tolerance ``TOL`` of the dtype
+    times each gradient's magnitude (``close_scaled``)."""
+    from repro_torch.kernels import attention_bwd_ref
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention_bwd
+    worst = {}
+    for case in flash_bwd_cases():
+        b, s, h, g, d, dtype = case
+        q = randn(gen, (b, s, h, d), dtype)
+        k = randn(gen, (b, s, g, d), dtype)
+        v = randn(gen, (b, s, g, d), dtype)
+        do = randn(gen, (b, s, h, d), dtype)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        want = attention_bwd_ref(q, k, v, o, lse, do)
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            check(a.dtype == dtype and a.shape == r.shape, f"flash bwd {case}: {name} type")
+            err = close_scaled(a, r, TOL[dtype], f"flash bwd {case} {name}")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    return worst
+
+
+def check_flash_lse(gen):
+    """The forward's LSE: against ``attention_ref(return_lse=True)`` over
+    types, head sizes, groups, windows and softcaps; O bit-identical with and
+    without it; bf16 LSE bit-identical across ``pinned_rows`` and
+    ``tiles_per_chunk``, as O is."""
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    worst = {}
+    # (B, S, H, G, D, dtype, pinned, window, softcap)
+    for case in [(2, 512, 24, 8, 128, torch.bfloat16, 0, None, None),
+                 (1, 1000, 24, 8, 128, torch.float32, 64, None, None),
+                 (1, 300, 4, 2, 64, torch.bfloat16, 64, None, None),
+                 (1, 100, 8, 8, 112, torch.bfloat16, 100, None, None),
+                 (1, 300, 16, 16, 256, torch.bfloat16, 64, 63, 50.0),
+                 (1, 300, 32, 16, 128, torch.float32, 0, 64, 50.0),
+                 (1, 17, 4, 1, 64, torch.float32, 17, None, None)]:
+        b, s, h, g, d, dtype, pinned, window, softcap = case
+        kw = dict(window=window, softcap=softcap, scale=GEMMA2_SCALE if window else None)
+        q = randn(gen, (b, s, h, d), dtype)
+        k = randn(gen, (b, s, g, d), dtype)
+        v = randn(gen, (b, s, g, d), dtype)
+        out, lse = flash_attention(q, k, v, pinned_rows=pinned, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, flash_attention(q, k, v, pinned_rows=pinned, **kw)),
+              f"flash {case}: O differs with the LSE written")
+        _, ref = attention_ref(q, k, v, return_lse=True, **kw)
+        err = close_scaled(lse, ref, 2e-5 if dtype == torch.float32 else 1e-3,
+                           f"flash LSE {case}")
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    for s, h, g, d in ((300, 6, 2, 128), (700, 16, 4, 64), (300, 24, 8, 128)):
+        q = randn(gen, (1, s, h, d), torch.bfloat16)
+        k = randn(gen, (1, s, g, d), torch.bfloat16)
+        v = randn(gen, (1, s, g, d), torch.bfloat16)
+        base = flash_attention(q, k, v, pinned_rows=0, tiles_per_chunk=1, return_lse=True)[1]
+        for pinned in (0, 64, 256):
+            for tiles in (None, 2, 3):
+                other = flash_attention(q, k, v, pinned_rows=pinned, tiles_per_chunk=tiles,
+                                        return_lse=True)[1]
+                check(torch.equal(other, base), f"flash LSE S {s} G {g} D {d}: pinned "
+                      f"{pinned}, tiles {tiles} differs from pinned 0")
+    return worst
+
+
+def not_implemented(fn, what):
+    """Check that ``fn()`` raises NotImplementedError before any launch."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    try:
+        fn()
+    except NotImplementedError:
+        check(launch_counts() == before, f"{what}: launched before refusing")
+        return
+    raise AssertionError(f"{what} was not refused")
+
+
+def check_refused_under_grad(gen):
+    """A CUDA tensor that autograd would differentiate is refused where no
+    backward kernel exists: decode attention, the SSD scan, and flash
+    attention with a window, a softcap or head_dim 112; without grad the
+    same calls run."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import ssd_scan
+    bf = torch.bfloat16
+    q = randn(gen, (2, 8, 128), bf).requires_grad_()
+    k = randn(gen, (2, 64, 2, 128), bf)
+    cl = torch.tensor([64, 3], dtype=torch.int32, device="cuda")
+    not_implemented(lambda: decode_attention(q, k, k, cl), "decode_attention under grad")
+    x, dt, A, B, C = ssd_inputs(gen, 1, 128, 8, 1, 64, 64, torch.float32)
+    x.requires_grad_()
+    not_implemented(lambda: ssd_scan(x, dt, A, B, C, chunk=64), "ssd_scan under grad")
+    for d, kw in ((128, dict(window=64)), (128, dict(softcap=50.0)), (112, {}), (256, {})):
+        qf = randn(gen, (1, 128, 4, d), bf).requires_grad_()
+        kf = randn(gen, (1, 128, 2, d), bf)
+        not_implemented(lambda: flash_attention(qf, kf, kf, **kw),
+                        f"flash_attention at D {d} {kw} under grad")
+    with torch.no_grad():
+        decode_attention(q, k, k, cl)
+        ssd_scan(x, dt, A, B, C, chunk=64)
+        flash_attention(qf, kf, kf)
+    torch.cuda.synchronize()
+
+
+def time_ms_events(fn, flush, iters=10):
+    """Device milliseconds of one ``fn()`` of a few milliseconds or more,
+    autograd calls included (which ``time_ms``'s CUDA graphs do not take):
+    ``iters`` calls, each after a rewrite of the 64 MB buffer, between two
+    CUDA events, less the same loop of rewrites alone; median of 3."""
+    fn()
+    torch.cuda.synchronize()
+
+    def loop(body):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            flush.zero_()
+            body()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    runs = [loop(fn) - loop(lambda: None) for _ in range(3)]
+    return statistics.median(runs) / iters
+
+
+def flash_bwd_record(gen, flush):
+    """The backward kernel's record at llama3.2-3b's training shape (one
+    microbatch of the train phase, bf16, causal): its time (the three
+    launches of one call) beside the plain version's and one library call's,
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (a
+    yardstick only: the port never calls it), and the bound: the larger of
+    the bytes moved once (q, k, v, o, dO and lse read, dq, dk, dv written)
+    over the card's memory rate and the operations over its bf16 peak, five
+    products (S again, dP, dV, dK, dQ) of 2 * D FLOP for each visible
+    (row, column) pair of each query head.  Also the forward's time with and
+    without the LSE at this shape, beside its plain version (with the LSE),
+    the library's causal call and its bound (two products a visible pair;
+    q, k, v read, o and the LSE written)."""
+    from repro_torch.kernels import attention_bwd_ref
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention_bwd
+    bf = torch.bfloat16
+    b, s, h, g, d = (TRAIN_SHAPE[k] for k in ("b", "s", "h", "g", "d"))
+    q = randn(gen, (b, s, h, d), bf)
+    k = randn(gen, (b, s, g, d), bf)
+    v = randn(gen, (b, s, g, d), bf)
+    do = randn(gen, (b, s, h, d), bf)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = attention_bwd_ref(q, k, v, o, lse, do)
+    err = max(close_scaled(a, r, TOL[bf], f"flash bwd at the training shape, {n}")
+              for n, a, r in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    dol = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True)
+
+    lib = lib_bwd()
+    close_scaled(lib[0].transpose(1, 2), attention_bwd_ref(q, k, v, o, lse, do)[0],
+                 TOL[bf], "library bwd dq vs plain")
+    del lib
+    n_seen = s * (s + 1) // 2
+    n_flops = 10 * d * n_seen * h * b
+    n_bytes = 2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel() + 2 * (q.numel()
+                                                                         + 2 * k.numel())
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+    fwd_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()   # q, k, v, o; lse
+    ms = time_ms_events(lambda: flash_attention_bwd(q, k, v, o, lse, do), flush)
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # no Pallas backward exists: the JAX package differentiates the
+        # attention that flash_kernel computes through gqa_attention
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+        "replaces_note": "gradient of flash_kernel's attention; the JAX package takes it "
+                         "by autodiff of src/repro/models/layers.py:124 gqa_attention",
+        "path": "train",
+        "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
+                  "causal": True, "visible_pairs": n_seen},
+        "max_abs_err": err, "tol": TOL[bf], "tol_scaled_by": "max(1, max |ref|)",
+        "ms": ms, "tflops": n_flops / ms * 1e-9,
+        "plain_ms": time_ms_events(lambda: attention_bwd_ref(q, k, v, o, lse, do), flush),
+        "library_ms": time_ms_events(lib_bwd, flush),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "forward_ms": time_ms(lambda: flash_attention(q, k, v), flush),
+        "forward_ms_with_lse": time_ms(lambda: flash_attention(q, k, v, return_lse=True),
+                                       flush),
+        "forward_plain_ms_with_lse": time_ms(lambda: attention_ref(q, k, v, return_lse=True),
+                                             flush),
+        "forward_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True), flush),
+        "forward_bound_ms": max(fwd_bytes / PEAK_BYTES * 1e3,
+                                4 * d * n_seen * h * b / PEAK_FLOPS[bf] * 1e3),
+    }
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -961,6 +1216,9 @@ def phase_kernels():
     worst_decode = check_decode(gen)
     worst_flash = check_flash(gen)
     worst_ssd = check_ssd(gen)
+    worst_bwd = check_flash_bwd(gen)
+    worst_lse = check_flash_lse(gen)
+    check_refused_under_grad(gen)
     records, extra = [], []
     for path in ATTN_SHAPES:
         main, more = time_attention(gen, flush, path)
@@ -970,8 +1228,10 @@ def phase_kernels():
         main, more = time_ssd(gen, flush, path)
         records += main
         extra += more
+    records.append(flash_bwd_record(gen, flush))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
+         flash_bwd_cases_max_abs_err=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
          tol={str(k): v for k, v in TOL.items()},
          ssd_tol={str(k): v for k, v in SSD_TOL.items()},
          timed=records + extra)
@@ -1108,7 +1368,8 @@ def phase_serve(arch, n_requests, max_new):
     elif cfg.family == SSM:
         n_attn, n_ssm = 0, cfg.n_layers
     want = {"decode_attention": n_attn * engine.decode_calls,
-            "flash_attention": n_requests * n_attn, "ssd_scan": n_requests * n_ssm}
+            "flash_attention": n_requests * n_attn, "flash_attention_bwd": 0,
+            "ssd_scan": n_requests * n_ssm}
     check(counts == want, f"{arch}: launches {counts}, expected {want} "
           f"({n_requests} prefills, {engine.decode_calls} decode_step calls)")
     check(bool(torch.isfinite(engine.last_logits.float()).all()), "non-finite logits")
@@ -1364,6 +1625,211 @@ def plain_versions():
 
 
 # ---------------------------------------------------------------------------
+# Training: llama3.2-3b at full width and depth
+TRAIN_STEPS = 6          # the last TRAIN_MB_STEPS with microbatches=2
+TRAIN_MB_STEPS = 2
+TRAIN_PARITY_TOKENS = (2, 64)
+GRAD_TOL = 1e-4          # fp32 gradients, card vs CPU: times the leaf's largest magnitude
+GRAD_SHARE_TOL = 3e-2    # bf16 gradients: share, RMS and cap of |err| / the leaf's largest magnitude
+
+
+def phase_train():
+    """llama3.2-3b trained at full width and depth: bf16 weights from a seeded
+    generator on the card, ``AdamWConfig`` as ``launch/train.py`` builds it,
+    ``SyntheticLM`` batches of 8 x 512 tokens, ``remat=True``; TRAIN_STEPS
+    steps, the last TRAIN_MB_STEPS with 2 microbatches.  Every loss and
+    gradient norm finite, the last loss below the first, and the launch
+    counts (set to 0 just before, read just after) exactly as reckoned: each
+    layer's flash forward twice a microbatch (forward, and again under remat)
+    and its backward once."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    path = PATHS["llama3.2-3b"]
+    cfg = get_arch("llama3.2-3b")
+    check(tuple(getattr(cfg, k) for k in path["sizes"]) == path["published"],
+          "llama3.2-3b is not at its published size")
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_params(cfg, seed=0, device="cuda")
+    state = init_train_state(params)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    opt = AdamWConfig(lr=3e-3, warmup_steps=min(50, TRAIN_STEPS // 10),
+                      total_steps=TRAIN_STEPS)
+    steps = {mb: make_train_step(cfg, opt, microbatches=mb, device="cuda") for mb in (1, 2)}
+    data = SyntheticLM(cfg.vocab, s, b)
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    # peak device memory of the set-up (weights, fp32 moments), then of the
+    # steps of 1 and of 2 microbatches
+    peak = {"setup": torch.cuda.max_memory_allocated()}
+    log, micro = [], 0
+    t_run = time.time()
+    for i in range(TRAIN_STEPS):
+        mb = 2 if i >= TRAIN_STEPS - TRAIN_MB_STEPS else 1
+        if i in (0, TRAIN_STEPS - TRAIN_MB_STEPS):
+            if i:
+                peak["microbatches_1"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        state, metrics = steps[mb](state, batches[i])
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        micro += mb
+        log.append({"step": i, "microbatches": mb, "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+                    "seconds": sec, "tokens_per_s": b * s / sec})
+    run_s = time.time() - t_run
+    peak["microbatches_2"] = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    n = cfg.n_layers
+    want = {"decode_attention": 0, "flash_attention": 2 * n * micro,
+            "flash_attention_bwd": n * micro, "ssd_scan": 0}
+    check(counts == want, f"train: launches {counts}, expected {want} ({micro} microbatches)")
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
+          "train: a loss or gradient norm is not finite")
+    check(log[-1]["loss"] < log[0]["loss"], f"train: the last loss {log[-1]['loss']:.4f} "
+          f"is not below the first {log[0]['loss']:.4f}")
+    steady = [r["seconds"] for r in log[1:TRAIN_STEPS - TRAIN_MB_STEPS]]
+    emit("train", arch=cfg.name, n_layers=n, n_params=n_params, dtype="bfloat16",
+         batch=b, seq=s, remat=True, steps=log, seconds=run_s,
+         seconds_per_step=statistics.median(steady),
+         tokens_per_s=b * s / statistics.median(steady),
+         # the last step: the first of 2 microbatches allocates their gradient sum
+         seconds_per_step_microbatches_2=log[-1]["seconds"],
+         launches=counts, init_params_seconds=init_s,
+         peak_memory_bytes=max(peak.values()),
+         **{f"peak_memory_bytes_{k}": v for k, v in peak.items()})
+    del state, params, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_parity_state(cfg2, dev, dtype):
+    """llama3.2-3b's 2-layer cut at full width in ``dtype`` on ``dev``, from
+    seed 0 (drawn on the card, copied), as a fresh ``TrainState``; the bf16
+    weights are the fp32 ones rounded."""
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import tree_map
+    params = init_params(cfg2, seed=0, device="cuda", dtype=dtype)
+    return init_train_state(tree_map(lambda t: t.to(dev), params))
+
+
+def phase_parity_train():
+    """One ``make_train_step`` of llama3.2-3b's 2-layer cut at full width on
+    the card (kernels) against the same step on the CPU (plain versions),
+    from the same weights and batch (2 x 64 tokens of ``SyntheticLM``).
+
+    fp32: the loss, and every gradient leaf elementwise within GRAD_TOL times
+    the leaf's largest magnitude.  bf16: the two devices round activations at
+    other places, so, as the serving parity phases hold logits, each
+    gradient leaf is held by the share of its elements within GRAD_SHARE_TOL
+    of its largest magnitude (>= 0.99), the RMS of that relative error
+    (<= GRAD_SHARE_TOL / 2) and a cap on it (<= 0.5); the loss within
+    LOGIT_TOL.  Gradients are the step's own (``adamw_update`` is given them;
+    Adam's first step turns noise into moves of size lr, so updated weights
+    are not compared).  Then the card's bf16 state after the step is
+    checkpointed and restored on the CPU, bit-equal."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten_with_keys
+    cfg2 = replace(get_arch("llama3.2-3b"), n_layers=2)
+    b, s = TRAIN_PARITY_TOKENS
+    tokens = SyntheticLM(cfg2.vocab, s, b).batch(0)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
+
+    def step(dev, dtype):
+        """(state after one step, loss, {key: gradient on the CPU})."""
+        grads = {}
+        real = train_loop.adamw_update
+
+        def keep(cfg, params, g, state):
+            for key, leaf in flatten_with_keys(g):
+                grads[key] = leaf.float().cpu()
+            return real(cfg, params, g, state)
+
+        train_loop.adamw_update = keep
+        try:
+            state, m = make_train_step(cfg2, opt, device=dev)(
+                train_parity_state(cfg2, dev, dtype), tokens)
+        finally:
+            train_loop.adamw_update = real
+        return state, float(m["loss"]), grads
+
+    fields = {}
+    _, loss_card, g_card = step("cuda", torch.float32)
+    _, loss_cpu, g_cpu = step("cpu", torch.float32)
+    check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
+          f"train parity fp32: loss {loss_card} vs {loss_cpu}")
+    check(sorted(g_card) == sorted(g_cpu), "train parity: gradient keys differ")
+    worst = 0.0
+    for key in g_cpu:
+        a, r = g_card[key], g_cpu[key]
+        scale = float(r.abs().max())
+        check(scale > 0, f"train parity fp32: {key} has a zero gradient on the CPU")
+        err = float((a - r).abs().max())
+        check(err <= GRAD_TOL * scale, f"train parity fp32: {key} max abs err {err:.3e} "
+              f"beyond {GRAD_TOL} x {scale:.3e}")
+        worst = max(worst, err / scale)
+    fields.update(fp32_loss_card=loss_card, fp32_loss_cpu=loss_cpu,
+                  fp32_grad_max_rel_err=worst)
+    del g_card, g_cpu
+    state_card, loss_card, g_card = step("cuda", torch.bfloat16)
+    _, loss_cpu, g_cpu = step("cpu", torch.bfloat16)
+    check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"train parity bf16: loss {loss_card} vs "
+          f"{loss_cpu}")
+    shares, rmss, caps = [], [], []
+    for key in g_cpu:
+        rel = (g_card[key] - g_cpu[key]).abs() / float(g_cpu[key].abs().max())
+        shares.append(float((rel <= GRAD_SHARE_TOL).float().mean()))
+        rmss.append(float(rel.square().mean().sqrt()))
+        caps.append(float(rel.max()))
+        check(shares[-1] >= 0.99 and rmss[-1] <= GRAD_SHARE_TOL / 2 and caps[-1] <= 0.5,
+              f"train parity bf16: {key} share {shares[-1]:.4f}, RMS {rmss[-1]:.4f}, "
+              f"cap {caps[-1]:.4f}")
+    fields.update(bf16_loss_card=loss_card, bf16_loss_cpu=loss_cpu,
+                  bf16_grad_min_share=min(shares), bf16_grad_max_rms=max(rmss),
+                  bf16_grad_max_rel_err=max(caps))
+    del g_card, g_cpu
+    # checkpoint on the card, restore on the CPU
+    ckpt = ROOT / "build" / "train_parity_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.time()
+    CheckpointManager(str(ckpt)).save(1, state_card)
+    restored = CheckpointManager(str(ckpt)).restore_latest(
+        train_parity_state(cfg2, "cpu", torch.bfloat16))
+    check(restored is not None and restored[0] == 1, "train parity: no checkpoint restored")
+    want = flatten_with_keys(state_card)
+    got = flatten_with_keys(restored[1])
+    check([k for k, _ in got] == [k for k, _ in want], "train parity: checkpoint keys differ")
+    for (key, a), (_, r) in zip(got, want):
+        check(a.device.type == "cpu" and a.dtype == r.dtype and torch.equal(a, r.cpu()),
+              f"train parity: checkpoint leaf {key} differs after the round trip")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("parity_train", arch=cfg2.name, n_layers=2, tokens=list(TRAIN_PARITY_TOKENS),
+         grad_tol_fp32=GRAD_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL, loss_tol_bf16=LOGIT_TOL,
+         gradient_leaves=len(shares), checkpoint_leaves=len(got),
+         checkpoint_seconds=time.time() - t0, **fields)
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1398,6 +1864,14 @@ def main() -> None:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    if "train" in phases:
+        counts = phase_train()
+        for rec in records:
+            if rec["path"] == "train":
+                rec["launches"] = counts[rec["name"]]
+                check(rec["launches"] > 0, f"{rec['name']} was not launched by the train run")
+    if "parity_train" in phases:
+        phase_parity_train()
     complete = set(phases) == set(PHASES)
     if complete:
         check(all("launches" in rec for rec in records), "a kernel has no launch count")

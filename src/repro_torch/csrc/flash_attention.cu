@@ -18,6 +18,12 @@
 //    tile by tile and never claims resident memory.
 //  * Q, K, V and O are read and written in (B, S, heads, D) layout through
 //    strides: no transposed copies, no dummy operands.
+//  * The per-row log-sum-exp, on request (`lse`, for the backward in
+//    csrc/flash_attention_bwd.cu): natural log, of the scaled, capped and
+//    masked scores, from the running max and sum the online softmax keeps
+//    anyway (the bf16 path's are in log2 units and are converted once a row
+//    at the end).  It changes neither O nor, on the bf16 path, the serving
+//    kernel: training's is a second kernel over the same body.
 //  * Any Sq and Sk: ragged Q and KV tails are masked here.  Causal masking is by
 //    absolute position (Sq == Sk); tiles wholly above the diagonal are skipped.
 //  * A sliding window of W rows (gemma2-27b's local layers; causal only): row r
@@ -104,6 +110,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_tiles.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -117,6 +125,7 @@ constexpr int MAX_WARPS = 8;  // bf16 path: warps of a block, one (head, 16 rows
 constexpr int Q_REG_DIM = 128;        // bf16 path: the largest D whose Q fragments stay in registers
 constexpr int MAX_WARPS_Q_SMEM = 4;   // bf16 path above Q_REG_DIM: warps of a block
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // fp32 path
@@ -157,8 +166,9 @@ __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
-             const uint32_t* __restrict__ v, uint32_t* __restrict__ o, int Sq, int Sk,
-             int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+             const uint32_t* __restrict__ v, uint32_t* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int G, int tiles_per_chunk,
+             int pinned_rows, int causal, int window,
              float scale, float softcap, long long q_sb, long long q_ss,
              long long q_sh, long long k_sb, long long k_ss, long long k_sg,
              long long v_sb, long long v_ss, long long v_sg, long long o_sb,
@@ -325,6 +335,7 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
         const int row = q_lo + ty * 4 + i;
         if (row < Sq) {
           const float denom = fmaxf(l[i], 1e-30f);
+          if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * Sq + row] = m[i] + logf(l[i]);
 #pragma unroll
           for (int jj = 0; jj < NJ; ++jj) {
             float x[EPW];
@@ -339,8 +350,8 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-           int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
            float scale, float softcap, const long long* st, cudaStream_t stream) {
   constexpr int EPW = Word<T>::EPW;
   constexpr int LD = D / EPW + 1;
@@ -360,7 +371,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const dim3 grid(n_chunks, G, B);
   flash_kernel<T, D><<<grid, THREADS, (size_t)smem, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
-      static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), Sq, Sk, H, G,
+      static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), lse, Sq, Sk, H, G,
       tiles_per_chunk, pinned_rows, causal, window, scale, softcap, w[0], w[1], w[2], w[3],
       w[4], w[5], w[6], w[7], w[8], w[9], w[10], w[11]);
   return (int)cudaGetLastError();
@@ -369,88 +380,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 // ---------------------------------------------------------------------------
 // bf16 path
 
-using bf16 = __nv_bfloat16;
+using namespace dco_tiles;
 static_assert(STAGES == 2, "the ring loads one tile ahead");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device to shared memory; zeros when !full
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a b for a 16 x 16 bf16 A (row-major fragments), a 16 x 8 bf16 B, fp32 c
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Bytes of a staged bf16 row: 2 * D rounded up to 128, so that a row holds
-// whole groups of eight 16-byte slots and the swizzle below stays inside it.
-// D 112 (224 bytes) is staged at 256: slots 14 and 15 of a row are never
-// copied or read, and no arithmetic runs on them.
-template <int D>
-__host__ __device__ constexpr int row_bytes() {
-  return (2 * D + 127) / 128 * 128;
-}
-
-// Byte offset of 16-byte chunk c of row r in swizzled rows of ROWB bytes.
-template <int ROWB>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * ROWB + ((c ^ (r & 7)) << 4);
-}
-
-// Rows [0, nrows) of a swizzled tile from device rows `stride` elements apart;
-// rows from `nvalid` on are zeros.
-template <int D>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src, long long stride,
-                                           int nrows, int nvalid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < nrows * CPR; i += blockDim.x) {
-    const int r = i / CPR;
-    const int c = i % CPR;
-    const bool ok = r < nvalid;
-    cp_async16(dst + swz<row_bytes<D>()>(r, c), src + (ok ? r * stride + c * 8 : 0), ok);
-  }
 }
 
 // Bytes of Q's own buffer: none where Q's fragments stay in registers (Q is
@@ -467,16 +403,18 @@ __device__ __forceinline__ int tile_at(int p, int n) {
 
 // grid = (Q-tile chunks, G, B); block = 32 * hp * wph threads: warp w owns
 // query rows [16 * (w % wph), +16) of the tile for head w / wph of the pass.
-// Strides are in elements.
-template <int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
-                 int G, int wph, int hp, int tiles_per_chunk, int pinned_rows, int causal,
-                 int window, float scale, float softcap, long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sg, long long v_sb,
-                 long long v_ss, long long v_sg, long long o_sb, long long o_ss,
-                 long long o_sh) {
+// Strides are in elements.  LSE: also write each row's log-sum-exp to `lse`.
+// The body is shared by two kernels: the serving one (flash_mma_kernel, no
+// LSE, with the signature and code it had before the LSE existed) and
+// training's (flash_mma_lse_kernel).
+template <int D, bool LSE>
+__device__ __forceinline__ void flash_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int G, int wph,
+    int hp, int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
+    float softcap, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sg, long long v_sb, long long v_ss, long long v_sg,
+    long long o_sb, long long o_ss, long long o_sh) {
   constexpr int ROWB = row_bytes<D>();  // bytes of a staged row
   constexpr int TILEB = BK * ROWB;  // bytes of a staged K or V tile
   constexpr int KS = D / 16;        // 16-deep steps of Q K^T
@@ -725,6 +663,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int row = ra + 8 * i;
           if (row < Sq) {
             const float inv = 1.f / fmaxf(l[i], 1e-30f);
+            // natural log-sum-exp of the row's scores from the log2-domain max and sum
+            if (LSE && (lane & 3) == 0)
+              lse[((long long)b * H + h) * Sq + row] = m[i] * LN2 + logf(l[i]);
             bf16* orow = ob + (long long)row * o_ss;
 #pragma unroll
             for (int j = 0; j < NO; ++j)
@@ -738,8 +679,36 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-               int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
+                 int G, int wph, int hp, int tiles_per_chunk, int pinned_rows, int causal,
+                 int window, float scale, float softcap, long long q_sb, long long q_ss, long long q_sh,
+                 long long k_sb, long long k_ss, long long k_sg, long long v_sb,
+                 long long v_ss, long long v_sg, long long o_sb, long long o_ss,
+                 long long o_sh) {
+  flash_mma_body<D, false>(q, k, v, o, nullptr, Sq, Sk, H, G, wph, hp, tiles_per_chunk,
+                           pinned_rows, causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb,
+                           k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+flash_mma_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Sk, int H, int G, int wph, int hp, int tiles_per_chunk,
+                     int pinned_rows, int causal, int window, float scale, float softcap,
+                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                     long long k_ss, long long k_sg, long long v_sb, long long v_ss,
+                     long long v_sg, long long o_sb, long long o_ss, long long o_sh) {
+  flash_mma_body<D, true>(q, k, v, o, lse, Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows,
+                          causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb, k_ss, k_sg,
+                          v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+               int Sk, int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
                float scale, float softcap, const long long* st, cudaStream_t stream) {
   // heads a pass, then warps a head (16 query rows each), within the block's warps
   const int max_warps = D > Q_REG_DIM ? MAX_WARPS_Q_SMEM : MAX_WARPS;
@@ -756,17 +725,26 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
     if (st[i] % 8 != 0) return -1;  // 16-byte rows for the 16-byte copies
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0) return -1;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      lse != nullptr ? (const void*)flash_mma_lse_kernel<D> : (const void*)flash_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
   const int bq = 16 * wph;
   const int n_q_tiles = (Sq + bq - 1) / bq;
   const int n_chunks = (n_q_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
   const dim3 grid(n_chunks, G, B);
-  flash_mma_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows, causal,
-      window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11]);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  if (lse != nullptr)
+    flash_mma_lse_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
+        qb, kb, vb, static_cast<bf16*>(o), lse, Sq, Sk, H, G, wph, hp, tiles_per_chunk,
+        pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5],
+        st[6], st[7], st[8], st[9], st[10], st[11]);
+  else
+    flash_mma_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
+        qb, kb, vb, static_cast<bf16*>(o), Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows,
+        causal, window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+        st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
 
@@ -775,12 +753,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
 // dtype: 0 = bf16, 1 = fp32.  `strides` (in elements): batch, row and head strides
 // of q, then k, v and o; the last dimension of each has stride 1.  bf16 rows
 // must be 16-byte aligned: pointers on 16 bytes, strides multiples of 8.
+// `lse` (B, H, Sq) fp32, or null: the natural log-sum-exp of each row's scaled,
+// capped and masked scores, for the backward (csrc/flash_attention_bwd.cu).
 // `softcap` 0 means none.  `window` > 0 lets row r see columns (r - window, r]
 // (causal only); 0 means none.  `pinned_rows` is Sk or a multiple of 64.  Returns 0,
 // a cudaError_t, -1 for arguments the kernel does not take, or -2 when
 // `pinned_rows` does not fit the shared memory a block may take.
 extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int H, int G, int D,
+                                   float* lse, int dtype, int B, int Sq, int Sk, int H, int G, int D,
                                    int tiles_per_chunk, int pinned_rows, int causal,
                                    int window, float scale, float softcap,
                                    const long long* strides, void* stream) {
@@ -792,20 +772,20 @@ extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, 
   if (window < 0 || (window > 0 && !causal)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 256)
-    return launch_mma<256>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<256>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 128)
-    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 112)
-    return launch_mma<112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<112>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 64)
-    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 256)
-    return launch<float, 256>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 112)
-    return launch<float, 112>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 112>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   return -1;
 }

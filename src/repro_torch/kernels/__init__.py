@@ -5,7 +5,9 @@ allocation, the launch, the launch count) and ``ref.py`` (the plain version
 of the same function); the CUDA sources are under ``repro_torch/csrc`` and
 are built by :mod:`repro_torch.kernels.build` at first use.  On a CUDA
 tensor a wrapper launches its kernel or raises; on a CPU tensor it computes
-the plain version.
+the plain version.  The flash module holds the forward and, for training,
+its backward (``FlashAttentionFn``); the other kernels have no backward and
+raise under autograd on the card.
 
 ``launch_counts()`` / ``reset_launch_counts()`` expose the wrappers'
 counters and ``kernels_built()`` says whether the library is loaded, so
@@ -19,26 +21,33 @@ from .build import kernels_built
 from .decode_attention import decode_attention
 from .decode_attention import decode_attention_ref
 from .decode_attention import ops as _decode_ops
+from .flash_attention import attention_bwd_ref
 from .flash_attention import attention_ref
 from .flash_attention import flash_attention
+from .flash_attention import flash_attention_bwd
 from .flash_attention import ops as _flash_ops
 from .ssd_scan import ops as _ssd_ops
 from .ssd_scan import ssd_ref
 from .ssd_scan import ssd_scan
 
-__all__ = ["decode_attention", "decode_attention_ref", "attention_ref",
-           "flash_attention", "kernels_built", "launch_counts",
+__all__ = ["decode_attention", "decode_attention_ref", "attention_bwd_ref",
+           "attention_ref", "flash_attention", "flash_attention_bwd", "kernels_built", "launch_counts",
            "reset_launch_counts", "ssd_ref", "ssd_scan"]
 
-_WRAPPERS = {"decode_attention": _decode_ops, "flash_attention": _flash_ops,
-             "ssd_scan": _ssd_ops}
+# each wrapper's counter: the flash module counts its forward launches and
+# its backward calls apart
+_COUNTERS = {"decode_attention": _decode_ops.LAUNCHES,
+             "flash_attention": _flash_ops.LAUNCHES,
+             "flash_attention_bwd": _flash_ops.BWD_LAUNCHES,
+             "ssd_scan": _ssd_ops.LAUNCHES}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches made by each wrapper since the last reset."""
-    return {name: mod.LAUNCHES[0] for name, mod in _WRAPPERS.items()}
+    """Kernel launches made by each wrapper since the last reset (the
+    backward's three launches a call count once)."""
+    return {name: count[0] for name, count in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.LAUNCHES[0] = 0
+    for count in _COUNTERS.values():
+        count[0] = 0

@@ -15,6 +15,7 @@ import torch
 
 from ..build import load
 from ..flash_attention.ops import check_window
+from ..flash_attention.ops import needs_grad
 from .ref import decode_attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
@@ -225,12 +226,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     work unit, which the kernel otherwise chooses per call from ``cache_len``;
     it changes the schedule, not the result.  On a CUDA tensor this launches
     the kernel (one launch) or raises; on a CPU tensor it computes the plain
-    version.  Each (device, stream) has merge counters of its own."""
+    version.  Each (device, stream) has merge counters of its own.  The
+    kernel has no backward: on the card a call that autograd would record
+    raises ``NotImplementedError`` rather than give a detached result."""
     _check(q, k, v, cache_len)
     _check_options(window, softcap)
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, cache_len, scale=scale, window=window,
                                     softcap=softcap)
+    if needs_grad(q, k, v):
+        raise NotImplementedError(
+            "decode_attention has no backward kernel: decoding is not differentiated "
+            "on the card (call it under torch.no_grad())")
     b, h, d = q.shape
     _, s, g, _ = k.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -1,10 +1,13 @@
-"""Wrapper of the flash-attention CUDA kernel (csrc/flash_attention.cu)."""
+"""Wrappers of the flash-attention CUDA kernels: the forward
+(csrc/flash_attention.cu) and, for training, its backward
+(csrc/flash_attention_bwd.cu), tied together by ``FlashAttentionFn``."""
 
 from __future__ import annotations
 
 import ctypes
 import math
 from typing import Optional
+from typing import Tuple
 
 import torch
 
@@ -13,28 +16,39 @@ from ...core.orchestrator import FLASH_TILE_ROWS
 from ...core.orchestrator import H100_SMEM_PER_BLOCK
 from ...core.orchestrator import flash_smem_bytes
 from ..build import load
+from .ref import attention_bwd_ref
 from .ref import attention_ref
 
-LAUNCHES = [0]                 # kernel launches made by this wrapper
+LAUNCHES = [0]                 # forward kernel launches made by this module
+BWD_LAUNCHES = [0]             # backward calls (three launches each) made by this module
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
 HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
+BWD_HEAD_DIMS = (64, 128)         # head sizes the backward kernel is compiled for
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# the C interface dco_flash_attention: q, k, v, out; dtype, B, Sq, Sk, H, G, D,
-# tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+# the C interface dco_flash_attention: q, k, v, out, lse; dtype, B, Sq, Sk, H, G,
+# D, tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-_fn = None
+# dco_flash_attention_bwd: q, k, v, o, dout, lse, delta, dq, dk, dv; dtype, B, S,
+# H, G, D; scale; stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load().dco_flash_attention
-        fn.argtypes = ARGTYPES
+def _kernel(name: str = "dco_flash_attention"):
+    if name not in _fns:
+        fn = getattr(load(), name)
+        fn.argtypes = ARGTYPES if name == "dco_flash_attention" else BWD_ARGTYPES
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def max_warps(head_dim: int) -> int:
@@ -122,13 +136,35 @@ def check_rows_aligned(name: str, t: torch.Tensor) -> None:
                          f"aligned rows (other strides multiples of {elems})")
 
 
+def check_backward(d: int, causal: bool, window: Optional[int],
+                   softcap: Optional[float]) -> None:
+    """Raise ``NotImplementedError`` for attention whose gradient the backward
+    kernel does not compute: it takes causal attention at head_dim 64 or 128,
+    with no window and no softcap (the dense family's training path)."""
+    why = []
+    if not causal:
+        why.append("non-causal attention")
+    if window is not None:
+        why.append(f"a sliding window ({window} rows; gemma2 training)")
+    if softcap is not None:
+        why.append(f"a softcap ({softcap}; gemma2 training)")
+    if d not in BWD_HEAD_DIMS:
+        why.append(f"head_dim {d} (head_dim 112 is zamba2 training, 256 gemma-7b "
+                   f"training; the kernel takes {BWD_HEAD_DIMS})")
+    if why:
+        raise NotImplementedError(
+            "the flash-attention backward kernel does not compute the gradient of "
+            + ", ".join(why) + "; it comes with a later training slice of the port")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None,
                     pinned_rows: int = 0,
-                    tiles_per_chunk: Optional[int] = None) -> torch.Tensor:
+                    tiles_per_chunk: Optional[int] = None,
+                    return_lse: bool = False):
     """FlashAttention-2 forward with the DCO KV split.
 
     q (B, Sq, H, D); k/v (B, Sk, G, D), any lengths, read through their
@@ -136,10 +172,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (r - window, r]; tiles wholly older than a Q tile's window are not walked.  ``pinned_rows`` KV rows (the whole of Sk, or a multiple of the
     KV tile, from ``CacheOrchestrator.plan_kv_split``) stay in shared memory
     across a block's Q tiles and query heads; the rest stream per Q tile.
-    It changes the schedule, not the result.
+    It changes the schedule, not the result.  ``return_lse``: also the
+    natural log-sum-exp of each row's scaled, capped and masked scores,
+    (B, H, Sq) fp32 (not differentiated).
 
-    On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
-    computes the plain version."""
+    On a CPU tensor this computes the plain version, which autograd
+    differentiates.  On a CUDA tensor it launches the kernel or raises; when
+    autograd records the call (grad enabled and q, k or v requiring grad) it
+    goes through ``FlashAttentionFn``, whose backward is the backward kernel,
+    and raises ``NotImplementedError`` before any launch for what that kernel
+    does not compute (``check_backward``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, Sq, H, D) and k/v (B, Sk, G, D)")
     b, sq, h, d = q.shape
@@ -155,7 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_pinned_rows(pinned_rows, sk, d, q.element_size())
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
-                             window=window)
+                             window=window, return_lse=return_lse)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -168,6 +210,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows_aligned(name, t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if needs_grad(q, k, v):
+        if return_lse:
+            raise ValueError("return_lse is not differentiated: call it without grad")
+        check_backward(d, causal, window, softcap)
+        return FlashAttentionFn.apply(q, k, v, scale, pinned_rows, tiles_per_chunk)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    out = _forward(q, k, v, lse, causal=causal, scale=scale, softcap=softcap,
+                   window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
+    return (out, lse) if return_lse else out
+
+
+def _forward(q, k, v, lse: Optional[torch.Tensor], *, causal: bool, scale: float,
+             softcap: Optional[float], window: Optional[int], pinned_rows: int,
+             tiles_per_chunk: Optional[int]) -> torch.Tensor:
+    """One launch of the forward kernel on checked inputs; it also writes
+    ``lse`` (B, H, Sq) fp32 where one is given."""
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
     if tiles_per_chunk is None:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         tiles_per_chunk = tiles_per_chunk_for(
@@ -180,6 +240,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       None if lse is None else lse.data_ptr(),
                        _DTYPES[q.dtype], b, sq, sk, h, g, d, tiles_per_chunk,
                        pinned_rows, int(causal), int(window or 0), float(scale),
                        float(softcap or 0.0), strides, stream)
@@ -187,3 +248,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
     LAUNCHES[0] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention with its gradient on the card: the forward
+    kernel, also writing the per-row log-sum-exp, and the backward kernel
+    from it.  Built by ``flash_attention`` on checked inputs only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, pinned_rows: int,
+                tiles_per_chunk: Optional[int]):
+        b, sq, h, _ = q.shape
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, lse, causal=True, scale=scale, softcap=None, window=None,
+                       pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd hands dO over with any strides; the kernel reads it contiguous
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal attention from the forward's output ``o`` and
+    log-sum-exp ``lse`` (B, H, S) and the output's gradient ``do``.
+
+    On a CUDA tensor this calls the backward kernel (three launches, counted
+    once in ``BWD_LAUNCHES``) or raises; on a CPU tensor it computes the
+    plain version ``attention_bwd_ref``.  Inputs are made contiguous (a no-op
+    for those that are)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError("expected q, o, do (B, S, H, D) and k/v (B, S, G, D)")
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or h % g or sq != sk:
+        raise ValueError("q and k/v disagree on batch, length or head_dim, or "
+                         "n_heads is no multiple of n_kv_heads")
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"lse must be (B, H, S) = {(b, h, sq)}")
+    if not q.is_cuda:
+        return attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
+    check_backward(d, True, None, None)
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError("the backward kernel takes bf16 or fp32, one type for q, k, v, "
+                        "o and do")
+    if lse.dtype != torch.float32:
+        raise TypeError("lse must be fp32")
+    if any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError("the backward kernel's inputs must lie on one device")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel("dco_flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], b, sq, h, g, d, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed (code {rc})")
+    BWD_LAUNCHES[0] += 1
+    return dq, dk, dv

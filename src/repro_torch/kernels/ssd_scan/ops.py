@@ -9,6 +9,7 @@ from typing import Tuple
 import torch
 
 from ..build import load
+from ..flash_attention.ops import needs_grad
 from .ref import ssd_ref
 
 LAUNCHES = [0]                 # kernel launches made by this wrapper
@@ -61,11 +62,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     must start on 16 bytes (the kernel stages them with 16-byte copies).
 
     On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
-    computes the plain version."""
+    computes the plain version.  The kernel has no backward yet: on the card
+    a call that autograd would record raises ``NotImplementedError`` rather
+    than give a detached result."""
     _check(x, dt, A, B, C, chunk, initial_state)
     if not x.is_cuda:
         y, state = ssd_ref(x, dt, A, B, C, chunk, initial_state=initial_state)
         return y.to(x.dtype), state
+    if needs_grad(x, dt, A, B, C, initial_state):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: SSM and hybrid training on the card "
+            "come with the SSM-training slice of the port")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:

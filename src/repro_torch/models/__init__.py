@@ -5,8 +5,9 @@ from .model import decode_step
 from .model import forward
 from .model import init_cache
 from .model import init_params
+from .model import lm_loss
 from .model import local_flags
 from .model import prefill
 
 __all__ = ["Cache", "decode_step", "forward", "init_cache", "init_params",
-           "local_flags", "prefill"]
+           "lm_loss", "local_flags", "prefill"]

@@ -11,7 +11,13 @@ Design notes
 ------------
 * Parameters are dicts of tensors with the JAX package's keys; per-layer
   leaves are stacked along a leading layer axis, and the layer stack is a
-  Python loop that indexes that axis (views, no copies).
+  Python loop over views of that axis (no copies).  ``forward`` takes each
+  stacked leaf apart once with ``unbind``, whose backward stacks the layers'
+  gradients into one tensor; indexing layer by layer would instead allocate
+  a zero gradient of the whole stacked leaf for every layer.
+* ``forward(..., remat=True)`` recomputes each layer (each group of a hybrid,
+  each Mamba2 tail layer) in the backward pass, as the JAX package's
+  ``jax.checkpoint``: it changes memory, not numbers.
 * ``tie_embeddings`` is intent only, as in the JAX package: ``lm_head`` is
   always a separate parameter.
 * **The cache is updated in place.**  ``prefill`` allocates a
@@ -37,6 +43,7 @@ from typing import Sequence
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import require_device
 from ..configs import ArchConfig
@@ -171,10 +178,18 @@ def _layer(tree, i: int):
     return {k: v[i] for k, v in tree.items()}
 
 
+def _unstack(tree, n: int):
+    """The ``n`` layers of a tree of leaves stacked on a leading axis, each a
+    dict of views, from one ``unbind`` a leaf."""
+    parts = {k: v.unbind(0) for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
 def _attn_layers(params, cfg: ArchConfig):
     """(attention params, FFN, FFN params, local flag) of each layer of a
     dense or MoE model, in the order of the K/V cache's layer axis: a MoE
-    model's ``first_dense`` dense layers, then its MoE layers."""
+    model's ``first_dense`` dense layers, then its MoE layers.  Each stacked
+    leaf is taken apart once (``_unstack``)."""
     if cfg.family == MOE:
         nd = cfg.moe.first_dense
         stacks = [(params["moe_layers"], "moe", partial(moe_ffn, spec=cfg.moe),
@@ -184,8 +199,9 @@ def _attn_layers(params, cfg: ArchConfig):
     else:
         stacks = [(params["layers"], "mlp", mlp_block, local_flags(cfg))]
     for layers, kind, ffn, flags in stacks:
+        attn, fp = _unstack(layers["attn"], len(flags)), _unstack(layers[kind], len(flags))
         for i, fl in enumerate(flags):
-            yield _layer(layers["attn"], i), ffn, _layer(layers[kind], i), fl
+            yield attn[i], ffn, fp[i], fl
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +209,13 @@ def _attn_layers(params, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 def embed_tokens(params, tokens, cfg: ArchConfig,
                  input_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows of ``embed`` (or ``input_embeds``).  ``F.embedding``, whose
+    backward sums a repeated token's gradients in a fixed order; indexing's
+    backward on the CPU sums them in an order that varies run to run."""
     if input_embeds is not None:
         x = input_embeds.to(params["embed"].dtype)
     else:
-        x = params["embed"][tokens]
+        x = torch.nn.functional.embedding(tokens, params["embed"])
     if cfg.gemma_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
@@ -215,21 +234,51 @@ def lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
-            input_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            input_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True) -> torch.Tensor:
+    """Logits (B, S, vocab) of a full sequence.  ``remat``: each layer (each
+    group of a hybrid) keeps only its input for the backward pass and runs
+    again there (``_maybe_remat``); without grad it changes nothing."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, input_embeds)
     if cfg.family == SSM:
-        for i in range(cfg.n_layers):
-            x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, None, i)
+        mamba = _maybe_remat(_mamba_layer, remat)
+        for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            x = x + mamba(p, x, cfg, None, i)
         return lm_logits(params, x, cfg)
     rope = block_rope_tables(cfg, x.shape[0], x.shape[1], None, x.device)
     if cfg.family == HYBRID:
-        return lm_logits(params, _hybrid_stack(params, x, cfg, rope=rope,
+        return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, rope=rope,
                                                positions=positions), cfg)
+    block = _maybe_remat(_attn_mlp, remat)
     for attn, ffn, fp, fl in _attn_layers(params, cfg):
-        x = _attn_mlp(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, positions=positions,
-                      rope=rope)
+        x = block(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, positions=positions,
+                  rope=rope)
     return lm_logits(params, x, cfg)
+
+
+def _maybe_remat(fn, remat: bool):
+    """``fn``, or ``fn`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped after the forward and recomputed in the
+    backward, as the JAX package's ``jax.checkpoint``.  The model draws no
+    random numbers, so no RNG state is stashed."""
+    if not remat:
+        return fn
+    return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy in fp32, averaged: ``logsumexp`` of each
+    position's logits less the next token's logit, which ``gather`` picks (the
+    same value as the JAX package's one-hot einsum)."""
+    lg = logits[:, :-1].float()
+    tg = tokens[:, 1:].long()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tg[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def _attn_mlp(attn, mlp, x, cfg: ArchConfig, ffn=mlp_block, **attn_kw) -> torch.Tensor:
@@ -258,26 +307,36 @@ def _mamba_layer(p, x, cfg: ArchConfig, cache: Optional[Cache], i: int,
 
 
 def _hybrid_stack(params, x, cfg: ArchConfig, cache: Optional[Cache] = None,
-                  rows: Optional[torch.Tensor] = None, **attn_kw) -> torch.Tensor:
+                  rows: Optional[torch.Tensor] = None, remat: bool = False,
+                  **attn_kw) -> torch.Tensor:
     """The reference's ``_hybrid_stack`` / ``_hybrid_prefill`` /
     ``_hybrid_decode`` in one loop: each group's ``hybrid_period`` Mamba2
     layers, then the weight-shared attention + MLP block (application ``a``
     reads and writes K/V slice ``a`` of the cache); the tail's Mamba2 layers
     after the last group.  Mamba2 layer ``i`` of ``n_layers`` uses conv and
-    state slice ``i``.  ``attn_kw`` go to every ``attention_block`` call."""
+    state slice ``i``.  ``attn_kw`` go to every ``attention_block`` call.
+    ``remat`` (no cache) recomputes each group and each tail layer in the
+    backward pass, as the reference's ``_hybrid_stack``."""
     period = cfg.hybrid_period
     n_groups = cfg.n_layers // period
-    groups = params["mamba_groups"]
-    tail = params.get("mamba_tail", {})
-    for a in range(n_groups):
+    n_tail = cfg.n_layers - n_groups * period
+    outer = {k: v.unbind(0) for k, v in params["mamba_groups"].items()}
+    groups = [_unstack({k: t[a] for k, t in outer.items()}, period) for a in range(n_groups)]
+    tail = _unstack(params["mamba_tail"], n_tail) if n_tail else []
+
+    def group(x, a):
         for j in range(period):
-            p = {k: v[a, j] for k, v in groups.items()}
-            x = x + _mamba_layer(p, x, cfg, cache, a * period + j, rows)
+            x = x + _mamba_layer(groups[a][j], x, cfg, cache, a * period + j, rows)
         kv = None if cache is None else (cache.k[a], cache.v[a])
-        x = _attn_mlp(params["shared_attn"], params["shared_mlp"], x, cfg,
-                      kv_cache=kv, **attn_kw)
-    for j in range(cfg.n_layers - n_groups * period):
-        x = x + _mamba_layer(_layer(tail, j), x, cfg, cache, n_groups * period + j, rows)
+        return _attn_mlp(params["shared_attn"], params["shared_mlp"], x, cfg,
+                         kv_cache=kv, **attn_kw)
+
+    group = _maybe_remat(group, remat)
+    mamba = _maybe_remat(_mamba_layer, remat)
+    for a in range(n_groups):
+        x = group(x, a)
+    for j in range(n_tail):
+        x = x + mamba(tail[j], x, cfg, cache, n_groups * period + j, rows)
     return x
 
 

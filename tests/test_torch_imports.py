@@ -22,7 +22,9 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 @pytest.mark.parametrize("module", [
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
-    "repro_torch.kernels", "repro_torch.convert", "repro_torch.models.moe", "chip_smoke"])
+    "repro_torch.kernels", "repro_torch.convert", "repro_torch.models.moe", "chip_smoke",
+    "repro_torch.train", "repro_torch.data", "repro_torch.checkpoint",
+    "repro_torch.launch.train"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"
@@ -68,5 +70,6 @@ def test_chip_smoke_fails_without_a_card():
 def test_cuda_sources_are_in_the_tree():
     from repro_torch.kernels import build
     names = [p.name for p in build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu", "ssd_scan.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+                     "ssd_scan.cu"]
     assert not build.kernels_built()          # nothing is built at import time

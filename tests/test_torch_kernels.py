@@ -320,7 +320,8 @@ def test_cpu_calls_launch_no_kernel():
     q = torch.zeros(1, 8, 2, 64)
     flash_attention(q, q, q)
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
-    assert launch_counts() == {"decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
+    assert launch_counts() == {"decode_attention": 0, "flash_attention": 0,
+                               "flash_attention_bwd": 0, "ssd_scan": 0}
     assert not kernels_built()
 
 
@@ -345,7 +346,8 @@ def test_flash_layout_constants_match_the_source(head_dim):
     assert c["Q_REG_DIM"] == port_orch.FLASH_Q_REG_DIM
     assert 16 * c["MAX_WARPS_Q_SMEM"] == port_orch.FLASH_Q_BUFFER_ROWS
     assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
-    text = (CSRC / "flash_attention.cu").read_text()
+    # the row layout's helpers live in the header the forward includes
+    text = (CSRC / "flash_attention.cu").read_text() + (CSRC / "bf16_tiles.cuh").read_text()
     align = port_orch.FLASH_ROW_ALIGN
     assert f"return (2 * D + {align - 1}) / {align} * {align};" in text
     assert "constexpr int ROWB = row_bytes<D>();" in text
