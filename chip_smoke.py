@@ -28,6 +28,9 @@ run with a non-zero exit code:
             per-row LSE against the plain one, O unchanged by it and the LSE
             bit-identical across splits; calls without a backward kernel
             refused under grad; the backward timed at llama's training shape.
+            The backward is held elementwise on each gradient row's and
+            64-row tile's scale (``grad_err``), which planted faults must
+            fail.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -81,8 +84,8 @@ run with a non-zero exit code:
             backward of every layer and microbatch.
 17. parity_train  one train step of its 2-layer cut at full width on the
             card against the CPU (fp32 gradients elementwise, bf16 by share),
-            then the card's state checkpointed and restored on the CPU,
-            bit-equal.
+            then the card's state, each leaf cut to its first 1024 rows and
+            columns, checkpointed and restored on the CPU, bit-equal.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -91,7 +94,7 @@ every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backward's: of the train phase).  The whole
-run takes about 6 minutes of command time on an H100, the 35-second build
+run takes about 4.5 minutes of command time on an H100, the 32-second build
 included.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
@@ -811,8 +814,7 @@ def flash_record(gen, flush, sq, h, g, d, pinned, window=None, softcap=None, sca
         "ms": ms, "tflops": n_flops / ms * 1e-9,
         "ms_unpinned": time_ms(lambda: flash_attention(q, k, v, pinned_rows=0, **kw), flush),
         # the same call also writing the per-row log-sum-exp, as training's forward
-        "ms_with_lse": time_ms(lambda: flash_attention(q, k, v, pinned_rows=pinned,
-                                                       return_lse=True, **kw), flush),
+        "ms_with_lse": time_ms(lambda: flash_lse(q, k, v, pinned_rows=pinned, **kw), flush),
         # no heavy/light pairing: one Q tile a block
         "ms_one_tile_a_chunk": time_ms(lambda: flash_attention(
             q, k, v, pinned_rows=pinned, tiles_per_chunk=1, **kw), flush),
@@ -980,13 +982,102 @@ TRAIN_SHAPE = dict(b=8, s=512, h=24, g=8, d=128)   # llama3.2-3b's train phase, 
 
 def close_scaled(out, ref, tol, what):
     """max |out - ref|, after asserting it is within ``tol`` times the larger
-    of 1 and ref's largest magnitude (a gradient's own scale)."""
+    of 1 and ref's largest magnitude (the LSE's own scale)."""
     out, ref = out.float(), ref.float()
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     err = float((out - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
     check(err <= tol * scale, f"{what}: max abs err {err:.3e} beyond {tol} x {scale:.3g}")
     return err
+
+
+BWD_TILE = 64   # rows of the backward kernel's Q and KV tiles
+
+
+def grad_scale(ref):
+    """Each element's scale in a gradient ``ref`` (B, S, heads, D): the
+    larger of the RMS of its row (the D values of one position and head)
+    and the RMS of its BWD_TILE-row tile of that head (the rows one block of
+    the backward kernel writes; the last tile may be ragged).  Causal
+    gradients shrink with position (dK and dV of KV row j by about
+    sqrt(1/j - 1/S)), so a tensor-wide scale would hold late tiles loosely.
+    The row's own RMS where it is the larger: the first rows of a tile can
+    stand several times above its RMS, and their bf16 rounding with them.
+    The tile's where it is: a row whose true gradient is zero (dQ of the
+    first query, which sees one key: dS = P (dP - rowsum(dO o)) = 0) comes
+    out of both sides as fp32 rounding noise of two sums of D products,
+    which a row's own scale would hold against itself."""
+    ref = ref.float()
+    b, s, h, _ = ref.shape
+    sq = ref.square().mean(-1)                                      # (B, S, H)
+    n = -(-s // BWD_TILE)
+    padded = torch.zeros((b, n * BWD_TILE, h), device=ref.device)
+    padded[:, :s] = sq
+    rows = torch.full((n, 1), float(BWD_TILE), device=ref.device)
+    rows[-1] = s - BWD_TILE * (n - 1)
+    tile = padded.reshape(b, n, BWD_TILE, h).sum(2) / rows           # (B, n, H)
+    tile = tile.repeat_interleave(BWD_TILE, dim=1)[:, :s]
+    return torch.maximum(sq, tile).sqrt()[..., None]
+
+
+def grad_err(out, ref, tol):
+    """A gradient against its oracle, elementwise as the forward's outputs
+    are held (rtol = atol = ``tol``), with the atol on the scale of each
+    element's row and tile: |out - ref| <= tol (|ref| + grad_scale(ref)).  Returns
+    (ok, the worst |out - ref| / (tol (|ref| + scale)), max |out - ref|, the
+    scale at that element)."""
+    out, ref = out.float(), ref.float()
+    scale = grad_scale(ref).expand_as(ref)
+    err = (out - ref).abs()
+    ratio = float((err / (tol * (ref.abs() + scale))).max())
+    at = int(err.argmax())
+    return (bool(torch.isfinite(out).all()) and ratio <= 1.0, ratio, float(err.max()),
+            float(scale.flatten()[at]))
+
+
+def close_grad(out, ref, tol, what):
+    """``grad_err``'s (worst ratio, max abs err, scale there), after
+    asserting that ``out`` passes."""
+    ok, ratio, err, at = grad_err(out, ref, tol)
+    check(ok, f"{what}: |err| / (tol (|ref| + scale)) reaches {ratio:.3g} (tol {tol}; "
+              f"max abs err {err:.3e} where the scale is {at:.3g})")
+    return ratio, err, at
+
+
+def bwd_faults(q, k, v, o, lse, do, dk, dv):
+    """Faults planted in a backward's dK and dV (B, S, G, D), each of which
+    ``grad_err`` must reject: {name: (dk, dv)}.  "tail": the last KV tile
+    (the ragged one where S is no multiple of BWD_TILE) left at zero.
+    "head": the last query head of every group missing from the tile before
+    it (its contribution, ``attention_bwd_ref`` with dO kept on that head
+    only, taken away)."""
+    from repro_torch.kernels import attention_bwd_ref
+    s, h, g = q.shape[1], q.shape[2], k.shape[2]
+    last = (s - 1) // BWD_TILE * BWD_TILE
+    late = slice(max(0, last - BWD_TILE), last)
+    only = torch.zeros_like(do)
+    heads = torch.arange(h // g - 1, h, h // g)
+    only[:, :, heads] = do[:, :, heads]
+    _, dk_h, dv_h = (t.float() for t in attention_bwd_ref(q, k, v, o, lse, only))
+    tail_k, tail_v, head_k, head_v = dk.clone(), dv.clone(), dk.clone(), dv.clone()
+    tail_k[:, last:] = 0
+    tail_v[:, last:] = 0
+    head_k[:, late] = (dk[:, late].float() - dk_h[:, late]).to(dk.dtype)
+    head_v[:, late] = (dv[:, late].float() - dv_h[:, late]).to(dv.dtype)
+    return {"tail": (tail_k, tail_v), "head": (head_k, head_v)}
+
+
+def check_faults_rejected(q, k, v, o, lse, do, got, want, tol, what):
+    """Every fault of ``bwd_faults`` planted in ``got``'s dK and dV fails
+    ``grad_err`` against ``want``; returns the smallest worst ratio."""
+    least = float("inf")
+    for name, planted in bwd_faults(q, k, v, o, lse, do, got[1], got[2]).items():
+        for grad, a, r in zip(("dk", "dv"), planted, want[1:]):
+            ok, ratio, _, _ = grad_err(a, r, tol)
+            check(not ok, f"{what}: the planted fault {name!r} in {grad} passes "
+                  f"(worst ratio {ratio:.3g})")
+            least = min(least, ratio)
+    return least
 
 
 def flash_bwd_cases():
@@ -1001,12 +1092,27 @@ def flash_bwd_cases():
     return cases
 
 
+def flash_lse(q, k, v, *, scale=None, softcap=None, window=None, pinned_rows=0,
+              tiles_per_chunk=None):
+    """(O, LSE) of one causal forward launch through the entry that
+    ``FlashAttentionFn`` calls (the public wrapper returns O only)."""
+    from repro_torch.kernels.flash_attention import ops
+    b, s, h, d = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    out = ops._forward(q, k, v, lse, causal=True, scale=scale or d ** -0.5,
+                       softcap=softcap, window=window, pinned_rows=pinned_rows,
+                       tiles_per_chunk=tiles_per_chunk)
+    return out, lse
+
+
 def check_flash_bwd(gen):
     """The backward kernel against ``attention_bwd_ref`` on the same inputs
-    (the forward kernel's own O and LSE): tolerance ``TOL`` of the dtype
-    times each gradient's magnitude (``close_scaled``)."""
+    (the forward kernel's own O and LSE), each gradient by ``grad_err`` at
+    ``TOL`` of the dtype; at S 1000 and GQA groups of 3 and 8 the faults of
+    ``bwd_faults`` planted in the kernel's dK and dV must fail the same
+    rule.  Returns, for each dtype, the worst ratio (<= 1), the largest
+    absolute error and the smallest ratio of a planted fault (> 1)."""
     from repro_torch.kernels import attention_bwd_ref
-    from repro_torch.kernels import flash_attention
     from repro_torch.kernels import flash_attention_bwd
     worst = {}
     for case in flash_bwd_cases():
@@ -1015,14 +1121,19 @@ def check_flash_bwd(gen):
         k = randn(gen, (b, s, g, d), dtype)
         v = randn(gen, (b, s, g, d), dtype)
         do = randn(gen, (b, s, h, d), dtype)
-        o, lse = flash_attention(q, k, v, return_lse=True)
+        o, lse = flash_lse(q, k, v)
         got = flash_attention_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
         want = attention_bwd_ref(q, k, v, o, lse, do)
+        w = worst.setdefault(str(dtype), {"ratio": 0.0, "max_abs_err": 0.0,
+                                          "fault_min_ratio": float("inf")})
         for name, a, r in zip(("dq", "dk", "dv"), got, want):
             check(a.dtype == dtype and a.shape == r.shape, f"flash bwd {case}: {name} type")
-            err = close_scaled(a, r, TOL[dtype], f"flash bwd {case} {name}")
-            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            ratio, err, _ = close_grad(a, r, TOL[dtype], f"flash bwd {case} {name}")
+            w["ratio"], w["max_abs_err"] = max(w["ratio"], ratio), max(w["max_abs_err"], err)
+        if s == 1000 and h // g in (3, 8):
+            w["fault_min_ratio"] = min(w["fault_min_ratio"], check_faults_rejected(
+                q, k, v, o, lse, do, got, want, TOL[dtype], f"flash bwd {case}"))
     return worst
 
 
@@ -1047,7 +1158,7 @@ def check_flash_lse(gen):
         q = randn(gen, (b, s, h, d), dtype)
         k = randn(gen, (b, s, g, d), dtype)
         v = randn(gen, (b, s, g, d), dtype)
-        out, lse = flash_attention(q, k, v, pinned_rows=pinned, return_lse=True, **kw)
+        out, lse = flash_lse(q, k, v, pinned_rows=pinned, **kw)
         torch.cuda.synchronize()
         check(torch.equal(out, flash_attention(q, k, v, pinned_rows=pinned, **kw)),
               f"flash {case}: O differs with the LSE written")
@@ -1059,11 +1170,10 @@ def check_flash_lse(gen):
         q = randn(gen, (1, s, h, d), torch.bfloat16)
         k = randn(gen, (1, s, g, d), torch.bfloat16)
         v = randn(gen, (1, s, g, d), torch.bfloat16)
-        base = flash_attention(q, k, v, pinned_rows=0, tiles_per_chunk=1, return_lse=True)[1]
+        base = flash_lse(q, k, v, pinned_rows=0, tiles_per_chunk=1)[1]
         for pinned in (0, 64, 256):
             for tiles in (None, 2, 3):
-                other = flash_attention(q, k, v, pinned_rows=pinned, tiles_per_chunk=tiles,
-                                        return_lse=True)[1]
+                other = flash_lse(q, k, v, pinned_rows=pinned, tiles_per_chunk=tiles)[1]
                 check(torch.equal(other, base), f"flash LSE S {s} G {g} D {d}: pinned "
                       f"{pinned}, tiles {tiles} differs from pinned 0")
     return worst
@@ -1155,11 +1265,12 @@ def flash_bwd_record(gen, flush):
     k = randn(gen, (b, s, g, d), bf)
     v = randn(gen, (b, s, g, d), bf)
     do = randn(gen, (b, s, h, d), bf)
-    o, lse = flash_attention(q, k, v, return_lse=True)
+    o, lse = flash_lse(q, k, v)
     got = flash_attention_bwd(q, k, v, o, lse, do)
     want = attention_bwd_ref(q, k, v, o, lse, do)
-    err = max(close_scaled(a, r, TOL[bf], f"flash bwd at the training shape, {n}")
-              for n, a, r in zip(("dq", "dk", "dv"), got, want))
+    # (worst ratio, max abs err, the row scale where it is) of dq, dk, dv
+    held = {n: close_grad(a, r, TOL[bf], f"flash bwd at the training shape, {n}")
+            for n, a, r in zip(("dq", "dk", "dv"), got, want)}
     del got, want
     ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
@@ -1169,8 +1280,8 @@ def flash_bwd_record(gen, flush):
         return torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True)
 
     lib = lib_bwd()
-    close_scaled(lib[0].transpose(1, 2), attention_bwd_ref(q, k, v, o, lse, do)[0],
-                 TOL[bf], "library bwd dq vs plain")
+    close_grad(lib[0].transpose(1, 2), attention_bwd_ref(q, k, v, o, lse, do)[0],
+               TOL[bf], "library bwd dq vs plain")
     del lib
     n_seen = s * (s + 1) // 2
     n_flops = 10 * d * n_seen * h * b
@@ -1190,15 +1301,18 @@ def flash_bwd_record(gen, flush):
         "path": "train",
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "causal": True, "visible_pairs": n_seen},
-        "max_abs_err": err, "tol": TOL[bf], "tol_scaled_by": "max(1, max |ref|)",
+        "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
+        "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
+                    f"element's row and of its {BWD_TILE}-row tile of its head (grad_err)",
+        "held": {n: {"worst_ratio": r, "max_abs_err": e, "scale_at_max_abs_err": a}
+                 for n, (r, e, a) in held.items()},
         "ms": ms, "tflops": n_flops / ms * 1e-9,
         "plain_ms": time_ms_events(lambda: attention_bwd_ref(q, k, v, o, lse, do), flush),
         "library_ms": time_ms_events(lib_bwd, flush),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "forward_ms": time_ms(lambda: flash_attention(q, k, v), flush),
-        "forward_ms_with_lse": time_ms(lambda: flash_attention(q, k, v, return_lse=True),
-                                       flush),
+        "forward_ms_with_lse": time_ms(lambda: flash_lse(q, k, v), flush),
         "forward_plain_ms_with_lse": time_ms(lambda: attention_ref(q, k, v, return_lse=True),
                                              flush),
         "forward_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1231,7 +1345,7 @@ def phase_kernels():
     records.append(flash_bwd_record(gen, flush))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
-         flash_bwd_cases_max_abs_err=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
+         flash_bwd_cases=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
          tol={str(k): v for k, v in TOL.items()},
          ssd_tol={str(k): v for k, v in SSD_TOL.items()},
          timed=records + extra)
@@ -1641,10 +1755,11 @@ def phase_train():
     gradient norm finite, the last loss below the first, and the launch
     counts (set to 0 just before, read just after) exactly as reckoned: each
     layer's flash forward twice a microbatch (forward, and again under remat)
-    and its backward once."""
+    and its backward's BWD_KERNELS kernels once."""
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import BWD_KERNELS
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import init_params
     from repro_torch.train import AdamWConfig
@@ -1694,7 +1809,7 @@ def phase_train():
     counts = launch_counts()
     n = cfg.n_layers
     want = {"decode_attention": 0, "flash_attention": 2 * n * micro,
-            "flash_attention_bwd": n * micro, "ssd_scan": 0}
+            "flash_attention_bwd": BWD_KERNELS * n * micro, "ssd_scan": 0}
     check(counts == want, f"train: launches {counts}, expected {want} ({micro} microbatches)")
     check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
           "train: a loss or gradient norm is not finite")
@@ -1716,21 +1831,25 @@ def phase_train():
     return counts
 
 
-def train_parity_state(cfg2, dev, dtype):
+CKPT_CUT = 1024   # parity_train's checkpoint: each leaf's dims cut to their first 1024
+
+
+def train_parity_params(cfg2, dev, dtype):
     """llama3.2-3b's 2-layer cut at full width in ``dtype`` on ``dev``, from
-    seed 0 (drawn on the card, copied), as a fresh ``TrainState``; the bf16
-    weights are the fp32 ones rounded."""
+    seed 0 (drawn on the card, copied); the bf16 weights are the fp32 ones
+    rounded."""
     from repro_torch.models import init_params
-    from repro_torch.train import init_train_state
     from repro_torch.tree import tree_map
     params = init_params(cfg2, seed=0, device="cuda", dtype=dtype)
-    return init_train_state(tree_map(lambda t: t.to(dev), params))
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def phase_parity_train():
-    """One ``make_train_step`` of llama3.2-3b's 2-layer cut at full width on
-    the card (kernels) against the same step on the CPU (plain versions),
-    from the same weights and batch (2 x 64 tokens of ``SyntheticLM``).
+    """One train step of llama3.2-3b's 2-layer cut at full width on the card
+    (kernels) against the same step on the CPU (plain versions), from the
+    same weights and batch (2 x 64 tokens of ``SyntheticLM``): the loss and
+    gradients that ``train_step`` computes (``loss_and_grads``), then
+    ``adamw_update`` on the card.
 
     fp32: the loss, and every gradient leaf elementwise within GRAD_TOL times
     the leaf's largest magnitude.  bf16: the two devices round activations at
@@ -1738,44 +1857,38 @@ def phase_parity_train():
     gradient leaf is held by the share of its elements within GRAD_SHARE_TOL
     of its largest magnitude (>= 0.99), the RMS of that relative error
     (<= GRAD_SHARE_TOL / 2) and a cap on it (<= 0.5); the loss within
-    LOGIT_TOL.  Gradients are the step's own (``adamw_update`` is given them;
-    Adam's first step turns noise into moves of size lr, so updated weights
-    are not compared).  Then the card's bf16 state after the step is
-    checkpointed and restored on the CPU, bit-equal."""
+    LOGIT_TOL.  Updated weights are not compared: Adam's first step turns
+    noise into moves of size lr.  Then the card's bf16 state after the
+    update, each leaf cut to its first CKPT_CUT rows and columns (every key
+    and type kept, about 0.2 GB as saved), is checkpointed from the card and
+    restored on the CPU, bit-equal."""
     import shutil
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.train import AdamWConfig
-    from repro_torch.train import loop as train_loop
-    from repro_torch.train import make_train_step
+    from repro_torch.train import TrainState
+    from repro_torch.train import adamw_update
+    from repro_torch.train import init_opt_state
+    from repro_torch.train.loop import loss_and_grads
     from repro_torch.tree import flatten_with_keys
+    from repro_torch.tree import tree_map
+    from repro_torch.tree import unflatten
     cfg2 = replace(get_arch("llama3.2-3b"), n_layers=2)
     b, s = TRAIN_PARITY_TOKENS
     tokens = SyntheticLM(cfg2.vocab, s, b).batch(0)
     opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
 
-    def step(dev, dtype):
-        """(state after one step, loss, {key: gradient on the CPU})."""
-        grads = {}
-        real = train_loop.adamw_update
-
-        def keep(cfg, params, g, state):
-            for key, leaf in flatten_with_keys(g):
-                grads[key] = leaf.float().cpu()
-            return real(cfg, params, g, state)
-
-        train_loop.adamw_update = keep
-        try:
-            state, m = make_train_step(cfg2, opt, device=dev)(
-                train_parity_state(cfg2, dev, dtype), tokens)
-        finally:
-            train_loop.adamw_update = real
-        return state, float(m["loss"]), grads
+    def grads(dev, dtype):
+        """(params, gradient tree, loss, {key: gradient on the CPU})."""
+        params = train_parity_params(cfg2, dev, dtype)
+        loss, g = loss_and_grads(params, torch.as_tensor(tokens).to(dev, torch.long), cfg2)
+        g = unflatten(params, g)
+        return params, g, float(loss), {k: t.float().cpu() for k, t in flatten_with_keys(g)}
 
     fields = {}
-    _, loss_card, g_card = step("cuda", torch.float32)
-    _, loss_cpu, g_cpu = step("cpu", torch.float32)
+    _, _, loss_card, g_card = grads("cuda", torch.float32)
+    _, _, loss_cpu, g_cpu = grads("cpu", torch.float32)
     check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
           f"train parity fp32: loss {loss_card} vs {loss_cpu}")
     check(sorted(g_card) == sorted(g_cpu), "train parity: gradient keys differ")
@@ -1791,8 +1904,8 @@ def phase_parity_train():
     fields.update(fp32_loss_card=loss_card, fp32_loss_cpu=loss_cpu,
                   fp32_grad_max_rel_err=worst)
     del g_card, g_cpu
-    state_card, loss_card, g_card = step("cuda", torch.bfloat16)
-    _, loss_cpu, g_cpu = step("cpu", torch.bfloat16)
+    params, g, loss_card, g_card = grads("cuda", torch.bfloat16)
+    _, _, loss_cpu, g_cpu = grads("cpu", torch.bfloat16)
     check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"train parity bf16: loss {loss_card} vs "
           f"{loss_cpu}")
     shares, rmss, caps = [], [], []
@@ -1808,25 +1921,35 @@ def phase_parity_train():
                   bf16_grad_min_share=min(shares), bf16_grad_max_rms=max(rmss),
                   bf16_grad_max_rel_err=max(caps))
     del g_card, g_cpu
-    # checkpoint on the card, restore on the CPU
+    params, opt_state, _ = adamw_update(opt, params, g, init_opt_state(params))
+    del g
+    # checkpoint from the card, restore on the CPU
+    cut = tree_map(lambda t: t[tuple(slice(0, CKPT_CUT) for _ in t.shape)].contiguous(),
+                   TrainState(params, opt_state))
+    del params, opt_state
     ckpt = ROOT / "build" / "train_parity_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     t0 = time.time()
-    CheckpointManager(str(ckpt)).save(1, state_card)
+    CheckpointManager(str(ckpt)).save(1, cut)
     restored = CheckpointManager(str(ckpt)).restore_latest(
-        train_parity_state(cfg2, "cpu", torch.bfloat16))
+        tree_map(lambda t: torch.empty_like(t, device="cpu"), cut))
     check(restored is not None and restored[0] == 1, "train parity: no checkpoint restored")
-    want = flatten_with_keys(state_card)
+    want = flatten_with_keys(cut)
     got = flatten_with_keys(restored[1])
     check([k for k, _ in got] == [k for k, _ in want], "train parity: checkpoint keys differ")
+    check(all(r.is_cuda for k, r in want if k != ".opt/.step"),
+          "train parity: a checkpointed leaf does not lie on the card")
     for (key, a), (_, r) in zip(got, want):
         check(a.device.type == "cpu" and a.dtype == r.dtype and torch.equal(a, r.cpu()),
               f"train parity: checkpoint leaf {key} differs after the round trip")
+    ckpt_s = time.time() - t0
     shutil.rmtree(ckpt, ignore_errors=True)
     emit("parity_train", arch=cfg2.name, n_layers=2, tokens=list(TRAIN_PARITY_TOKENS),
          grad_tol_fp32=GRAD_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL, loss_tol_bf16=LOGIT_TOL,
          gradient_leaves=len(shares), checkpoint_leaves=len(got),
-         checkpoint_seconds=time.time() - t0, **fields)
+         checkpoint_cut=CKPT_CUT, checkpoint_bytes=sum(
+             t.numel() * 4 for _, t in want if isinstance(t, torch.Tensor)),
+         checkpoint_seconds=ckpt_s, **fields)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,12 @@
 // (csrc/flash_attention.cu), which also writes the per-row natural
 // log-sum-exp `lse` this kernel starts from.
 //
-// Bound on an H100: operations.  Five products of the visible (row, column)
-// pairs (S = Q K^T and dP = dO V^T again, dV = P^T dO, dK = dS^T Q,
-// dQ = dS K), 10 * D FLOP a pair and query head, against Q, K, V, O, dO, the
-// three gradients and lse moved once.
+// Bound on an H100: bytes at llama3.2-3b's training shape (S 512, H 24, G 8,
+// D 128), operations from about S 640.  The work is five products of the
+// visible (row, column) pairs (S = Q K^T and dP = dO V^T again, dV = P^T dO,
+// dK = dS^T Q, dQ = dS K), 10 * D FLOP a pair and query head, which grow
+// with S^2; the bytes are Q, K, V, O, dO, the three gradients and lse moved
+// once, which grow with S.
 //
 // Three launches, deterministic, no atomics:
 //  (a) delta_kernel: delta = rowsum(dO * O) for each (batch, head, row), fp32.

@@ -35,7 +35,7 @@ __all__ = ["decode_attention", "decode_attention_ref", "attention_bwd_ref",
            "reset_launch_counts", "ssd_ref", "ssd_scan"]
 
 # each wrapper's counter: the flash module counts its forward launches and
-# its backward calls apart
+# its backward launches apart
 _COUNTERS = {"decode_attention": _decode_ops.LAUNCHES,
              "flash_attention": _flash_ops.LAUNCHES,
              "flash_attention_bwd": _flash_ops.BWD_LAUNCHES,
@@ -43,8 +43,8 @@ _COUNTERS = {"decode_attention": _decode_ops.LAUNCHES,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches made by each wrapper since the last reset (the
-    backward's three launches a call count once)."""
+    """Kernel launches made by each wrapper since the last reset (each
+    backward call launches three kernels and counts three)."""
     return {name: count[0] for name, count in _COUNTERS.items()}
 
 

@@ -20,7 +20,8 @@ from .ref import attention_bwd_ref
 from .ref import attention_ref
 
 LAUNCHES = [0]                 # forward kernel launches made by this module
-BWD_LAUNCHES = [0]             # backward calls (three launches each) made by this module
+BWD_LAUNCHES = [0]             # backward kernel launches made by this module
+BWD_KERNELS = 3                # kernels a dco_flash_attention_bwd call launches: delta, dK/dV, dQ
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
 HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
@@ -163,8 +164,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None,
                     pinned_rows: int = 0,
-                    tiles_per_chunk: Optional[int] = None,
-                    return_lse: bool = False):
+                    tiles_per_chunk: Optional[int] = None) -> torch.Tensor:
     """FlashAttention-2 forward with the DCO KV split.
 
     q (B, Sq, H, D); k/v (B, Sk, G, D), any lengths, read through their
@@ -172,9 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (r - window, r]; tiles wholly older than a Q tile's window are not walked.  ``pinned_rows`` KV rows (the whole of Sk, or a multiple of the
     KV tile, from ``CacheOrchestrator.plan_kv_split``) stay in shared memory
     across a block's Q tiles and query heads; the rest stream per Q tile.
-    It changes the schedule, not the result.  ``return_lse``: also the
-    natural log-sum-exp of each row's scaled, capped and masked scores,
-    (B, H, Sq) fp32 (not differentiated).
+    It changes the schedule, not the result.
 
     On a CPU tensor this computes the plain version, which autograd
     differentiates.  On a CUDA tensor it launches the kernel or raises; when
@@ -197,7 +195,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_pinned_rows(pinned_rows, sk, d, q.element_size())
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
-                             window=window, return_lse=return_lse)
+                             window=window)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -211,14 +209,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         check_rows_aligned(name, t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if needs_grad(q, k, v):
-        if return_lse:
-            raise ValueError("return_lse is not differentiated: call it without grad")
         check_backward(d, causal, window, softcap)
         return FlashAttentionFn.apply(q, k, v, scale, pinned_rows, tiles_per_chunk)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    out = _forward(q, k, v, lse, causal=causal, scale=scale, softcap=softcap,
-                   window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
-    return (out, lse) if return_lse else out
+    return _forward(q, k, v, None, causal=causal, scale=scale, softcap=softcap,
+                    window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
 
 
 def _forward(q, k, v, lse: Optional[torch.Tensor], *, causal: bool, scale: float,
@@ -281,10 +275,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of causal attention from the forward's output ``o`` and
     log-sum-exp ``lse`` (B, H, S) and the output's gradient ``do``.
 
-    On a CUDA tensor this calls the backward kernel (three launches, counted
-    once in ``BWD_LAUNCHES``) or raises; on a CPU tensor it computes the
-    plain version ``attention_bwd_ref``.  Inputs are made contiguous (a no-op
-    for those that are)."""
+    On a CUDA tensor this calls the backward kernel (``BWD_KERNELS``
+    launches, each counted in ``BWD_LAUNCHES``) or raises; on a CPU tensor
+    it computes the plain version ``attention_bwd_ref``.  Inputs are made
+    contiguous (a no-op for those that are)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or o.shape != q.shape \
             or do.shape != q.shape:
         raise ValueError("expected q, o, do (B, S, H, D) and k/v (B, S, G, D)")
@@ -317,5 +311,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _DTYPES[q.dtype], b, sq, h, g, d, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed (code {rc})")
-    BWD_LAUNCHES[0] += 1
+    BWD_LAUNCHES[0] += BWD_KERNELS
     return dq, dk, dv

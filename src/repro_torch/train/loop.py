@@ -43,6 +43,19 @@ def init_train_state(params) -> TrainState:
     return TrainState(params=params, opt=init_opt_state(params))
 
 
+def loss_and_grads(params, tokens: torch.Tensor,
+                   cfg: ArchConfig) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The loss of one (micro)batch and its gradient with respect to each
+    leaf of ``params``, in ``leaves`` order: ``lm_loss`` of ``forward`` on
+    ``tokens`` (B, S) int64 on the parameters' device, differentiated by
+    autograd.  ``train_step`` calls it once a microbatch."""
+    # views of the parameters that autograd may differentiate, no copies
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    loss = lm_loss(forward(unflatten(params, flat), tokens, cfg), tokens)
+    grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), list(grads)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1, *,
                     device="cuda") -> Callable:
     """Returns ``train_step(state, tokens) -> (state, metrics)`` on
@@ -57,20 +70,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
     gradients are live at a time."""
     dev = require_device(device)
 
-    def value_and_grad(params, tokens) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        # views of the parameters that autograd may differentiate, no copies
-        flat = [p.detach().requires_grad_() for p in leaves(params)]
-        loss = lm_loss(forward(unflatten(params, flat), tokens, cfg), tokens)
-        grads = torch.autograd.grad(loss, flat)
-        return loss.detach(), list(grads)
-
     def train_step(state: TrainState, tokens):
         tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
         for p in leaves(state.params):
             if p.device != tokens.device:
                 raise ValueError(f"train_step runs on {dev}; a parameter lies on {p.device}")
         if microbatches == 1:
-            loss, grads = value_and_grad(state.params, tokens)
+            loss, grads = loss_and_grads(state.params, tokens, cfg)
         else:
             b = tokens.shape[0]
             if b % microbatches:
@@ -80,7 +86,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
                      for p in leaves(state.params)]
             loss = 0.0
             for batch in mb:
-                loss_i, g_i = value_and_grad(state.params, batch)
+                loss_i, g_i = loss_and_grads(state.params, batch, cfg)
                 for acc, g in zip(grads, g_i):
                     acc.add_(g)
                 del g_i

@@ -13,6 +13,7 @@ kernels themselves run only on the card (``chip_smoke.py``); here the
 wrappers take their plain versions because the tensors lie on the CPU."""
 
 import ctypes
+import importlib.util
 import math
 from pathlib import Path
 import re
@@ -33,7 +34,8 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels import reset_launch_counts
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
-CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "src" / "repro_torch" / "csrc"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 D = 64
@@ -98,7 +100,7 @@ def test_lse_matches_reference_scores(shape):
     scores = jnp.einsum("bsgqd,btgd->bgqst", jq.reshape(b, s, g, h // g, D), jk) / math.sqrt(D)
     mask = jnp.tril(jnp.ones((s, s), bool))
     want = jax.nn.logsumexp(jnp.where(mask, scores, -jnp.inf), axis=-1).reshape(b, h, s)
-    out, lse = flash_attention(q, k, v, return_lse=True)
+    out, lse = attention_ref(q, k, v, return_lse=True)
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
     np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert torch.equal(out, flash_attention(q, k, v))
@@ -165,3 +167,66 @@ def test_bwd_wrapper_checks_shapes():
         flash_attention_bwd(q, k, v, o, lse[:, :, :5], do)
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse, do[:, :5])
+
+
+def bwd_float64(q, k, v, o, lse, do):
+    """``attention_bwd_ref``'s formulas in float64 (causal), its outputs
+    rounded to the inputs' type: a backward right up to that rounding."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    qg, dog, og = (t.double().reshape(b, s, g, h // g, d) for t in (q, do, o))
+    kf, vf = k.double(), v.double()
+    scale = 1.0 / math.sqrt(d)
+    delta = (dog * og).sum(-1)
+    p = torch.exp(torch.einsum("bsgqd,btgd->bgqst", qg, kf) * scale
+                  - lse.double().reshape(b, g, h // g, s, 1))
+    p = p.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), 0.0)
+    dv = torch.einsum("bgqst,bsgqd->btgd", p, dog)
+    dp = torch.einsum("bsgqd,btgd->bgqst", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bgqst,btgd->bsgqd", ds, kf) * scale
+    dk = torch.einsum("bgqst,bsgqd->btgd", ds, qg) * scale
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``, whose gradient rule the card's check uses."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 8, 2), (2, 130, 6, 2), (1, 100, 4, 1)],
+                         ids=lambda s: "B{}S{}H{}G{}".format(*s))
+def test_card_gradient_rule_holds_a_right_backward_and_rejects_planted_faults(
+        smoke, shape, dtype):
+    """The rule ``chip_smoke.py`` holds the backward kernel to (elementwise,
+    tolerance of the dtype on each row's and 64-row tile's scale) passes a backward
+    right up to its rounding (float64, then the dtype) against the plain
+    version, and fails the faults it plants: the last KV tile of dK and dV
+    left at zero, one query head of every group missing from the tile
+    before it."""
+    _, (q, k, v, do) = inputs(*shape, dtype, seed=4)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    got = bwd_float64(q, k, v, o, lse, do)
+    want = attention_bwd_ref(q, k, v, o, lse, do)
+    for name, a, r in zip("qkv", got, want):
+        ok, ratio, _, _ = smoke.grad_err(a, r, TOL[dtype])
+        assert ok, f"d{name} {shape} {dtype}: worst ratio {ratio:.3g}"
+    assert smoke.check_faults_rejected(q, k, v, o, lse, do, got, want, TOL[dtype],
+                                       f"{shape} {dtype}") > 1.0
+
+
+def test_card_gradient_scale_is_the_larger_rms_of_row_and_tile(smoke):
+    ref = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 150, 3, 8))
+                           .astype(np.float32))
+    ref[:, 3] *= 10.0     # rows above their tile's RMS
+    ref[:, 70] *= 0.0     # a zero row, held at its tile's
+    scale = smoke.grad_scale(ref)
+    assert scale.shape == (2, 150, 3, 1)
+    row = ref.square().mean(-1).sqrt()                                   # (B, S, H)
+    for lo, hi in ((0, 64), (64, 128), (128, 150)):
+        tile = ref[:, lo:hi].square().mean(dim=(1, 3)).sqrt()[:, None]   # (B, 1, H)
+        torch.testing.assert_close(scale[:, lo:hi, :, 0], torch.maximum(row[:, lo:hi], tile))
