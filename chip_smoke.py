@@ -30,7 +30,13 @@ run with a non-zero exit code:
             refused under grad; the backward timed at llama's training shape.
             The backward is held elementwise on each gradient row's and
             64-row tile's scale (``grad_err``), which planted faults must
-            fail.
+            fail.  The SSD backward (training) against its plain version
+            ``ssd_bwd_ref`` and against autograd of ``ssd_ref`` over the
+            SSD cases' fp32 shapes, with and without an initial state and a
+            final-state gradient, and on strided views through
+            ``SSDScanFn``, by the same rule at 1e-4 (``ssd_grad_err``),
+            which planted faults must fail; timed at mamba2's training
+            shape.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -86,6 +92,14 @@ run with a non-zero exit code:
             card against the CPU (fp32 gradients elementwise, bf16 by share),
             then the card's state, each leaf cut to its first 1024 rows and
             columns, checkpointed and restored on the CPU, bit-equal.
+18. train_ssm   mamba2-2.7b trained at full width and depth (64 layers,
+            d_model 2560, 2.83 B parameters), as in 16: the SSD forward twice
+            and its backward's three kernels once a layer and microbatch,
+            nothing else launched.
+19. parity_train_ssm  one train step of its 2-layer cut at full width, 2 x
+            256 tokens (two SSD chunks), card against CPU as in 17 (the
+            CPU's fp32 scan in float64), without the checkpoint; every
+            leaf fed through the SSD backward nonzero on the card.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -93,9 +107,9 @@ the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
 every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
-of that path's serve phase (the backward's: of the train phase).  The whole
-run takes about 4.5 minutes of command time on an H100, the 32-second build
-included.
+of that path's serve phase (the backwards': of their train phases).  The
+whole run takes about 5 minutes of command time on an H100, the build's 36
+to 43 seconds included.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -109,6 +123,7 @@ from contextlib import contextmanager
 from contextlib import nullcontext
 from dataclasses import replace
 import gc
+import importlib
 import json
 from pathlib import Path
 import re
@@ -176,7 +191,8 @@ ROUTER_NEAR_TIE = 2e-3
 ROUTER_MAX_FLIPS = 0.1
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
-          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train")
+          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
+          "train_ssm", "parity_train_ssm")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -1193,9 +1209,9 @@ def not_implemented(fn, what):
 
 def check_refused_under_grad(gen):
     """A CUDA tensor that autograd would differentiate is refused where no
-    backward kernel exists: decode attention, the SSD scan, and flash
+    backward kernel exists: decode attention, the SSD scan in bf16, and flash
     attention with a window, a softcap or head_dim 112; without grad the
-    same calls run."""
+    same calls run.  An fp32 SSD scan under grad goes through ``SSDScanFn``."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import ssd_scan
@@ -1204,9 +1220,13 @@ def check_refused_under_grad(gen):
     k = randn(gen, (2, 64, 2, 128), bf)
     cl = torch.tensor([64, 3], dtype=torch.int32, device="cuda")
     not_implemented(lambda: decode_attention(q, k, k, cl), "decode_attention under grad")
-    x, dt, A, B, C = ssd_inputs(gen, 1, 128, 8, 1, 64, 64, torch.float32)
+    x, dt, A, B, C = ssd_inputs(gen, 1, 128, 8, 1, 64, 64, bf)
     x.requires_grad_()
-    not_implemented(lambda: ssd_scan(x, dt, A, B, C, chunk=64), "ssd_scan under grad")
+    not_implemented(lambda: ssd_scan(x, dt, A, B, C, chunk=64), "bf16 ssd_scan under grad")
+    x32 = x.detach().float().requires_grad_()
+    y, _ = ssd_scan(x32, dt, A, B.float(), C.float(), chunk=64)
+    check(type(y.grad_fn).__name__ == "SSDScanFnBackward",
+          f"fp32 ssd_scan under grad: grad_fn {type(y.grad_fn).__name__}")
     for d, kw in ((128, dict(window=64)), (128, dict(softcap=50.0)), (112, {}), (256, {})):
         qf = randn(gen, (1, 128, 4, d), bf).requires_grad_()
         kf = randn(gen, (1, 128, 2, d), bf)
@@ -1323,6 +1343,247 @@ def flash_bwd_record(gen, flush):
     }
 
 
+# ---------------------------------------------------------------------------
+# the SSD scan's backward kernel (training)
+# mamba2-2.7b's train_ssm phase, one microbatch
+SSD_TRAIN_SHAPE = dict(b=8, s=512, h=80, g=1, p=64, n=128, chunk=256)
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_grad_err(name, out, ref, tol):
+    """``grad_err`` for one gradient of the SSD scan, each laid out as
+    (B, rows, heads, D) so that a row is one position's (or one state row's)
+    values and a tile its ``BWD_TILE`` rows of one head: dx (B,S,H,P), dB
+    and dC (B,S,G,N) as they are; ddt (B,S,H) with D 1; dinit (B,H,P,N) with
+    P as the rows.  dA (H,) against the RMS of dA: |err| <= tol (|ref| +
+    rms(ref))."""
+    if name == "dA":
+        out, ref = out.float(), ref.float()
+        scale = float(ref.square().mean().sqrt())
+        err = (out - ref).abs()
+        ratio = float((err / (tol * (ref.abs() + scale))).max())
+        return (bool(torch.isfinite(out).all()) and ratio <= 1.0, ratio, float(err.max()),
+                scale)
+    if name == "ddt":
+        out, ref = out[..., None], ref[..., None]
+    elif name == "dinit":
+        out, ref = out.transpose(1, 2), ref.transpose(1, 2)
+    return grad_err(out, ref, tol)
+
+
+def check_ssd_grads(got, want, tol, what):
+    """Every gradient of ``got`` passes ``ssd_grad_err`` against ``want`` (a
+    None on both sides is skipped); returns {name: (ratio, max abs err)}."""
+    held = {}
+    for name, a, r in zip(SSD_GRADS, got, want):
+        if a is None and r is None:
+            continue
+        check(a is not None and r is not None and a.shape == r.shape
+              and a.dtype == torch.float32, f"{what}: {name} missing or misshapen")
+        ok, ratio, err, at = ssd_grad_err(name, a, r, tol)
+        check(ok, f"{what} {name}: |err| / (tol (|ref| + scale)) reaches {ratio:.3g} (tol "
+                  f"{tol}; max abs err {err:.3e} where the scale is {at:.3g})")
+        held[name] = (ratio, err)
+    return held
+
+
+def ssd_bwd_faults(x, dt, A, B, C, dy, dfinal, init, got):
+    """Faults planted in a backward's gradients, each of which
+    ``ssd_grad_err`` must reject: {name: (gradient name, tensor)}.  "tail":
+    dB of the last ``BWD_TILE``-row sub-chunk left at zero.  "head": the last
+    head of every group missing from dB and dC in the sub-chunk before the
+    last (its contribution, ``ssd_bwd_ref`` with dy and dfinal kept on that
+    head only, taken away).  "cut": ddt with the reverse running sum of dcum
+    cut at the last sub-chunk's boundary (the rows before it lose A times the
+    sum of dcum from the boundary on).  Needs S > 2 ``BWD_TILE``."""
+    from repro_torch.kernels import ssd_bwd_ref
+    s, h, g = x.shape[1], x.shape[2], B.shape[2]
+    last = (s - 1) // BWD_TILE * BWD_TILE
+    late = slice(last - BWD_TILE, last)
+    keep = torch.zeros(h, device=x.device)
+    keep[h // g - 1::h // g] = 1.0
+    only = ssd_bwd_ref(x, dt, A, B, C, dy * keep[:, None],
+                       None if dfinal is None else dfinal * keep[:, None, None], init)
+    da = ssd_bwd_ref(x, dt, A, B, C, dy, dfinal, init, return_da=True)[-1]
+    tail, head_b, head_c, cut = got[3].clone(), got[3].clone(), got[4].clone(), got[1].clone()
+    tail[:, last:] = 0
+    head_b[:, late] -= only[3][:, late]
+    head_c[:, late] -= only[4][:, late]
+    cut[:, :last] -= A * da[:, last:last + 1]
+    return {"tail": ("dB", tail), "head": ("dB", head_b), "head_c": ("dC", head_c),
+            "cut": ("ddt", cut)}
+
+
+def ssd_faults_rejected(x, dt, A, B, C, dy, dfinal, init, got, want, tol, what):
+    """Every fault of ``ssd_bwd_faults`` fails ``ssd_grad_err`` against
+    ``want``; returns the smallest worst ratio."""
+    least = float("inf")
+    for name, (grad, planted) in ssd_bwd_faults(x, dt, A, B, C, dy, dfinal, init,
+                                                got).items():
+        ok, ratio, _, _ = ssd_grad_err(grad, planted, want[SSD_GRADS.index(grad)], tol)
+        check(not ok, f"{what}: the planted fault {name!r} in {grad} passes "
+              f"(worst ratio {ratio:.3g})")
+        least = min(least, ratio)
+    return least
+
+
+def ssd_autograd_ref(x, dt, A, B, C, chunk, init, dy, dfinal):
+    """The six gradients by autograd through ``ssd_ref`` (dinit None without
+    an initial state)."""
+    from repro_torch.kernels import ssd_ref
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+    if init is not None:
+        leaves.append(init.detach().clone().requires_grad_())
+    y, st = ssd_ref(*leaves[:5], chunk, initial_state=leaves[5] if init is not None else None)
+    outs, grads = [y], [dy]
+    if dfinal is not None:
+        outs.append(st)
+        grads.append(dfinal)
+    got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(got) + ((None,) if init is None else ())
+
+
+def check_ssd_bwd(gen):
+    """The backward kernel against ``ssd_bwd_ref`` and against autograd of
+    ``ssd_ref`` on the same inputs, every gradient by ``ssd_grad_err`` at the
+    fp32 ``SSD_TOL``, over ``ssd_cases()``'s fp32 shapes, with and without an
+    initial state and a final-state gradient, and on strided views through
+    ``ssd_scan`` under autograd (``SSDScanFn``).  At S of two sub-chunks or
+    more the faults of ``ssd_bwd_faults`` planted in the kernel's gradients
+    must fail the same rule.  Returns the worst ratios (<= 1), the largest
+    absolute errors and the smallest ratio of a planted fault (> 1)."""
+    from repro_torch.kernels import ssd_bwd_ref
+    from repro_torch.kernels import ssd_ref
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ssd_scan_bwd
+    tol = SSD_TOL[torch.float32]
+    worst = {"ratio_vs_closed_form": 0.0, "ratio_vs_autograd": 0.0, "max_abs_err": 0.0,
+             "fault_min_ratio": float("inf"), "cases": 0}
+
+    def note(held, key):
+        for ratio, err in held.values():
+            worst[key] = max(worst[key], ratio)
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+
+    cases = [c for c in ssd_cases() if c[7] == torch.float32]
+    for i, (b, s, h, g, p, n, chunk, _, with_init) in enumerate(cases):
+        case = (b, s, h, g, p, n, chunk, with_init, i % 2 == 0)
+        x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, torch.float32)
+        init = randn(gen, (b, h, p, n), torch.float32) if with_init else None
+        dy = randn(gen, (b, s, h, p), torch.float32)
+        dfinal = randn(gen, (b, h, p, n), torch.float32) if i % 2 == 0 else None
+        got = ssd_scan_bwd(x, dt, A, B, C, dy, dfinal, initial_state=init)
+        torch.cuda.synchronize()
+        if init is None:
+            got = got[:5] + (None,)
+        want = ssd_bwd_ref(x, dt, A, B, C, dy, dfinal, init)
+        if init is None:
+            want = want[:5] + (None,)
+        note(check_ssd_grads(got, want, tol, f"ssd bwd {case} vs ssd_bwd_ref"),
+             "ratio_vs_closed_form")
+        note(check_ssd_grads(got, ssd_autograd_ref(x, dt, A, B, C, chunk, init, dy, dfinal),
+                             tol, f"ssd bwd {case} vs autograd of ssd_ref"),
+             "ratio_vs_autograd")
+        if s > 2 * BWD_TILE:
+            worst["fault_min_ratio"] = min(worst["fault_min_ratio"], ssd_faults_rejected(
+                x, dt, A, B, C, dy, dfinal, init, got, want, tol, f"ssd bwd {case}"))
+        worst["cases"] += 1
+    # strided views through ssd_scan under autograd, as mamba2_block hands them
+    # over: x a slice of a wider projection, B and C two column ranges of one
+    # (B, S, 2GN) tensor; dB and dC come back into that tensor's gradient
+    b, s, h, g, p, n = 2, 512, 8, 2, 64, 128
+    wide = randn(gen, (b, s, h, 2 * p), torch.float32).requires_grad_()
+    bc = randn(gen, (b, s, 2 * g * n), torch.float32).requires_grad_()
+    _, dt, A, _, _ = ssd_inputs(gen, b, s, h, g, p, n, torch.float32)
+    dt, A = dt.requires_grad_(), A.requires_grad_()
+    dy = randn(gen, (b, s, h, p), torch.float32)
+    dfinal = randn(gen, (b, h, p, n), torch.float32)
+
+    def grads(fn):
+        x = wide[..., p:]
+        B, C = bc[..., :g * n].view(b, s, g, n), bc[..., g * n:].view(b, s, g, n)
+        y, st = fn(x, dt, A, B, C)
+        gw, gdt, gA, gbc = torch.autograd.grad((y, st), (wide, dt, A, bc), (dy, dfinal))
+        return (gw[..., p:], gdt, gA, gbc[..., :g * n].reshape(b, s, g, n),
+                gbc[..., g * n:].reshape(b, s, g, n), None)
+
+    got = grads(lambda *a: ssd_scan(*a, chunk=256))
+    want = grads(lambda *a: ssd_ref(*a, 256))
+    note(check_ssd_grads(got, want, tol, "ssd bwd on strided views through SSDScanFn"),
+         "ratio_vs_autograd")
+    check(bool((got[0] != 0).any()) and float(got[0].abs().max()) > 0,
+          "ssd bwd on strided views: a zero gradient")
+    worst["cases"] += 1
+    return worst
+
+
+def ssd_bwd_record(gen, flush):
+    """The backward kernel's record at mamba2-2.7b's training shape (one
+    microbatch of the train_ssm phase, fp32 as ``mamba2_block`` passes it):
+    its time (the three launches of one call) beside the plain version's,
+    ``torch.autograd.grad`` through ``ssd_ref``; no library call computes an
+    SSD gradient.  The bound: the larger of the bytes moved once (x, dt, A,
+    B, C and dy read; dx, ddt, dA, dB and dC written) over the card's memory
+    rate and the operations over 3xTF32's rate, counted by ``SSD_COUNT_Q``'s
+    convention extended to the products the gradient needs (not the
+    kernel's, which forms dY X^T once in each walk): per (batch, head,
+    sub-chunk of Q rows) two causal Q x Q products over P (dY X^T,
+    (C B^T o L)^T dY) and three over N (C B^T, (dY X^T o L) B,
+    (dY X^T o L)^T C), at Q^2 K FLOP each (half the square), and five of
+    2 Q P N FLOP (dY ST and X^T B of the recomputed state; B R^T, X R and
+    dY^T C of the reverse one): Q^2 (2 P + 3 N) + 10 Q P N."""
+    from repro_torch.kernels import ssd_bwd_ref
+    from repro_torch.kernels import ssd_ref
+    from repro_torch.kernels import ssd_scan_bwd
+    f32 = torch.float32
+    b, s, h, g, p, n, chunk = (SSD_TRAIN_SHAPE[k] for k in ("b", "s", "h", "g", "p", "n",
+                                                              "chunk"))
+    x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, f32)
+    dy = randn(gen, (b, s, h, p), f32)
+    got = ssd_scan_bwd(x, dt, A, B, C, dy)[:5] + (None,)
+    want = ssd_bwd_ref(x, dt, A, B, C, dy)[:5] + (None,)
+    held = check_ssd_grads(got, want, SSD_TOL[f32], "ssd bwd at the training shape")
+    del got, want
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y_ref, _ = ssd_ref(*leaves, chunk)
+
+    def plain_bwd():
+        return torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)
+
+    q = SSD_COUNT_Q
+    n_flops = b * h * (-(-s // q)) * (q * q * (2 * p + 3 * n) + 10 * q * p * n)
+    n_bytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel() + 4 * B.numel())
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_flops / PEAK_FP32_ACCURATE_MMA * 1e3
+    ms = time_ms_events(lambda: ssd_scan_bwd(x, dt, A, B, C, dy), flush)
+    rec = {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        # no Pallas backward exists: the JAX package differentiates the scan
+        # that ssd_kernel computes through ssd_chunked
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
+        "replaces_note": "gradient of ssd_kernel's scan; the JAX package takes it by "
+                         "autodiff of src/repro/models/ssm.py:38 ssd_chunked",
+        "path": "train_ssm",
+        "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
+                  "count_q": q, "dtype": "float32"},
+        "flop": n_flops, "bytes": n_bytes,
+        "max_abs_err": max(e for _, e in held.values()), "tol": SSD_TOL[f32],
+        "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
+                    f"element's row and of its {BWD_TILE}-row tile of its head; dA: the "
+                    f"RMS of dA (ssd_grad_err)",
+        "held": {k: {"worst_ratio": r, "max_abs_err": e} for k, (r, e) in held.items()},
+        "ms": ms, "tflops": n_flops / ms * 1e-9,
+        "plain_ms": time_ms_events(plain_bwd, flush),
+        "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_fma_ms": max(t_bytes, n_flops / PEAK_FLOPS[f32] * 1e3),
+    }
+    del y_ref, leaves
+    return rec
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1332,6 +1593,7 @@ def phase_kernels():
     worst_ssd = check_ssd(gen)
     worst_bwd = check_flash_bwd(gen)
     worst_lse = check_flash_lse(gen)
+    worst_ssd_bwd = check_ssd_bwd(gen)
     check_refused_under_grad(gen)
     records, extra = [], []
     for path in ATTN_SHAPES:
@@ -1343,9 +1605,11 @@ def phase_kernels():
         records += main
         extra += more
     records.append(flash_bwd_record(gen, flush))
+    records.append(ssd_bwd_record(gen, flush))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
          flash_bwd_cases=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
+         ssd_bwd_cases=worst_ssd_bwd,
          tol={str(k): v for k, v in TOL.items()},
          ssd_tol={str(k): v for k, v in SSD_TOL.items()},
          timed=records + extra)
@@ -1483,7 +1747,7 @@ def phase_serve(arch, n_requests, max_new):
         n_attn, n_ssm = 0, cfg.n_layers
     want = {"decode_attention": n_attn * engine.decode_calls,
             "flash_attention": n_requests * n_attn, "flash_attention_bwd": 0,
-            "ssd_scan": n_requests * n_ssm}
+            "ssd_scan": n_requests * n_ssm, "ssd_scan_bwd": 0}
     check(counts == want, f"{arch}: launches {counts}, expected {want} "
           f"({n_requests} prefills, {engine.decode_calls} decode_step calls)")
     check(bool(torch.isfinite(engine.last_logits.float()).all()), "non-finite logits")
@@ -1738,38 +2002,77 @@ def plain_versions():
         layers.flash_attention, layers.decode_attention, ssm.ssd_scan = saved
 
 
+@contextmanager
+def scan_fp64():
+    """The model's SSD scans as the plain chunked scan in float64 (outputs in
+    fp32): a reference whose scan rounds far below fp32's."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models import ssm
+
+    def scan(x, dt, A, B, C, *, chunk=256, initial_state=None):
+        init = initial_state.double() if initial_state is not None else None
+        y, state = ssd_chunked(x.double(), dt.double(), A.double(), B.double(), C.double(),
+                               chunk, initial_state=init)
+        return y.float(), state.float()
+
+    saved = ssm.ssd_scan
+    ssm.ssd_scan = scan
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = saved
+
+
 # ---------------------------------------------------------------------------
-# Training: llama3.2-3b at full width and depth
+# Training: llama3.2-3b and mamba2-2.7b at full width and depth
 TRAIN_STEPS = 6          # the last TRAIN_MB_STEPS with microbatches=2
 TRAIN_MB_STEPS = 2
-TRAIN_PARITY_TOKENS = (2, 64)
 GRAD_TOL = 1e-4          # fp32 gradients, card vs CPU: times the leaf's largest magnitude
 GRAD_SHARE_TOL = 3e-2    # bf16 gradients: share, RMS and cap of |err| / the leaf's largest magnitude
+# each trained path: its phases, the kernels its layers launch (forward,
+# backward), the ops module whose BWD_KERNELS counts the backward's launches
+# a call, its parity phase's tokens (B, S) and whether that phase also
+# round-trips a checkpoint; the leaves whose gradients flow through the SSD
+# backward and must be nonzero on the card
+TRAIN_PATHS = {
+    "llama3.2-3b": dict(phase="train", parity="parity_train", kernels=(
+        "flash_attention", "flash_attention_bwd"),
+        ops="repro_torch.kernels.flash_attention.ops", parity_tokens=(2, 64),
+        checkpoint=True),
+    "mamba2-2.7b": dict(phase="train_ssm", parity="parity_train_ssm", kernels=(
+        "ssd_scan", "ssd_scan_bwd"), ops="repro_torch.kernels.ssd_scan.ops",
+        parity_tokens=(2, 256), checkpoint=False),
+}
+SSD_GRAD_LEAVES = ("w_x", "w_bc", "w_dt", "dt_bias", "a_log", "conv_x_w", "conv_x_b",
+                   "conv_bc_w", "conv_bc_b")
 
 
-def phase_train():
-    """llama3.2-3b trained at full width and depth: bf16 weights from a seeded
+def phase_train(arch):
+    """``arch`` trained at full width and depth: bf16 weights from a seeded
     generator on the card, ``AdamWConfig`` as ``launch/train.py`` builds it,
     ``SyntheticLM`` batches of 8 x 512 tokens, ``remat=True``; TRAIN_STEPS
     steps, the last TRAIN_MB_STEPS with 2 microbatches.  Every loss and
     gradient norm finite, the last loss below the first, and the launch
     counts (set to 0 just before, read just after) exactly as reckoned: each
-    layer's flash forward twice a microbatch (forward, and again under remat)
-    and its backward's BWD_KERNELS kernels once."""
+    layer's forward kernel (flash attention, or the SSD scan) twice a
+    microbatch (forward, and again under remat) and its backward's
+    BWD_KERNELS kernels once; every other kernel never."""
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import launch_counts
-    from repro_torch.kernels.flash_attention.ops import BWD_KERNELS
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import init_params
     from repro_torch.train import AdamWConfig
     from repro_torch.train import init_train_state
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
-    path = PATHS["llama3.2-3b"]
-    cfg = get_arch("llama3.2-3b")
+    path, train = PATHS[arch], TRAIN_PATHS[arch]
+    cfg = get_arch(arch)
     check(tuple(getattr(cfg, k) for k in path["sizes"]) == path["published"],
-          "llama3.2-3b is not at its published size")
+          f"{arch} is not at its published size")
+    if "ssm" in path:
+        check(tuple(getattr(cfg.ssm, k) for k in SSM_SPEC) == path["ssm"],
+              f"{arch}: SSM spec is not published")
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1808,20 +2111,24 @@ def phase_train():
     peak["microbatches_2"] = torch.cuda.max_memory_allocated()
     counts = launch_counts()
     n = cfg.n_layers
-    want = {"decode_attention": 0, "flash_attention": 2 * n * micro,
-            "flash_attention_bwd": BWD_KERNELS * n * micro, "ssd_scan": 0}
-    check(counts == want, f"train: launches {counts}, expected {want} ({micro} microbatches)")
+    fwd, bwd = train["kernels"]
+    want = dict.fromkeys(counts, 0)
+    want[fwd] = 2 * n * micro
+    want[bwd] = importlib.import_module(train["ops"]).BWD_KERNELS * n * micro
+    check(counts == want, f"{train['phase']}: launches {counts}, expected {want} "
+          f"({micro} microbatches)")
     check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
-          "train: a loss or gradient norm is not finite")
-    check(log[-1]["loss"] < log[0]["loss"], f"train: the last loss {log[-1]['loss']:.4f} "
-          f"is not below the first {log[0]['loss']:.4f}")
+          f"{train['phase']}: a loss or gradient norm is not finite")
+    check(log[-1]["loss"] < log[0]["loss"], f"{train['phase']}: the last loss "
+          f"{log[-1]['loss']:.4f} is not below the first {log[0]['loss']:.4f}")
     steady = [r["seconds"] for r in log[1:TRAIN_STEPS - TRAIN_MB_STEPS]]
-    emit("train", arch=cfg.name, n_layers=n, n_params=n_params, dtype="bfloat16",
-         batch=b, seq=s, remat=True, steps=log, seconds=run_s,
+    emit(train["phase"], arch=cfg.name, n_layers=n, d_model=cfg.d_model, n_params=n_params,
+         dtype="bfloat16", batch=b, seq=s, remat=True, steps=log, seconds=run_s,
          seconds_per_step=statistics.median(steady),
          tokens_per_s=b * s / statistics.median(steady),
          # the last step: the first of 2 microbatches allocates their gradient sum
          seconds_per_step_microbatches_2=log[-1]["seconds"],
+         tokens_per_s_microbatches_2=log[-1]["tokens_per_s"],
          launches=counts, init_params_seconds=init_s,
          peak_memory_bytes=max(peak.values()),
          **{f"peak_memory_bytes_{k}": v for k, v in peak.items()})
@@ -1835,7 +2142,7 @@ CKPT_CUT = 1024   # parity_train's checkpoint: each leaf's dims cut to their fir
 
 
 def train_parity_params(cfg2, dev, dtype):
-    """llama3.2-3b's 2-layer cut at full width in ``dtype`` on ``dev``, from
+    """A trained path's 2-layer cut at full width in ``dtype`` on ``dev``, from
     seed 0 (drawn on the card, copied); the bf16 weights are the fp32 ones
     rounded."""
     from repro_torch.models import init_params
@@ -1844,12 +2151,22 @@ def train_parity_params(cfg2, dev, dtype):
     return tree_map(lambda t: t.to(dev), params)
 
 
-def phase_parity_train():
-    """One train step of llama3.2-3b's 2-layer cut at full width on the card
+def phase_parity_train(arch):
+    """One train step of ``arch``'s 2-layer cut at full width on the card
     (kernels) against the same step on the CPU (plain versions), from the
-    same weights and batch (2 x 64 tokens of ``SyntheticLM``): the loss and
-    gradients that ``train_step`` computes (``loss_and_grads``), then
-    ``adamw_update`` on the card.
+    same weights and batch (``SyntheticLM`` tokens: 2 x 64 for llama3.2-3b,
+    2 x 256 for mamba2-2.7b, two SSD chunks): the loss and gradients that
+    ``train_step`` computes (``loss_and_grads``), then ``adamw_update`` on
+    the card.  For mamba2 the leaves whose gradient flows through the SSD
+    backward (``SSD_GRAD_LEAVES``, ``a_log`` among them, fp32 like
+    ``d_skip``) must be nonzero on the card, in both types; and its fp32 CPU
+    run takes the plain scan in float64 (``scan_fp64``): the gradients of
+    a_log, dt_bias and w_dt are sums that cancel, and an fp32 scan, the
+    card's kernel or the CPU's plain one, leaves a_log's about 4.5e-5 of the
+    leaf's scale off a float64 scan on the same inputs (NVIDIA H100 80GB
+    HBM3, 700 W; ``scripts/ssd_bwd_precision.py``), so the two fp32 scans
+    differ by up to twice that, most of it the reference's own rounding.  The
+    card is held to GRAD_TOL against that CPU run.
 
     fp32: the loss, and every gradient leaf elementwise within GRAD_TOL times
     the leaf's largest magnitude.  bf16: the two devices round activations at
@@ -1858,8 +2175,8 @@ def phase_parity_train():
     of its largest magnitude (>= 0.99), the RMS of that relative error
     (<= GRAD_SHARE_TOL / 2) and a cap on it (<= 0.5); the loss within
     LOGIT_TOL.  Updated weights are not compared: Adam's first step turns
-    noise into moves of size lr.  Then the card's bf16 state after the
-    update, each leaf cut to its first CKPT_CUT rows and columns (every key
+    noise into moves of size lr.  Then (llama3.2-3b) the card's bf16 state
+    after the update, each leaf cut to its first CKPT_CUT rows and columns (every key
     and type kept, about 0.2 GB as saved), is checkpointed from the card and
     restored on the CPU, bit-equal."""
     import shutil
@@ -1874,39 +2191,53 @@ def phase_parity_train():
     from repro_torch.tree import flatten_with_keys
     from repro_torch.tree import tree_map
     from repro_torch.tree import unflatten
-    cfg2 = replace(get_arch("llama3.2-3b"), n_layers=2)
-    b, s = TRAIN_PARITY_TOKENS
+    train = TRAIN_PATHS[arch]
+    cfg2 = replace(get_arch(arch), n_layers=2)
+    b, s = train["parity_tokens"]
+    what = train["parity"]
     tokens = SyntheticLM(cfg2.vocab, s, b).batch(0)
     opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
 
-    def grads(dev, dtype):
+    def grads(dev, dtype, fp64_scan=False):
         """(params, gradient tree, loss, {key: gradient on the CPU})."""
         params = train_parity_params(cfg2, dev, dtype)
-        loss, g = loss_and_grads(params, torch.as_tensor(tokens).to(dev, torch.long), cfg2)
+        with scan_fp64() if fp64_scan else nullcontext():
+            loss, g = loss_and_grads(params, torch.as_tensor(tokens).to(dev, torch.long), cfg2)
         g = unflatten(params, g)
         return params, g, float(loss), {k: t.float().cpu() for k, t in flatten_with_keys(g)}
 
+    def flows(g_card, dtype):
+        """The SSD-fed leaves are there and nonzero on the card."""
+        if cfg2.ssm is None:
+            return
+        for leaf in SSD_GRAD_LEAVES:
+            key = f"layers/{leaf}"
+            check(key in g_card and bool((g_card[key] != 0).any()),
+                  f"{what} {dtype}: no gradient reaches {key} on the card")
+
     fields = {}
     _, _, loss_card, g_card = grads("cuda", torch.float32)
-    _, _, loss_cpu, g_cpu = grads("cpu", torch.float32)
+    flows(g_card, "fp32")
+    _, _, loss_cpu, g_cpu = grads("cpu", torch.float32, fp64_scan=cfg2.ssm is not None)
     check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
-          f"train parity fp32: loss {loss_card} vs {loss_cpu}")
-    check(sorted(g_card) == sorted(g_cpu), "train parity: gradient keys differ")
+          f"{what} fp32: loss {loss_card} vs {loss_cpu}")
+    check(sorted(g_card) == sorted(g_cpu), f"{what}: gradient keys differ")
     worst = 0.0
     for key in g_cpu:
         a, r = g_card[key], g_cpu[key]
         scale = float(r.abs().max())
-        check(scale > 0, f"train parity fp32: {key} has a zero gradient on the CPU")
+        check(scale > 0, f"{what} fp32: {key} has a zero gradient on the CPU")
         err = float((a - r).abs().max())
-        check(err <= GRAD_TOL * scale, f"train parity fp32: {key} max abs err {err:.3e} "
+        check(err <= GRAD_TOL * scale, f"{what} fp32: {key} max abs err {err:.3e} "
               f"beyond {GRAD_TOL} x {scale:.3e}")
         worst = max(worst, err / scale)
     fields.update(fp32_loss_card=loss_card, fp32_loss_cpu=loss_cpu,
                   fp32_grad_max_rel_err=worst)
     del g_card, g_cpu
     params, g, loss_card, g_card = grads("cuda", torch.bfloat16)
+    flows(g_card, "bf16")
     _, _, loss_cpu, g_cpu = grads("cpu", torch.bfloat16)
-    check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"train parity bf16: loss {loss_card} vs "
+    check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"{what} bf16: loss {loss_card} vs "
           f"{loss_cpu}")
     shares, rmss, caps = [], [], []
     for key in g_cpu:
@@ -1915,12 +2246,18 @@ def phase_parity_train():
         rmss.append(float(rel.square().mean().sqrt()))
         caps.append(float(rel.max()))
         check(shares[-1] >= 0.99 and rmss[-1] <= GRAD_SHARE_TOL / 2 and caps[-1] <= 0.5,
-              f"train parity bf16: {key} share {shares[-1]:.4f}, RMS {rmss[-1]:.4f}, "
+              f"{what} bf16: {key} share {shares[-1]:.4f}, RMS {rmss[-1]:.4f}, "
               f"cap {caps[-1]:.4f}")
     fields.update(bf16_loss_card=loss_card, bf16_loss_cpu=loss_cpu,
                   bf16_grad_min_share=min(shares), bf16_grad_max_rms=max(rmss),
                   bf16_grad_max_rel_err=max(caps))
     del g_card, g_cpu
+    common = dict(arch=cfg2.name, n_layers=2, tokens=[b, s], grad_tol_fp32=GRAD_TOL,
+                  grad_share_tol_bf16=GRAD_SHARE_TOL, loss_tol_bf16=LOGIT_TOL,
+                  gradient_leaves=len(shares))
+    if not train["checkpoint"]:
+        emit(what, **common, **fields)
+        return
     params, opt_state, _ = adamw_update(opt, params, g, init_opt_state(params))
     del g
     # checkpoint from the card, restore on the CPU
@@ -1944,9 +2281,7 @@ def phase_parity_train():
               f"train parity: checkpoint leaf {key} differs after the round trip")
     ckpt_s = time.time() - t0
     shutil.rmtree(ckpt, ignore_errors=True)
-    emit("parity_train", arch=cfg2.name, n_layers=2, tokens=list(TRAIN_PARITY_TOKENS),
-         grad_tol_fp32=GRAD_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL, loss_tol_bf16=LOGIT_TOL,
-         gradient_leaves=len(shares), checkpoint_leaves=len(got),
+    emit(what, **common, checkpoint_leaves=len(got),
          checkpoint_cut=CKPT_CUT, checkpoint_bytes=sum(
              t.numel() * 4 for _, t in want if isinstance(t, torch.Tensor)),
          checkpoint_seconds=ckpt_s, **fields)
@@ -1987,14 +2322,16 @@ def main() -> None:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    if "train" in phases:
-        counts = phase_train()
-        for rec in records:
-            if rec["path"] == "train":
-                rec["launches"] = counts[rec["name"]]
-                check(rec["launches"] > 0, f"{rec['name']} was not launched by the train run")
-    if "parity_train" in phases:
-        phase_parity_train()
+    for arch, train in TRAIN_PATHS.items():
+        if train["phase"] in phases:
+            counts = phase_train(arch)
+            for rec in records:
+                if rec["path"] == train["phase"]:
+                    rec["launches"] = counts[rec["name"]]
+                    check(rec["launches"] > 0, f"{rec['name']} was not launched by the "
+                          f"{train['phase']} run")
+        if train["parity"] in phases:
+            phase_parity_train(arch)
     complete = set(phases) == set(PHASES)
     if complete:
         check(all("launches" in rec for rec in records), "a kernel has no launch count")

@@ -1,21 +1,24 @@
 #!/usr/bin/env python
 """Where a training step of the PyTorch/CUDA port spends its time on the card.
 
-Builds llama3.2-3b at full width and depth (random bf16 weights, seed 0) and
-the train step of ``chip_smoke.py``'s train phase (``SyntheticLM`` batches of
-8 x 512 tokens, ``remat=True``, one microbatch unless ``--microbatches``),
-runs two steps to warm up, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON object: wall time per step, device-busy
-time and idle share, and device time by kind of kernel: the flash forward
-(the forward and its recomputation under remat: ``flash_mma_lse_kernel``),
-the flash backward (``delta_kernel`` and the dK/dV and dQ kernels), the
-weight products (cuBLAS's GEMM kernels) and everything else (elementwise,
-reductions, the embedding's backward, copies).  Beside it, timed alone with
+Builds ``--arch`` (llama3.2-3b unless given; mamba2-2.7b is the SSM family)
+at full width and depth (random bf16 weights, seed 0) and the train step of
+``chip_smoke.py``'s train phases (``SyntheticLM`` batches of 8 x 512 tokens,
+``remat=True``, one microbatch unless ``--microbatches``), runs two steps to
+warm up, then traces ``--steps`` steps with ``torch.profiler`` and prints one
+JSON object: wall time per step, device-busy time and idle share, and device
+time by kind of kernel: the flash forward (the forward and its recomputation
+under remat: ``flash_mma_lse_kernel``), the flash backward (``delta_kernel``
+and the dK/dV and dQ kernels), the SSD forward and its recomputation
+(``ssd_scan_kernel``), the SSD backward (its forward walk, reverse walk and
+head sums), the weight products (cuBLAS's GEMM kernels) and everything else
+(elementwise, reductions, the embedding's backward, copies).  Beside it, timed alone with
 CUDA events on the same state: ``adamw_update`` on gradients of the
 parameters' shapes, and ``lm_loss`` forward + backward on logits of the
 step's shape.
 
-    python scripts/torch_train_profile.py [--steps 2] [--layers N] [--microbatches 2]
+    python scripts/torch_train_profile.py [--arch mamba2-2.7b] [--steps 2] [--layers N]
+        [--microbatches 2]
 
 Needs one CUDA device and nvcc (the kernels are built at first use).
 """
@@ -50,6 +53,8 @@ from repro_torch.tree import tree_map
 
 KINDS = (("flash_forward", re.compile(r"flash_mma")),
          ("flash_backward", re.compile(r"dkdv_|dq_(mma_)?kernel|delta_kernel")),
+         ("ssd_forward", re.compile(r"ssd_scan_kernel")),
+         ("ssd_backward", re.compile(r"fwd_walk_kernel|rev_walk_kernel|head_sum_kernel")),
          ("weight_products", re.compile(r"gemm|nvjet|xmma|cutlass|s16816|Kernel2")))
 
 
@@ -76,6 +81,7 @@ def events_ms(fn, reps: int = 3) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--layers", type=int, help="cut the depth (default: published)")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -88,7 +94,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    cfg = get_arch("llama3.2-3b")
+    cfg = get_arch(args.arch)
     cfg = replace(cfg, n_layers=args.layers or cfg.n_layers)
     state = init_train_state(init_params(cfg, seed=0, device="cuda"))
     opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=100)

@@ -4,13 +4,22 @@ auto-resume and the straggler watchdog, as the JAX package's
 
 Runs on the card unless ``--device cpu`` is given; there is no fallback.  On
 the card attention's gradient is the hand-written flash backward kernel,
-which takes the dense family (causal, head_dim 64 or 128, no window or
-softcap); another architecture raises there before its first step.
+which takes causal attention at head_dim 64 or 128 with no window or softcap
+(the dense family), and the SSD scan's gradient is the hand-written SSD
+backward kernel, which takes fp32 scans at head_dim 32 or 64 (the SSM
+family, as ``mamba2_block`` passes them).  Another architecture raises
+``NotImplementedError`` in its first step, at the flash backward's check and
+before that kernel launches: the hybrid's shared attention block at head_dim
+112, gemma2's window and softcap, gemma-7b's head_dim 256.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --reduce --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --reduce \\
+        --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
         --steps 100 --batch 8 --seq 512 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --steps 100 --batch 8 --seq 512
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ Shapes: x (B, S, H, P); dt (B, S, H) [post-softplus]; A (H,) negative;
 B/C (B, S, G, N) with H % G == 0.
 
 bf16 rounding follows the JAX package evaluated op by op: softplus is
-``max(x, 0) + log1p(exp(-|x|))`` and silu ``x / (1 + exp(-x))``, each step
-rounded in the activations' type, and the depthwise convolutions sum their
-taps in fp32 and round once.
+``max(x, 0) + log1p(exp(-|x|))`` (its gradient ``g exp(x - softplus(x))``,
+JAX's rule for logaddexp) and silu ``x / (1 + exp(-x))``, each step rounded
+in the activations' type, and the depthwise convolutions sum their taps in
+fp32 and round once.
 """
 
 from __future__ import annotations
@@ -59,10 +60,29 @@ class Mamba2Cache(NamedTuple):
     ssm: torch.Tensor      # (B, H, P, N) fp32
 
 
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus`` as XLA evaluates it, forward and gradient:
+    logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)), and the gradient of
+    logaddexp's own derivative rule, g exp(x - softplus(x)), each step
+    rounded in ``x``'s type.  (Autograd of the forward's steps would give g
+    exp(-|x|) / (1 + exp(-|x|)) for x < 0, whose 1 + exp(-|x|) rounds to 1
+    in bf16, and the reduced mamba2's dt_bias gradient would leave JAX's.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` as XLA evaluates it: logaddexp(x, 0) =
-    max(x, 0) + log1p(exp(-|x|)), each step rounded in ``x``'s type."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus`` as XLA evaluates it (``_Softplus``)."""
+    return _Softplus.apply(x)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -181,3 +181,81 @@ def test_port_checkpoint_restores_into_jax(states, tmp_path):
         np.testing.assert_array_equal(np.asarray(a, ref.dtype), ref, err_msg=k)
     assert int(got[".opt/.step"]) == 7
     assert str(jax.tree.leaves(jstate.params)[0].dtype) == "bfloat16"
+
+
+# ---------------------------------------------------------------------------
+# the SSM family: a mamba2 TrainState across the two packages
+# ---------------------------------------------------------------------------
+SSM_ARCH = "mamba2-2.7b"
+
+
+@pytest.fixture(scope="module")
+def ssm_states():
+    """A JAX and a port ``TrainState`` of the reduced mamba2 (bf16 weights,
+    ``a_log`` and ``d_skip`` fp32, fp32 moments), made, not trained."""
+    rng = np.random.default_rng(1)
+    jparams = jm.init_params(jax_reduce(jax_get_arch(SSM_ARCH)), jax.random.key(0))
+
+    def noise(a):
+        return jnp.asarray(rng.standard_normal(a.shape).astype(np.float32))
+
+    jstate = jt.TrainState(jparams, jt.OptState(jax.tree.map(noise, jparams),
+                                                jax.tree.map(noise, jparams),
+                                                jnp.asarray(3, jnp.int32)))
+    params = tm.init_params(reduce_for_smoke(get_arch(SSM_ARCH)), seed=2, device="cpu")
+
+    def tnoise(t):
+        return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+
+    tstate = tt.TrainState(params, tt.OptState(tree_map(tnoise, params),
+                                               tree_map(tnoise, params),
+                                               torch.tensor(9, dtype=torch.int32)))
+    return jstate, tstate
+
+
+def test_mamba2_state_keys_and_types_match_across_packages(ssm_states, tmp_path):
+    jstate, tstate = ssm_states
+    jm_ = manifest(JaxCheckpointManager(str(tmp_path / "jax")).save(1, jstate))
+    tm_ = manifest(CheckpointManager(str(tmp_path / "torch")).save(1, tstate))
+    assert tm_["keys"] == jm_["keys"]
+    assert tm_["dtypes"] == jm_["dtypes"] and tm_["shapes"] == jm_["shapes"]
+    dtypes = tm_["dtypes"]
+    assert {".params/layers/a_log", ".params/layers/d_skip", ".params/layers/w_bc",
+            ".opt/.m/layers/a_log", ".opt/.step"} <= set(dtypes)
+    assert dtypes[".params/layers/a_log"] == dtypes[".params/layers/d_skip"] == "float32"
+
+
+def test_mamba2_jax_checkpoint_restores_into_the_port(ssm_states, tmp_path):
+    jstate, tstate = ssm_states
+    JaxCheckpointManager(str(tmp_path)).save(4, jstate)
+    step, got = CheckpointManager(str(tmp_path)).restore_latest(tstate)
+    assert step == 4
+    want = jax_leaves(jstate)
+    like = dict(flatten_with_keys(tstate))
+    got = dict(flatten_with_keys(got))
+    assert sorted(got) == sorted(want)
+    for k, t in got.items():
+        assert t.dtype == like[k].dtype and tuple(t.shape) == want[k].shape, k
+        if t.is_floating_point():
+            np.testing.assert_array_equal(t.float().numpy(), want[k].astype(np.float32),
+                                          err_msg=k)
+    assert got[".params/layers/a_log"].dtype == got[".params/layers/d_skip"].dtype == \
+        torch.float32
+    assert got[".params/layers/w_x"].dtype == torch.bfloat16
+    assert int(got[".opt/.step"]) == 3
+
+
+def test_mamba2_port_checkpoint_restores_into_jax(ssm_states, tmp_path):
+    jstate, tstate = ssm_states
+    CheckpointManager(str(tmp_path)).save(6, tstate)
+    step, got = JaxCheckpointManager(str(tmp_path)).restore_latest(jstate)
+    assert step == 6
+    got = jax_leaves(got)
+    want = dict(flatten_with_keys(tstate))
+    assert sorted(got) == sorted(want)
+    for k, a in got.items():
+        t = want[k]
+        ref = t.float().numpy() if t.is_floating_point() else t.numpy()
+        np.testing.assert_array_equal(np.asarray(a, ref.dtype), ref, err_msg=k)
+    assert str(got[".params/layers/a_log"].dtype) == "float32"
+    assert int(got[".opt/.step"]) == 9

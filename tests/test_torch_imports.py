@@ -24,7 +24,7 @@ def _run(code: str) -> subprocess.CompletedProcess:
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.kernels", "repro_torch.convert", "repro_torch.models.moe", "chip_smoke",
     "repro_torch.train", "repro_torch.data", "repro_torch.checkpoint",
-    "repro_torch.launch.train"])
+    "repro_torch.launch.train", "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"
@@ -60,6 +60,16 @@ def test_port_sources_do_not_call_library_attention():
         assert "torch.compile" not in text, path
 
 
+@pytest.mark.parametrize("module", ["flash_attention", "ssd_scan"])
+def test_backward_wrappers_compute_no_product_themselves(module):
+    """The wrappers that tie a forward kernel to its backward kernel
+    (``FlashAttentionFn``, ``SSDScanFn``) hand every product of the
+    attention or the scan to the kernels: no library product in them."""
+    text = (REPO / "src" / "repro_torch" / "kernels" / module / "ops.py").read_text()
+    for call in ("torch.matmul", "einsum", "bmm", "torch.compile", "@ ", "autograd.grad"):
+        assert call not in text, f"{module}/ops.py: {call}"
+
+
 def test_chip_smoke_fails_without_a_card():
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -71,5 +81,5 @@ def test_cuda_sources_are_in_the_tree():
     from repro_torch.kernels import build
     names = [p.name for p in build.sources()]
     assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "ssd_scan.cu"]
+                     "ssd_scan.cu", "ssd_scan_bwd.cu"]
     assert not build.kernels_built()          # nothing is built at import time

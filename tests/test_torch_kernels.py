@@ -321,7 +321,7 @@ def test_cpu_calls_launch_no_kernel():
     flash_attention(q, q, q)
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
     assert launch_counts() == {"decode_attention": 0, "flash_attention": 0,
-                               "flash_attention_bwd": 0, "ssd_scan": 0}
+                               "flash_attention_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert not kernels_built()
 
 
