@@ -24,10 +24,11 @@ run with a non-zero exit code:
             yardstick only: the port never calls it; none exists for the SSD
             scan) and the card's bound for the same work.  The flash backward
             (training) against its plain version over both types, head sizes
-            64 and 128, GQA groups 1–8 and lengths 17–1024; the forward's
+            64, 112 and 128, GQA groups 1–8 and lengths 17–1024; the forward's
             per-row LSE against the plain one, O unchanged by it and the LSE
             bit-identical across splits; calls without a backward kernel
-            refused under grad; the backward timed at llama's training shape.
+            refused under grad; the backward timed at the training shapes of
+            llama3.2-3b, zamba2-7b (head_dim 112) and deepseek-moe-16b.
             The backward is held elementwise on each gradient row's and
             64-row tile's scale (``grad_err``), which planted faults must
             fail.  The SSD backward (training) against its plain version
@@ -35,8 +36,8 @@ run with a non-zero exit code:
             SSD cases' fp32 shapes, with and without an initial state and a
             final-state gradient, and on strided views through
             ``SSDScanFn``, by the same rule at 1e-4 (``ssd_grad_err``),
-            which planted faults must fail; timed at mamba2's training
-            shape.
+            which planted faults must fail; timed at the training shapes of
+            mamba2-2.7b and zamba2-7b.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -64,7 +65,9 @@ run with a non-zero exit code:
             ``ServeEngine(max_batch=8, max_seq=2048)``: 8 requests drawn as in
             4, 32 new tokens each; counts as in 4.
 11. parity_moe  its cut to the dense layer and one MoE layer: prefill of
-            2 x 64 tokens + 4 decode steps, card against CPU.
+            2 x 64 tokens + 4 decode steps, card against CPU; the card's
+            router logits against the CPU's fp32 product on the same tokens,
+            which a router planted in bf16 must fail.
 12. serve_gemma2   gemma2-27b at full width and depth (46 layers alternating a
             local layer, window 4096, with a global one; attention softcap
             50, final softcap 30, score scale 144^-0.5; bf16, seeded random
@@ -99,7 +102,26 @@ run with a non-zero exit code:
 19. parity_train_ssm  one train step of its 2-layer cut at full width, 2 x
             256 tokens (two SSD chunks), card against CPU as in 17 (the
             CPU's fp32 scan in float64), without the checkpoint; every
-            leaf fed through the SSD backward nonzero on the card.
+            gradient leaf nonzero on the card (so in 17, 21 and 23 too).
+20. train_hybrid   zamba2-7b trained at full width and a cut depth (45
+            layers: 7 groups of 6 Mamba2 layers, each followed by the shared
+            attention block at head_dim 112, and a tail of 3; 81 do not fit
+            one card with Adam's state), as in 16 at a peak learning rate
+            of 1e-4 (``TRAIN_PATHS``): the flash forward twice
+            and its backward once an application of the shared block, the
+            SSD forward twice and its backward once a Mamba2 layer, each a
+            microbatch.
+21. parity_train_hybrid  one train step of its cut to one group of 2 Mamba2
+            layers, the shared block and a tail of 1, 2 x 256 tokens, card
+            against CPU as in 19.
+22. train_moe   deepseek-moe-16b trained at full width and a cut depth (7
+            layers: the dense layer and 6 MoE layers; 28 do not fit), as in
+            20, tokens dropped at the published capacity factor 1.25.
+23. parity_train_moe  one train step of its cut to the dense layer and one
+            MoE layer, 2 x 64 tokens, which drop at the capacity: card against
+            CPU as in 17 without the checkpoint, the CPU following the card's
+            expert choices, the tokens each side dropped counted and the
+            router logits held as in 11.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -108,8 +130,8 @@ every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backwards': of their train phases).  The
-whole run takes about 5 minutes of command time on an H100, the build's 36
-to 43 seconds included.
+whole run takes about 6 minutes of command time on an H100, the build's 30
+to 45 seconds included.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
@@ -119,11 +141,11 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+from contextlib import ExitStack
 from contextlib import contextmanager
 from contextlib import nullcontext
 from dataclasses import replace
 import gc
-import importlib
 import json
 from pathlib import Path
 import re
@@ -189,10 +211,14 @@ LOGIT_TOL = 3e-2                                     # bf16 model logits: rtol =
 # would route otherwise must be near-ties, and few (phase_parity)
 ROUTER_NEAR_TIE = 2e-3
 ROUTER_MAX_FLIPS = 0.1
+# the card's router logits against the CPU's fp32 product on the same tokens
+# and weights: times their largest magnitude (router_log)
+ROUTER_LOGIT_TOL = 1e-4
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
           "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
-          "train_ssm", "parity_train_ssm")
+          "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
+          "parity_train_moe")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -331,6 +357,7 @@ def phase_build(build_log):
     emit("build", seconds=round(time.time() - t0, 2),
          sources=[p.name for p in build.sources()],
          library=Path(str(build.build_info["path"])).name, **extra)
+    return extra.get("ptxas")
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +397,12 @@ def decode_cases():
         (8, 2048, 16, 16, 128, bf, main_lens),
         (8, 2048, 16, 16, 128, f32, main_lens),
         (8, 2048, 16, 16, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),
+        # qwen2-vl-7b (28 / 4 heads of 128: GQA group 7) and musicgen-large
+        # (MHA, 32 heads of 64)
+        (8, 2048, 28, 4, 128, bf, main_lens),
+        (8, 2048, 28, 4, 128, f32, main_lens),
+        (8, 2048, 32, 32, 64, bf, main_lens),
+        (8, 2048, 32, 32, 64, f32, main_lens),
     ] + gemma2_decode_cases() + gemma7b_decode_cases()
 
 
@@ -547,12 +580,15 @@ def flash_cases():
             fit = pin_fit(112, dtype)
             for pinned in sorted({0, 64 if s >= 64 else s, s if s <= fit else fit}):
                 cases.append((1, s, s, 32, 32, 112, True, None, pinned, dtype, None))
-    # deepseek-moe-16b: MHA, 16 heads of 128, causal prompts with the planner's pins
-    for s in (17, 1000, 1024):
-        for dtype in (bf, f32):
-            fit = pin_fit(128, dtype)
-            for pinned in sorted({0, s if s <= fit else fit}):
-                cases.append((1, s, s, 16, 16, 128, True, None, pinned, dtype, None))
+    # deepseek-moe-16b (MHA, 16 heads of 128), qwen2-vl-7b (28 / 4 heads of 128:
+    # GQA group 7, seven warps of 16 rows a block) and musicgen-large (MHA, 32
+    # heads of 64): causal prompts with the planner's pins
+    for h, g, d in ((16, 16, 128), (28, 4, 128), (32, 32, 64)):
+        for s in (17, 1000, 1024):
+            for dtype in (bf, f32):
+                fit = pin_fit(d, dtype)
+                for pinned in sorted({0, s if s <= fit else fit}):
+                    cases.append((1, s, s, h, g, d, True, None, pinned, dtype, None))
     cases += [
         (1, 300, 300, 8, 2, 112, True, 50.0, 300, bf, 2),
         (2, 257, 257, 16, 4, 112, True, None, 256, bf, 3),
@@ -994,6 +1030,11 @@ def time_ssd(gen, flush, path):
 # ---------------------------------------------------------------------------
 # the flash-attention backward kernel (training) and the forward's LSE
 TRAIN_SHAPE = dict(b=8, s=512, h=24, g=8, d=128)   # llama3.2-3b's train phase, one microbatch
+# the attention of each train phase's microbatch, as the backward sees it:
+# llama3.2-3b, zamba2-7b's shared block at head_dim 112, deepseek-moe-16b
+BWD_SHAPES = {"train": TRAIN_SHAPE,
+              "train_hybrid": dict(b=8, s=512, h=32, g=32, d=112),
+              "train_moe": dict(b=8, s=512, h=16, g=16, d=128)}
 
 
 def close_scaled(out, ref, tol, what):
@@ -1008,6 +1049,7 @@ def close_scaled(out, ref, tol, what):
 
 
 BWD_TILE = 64   # rows of the backward kernel's Q and KV tiles
+BWD_GROUPS = ((4, 4), (4, 2), (6, 2), (8, 2), (16, 2))   # (H, G) of the backward's cases
 
 
 def grad_scale(ref):
@@ -1097,14 +1139,20 @@ def check_faults_rejected(q, k, v, o, lse, do, got, want, tol, what):
 
 
 def flash_bwd_cases():
-    """(B, S, H, G, D, dtype): both types, D 64 and 128, GQA groups 1, 2, 3,
-    4 and 8, lengths 17, 64, 100, 1000 and 1024 (ragged, one tile, many)."""
+    """(B, S, H, G, D, dtype): both types; D 64 and 128 at GQA groups 1, 2,
+    3, 4 and 8, and D 112 (zamba2-7b's shared block) at groups 1 and 2, at
+    lengths 17, 64, 100, 1000 and 1024 (ragged, one tile, many); qwen2-vl-7b's
+    heads (28 / 4 of 128: group 7) and musicgen-large's (MHA, 32 of 64) at
+    100 and 1000."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (64, 128):
-            for h, g in ((4, 4), (4, 2), (6, 2), (8, 2), (16, 2)):
+        for d, groups in ((64, BWD_GROUPS), (128, BWD_GROUPS), (112, ((4, 4), (4, 2)))):
+            for h, g in groups:
                 for i, s in enumerate((17, 64, 100, 1000, 1024)):
                     cases.append((1 + i % 2, s, h, g, d, dtype))
+        for h, g, d in ((28, 4, 128), (32, 32, 64)):
+            for i, s in enumerate((100, 1000)):
+                cases.append((1 + i % 2, s, h, g, d, dtype))
     return cases
 
 
@@ -1124,9 +1172,9 @@ def flash_lse(q, k, v, *, scale=None, softcap=None, window=None, pinned_rows=0,
 def check_flash_bwd(gen):
     """The backward kernel against ``attention_bwd_ref`` on the same inputs
     (the forward kernel's own O and LSE), each gradient by ``grad_err`` at
-    ``TOL`` of the dtype; at S 1000 and GQA groups of 3 and 8 the faults of
-    ``bwd_faults`` planted in the kernel's dK and dV must fail the same
-    rule.  Returns, for each dtype, the worst ratio (<= 1), the largest
+    ``TOL`` of the dtype; at S 1000, at GQA groups of 3, 7 and 8 and at
+    head_dim 112, the faults of ``bwd_faults`` planted in the kernel's dK and
+    dV must fail the same rule.  Returns, for each dtype, the worst ratio (<= 1), the largest
     absolute error and the smallest ratio of a planted fault (> 1)."""
     from repro_torch.kernels import attention_bwd_ref
     from repro_torch.kernels import flash_attention_bwd
@@ -1147,7 +1195,7 @@ def check_flash_bwd(gen):
             check(a.dtype == dtype and a.shape == r.shape, f"flash bwd {case}: {name} type")
             ratio, err, _ = close_grad(a, r, TOL[dtype], f"flash bwd {case} {name}")
             w["ratio"], w["max_abs_err"] = max(w["ratio"], ratio), max(w["max_abs_err"], err)
-        if s == 1000 and h // g in (3, 8):
+        if s == 1000 and (h // g in (3, 7, 8) or d == 112):
             w["fault_min_ratio"] = min(w["fault_min_ratio"], check_faults_rejected(
                 q, k, v, o, lse, do, got, want, TOL[dtype], f"flash bwd {case}"))
     return worst
@@ -1168,7 +1216,14 @@ def check_flash_lse(gen):
                  (1, 100, 8, 8, 112, torch.bfloat16, 100, None, None),
                  (1, 300, 16, 16, 256, torch.bfloat16, 64, 63, 50.0),
                  (1, 300, 32, 16, 128, torch.float32, 0, 64, 50.0),
-                 (1, 17, 4, 1, 64, torch.float32, 17, None, None)]:
+                 (1, 17, 4, 1, 64, torch.float32, 17, None, None),
+                 # zamba2-7b's shared block in fp32 (D 112), qwen2-vl-7b's
+                 # group 7 and musicgen-large's MHA at D 64, both types
+                 (1, 300, 32, 32, 112, torch.float32, 0, None, None),
+                 (1, 1000, 28, 4, 128, torch.bfloat16, 64, None, None),
+                 (1, 300, 28, 4, 128, torch.float32, 0, None, None),
+                 (1, 1000, 32, 32, 64, torch.bfloat16, 64, None, None),
+                 (1, 300, 32, 32, 64, torch.float32, 64, None, None)]:
         b, s, h, g, d, dtype, pinned, window, softcap = case
         kw = dict(window=window, softcap=softcap, scale=GEMMA2_SCALE if window else None)
         q = randn(gen, (b, s, h, d), dtype)
@@ -1210,8 +1265,10 @@ def not_implemented(fn, what):
 def check_refused_under_grad(gen):
     """A CUDA tensor that autograd would differentiate is refused where no
     backward kernel exists: decode attention, the SSD scan in bf16, and flash
-    attention with a window, a softcap or head_dim 112; without grad the
-    same calls run.  An fp32 SSD scan under grad goes through ``SSDScanFn``."""
+    attention with a window (at head_dim 128 and 112), a softcap or head_dim
+    256; without grad the same calls run.  An fp32 SSD scan under grad goes
+    through ``SSDScanFn``, flash attention at head_dim 112 through
+    ``FlashAttentionFn``."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import ssd_scan
@@ -1227,7 +1284,8 @@ def check_refused_under_grad(gen):
     y, _ = ssd_scan(x32, dt, A, B.float(), C.float(), chunk=64)
     check(type(y.grad_fn).__name__ == "SSDScanFnBackward",
           f"fp32 ssd_scan under grad: grad_fn {type(y.grad_fn).__name__}")
-    for d, kw in ((128, dict(window=64)), (128, dict(softcap=50.0)), (112, {}), (256, {})):
+    for d, kw in ((128, dict(window=64)), (128, dict(softcap=50.0)), (112, dict(window=64)),
+                  (256, {})):
         qf = randn(gen, (1, 128, 4, d), bf).requires_grad_()
         kf = randn(gen, (1, 128, 2, d), bf)
         not_implemented(lambda: flash_attention(qf, kf, kf, **kw),
@@ -1236,6 +1294,11 @@ def check_refused_under_grad(gen):
         decode_attention(q, k, k, cl)
         ssd_scan(x, dt, A, B, C, chunk=64)
         flash_attention(qf, kf, kf)
+    q112 = randn(gen, (1, 128, 4, 112), bf).requires_grad_()
+    k112 = randn(gen, (1, 128, 2, 112), bf)
+    o = flash_attention(q112, k112, k112)
+    check(type(o.grad_fn).__name__ == "FlashAttentionFnBackward",
+          f"flash_attention at D 112 under grad: grad_fn {type(o.grad_fn).__name__}")
     torch.cuda.synchronize()
 
 
@@ -1262,9 +1325,9 @@ def time_ms_events(fn, flush, iters=10):
     return statistics.median(runs) / iters
 
 
-def flash_bwd_record(gen, flush):
-    """The backward kernel's record at llama3.2-3b's training shape (one
-    microbatch of the train phase, bf16, causal): its time (the three
+def flash_bwd_record(gen, flush, path, ptxas=None):
+    """The backward kernel's record at the training shape of the train phase
+    ``path`` (one microbatch, ``BWD_SHAPES``, bf16, causal): its time (the three
     launches of one call) beside the plain version's and one library call's,
     ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (a
     yardstick only: the port never calls it), and the bound: the larger of
@@ -1274,13 +1337,15 @@ def flash_bwd_record(gen, flush):
     (row, column) pair of each query head.  Also the forward's time with and
     without the LSE at this shape, beside its plain version (with the LSE),
     the library's causal call and its bound (two products a visible pair;
-    q, k, v read, o and the LSE written)."""
+    q, k, v read, o and the LSE written).  With the build's ``ptxas`` map
+    (``--build-log``), the registers and spills of the bf16 kernels at this
+    head_dim."""
     from repro_torch.kernels import attention_bwd_ref
     from repro_torch.kernels import attention_ref
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import flash_attention_bwd
     bf = torch.bfloat16
-    b, s, h, g, d = (TRAIN_SHAPE[k] for k in ("b", "s", "h", "g", "d"))
+    b, s, h, g, d = (BWD_SHAPES[path][k] for k in ("b", "s", "h", "g", "d"))
     q = randn(gen, (b, s, h, d), bf)
     k = randn(gen, (b, s, g, d), bf)
     v = randn(gen, (b, s, g, d), bf)
@@ -1318,9 +1383,11 @@ def flash_bwd_record(gen, flush):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
         "replaces_note": "gradient of flash_kernel's attention; the JAX package takes it "
                          "by autodiff of src/repro/models/layers.py:124 gqa_attention",
-        "path": "train",
+        "path": path,
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "causal": True, "visible_pairs": n_seen},
+        **kernel_usage(ptxas, (f"delta_kernel<13__nv_bfloat16Li{d}>", f"dkdv_mma_kernel<Li{d}>",
+                               f"dq_mma_kernel<Li{d}>")),
         "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
         "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
                     f"element's row and of its {BWD_TILE}-row tile of its head (grad_err)",
@@ -1343,10 +1410,21 @@ def flash_bwd_record(gen, flush):
     }
 
 
+def kernel_usage(ptxas, names):
+    """{"ptxas": {kernel: registers and spills}} of the kernels named in
+    ``names`` (as ``kernel_name`` prints them), from the build's map; {}
+    without one."""
+    if not ptxas:
+        return {}
+    return {"ptxas": {k: v for k, v in ptxas.items() if k in names}}
+
+
 # ---------------------------------------------------------------------------
 # the SSD scan's backward kernel (training)
-# mamba2-2.7b's train_ssm phase, one microbatch
+# the SSD scans of each train phase's microbatch: mamba2-2.7b, zamba2-7b
 SSD_TRAIN_SHAPE = dict(b=8, s=512, h=80, g=1, p=64, n=128, chunk=256)
+SSD_BWD_SHAPES = {"train_ssm": SSD_TRAIN_SHAPE,
+                  "train_hybrid": dict(b=8, s=512, h=112, g=1, p=64, n=64, chunk=256)}
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 
 
@@ -1517,9 +1595,10 @@ def check_ssd_bwd(gen):
     return worst
 
 
-def ssd_bwd_record(gen, flush):
-    """The backward kernel's record at mamba2-2.7b's training shape (one
-    microbatch of the train_ssm phase, fp32 as ``mamba2_block`` passes it):
+def ssd_bwd_record(gen, flush, path, ptxas=None):
+    """The backward kernel's record at the training shape of the train phase
+    ``path`` (one microbatch, ``SSD_BWD_SHAPES``, fp32 as ``mamba2_block``
+    passes it), with its kernels' registers where ``ptxas`` is given:
     its time (the three launches of one call) beside the plain version's,
     ``torch.autograd.grad`` through ``ssd_ref``; no library call computes an
     SSD gradient.  The bound: the larger of the bytes moved once (x, dt, A,
@@ -1536,8 +1615,8 @@ def ssd_bwd_record(gen, flush):
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan_bwd
     f32 = torch.float32
-    b, s, h, g, p, n, chunk = (SSD_TRAIN_SHAPE[k] for k in ("b", "s", "h", "g", "p", "n",
-                                                              "chunk"))
+    b, s, h, g, p, n, chunk = (SSD_BWD_SHAPES[path][k] for k in ("b", "s", "h", "g", "p", "n",
+                                                                  "chunk"))
     x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, f32)
     dy = randn(gen, (b, s, h, p), f32)
     got = ssd_scan_bwd(x, dt, A, B, C, dy)[:5] + (None,)
@@ -1564,9 +1643,10 @@ def ssd_bwd_record(gen, flush):
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:28",
         "replaces_note": "gradient of ssd_kernel's scan; the JAX package takes it by "
                          "autodiff of src/repro/models/ssm.py:38 ssd_chunked",
-        "path": "train_ssm",
+        "path": path,
         "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
                   "count_q": q, "dtype": "float32"},
+        **kernel_usage(ptxas, (f"fwd_walk_kernel<Li{p}ELi{n}>", f"rev_walk_kernel<Li{p}ELi{n}>")),
         "flop": n_flops, "bytes": n_bytes,
         "max_abs_err": max(e for _, e in held.values()), "tol": SSD_TOL[f32],
         "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
@@ -1584,7 +1664,7 @@ def ssd_bwd_record(gen, flush):
     return rec
 
 
-def phase_kernels():
+def phase_kernels(ptxas=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1604,8 +1684,10 @@ def phase_kernels():
         main, more = time_ssd(gen, flush, path)
         records += main
         extra += more
-    records.append(flash_bwd_record(gen, flush))
-    records.append(ssd_bwd_record(gen, flush))
+    for path in BWD_SHAPES:
+        records.append(flash_bwd_record(gen, flush, path, ptxas))
+    for path in SSD_BWD_SHAPES:
+        records.append(ssd_bwd_record(gen, flush, path, ptxas))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
          flash_bwd_cases=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
@@ -1683,19 +1765,22 @@ PATHS = {
 }
 
 
-def phase_serve(arch, n_requests, max_new):
-    """Serve ``n_requests`` through the engine at the published size, with the
-    launch counts set to 0 just before and read just after."""
-    from repro_torch.configs import get_arch
+def kernel_layers(cfg):
+    """(attention layers, Mamba2 layers) of a model: dense and MoE layers
+    alike are attention layers; a hybrid's are the applications of its
+    shared block."""
     from repro_torch.configs import HYBRID
     from repro_torch.configs import SSM
-    from repro_torch.kernels import launch_counts
-    from repro_torch.kernels import reset_launch_counts
-    from repro_torch.models import init_params
-    from repro_torch.serve import Request
-    from repro_torch.serve import ServeEngine
+    if cfg.family == HYBRID:
+        return cfg.n_layers // cfg.hybrid_period, cfg.n_layers
+    if cfg.family == SSM:
+        return 0, cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def check_published(arch, cfg):
+    """``cfg`` is ``arch``'s published configuration (``PATHS``)."""
     path = PATHS[arch]
-    cfg = get_arch(arch)
     check(tuple(getattr(cfg, k) for k in path["sizes"]) == path["published"],
           f"{arch} is not at its published size")
     if "ssm" in path:
@@ -1704,6 +1789,20 @@ def phase_serve(arch, n_requests, max_new):
     if "moe" in path:
         check(tuple(getattr(cfg.moe, k) for k in MOE_SPEC) == path["moe"],
               f"{arch}: MoE spec is not published")
+
+
+def phase_serve(arch, n_requests, max_new):
+    """Serve ``n_requests`` through the engine at the published size, with the
+    launch counts set to 0 just before and read just after."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request
+    from repro_torch.serve import ServeEngine
+    path = PATHS[arch]
+    cfg = get_arch(arch)
+    check_published(arch, cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params = init_params(cfg, seed=0, device="cuda")
@@ -1737,14 +1836,8 @@ def phase_serve(arch, n_requests, max_new):
     check(engine._tmu.live_tiles == 0, "TMU still tracks live slots")
     check(engine.prefill_calls == n_requests, "prefill calls != requests")
     check(engine.decode_calls > 0, "no decode_step call")
-    # attention layers (dense and MoE layers alike; a hybrid: applications of
-    # its shared block) and Mamba2 layers; every prompt has 3 tokens or more,
-    # so each prefill scans
-    n_attn, n_ssm = cfg.n_layers, 0
-    if cfg.family == HYBRID:
-        n_attn, n_ssm = cfg.n_layers // cfg.hybrid_period, cfg.n_layers
-    elif cfg.family == SSM:
-        n_attn, n_ssm = 0, cfg.n_layers
+    # every prompt has 3 tokens or more, so each prefill scans
+    n_attn, n_ssm = kernel_layers(cfg)
     want = {"decode_attention": n_attn * engine.decode_calls,
             "flash_attention": n_requests * n_attn, "flash_attention_bwd": 0,
             "ssd_scan": n_requests * n_ssm, "ssd_scan_bwd": 0}
@@ -1848,6 +1941,16 @@ def router_flips(routes):
                                             and gap <= ROUTER_NEAR_TIE))
 
 
+def check_near_ties(routes, what):
+    """``router_flips``, after checking that they are a few near-ties."""
+    flips = router_flips(routes)
+    check(flips.pop("near_ties"), f"{what}: the CPU would route "
+          f"{flips['tokens_routed_otherwise_on_cpu']} of {flips['tokens_routed']} "
+          f"tokens otherwise, giving up {flips['largest_gap']:.2e} of probability "
+          "at most: not a few near-ties")
+    return flips
+
+
 def phase_parity(arch, cfg, params):
     """Prefill + 4 decode steps of a cut of the served weights (2 layers; for
     the hybrid one group and one tail layer; for the MoE its dense layer and
@@ -1885,10 +1988,17 @@ def phase_parity(arch, cfg, params):
     ``ROUTER_NEAR_TIE`` in probability, in at most ``ROUTER_MAX_FLIPS`` of
     the tokens routed (``scripts/moe_router_flips.py`` reads both over
     several weight draws and planted router faults).  The fp32 runs route on
-    their own."""
+    their own.  What following would hide, a router that is wrong on the
+    card, a router check sees: the card's router logits (``router_log``, in
+    both types) must agree with the CPU's fp32 product on the same tokens and
+    weights within ROUTER_LOGIT_TOL of their largest magnitude, and a router
+    planted in bf16 (``bf16_router``) must fail that."""
     from repro_torch.configs import MOE
     path = PATHS[arch]
-    card = parity_logits(arch, cfg, params, "cuda", torch.float32)
+    moe = cfg.family == MOE
+    calls = {"fp32": [], "bf16": []}   # the card's router calls (a MoE path)
+    with router_log(calls["fp32"]) if moe else nullcontext():
+        card = parity_logits(arch, cfg, params, "cuda", torch.float32)
     cpu = parity_logits(arch, cfg, params, "cpu", torch.float32)
     check(card.shape == (5, 2, cfg.vocab), "parity: wrong logits shape")
     err32 = close(card, cpu, LOGIT_TOL, f"{arch} parity fp32: card vs CPU logits")
@@ -1905,8 +2015,9 @@ def phase_parity(arch, cfg, params):
               "greedy token differs at a clear margin")
         return got
 
-    routes = {} if cfg.family == MOE else None
-    card = parity_logits(arch, cfg, params, "cuda", torch.bfloat16, routes=routes)
+    routes = {} if moe else None
+    with router_log(calls["bf16"]) if moe else nullcontext():
+        card = parity_logits(arch, cfg, params, "cuda", torch.bfloat16, routes=routes)
     cpu = parity_logits(arch, cfg, params, "cpu", torch.bfloat16, routes=routes)
     check(bool(torch.isfinite(card).all()), "parity bf16: non-finite logits")
     cross = path.get("bf16_cross_device", True)
@@ -1915,12 +2026,19 @@ def phase_parity(arch, cfg, params):
         fields["bf16_card_plain"] = held(
             card, parity_logits(arch, cfg, params, "cuda", torch.bfloat16, plain=True),
             "card kernels vs card plain versions")
-    if routes is not None:
-        fields["router_bf16"] = flips = router_flips(routes)
-        check(flips.pop("near_ties"), f"{arch} parity bf16: the CPU would route "
-              f"{flips['tokens_routed_otherwise_on_cpu']} of {flips['tokens_routed']} "
-              f"tokens otherwise, giving up {flips['largest_gap']:.2e} of probability "
-              "at most: not a few near-ties")
+    if moe:
+        fields["router_bf16"] = check_near_ties(routes, f"{arch} parity bf16")
+        fields["router_logits"] = {
+            f"{k}_max_rel_err": check_router_logits(v, f"{arch} parity {k}")
+            for k, v in calls.items()}
+        # the planted fault: a router computed from bf16 operands on the card
+        planted = []
+        with bf16_router(), router_log(planted):
+            parity_logits(arch, cfg, params, "cuda", torch.bfloat16)
+        err = router_logit_err(planted)
+        check(err > ROUTER_LOGIT_TOL, f"{arch} parity: a bf16 router on the card passes the "
+              f"router-logit check ({err:.3e} of the scale)")
+        fields["router_logits"]["planted_bf16_router_max_rel_err"] = err
     emit(path["parity"], arch=cfg.name, n_layers=path["parity_layers"],
          changed=path.get("parity_changes", {}),
          calls=f"prefill(2x{parity_prompt_len(arch, cfg)}) + 4 decode steps",
@@ -1969,6 +2087,78 @@ def routing(routes):
     finally:
         moe._route = real
     check(first or seen[0] == len(calls), "routing: the runs routed different calls")
+
+
+@contextmanager
+def router_log(calls):
+    """A MoE model's router logits, each call's (tokens, router weights,
+    logits) appended to ``calls`` on the CPU."""
+    from repro_torch.models import moe
+    real = moe._router_logits
+
+    def logits(xt, w_gate):
+        out = real(xt, w_gate)
+        calls.append(tuple(t.detach().float().cpu() for t in (xt, w_gate, out)))
+        return out
+
+    moe._router_logits = logits
+    try:
+        yield
+    finally:
+        moe._router_logits = real
+
+
+@contextmanager
+def bf16_router():
+    """A planted fault: the card computes the router's logits from bf16
+    operands, as a router that is not kept in fp32 would."""
+    from repro_torch.models import moe
+    real = moe._router_logits
+    moe._router_logits = lambda xt, w_gate: torch.matmul(xt.bfloat16(),
+                                                         w_gate.bfloat16()).float()
+    try:
+        yield
+    finally:
+        moe._router_logits = real
+
+
+def router_logit_err(calls):
+    """The worst error of the card's router logits in ``calls``
+    (``router_log``) against the same product on the CPU in fp32 on the
+    same tokens and weights, over each call's largest logit."""
+    worst = 0.0
+    for xt, w_gate, got in calls:
+        want = torch.matmul(xt, w_gate)
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    return worst
+
+
+def check_router_logits(calls, what):
+    """Every router call of ``calls`` within ROUTER_LOGIT_TOL; the worst."""
+    check(len(calls) > 0, f"{what}: no router call was recorded")
+    worst = router_logit_err(calls)
+    check(worst <= ROUTER_LOGIT_TOL, f"{what}: the card's router logits are {worst:.3e} "
+          f"of their scale off the CPU's fp32 product (tol {ROUTER_LOGIT_TOL})")
+    return worst
+
+
+@contextmanager
+def dropped(counts):
+    """Tokens dropped at the experts' capacity: each ``_slots`` call appends
+    the (token, expert) choices that found no slot to ``counts``."""
+    from repro_torch.models import moe
+    real = moe._slots
+
+    def slots(w, idx, n_experts, capacity):
+        tok_ids, valid, gw = real(w, idx, n_experts, capacity)
+        counts.append(int(idx.numel()) - int(valid.sum()))
+        return tok_ids, valid, gw
+
+    moe._slots = slots
+    try:
+        yield
+    finally:
+        moe._slots = real
 
 
 @contextmanager
@@ -2024,39 +2214,70 @@ def scan_fp64():
 
 
 # ---------------------------------------------------------------------------
-# Training: llama3.2-3b and mamba2-2.7b at full width and depth
+# Training: llama3.2-3b and mamba2-2.7b at full width and depth; zamba2-7b
+# and deepseek-moe-16b at full width and a cut depth
 TRAIN_STEPS = 6          # the last TRAIN_MB_STEPS with microbatches=2
 TRAIN_MB_STEPS = 2
 GRAD_TOL = 1e-4          # fp32 gradients, card vs CPU: times the leaf's largest magnitude
 GRAD_SHARE_TOL = 3e-2    # bf16 gradients: share, RMS and cap of |err| / the leaf's largest magnitude
-# each trained path: its phases, the kernels its layers launch (forward,
-# backward), the ops module whose BWD_KERNELS counts the backward's launches
-# a call, its parity phase's tokens (B, S) and whether that phase also
-# round-trips a checkpoint; the leaves whose gradients flow through the SSD
-# backward and must be nonzero on the card
+# each trained path: its phases; the depth its train phase runs at where the
+# published one does not fit the card, and why; its peak learning rate where
+# it is not launch/train.py's 3e-3, and why; its parity phase's cut (changes
+# to the published config), tokens (B, S) and whether that phase also
+# round-trips a checkpoint
+DEPTH_CUT = ("{n} layers ({params}) do not fit one 80 GB card at 12 bytes a parameter "
+             "(bf16 weights and gradients, fp32 Adam moments); {keep}")
+# the rate of the cut-depth paths, and why (scripts/train_trajectory.py, PERF.md
+# section 6: at 1e-4 both cuts' losses fall from the first step)
+SMALL_LR = (1e-4, "at 3e-3 Adam's first steps (every weight moved by about lr) throw "
+                  "the full-width model's loss up for the 6 steps, with the plain "
+                  "versions as with the kernels")
 TRAIN_PATHS = {
-    "llama3.2-3b": dict(phase="train", parity="parity_train", kernels=(
-        "flash_attention", "flash_attention_bwd"),
-        ops="repro_torch.kernels.flash_attention.ops", parity_tokens=(2, 64),
-        checkpoint=True),
-    "mamba2-2.7b": dict(phase="train_ssm", parity="parity_train_ssm", kernels=(
-        "ssd_scan", "ssd_scan_bwd"), ops="repro_torch.kernels.ssd_scan.ops",
-        parity_tokens=(2, 256), checkpoint=False),
+    "llama3.2-3b": dict(phase="train", parity="parity_train", parity_cut={"n_layers": 2},
+                        parity_tokens=(2, 64), checkpoint=True),
+    "mamba2-2.7b": dict(phase="train_ssm", parity="parity_train_ssm",
+                        parity_cut={"n_layers": 2}, parity_tokens=(2, 256), checkpoint=False),
+    "zamba2-7b": dict(
+        phase="train_hybrid", parity="parity_train_hybrid", n_layers=45, lr=SMALL_LR,
+        depth_cut=DEPTH_CUT.format(
+            n=81, params="6.75 B parameters", keep="45 = 7 groups of 6 Mamba2 layers, each "
+            "followed by the shared block, and a tail of 3: the published 6 k + 3 shape"),
+        # one group of 2, one application of the shared block, a tail of 1
+        parity_cut={"n_layers": 3, "hybrid_period": 2}, parity_tokens=(2, 256),
+        checkpoint=False),
+    "deepseek-moe-16b": dict(
+        phase="train_moe", parity="parity_train_moe", n_layers=7, lr=SMALL_LR,
+        depth_cut=DEPTH_CUT.format(
+            n=28, params="16.4 B parameters", keep="7 = the dense layer and 6 MoE layers"),
+        # the dense layer and one MoE layer; at the published capacity factor
+        # 1.25, 2 x 64 tokens overfill some experts' 15 slots: tokens drop
+        parity_cut={"n_layers": 2}, parity_tokens=(2, 64), checkpoint=False),
 }
-SSD_GRAD_LEAVES = ("w_x", "w_bc", "w_dt", "dt_bias", "a_log", "conv_x_w", "conv_x_b",
-                   "conv_bc_w", "conv_bc_b")
+
+
+def train_launches(cfg, microbatches):
+    """The launches of a train run of ``microbatches`` microbatches: the
+    forward kernel of each attention application (``kernel_layers``) and of
+    each Mamba2 layer twice a microbatch (forward, and again under remat), its
+    backward's BWD_KERNELS kernels once; decode never."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    n_attn, n_ssm = kernel_layers(cfg)
+    return {"decode_attention": 0, "flash_attention": 2 * n_attn * microbatches,
+            "flash_attention_bwd": flash_ops.BWD_KERNELS * n_attn * microbatches,
+            "ssd_scan": 2 * n_ssm * microbatches,
+            "ssd_scan_bwd": ssd_ops.BWD_KERNELS * n_ssm * microbatches}
 
 
 def phase_train(arch):
-    """``arch`` trained at full width and depth: bf16 weights from a seeded
-    generator on the card, ``AdamWConfig`` as ``launch/train.py`` builds it,
-    ``SyntheticLM`` batches of 8 x 512 tokens, ``remat=True``; TRAIN_STEPS
-    steps, the last TRAIN_MB_STEPS with 2 microbatches.  Every loss and
-    gradient norm finite, the last loss below the first, and the launch
-    counts (set to 0 just before, read just after) exactly as reckoned: each
-    layer's forward kernel (flash attention, or the SSD scan) twice a
-    microbatch (forward, and again under remat) and its backward's
-    BWD_KERNELS kernels once; every other kernel never."""
+    """``arch`` trained at full width, at its published depth or the cut of
+    ``TRAIN_PATHS``: bf16 weights from a seeded generator on the card,
+    ``AdamWConfig`` as ``launch/train.py`` builds it (the peak learning
+    rate of ``TRAIN_PATHS`` where one is given), ``SyntheticLM``
+    batches of 8 x 512 tokens, ``remat=True``; TRAIN_STEPS steps, the last
+    TRAIN_MB_STEPS with 2 microbatches.  Every loss and gradient norm
+    finite, the last loss below the first, and the launch counts (set to 0
+    just before, read just after) exactly ``train_launches``."""
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import launch_counts
@@ -2066,13 +2287,11 @@ def phase_train(arch):
     from repro_torch.train import init_train_state
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
-    path, train = PATHS[arch], TRAIN_PATHS[arch]
+    train = TRAIN_PATHS[arch]
     cfg = get_arch(arch)
-    check(tuple(getattr(cfg, k) for k in path["sizes"]) == path["published"],
-          f"{arch} is not at its published size")
-    if "ssm" in path:
-        check(tuple(getattr(cfg.ssm, k) for k in SSM_SPEC) == path["ssm"],
-              f"{arch}: SSM spec is not published")
+    check_published(arch, cfg)
+    published = cfg.n_layers
+    cfg = replace(cfg, n_layers=train.get("n_layers", published))
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -2081,8 +2300,8 @@ def phase_train(arch):
     torch.cuda.synchronize()
     init_s = time.time() - t0
     n_params = sum(p.numel() for p in leaves(params))
-    opt = AdamWConfig(lr=3e-3, warmup_steps=min(50, TRAIN_STEPS // 10),
-                      total_steps=TRAIN_STEPS)
+    lr, why_lr = train.get("lr", (3e-3, None))
+    opt = AdamWConfig(lr=lr, warmup_steps=min(50, TRAIN_STEPS // 10), total_steps=TRAIN_STEPS)
     steps = {mb: make_train_step(cfg, opt, microbatches=mb, device="cuda") for mb in (1, 2)}
     data = SyntheticLM(cfg.vocab, s, b)
     batches = [data.batch(i) for i in range(TRAIN_STEPS)]
@@ -2110,11 +2329,7 @@ def phase_train(arch):
     run_s = time.time() - t_run
     peak["microbatches_2"] = torch.cuda.max_memory_allocated()
     counts = launch_counts()
-    n = cfg.n_layers
-    fwd, bwd = train["kernels"]
-    want = dict.fromkeys(counts, 0)
-    want[fwd] = 2 * n * micro
-    want[bwd] = importlib.import_module(train["ops"]).BWD_KERNELS * n * micro
+    want = train_launches(cfg, micro)
     check(counts == want, f"{train['phase']}: launches {counts}, expected {want} "
           f"({micro} microbatches)")
     check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
@@ -2122,9 +2337,12 @@ def phase_train(arch):
     check(log[-1]["loss"] < log[0]["loss"], f"{train['phase']}: the last loss "
           f"{log[-1]['loss']:.4f} is not below the first {log[0]['loss']:.4f}")
     steady = [r["seconds"] for r in log[1:TRAIN_STEPS - TRAIN_MB_STEPS]]
-    emit(train["phase"], arch=cfg.name, n_layers=n, d_model=cfg.d_model, n_params=n_params,
-         dtype="bfloat16", batch=b, seq=s, remat=True, steps=log, seconds=run_s,
-         seconds_per_step=statistics.median(steady),
+    depth = {} if cfg.n_layers == published else dict(
+        n_layers_published=published, depth_cut=train["depth_cut"])
+    emit(train["phase"], arch=cfg.name, n_layers=cfg.n_layers, **depth, d_model=cfg.d_model,
+         n_params=n_params, dtype="bfloat16", batch=b, seq=s, remat=True, peak_lr=lr,
+         **({"peak_lr_why": why_lr} if why_lr else {}), steps=log,
+         seconds=run_s, seconds_per_step=statistics.median(steady),
          tokens_per_s=b * s / statistics.median(steady),
          # the last step: the first of 2 microbatches allocates their gradient sum
          seconds_per_step_microbatches_2=log[-1]["seconds"],
@@ -2142,9 +2360,9 @@ CKPT_CUT = 1024   # parity_train's checkpoint: each leaf's dims cut to their fir
 
 
 def train_parity_params(cfg2, dev, dtype):
-    """A trained path's 2-layer cut at full width in ``dtype`` on ``dev``, from
-    seed 0 (drawn on the card, copied); the bf16 weights are the fp32 ones
-    rounded."""
+    """A trained path's parity cut at full width in ``dtype`` on ``dev``,
+    from seed 0 (drawn on the card, copied); the bf16 weights are the fp32
+    ones rounded."""
     from repro_torch.models import init_params
     from repro_torch.tree import tree_map
     params = init_params(cfg2, seed=0, device="cuda", dtype=dtype)
@@ -2152,21 +2370,23 @@ def train_parity_params(cfg2, dev, dtype):
 
 
 def phase_parity_train(arch):
-    """One train step of ``arch``'s 2-layer cut at full width on the card
-    (kernels) against the same step on the CPU (plain versions), from the
-    same weights and batch (``SyntheticLM`` tokens: 2 x 64 for llama3.2-3b,
-    2 x 256 for mamba2-2.7b, two SSD chunks): the loss and gradients that
-    ``train_step`` computes (``loss_and_grads``), then ``adamw_update`` on
-    the card.  For mamba2 the leaves whose gradient flows through the SSD
-    backward (``SSD_GRAD_LEAVES``, ``a_log`` among them, fp32 like
-    ``d_skip``) must be nonzero on the card, in both types; and its fp32 CPU
-    run takes the plain scan in float64 (``scan_fp64``): the gradients of
-    a_log, dt_bias and w_dt are sums that cancel, and an fp32 scan, the
-    card's kernel or the CPU's plain one, leaves a_log's about 4.5e-5 of the
-    leaf's scale off a float64 scan on the same inputs (NVIDIA H100 80GB
-    HBM3, 700 W; ``scripts/ssd_bwd_precision.py``), so the two fp32 scans
-    differ by up to twice that, most of it the reference's own rounding.  The
-    card is held to GRAD_TOL against that CPU run.
+    """One train step of ``arch``'s parity cut at full width (``TRAIN_PATHS``:
+    2 layers; for zamba2-7b one group of 2 Mamba2 layers, one application of
+    the shared block and a tail of 1; for deepseek-moe-16b the dense layer
+    and one MoE layer) on the card (kernels) against the same step on the CPU
+    (plain versions), from the same weights and batch (``SyntheticLM``
+    tokens: 2 x 64 for llama3.2-3b and deepseek-moe-16b, 2 x 256 for
+    mamba2-2.7b and zamba2-7b, one SSD chunk a sequence): the loss and
+    gradients that ``train_step`` computes (``loss_and_grads``), then
+    ``adamw_update`` on the card.  Every gradient leaf must be nonzero on the
+    card, in both types.  Where the cut has SSD layers the fp32 CPU run takes
+    the plain scan in float64 (``scan_fp64``): the gradients of a_log,
+    dt_bias and w_dt are sums that cancel, and an fp32 scan, the card's
+    kernel or the CPU's plain one, leaves a_log's about 4.5e-5 of the leaf's
+    scale off a float64 scan on the same inputs (NVIDIA H100 80GB HBM3,
+    700 W; ``scripts/ssd_bwd_precision.py``), so the two fp32 scans differ by
+    up to twice that, most of it the reference's own rounding.  The card is
+    held to GRAD_TOL against that CPU run.
 
     fp32: the loss, and every gradient leaf elementwise within GRAD_TOL times
     the leaf's largest magnitude.  bf16: the two devices round activations at
@@ -2175,13 +2395,24 @@ def phase_parity_train(arch):
     of its largest magnitude (>= 0.99), the RMS of that relative error
     (<= GRAD_SHARE_TOL / 2) and a cap on it (<= 0.5); the loss within
     LOGIT_TOL.  Updated weights are not compared: Adam's first step turns
-    noise into moves of size lr.  Then (llama3.2-3b) the card's bf16 state
-    after the update, each leaf cut to its first CKPT_CUT rows and columns (every key
-    and type kept, about 0.2 GB as saved), is checkpointed from the card and
-    restored on the CPU, bit-equal."""
+    noise into moves of size lr.
+
+    A MoE cut runs at the published capacity factor, which drops tokens
+    here, and both sides' drops are counted (``dropped``).  In both types the
+    CPU follows the card's expert choices (``routing``; forward and
+    recompute route alike), and the tokens it would route otherwise must be
+    a few near-ties (``router_flips``); the card's router logits are held
+    against the CPU's fp32 product on the same tokens (``router_log``,
+    ROUTER_LOGIT_TOL).
+
+    Then (llama3.2-3b) the card's bf16 state after the update, each leaf cut
+    to its first CKPT_CUT rows and columns (every key and type kept, about
+    0.2 GB as saved), is checkpointed from the card and restored on the CPU,
+    bit-equal."""
     import shutil
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_arch
+    from repro_torch.configs import MOE
     from repro_torch.data import SyntheticLM
     from repro_torch.train import AdamWConfig
     from repro_torch.train import TrainState
@@ -2192,37 +2423,55 @@ def phase_parity_train(arch):
     from repro_torch.tree import tree_map
     from repro_torch.tree import unflatten
     train = TRAIN_PATHS[arch]
-    cfg2 = replace(get_arch(arch), n_layers=2)
+    cfg2 = replace(get_arch(arch), **train["parity_cut"])
     b, s = train["parity_tokens"]
     what = train["parity"]
     tokens = SyntheticLM(cfg2.vocab, s, b).batch(0)
     opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
+    moe = cfg2.family == MOE
+    fields = {}
 
-    def grads(dev, dtype, fp64_scan=False):
-        """(params, gradient tree, loss, {key: gradient on the CPU})."""
+    def grads(dev, dtype, routes, fp64_scan=False):
+        """(params, gradient tree, loss, {key: gradient on the CPU}); a MoE
+        cut records or follows ``routes``, counts its drops and, on the card,
+        checks its router logits."""
         params = train_parity_params(cfg2, dev, dtype)
-        with scan_fp64() if fp64_scan else nullcontext():
+        drops, calls = [], []
+        with ExitStack() as stack:
+            if fp64_scan:
+                stack.enter_context(scan_fp64())
+            if moe:
+                stack.enter_context(routing(routes))
+                stack.enter_context(dropped(drops))
+                if dev == "cuda":
+                    stack.enter_context(router_log(calls))
             loss, g = loss_and_grads(params, torch.as_tensor(tokens).to(dev, torch.long), cfg2)
         g = unflatten(params, g)
-        return params, g, float(loss), {k: t.float().cpu() for k, t in flatten_with_keys(g)}
+        flat = {k: t.float().cpu() for k, t in flatten_with_keys(g)}
+        if moe:
+            tag = f"{'fp32' if dtype == torch.float32 else 'bf16'}_{dev.replace('cuda', 'card')}"
+            check(sum(drops) > 0, f"{what} {tag}: no token was dropped")
+            fields[f"{tag}_tokens_dropped"] = drops
+            if dev == "cuda":
+                fields[f"{tag}_router_logit_max_rel_err"] = check_router_logits(
+                    calls, f"{what} {tag}")
+        return params, g, float(loss), flat
 
-    def flows(g_card, dtype):
-        """The SSD-fed leaves are there and nonzero on the card."""
-        if cfg2.ssm is None:
-            return
-        for leaf in SSD_GRAD_LEAVES:
-            key = f"layers/{leaf}"
-            check(key in g_card and bool((g_card[key] != 0).any()),
-                  f"{what} {dtype}: no gradient reaches {key} on the card")
+    def on_card(g_card, dtype):
+        """Every leaf's gradient is nonzero on the card."""
+        for key, t in g_card.items():
+            check(bool((t != 0).any()), f"{what} {dtype}: no gradient reaches {key} on the card")
 
-    fields = {}
-    _, _, loss_card, g_card = grads("cuda", torch.float32)
-    flows(g_card, "fp32")
-    _, _, loss_cpu, g_cpu = grads("cpu", torch.float32, fp64_scan=cfg2.ssm is not None)
+    routes = {}
+    _, _, loss_card, g_card = grads("cuda", torch.float32, routes)
+    on_card(g_card, "fp32")
+    _, _, loss_cpu, g_cpu = grads("cpu", torch.float32, routes, fp64_scan=cfg2.ssm is not None)
+    if moe:
+        fields["router_fp32"] = check_near_ties(routes, f"{what} fp32")
     check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
           f"{what} fp32: loss {loss_card} vs {loss_cpu}")
     check(sorted(g_card) == sorted(g_cpu), f"{what}: gradient keys differ")
-    worst = 0.0
+    worst = (0.0, None)
     for key in g_cpu:
         a, r = g_card[key], g_cpu[key]
         scale = float(r.abs().max())
@@ -2230,13 +2479,16 @@ def phase_parity_train(arch):
         err = float((a - r).abs().max())
         check(err <= GRAD_TOL * scale, f"{what} fp32: {key} max abs err {err:.3e} "
               f"beyond {GRAD_TOL} x {scale:.3e}")
-        worst = max(worst, err / scale)
+        worst = max(worst, (err / scale, key))
     fields.update(fp32_loss_card=loss_card, fp32_loss_cpu=loss_cpu,
-                  fp32_grad_max_rel_err=worst)
+                  fp32_grad_max_rel_err=worst[0], fp32_grad_max_rel_err_leaf=worst[1])
     del g_card, g_cpu
-    params, g, loss_card, g_card = grads("cuda", torch.bfloat16)
-    flows(g_card, "bf16")
-    _, _, loss_cpu, g_cpu = grads("cpu", torch.bfloat16)
+    routes = {}
+    params, g, loss_card, g_card = grads("cuda", torch.bfloat16, routes)
+    on_card(g_card, "bf16")
+    _, _, loss_cpu, g_cpu = grads("cpu", torch.bfloat16, routes)
+    if moe:
+        fields["router_bf16"] = check_near_ties(routes, f"{what} bf16")
     check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"{what} bf16: loss {loss_card} vs "
           f"{loss_cpu}")
     shares, rmss, caps = [], [], []
@@ -2252,9 +2504,12 @@ def phase_parity_train(arch):
                   bf16_grad_min_share=min(shares), bf16_grad_max_rms=max(rmss),
                   bf16_grad_max_rel_err=max(caps))
     del g_card, g_cpu
-    common = dict(arch=cfg2.name, n_layers=2, tokens=[b, s], grad_tol_fp32=GRAD_TOL,
-                  grad_share_tol_bf16=GRAD_SHARE_TOL, loss_tol_bf16=LOGIT_TOL,
-                  gradient_leaves=len(shares))
+    common = dict(arch=cfg2.name, n_layers=cfg2.n_layers, cut=train["parity_cut"],
+                  tokens=[b, s], grad_tol_fp32=GRAD_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL,
+                  loss_tol_bf16=LOGIT_TOL, gradient_leaves=len(shares))
+    if moe:
+        common.update(capacity_factor=cfg2.moe.capacity_factor,
+                      router_logit_tol=ROUTER_LOGIT_TOL)
     if not train["checkpoint"]:
         emit(what, **common, **fields)
         return
@@ -2303,8 +2558,8 @@ def main() -> None:
             ap.error(f"unknown phase {p!r}")
 
     smi = phase_device()
-    phase_build(args.build_log)
-    records = phase_kernels() if "kernels" in phases else []
+    ptxas = phase_build(args.build_log)
+    records = phase_kernels(ptxas) if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
                              ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS),
                              ("gemma2-27b", PATH_REQUESTS), ("gemma-7b", PATH_REQUESTS)):

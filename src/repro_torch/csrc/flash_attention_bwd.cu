@@ -43,9 +43,18 @@
 // banks.
 //
 // Computed here: causal masking with Sq == Sk (training's shape), any length,
-// head_dim 64 and 128, GQA groups of any size, bf16 and fp32.  Not computed
-// (the wrapper refuses them before any launch): a sliding window, a softcap,
-// head_dim 112 or 256, non-causal attention.
+// head_dim 64, 112 and 128, GQA groups of any size, bf16 and fp32.  Not
+// computed (the wrapper refuses them before any launch): a sliding window, a
+// softcap, head_dim 256, non-causal attention.
+//
+// head_dim 112 (zamba2-7b's shared attention block) takes the same code as 64
+// and 128: every loop over the head dimension steps one 16-column block at a
+// time (7 of them; no step takes two blocks at once), so D / 16 being odd
+// changes nothing.  A bf16 row of 112 values (14 sixteen-byte chunks) is
+// staged at the forward's 256-byte pitch (row_bytes<112>): the swizzle maps
+// chunks 0..13 onto 14 of a row's 16 slots, and the 2 left over are never
+// copied, read or summed.  The dK/dV sums are 2 x 56 fp32 registers a
+// thread (2 x 64 at D 128).  fp32 keeps D + 1 words a staged row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,9 +177,12 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
 }
 
 // grid = (KV tiles, G, B).  q, o-like tensors (B, S, H, D) and k, v, dk, dv
-// (B, S, G, D), all contiguous; lse and delta (B, H, S).
+// (B, S, G, D), all contiguous; lse and delta (B, H, S).  Above D 64 the
+// staged tiles leave shared memory for one block an SM; saying so lets ptxas
+// keep the sums in registers (left to itself, it took 128 registers at D 112
+// and spilled).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, D > 64 ? 1 : 2)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
@@ -639,8 +651,8 @@ int launch_bwd_fp32(const float* q, const float* k, const float* v, const float*
 // dout and dq are (B, S, H, D), k, v, dk and dv (B, S, G, D), all contiguous;
 // lse (B, H, S) fp32 as the forward (dco_flash_attention) wrote it; delta
 // (B, H, S) fp32 scratch.  Three launches on `stream`.  Returns 0, a
-// cudaError_t, -1 for arguments the kernel does not take (D other than 64 and
-// 128, H not a multiple of G, empty or oversized grids), or -2 when the
+// cudaError_t, -1 for arguments the kernel does not take (D other than 64,
+// 112 and 128, H not a multiple of G, empty or oversized grids), or -2 when the
 // shared memory a block needs is more than a block may take.
 extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const float* lse,
@@ -660,6 +672,8 @@ extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void*
     bf16 *dqb = static_cast<bf16*>(dq), *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
     if (D == 64)
       return launch_bwd_mma<64>(qb, kb, vb, ob, db, lse, delta, dqb, dkb, dvb, B, S, H, G, scale, s);
+    if (D == 112)
+      return launch_bwd_mma<112>(qb, kb, vb, ob, db, lse, delta, dqb, dkb, dvb, B, S, H, G, scale, s);
     if (D == 128)
       return launch_bwd_mma<128>(qb, kb, vb, ob, db, lse, delta, dqb, dkb, dvb, B, S, H, G, scale, s);
   }
@@ -670,6 +684,8 @@ extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void*
     float *dqf = static_cast<float*>(dq), *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
     if (D == 64)
       return launch_bwd_fp32<64>(qf, kf, vf, of, df, lse, delta, dqf, dkf, dvf, B, S, H, G, scale, s);
+    if (D == 112)
+      return launch_bwd_fp32<112>(qf, kf, vf, of, df, lse, delta, dqf, dkf, dvf, B, S, H, G, scale, s);
     if (D == 128)
       return launch_bwd_fp32<128>(qf, kf, vf, of, df, lse, delta, dqf, dkf, dvf, B, S, H, G, scale, s);
   }

@@ -25,7 +25,7 @@ BWD_KERNELS = 3                # kernels a dco_flash_attention_bwd call launches
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
 HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
-BWD_HEAD_DIMS = (64, 128)         # head sizes the backward kernel is compiled for
+BWD_HEAD_DIMS = (64, 112, 128)    # head sizes the backward kernel is compiled for
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C interface dco_flash_attention: q, k, v, out, lse; dtype, B, Sq, Sk, H, G,
 # D, tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
@@ -140,8 +140,10 @@ def check_rows_aligned(name: str, t: torch.Tensor) -> None:
 def check_backward(d: int, causal: bool, window: Optional[int],
                    softcap: Optional[float]) -> None:
     """Raise ``NotImplementedError`` for attention whose gradient the backward
-    kernel does not compute: it takes causal attention at head_dim 64 or 128,
-    with no window and no softcap (the dense family's training path)."""
+    kernel does not compute: it takes causal attention at head_dim 64, 112 or
+    128, with no window and no softcap (the training paths of the dense, MoE
+    and hybrid families).  gemma2's window and softcap and gemma-7b's
+    head_dim 256 are refused: they come with gemma training."""
     why = []
     if not causal:
         why.append("non-causal attention")
@@ -150,12 +152,13 @@ def check_backward(d: int, causal: bool, window: Optional[int],
     if softcap is not None:
         why.append(f"a softcap ({softcap}; gemma2 training)")
     if d not in BWD_HEAD_DIMS:
-        why.append(f"head_dim {d} (head_dim 112 is zamba2 training, 256 gemma-7b "
-                   f"training; the kernel takes {BWD_HEAD_DIMS})")
+        why.append(f"head_dim {d} (256 is gemma-7b training; the kernel takes "
+                   f"{BWD_HEAD_DIMS})")
     if why:
         raise NotImplementedError(
             "the flash-attention backward kernel does not compute the gradient of "
-            + ", ".join(why) + "; it comes with a later training slice of the port")
+            + ", ".join(why) + "; it comes with a later training slice of the port "
+            "(gemma training)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,11 +23,17 @@ from .layers import init_stacked
 from .layers import rms_norm
 
 
+def _router_logits(xt: torch.Tensor, w_gate: torch.Tensor) -> torch.Tensor:
+    """The router's logits (T, E): ``xt @ w_gate`` with both widened to fp32,
+    as the reference keeps its router."""
+    return torch.matmul(xt.float(), w_gate.float())
+
+
 def _route(xt: torch.Tensor, w_gate: torch.Tensor, top_k: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing with renormalized weights. xt (T, D) → (w, idx), each
     (T, k): fp32 weights and expert ids, by descending router probability."""
-    logits = torch.matmul(xt.float(), w_gate.float())
+    logits = _router_logits(xt, w_gate)
     w, idx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return w, idx

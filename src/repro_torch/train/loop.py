@@ -3,8 +3,10 @@ microbatches, bf16 parameters with fp32 moments, remat), and the step
 watchdog and timer, as the JAX package's ``train/loop.py``.
 
 On the card, attention's gradient comes from the hand-written flash
-backward kernel (``kernels/flash_attention``); the weight products' from
-``torch.matmul``'s own backward.  The step updates the state in place
+backward kernel (``kernels/flash_attention``), the SSD scan's from the SSD
+backward kernel (``kernels/ssd_scan``); the weight products' and a MoE
+layer's routing, experts and combine from PyTorch's own backward.  The step
+does not depend on the family.  It updates the state in place
 (``adamw_update``) and returns it.
 """
 

@@ -43,10 +43,10 @@ D = 64
 SHAPES = [(1, 17, 4, 4), (2, 17, 4, 2), (1, 100, 4, 1), (2, 100, 8, 2), (1, 100, 4, 4)]
 
 
-def inputs(b, s, h, g, dtype, seed=0):
+def inputs(b, s, h, g, dtype, seed=0, d=D):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
-            ((b, s, h, D), (b, s, g, D), (b, s, g, D), (b, s, h, D))]
+            ((b, s, h, d), (b, s, g, d), (b, s, g, d), (b, s, h, d))]
     return arrs, [torch.from_numpy(a).to(dtype) for a in arrs]
 
 
@@ -92,6 +92,24 @@ def test_bwd_ref_matches_jax_vjp_of_reference_attention(shape, dtype):
              f"d{name} vs jax.vjp {shape} {dtype}")
 
 
+@pytest.mark.parametrize("shape", [(1, 100, 4, 4), (2, 70, 4, 2)],
+                         ids=lambda s: "B{}S{}H{}G{}".format(*s))
+def test_bwd_ref_matches_jax_vjp_at_head_dim_112(shape, dtype):
+    """zamba2-7b's head size (MHA in the model; GQA group 2 too): the plain
+    backward does not depend on D, and agrees with the reference's VJP at
+    112 as at 64."""
+    arrs, (q, k, v, do) = inputs(*shape, dtype, seed=6, d=112)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(JDT[dtype]) for a in arrs)
+    _, vjp = jax.vjp(lambda a, b, c: gqa_attention(a, b, c, causal=True), jq, jk, jv)
+    want = vjp(jdo)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    got = attention_bwd_ref(q, k, v, o, lse, do)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        held(f32(a), np.asarray(b.astype(jnp.float32)), TOL[dtype],
+             f"d{name} vs jax.vjp at D 112 {shape} {dtype}")
+
+
 @pytest.mark.parametrize("shape", SHAPES[:3], ids=lambda s: "B{}S{}H{}G{}".format(*s))
 def test_lse_matches_reference_scores(shape):
     arrs, (q, k, v, _) = inputs(*shape, torch.float32, seed=2)
@@ -125,7 +143,7 @@ def test_cpu_flash_under_grad_is_differentiated_by_autograd():
 
 @pytest.mark.parametrize("kw,why", [
     (dict(window=64), "window"), (dict(softcap=50.0), "softcap"),
-    (dict(d=112), "head_dim 112"), (dict(d=256), "head_dim 256"),
+    (dict(d=112, window=64), "window"), (dict(d=256), "head_dim 256"),
     (dict(causal=False), "non-causal")])
 def test_backward_refuses_what_the_kernel_does_not_compute(kw, why):
     args = dict(d=128, causal=True, window=None, softcap=None)
@@ -134,7 +152,7 @@ def test_backward_refuses_what_the_kernel_does_not_compute(kw, why):
         flash_ops.check_backward(args["d"], args["causal"], args["window"], args["softcap"])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_backward_takes_the_dense_training_shapes(d):
     flash_ops.check_backward(d, True, None, None)
 
