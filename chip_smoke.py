@@ -24,11 +24,14 @@ run with a non-zero exit code:
             yardstick only: the port never calls it; none exists for the SSD
             scan) and the card's bound for the same work.  The flash backward
             (training) against its plain version over both types, head sizes
-            64, 112 and 128, GQA groups 1–8 and lengths 17–1024; the forward's
+            64, 112, 128 and 256, GQA groups 1–8, lengths 17–1024, sliding
+            windows of 1, 63, 64 and 100 rows and softcaps 2, 30 and 50; the forward's
             per-row LSE against the plain one, O unchanged by it and the LSE
             bit-identical across splits; calls without a backward kernel
             refused under grad; the backward timed at the training shapes of
-            llama3.2-3b, zamba2-7b (head_dim 112) and deepseek-moe-16b.
+            llama3.2-3b, zamba2-7b (head_dim 112), deepseek-moe-16b,
+            gemma2-27b (window and softcap) and gemma-7b (head_dim 256), and
+            at gemma2's 5120-token row, where its window binds.
             The backward is held elementwise on each gradient row's and
             64-row tile's scale (``grad_err``), which planted faults must
             fail.  The SSD backward (training) against its plain version
@@ -122,6 +125,18 @@ run with a non-zero exit code:
             CPU as in 17 without the checkpoint, the CPU following the card's
             expert choices, the tokens each side dropped counted and the
             router logits held as in 11.
+24. train_gemma2   gemma2-27b trained at full width and a cut depth (2 layers:
+            one local, window 4096, and one global; attention softcap 50,
+            final softcap 30, score scale 144^-0.5; 46 do not fit), as in 20:
+            the flash forward twice and its backward, with the window and the
+            softcap, once a layer and microbatch.
+25. parity_train_gemma2  one train step of its 2 layers with the window cut
+            to 64, 2 x 128 tokens, so that the window binds: card against CPU
+            as in 17 without the checkpoint.
+26. train_gemma7b   gemma-7b trained at full width and a cut depth (8
+            layers, head_dim 256; 28 do not fit), as in 20.
+27. parity_train_gemma7b  one train step of its 2-layer cut, 2 x 128
+            tokens: card against CPU as in 25.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -130,12 +145,14 @@ every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backwards': of their train phases).  The
-whole run takes about 6 minutes of command time on an H100, the build's 30
-to 45 seconds included.
+whole run takes about 8 to 9 minutes of command time on an H100, the
+build's 30 to 45 seconds included; the ``timing`` line gives each phase's
+host seconds.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
-matmuls and cuDNN.  The last lines are the ``{"kernels": [...]}`` record, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+matmuls and cuDNN.  The last lines are the ``timing`` line, the
+``{"kernels": [...]}`` record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,7 +235,8 @@ PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
           "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
-          "parity_train_moe")
+          "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
+          "parity_train_gemma7b")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -1031,10 +1049,20 @@ def time_ssd(gen, flush, path):
 # the flash-attention backward kernel (training) and the forward's LSE
 TRAIN_SHAPE = dict(b=8, s=512, h=24, g=8, d=128)   # llama3.2-3b's train phase, one microbatch
 # the attention of each train phase's microbatch, as the backward sees it:
-# llama3.2-3b, zamba2-7b's shared block at head_dim 112, deepseek-moe-16b
+# llama3.2-3b, zamba2-7b's shared block at head_dim 112, deepseek-moe-16b,
+# gemma2-27b's local layer (softcap 50, its 4096-row window inert at 512
+# tokens) and gemma-7b (head_dim 256); and gemma2's window where it binds,
+# at the forward's serving row of 5120 tokens (a record of the train_gemma2
+# path: the same kernel)
 BWD_SHAPES = {"train": TRAIN_SHAPE,
               "train_hybrid": dict(b=8, s=512, h=32, g=32, d=112),
-              "train_moe": dict(b=8, s=512, h=16, g=16, d=128)}
+              "train_moe": dict(b=8, s=512, h=16, g=16, d=128),
+              "train_gemma2": dict(b=8, s=512, h=32, g=16, d=128, softcap=50.0,
+                                   window=GEMMA2_WINDOW, scale=GEMMA2_SCALE),
+              "train_gemma7b": dict(b=8, s=512, h=16, g=16, d=256),
+              "train_gemma2_window": dict(b=1, s=5120, h=32, g=16, d=128, softcap=50.0,
+                                          window=GEMMA2_WINDOW, scale=GEMMA2_SCALE,
+                                          path="train_gemma2")}
 
 
 def close_scaled(out, ref, tol, what):
@@ -1078,14 +1106,15 @@ def grad_scale(ref):
     return torch.maximum(sq, tile).sqrt()[..., None]
 
 
-def grad_err(out, ref, tol):
+def grad_err(out, ref, tol, floor=0.0):
     """A gradient against its oracle, elementwise as the forward's outputs
     are held (rtol = atol = ``tol``), with the atol on the scale of each
-    element's row and tile: |out - ref| <= tol (|ref| + grad_scale(ref)).  Returns
-    (ok, the worst |out - ref| / (tol (|ref| + scale)), max |out - ref|, the
-    scale at that element)."""
+    element's row and tile: |out - ref| <= tol (|ref| + grad_scale(ref)),
+    the scale at least ``floor`` (``vanishing_floor``).  Returns (ok, the
+    worst |out - ref| / (tol (|ref| + scale)), max |out - ref|, the scale at
+    that element)."""
     out, ref = out.float(), ref.float()
-    scale = grad_scale(ref).expand_as(ref)
+    scale = grad_scale(ref).clamp(min=floor).expand_as(ref)
     err = (out - ref).abs()
     ratio = float((err / (tol * (ref.abs() + scale))).max())
     at = int(err.argmax())
@@ -1093,66 +1122,175 @@ def grad_err(out, ref, tol):
             float(scale.flatten()[at]))
 
 
-def close_grad(out, ref, tol, what):
+def vanishing_floor(want, kw):
+    """{gradient: the floor of ``grad_err``'s scale} of a backward's oracle
+    gradients ``want`` (dq, dk, dv) under options ``kw``.  Under a window of
+    1 each row sees only its own key: P = 1 and dS = dP - delta = 0, so dQ
+    and dK vanish in exact arithmetic and both sides return the rounding of
+    two sums of D products that cancel; those are held on the RMS of dV (the
+    scale of dO V, whose difference from delta they are).  Elsewhere none."""
+    if kw.get("window") != 1:
+        return {}
+    rms = float(want[2].float().square().mean().sqrt())
+    return {"dq": rms, "dk": rms}
+
+
+def close_grad(out, ref, tol, what, floor=0.0):
     """``grad_err``'s (worst ratio, max abs err, scale there), after
     asserting that ``out`` passes."""
-    ok, ratio, err, at = grad_err(out, ref, tol)
+    ok, ratio, err, at = grad_err(out, ref, tol, floor)
     check(ok, f"{what}: |err| / (tol (|ref| + scale)) reaches {ratio:.3g} (tol {tol}; "
               f"max abs err {err:.3e} where the scale is {at:.3g})")
     return ratio, err, at
 
 
-def bwd_faults(q, k, v, o, lse, do, dk, dv):
-    """Faults planted in a backward's dK and dV (B, S, G, D), each of which
-    ``grad_err`` must reject: {name: (dk, dv)}.  "tail": the last KV tile
-    (the ragged one where S is no multiple of BWD_TILE) left at zero.
-    "head": the last query head of every group missing from the tile before
-    it (its contribution, ``attention_bwd_ref`` with dO kept on that head
-    only, taken away)."""
+def uncapped_bwd(q, k, v, lse, do, delta, *, softcap, scale=None, window=None):
+    """dQ and dK of a backward that leaves the softcap's derivative out of
+    dS (``attention_bwd_ref``'s formulas otherwise), fp32."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    scale = scale or d ** -0.5
+    qg, dog = (t.reshape(b, s, g, h // g, d).float() for t in (q, do))
+    sc = torch.tanh(torch.einsum("bsgqd,btgd->bgqst", qg, k.float()) * scale / softcap)
+    p = torch.exp(sc * softcap - lse.float().reshape(b, g, h // g, s, 1))
+    p = p.masked_fill(~_mask(s, s, True, window, q.device), 0.0)
+    ds = p * (torch.einsum("bsgqd,btgd->bgqst", dog, v.float()) - delta[..., None])
+    return (torch.einsum("bgqst,btgd->bsgqd", ds, k.float()).reshape(b, s, h, d) * scale,
+            torch.einsum("bgqst,bsgqd->btgd", ds, qg) * scale)
+
+
+def bwd_faults(q, k, v, o, lse, do, got, kw):
+    """Faults planted in a backward's gradients ``got`` (dq, dk, dv), each
+    of which ``grad_err`` must reject in every gradient it touches:
+    {name: {gradient: planted}}.  Always: "tail", the last KV tile (the
+    ragged one where S is no multiple of BWD_TILE) of dK and dV left at zero;
+    "head", the last query head of every group missing from dK and dV of the
+    tile before it (its contribution, ``attention_bwd_ref`` with dO kept on
+    that head only, taken away).  With a softcap: "uncapped", the cap's
+    derivative left out of dS (dQ, dK); in bf16 only at CAP_BENDS, where it
+    moves dS by more than bf16's tolerance.  With a window: "window_off_by_one",
+    each row seeing one more key (kv >= q - W; dQ, dK, dV); "last_q_tile",
+    the last Q tile that the window of each KV tile reaches (``bwd_q_tiles``)
+    skipped in the dK/dV walk.  At head_dim 256: "dk_half", the second half
+    of dK's columns left at zero.  Each fault is planted as the kernel's
+    output plus the change the fault makes to the plain version's.  Where
+    dQ and dK vanish (``vanishing_floor``: a window of 1), a fault that
+    takes part of them away changes nothing, so only "window_off_by_one"
+    touches them."""
     from repro_torch.kernels import attention_bwd_ref
-    s, h, g = q.shape[1], q.shape[2], k.shape[2]
+    from repro_torch.kernels.flash_attention import ops
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    dq, dk, dv = got
+    ref = [t.float() for t in attention_bwd_ref(q, k, v, o, lse, do, **kw)]
+
+    def plus(t, change):
+        return (t.float() + change).to(t.dtype)
+
+    def contribution(rows, heads=slice(None)):
+        """dK and dV of the dO of Q rows ``rows`` and heads ``heads`` only."""
+        only = torch.zeros_like(do)
+        only[:, rows, heads] = do[:, rows, heads]
+        return [t.float() for t in attention_bwd_ref(q, k, v, o, lse, only, **kw)[1:]]
+
     last = (s - 1) // BWD_TILE * BWD_TILE
     late = slice(max(0, last - BWD_TILE), last)
-    only = torch.zeros_like(do)
-    heads = torch.arange(h // g - 1, h, h // g)
-    only[:, :, heads] = do[:, :, heads]
-    _, dk_h, dv_h = (t.float() for t in attention_bwd_ref(q, k, v, o, lse, only))
-    tail_k, tail_v, head_k, head_v = dk.clone(), dv.clone(), dk.clone(), dv.clone()
+    tail_k, tail_v = dk.clone(), dv.clone()
     tail_k[:, last:] = 0
     tail_v[:, last:] = 0
-    head_k[:, late] = (dk[:, late].float() - dk_h[:, late]).to(dk.dtype)
-    head_v[:, late] = (dv[:, late].float() - dv_h[:, late]).to(dv.dtype)
-    return {"tail": (tail_k, tail_v), "head": (head_k, head_v)}
+    dk_h, dv_h = contribution(slice(None), torch.arange(h // g - 1, h, h // g))
+    head_k, head_v = dk.clone(), dv.clone()
+    head_k[:, late] = plus(dk[:, late], -dk_h[:, late])
+    head_v[:, late] = plus(dv[:, late], -dv_h[:, late])
+    faults = {"tail": {"dk": tail_k, "dv": tail_v}, "head": {"dk": head_k, "dv": head_v}}
+    if kw.get("softcap") and (q.dtype == torch.float32 or kw["softcap"] <= CAP_BENDS):
+        delta = (do.float() * o.float()).sum(-1).reshape(b, s, g, h // g).permute(0, 2, 3, 1)
+        uq, uk = uncapped_bwd(q, k, v, lse, do, delta, **kw)
+        faults["uncapped"] = {"dq": plus(dq, uq - ref[0]), "dk": plus(dk, uk - ref[1])}
+    if kw.get("window"):
+        wide = [t.float() for t in attention_bwd_ref(
+            q, k, v, o, lse, do, **{**kw, "window": kw["window"] + 1})]
+        faults["window_off_by_one"] = {n: plus(t, w - r) for n, t, w, r in
+                                       zip(("dq", "dk", "dv"), got, wide, ref)}
+        tile = ops.bwd_tile_rows(d, q.element_size())
+        skip_k, skip_v = dk.clone(), dv.clone()
+        for kt in range(-(-s // tile)):
+            qt = ops.bwd_q_tiles(kt, s, window=kw["window"], tile=tile)[-1]
+            ck, cv = contribution(slice(qt * tile, (qt + 1) * tile))
+            kv = slice(kt * tile, (kt + 1) * tile)
+            skip_k[:, kv] = plus(dk[:, kv], -ck[:, kv])
+            skip_v[:, kv] = plus(dv[:, kv], -cv[:, kv])
+        faults["last_q_tile"] = {"dk": skip_k, "dv": skip_v}
+    if d == 256:
+        half = dk.clone()
+        half[..., d // 2:] = 0
+        faults["dk_half"] = {"dk": half}
+    vanish = vanishing_floor(ref, kw)
+    faults = {name: {n: t for n, t in planted.items()
+                     if n not in vanish or name == "window_off_by_one"}
+              for name, planted in faults.items()}
+    return {name: planted for name, planted in faults.items() if planted}
 
 
-def check_faults_rejected(q, k, v, o, lse, do, got, want, tol, what):
-    """Every fault of ``bwd_faults`` planted in ``got``'s dK and dV fails
-    ``grad_err`` against ``want``; returns the smallest worst ratio."""
-    least = float("inf")
-    for name, planted in bwd_faults(q, k, v, o, lse, do, got[1], got[2]).items():
-        for grad, a, r in zip(("dk", "dv"), planted, want[1:]):
-            ok, ratio, _, _ = grad_err(a, r, tol)
+def check_faults_rejected(q, k, v, o, lse, do, got, want, tol, what, kw=None):
+    """Every fault of ``bwd_faults`` planted in ``got`` fails ``grad_err``
+    (with ``vanishing_floor``) against ``want`` in every gradient it
+    touches; returns {fault: its smallest worst ratio}."""
+    least = {}
+    floor = vanishing_floor(want, kw or {})
+    for name, planted in bwd_faults(q, k, v, o, lse, do, got, kw or {}).items():
+        for grad, a in planted.items():
+            ok, ratio, _, _ = grad_err(a, want[("dq", "dk", "dv").index(grad)], tol,
+                                       floor.get(grad, 0.0))
             check(not ok, f"{what}: the planted fault {name!r} in {grad} passes "
                   f"(worst ratio {ratio:.3g})")
-            least = min(least, ratio)
+            least[name] = min(least.get(name, float("inf")), ratio)
     return least
 
 
+BWD_WINDOWS = (1, 64, 100)   # windows of the backward's cases: the diagonal, a tile, neither
+# a softcap that bends the cases' scores (of unit scale; gemma2's 50 moves
+# them by about 4e-4, below bf16's tolerance), and which keeps the softmax
+# spread (a larger q would make it peak on one key, where dS = P (dP - delta)
+# cancels and the sums' rounding, not the gradient, sets the error)
+CAP_BENDS = 2.0
+
+
 def flash_bwd_cases():
-    """(B, S, H, G, D, dtype): both types; D 64 and 128 at GQA groups 1, 2,
-    3, 4 and 8, and D 112 (zamba2-7b's shared block) at groups 1 and 2, at
-    lengths 17, 64, 100, 1000 and 1024 (ragged, one tile, many); qwen2-vl-7b's
-    heads (28 / 4 of 128: group 7) and musicgen-large's (MHA, 32 of 64) at
-    100 and 1000."""
+    """(B, S, H, G, D, dtype, options): both types; D 64 and 128 at GQA
+    groups 1, 2, 3, 4 and 8, and D 112 (zamba2-7b's shared block) at groups
+    1 and 2, at lengths 17, 64, 100, 1000 and 1024 (ragged, one tile, many);
+    qwen2-vl-7b's heads (28 / 4 of 128: group 7) and musicgen-large's (MHA,
+    32 of 64) at 100 and 1000.  gemma2-27b's heads (32 / 16 of 128, score
+    scale 144^-0.5) with softcap 50 alone, with windows of BWD_WINDOWS rows
+    alone and with both, and with CAP_BENDS alone and with window 64, at 17,
+    100, 1000 and 1024; softcap 30 at group 1; gemma-7b's head_dim 256 at
+    MHA (16 / 16) and group 2 (8 / 4), and with window 63 and softcap 50, at
+    the same lengths.  Options are the keywords of ``flash_attention_bwd``
+    (scale, softcap, window)."""
     cases = []
+    lens = (17, 100, 1000, 1024)
+    g2 = dict(scale=GEMMA2_SCALE)
     for dtype in (torch.bfloat16, torch.float32):
         for d, groups in ((64, BWD_GROUPS), (128, BWD_GROUPS), (112, ((4, 4), (4, 2)))):
             for h, g in groups:
                 for i, s in enumerate((17, 64, 100, 1000, 1024)):
-                    cases.append((1 + i % 2, s, h, g, d, dtype))
+                    cases.append((1 + i % 2, s, h, g, d, dtype, {}))
         for h, g, d in ((28, 4, 128), (32, 32, 64)):
             for i, s in enumerate((100, 1000)):
-                cases.append((1 + i % 2, s, h, g, d, dtype))
+                cases.append((1 + i % 2, s, h, g, d, dtype, {}))
+        gemma = [(32, 16, 128, {**g2, "softcap": 50.0})]
+        for w in BWD_WINDOWS:
+            gemma += [(32, 16, 128, {**g2, "window": w}),
+                      (32, 16, 128, {**g2, "window": w, "softcap": 50.0})]
+        gemma += [(32, 16, 128, {**g2, "softcap": CAP_BENDS}),
+                  (32, 16, 128, {**g2, "window": 64, "softcap": CAP_BENDS}),
+                  (4, 4, 128, {"softcap": 30.0}), (16, 16, 256, {}), (8, 4, 256, {}),
+                  (8, 4, 256, {"window": 63, "softcap": 50.0})]
+        for h, g, d, kw in gemma:
+            for i, s in enumerate(lens):
+                cases.append((1 + i % 2, s, h, g, d, dtype, kw))
     return cases
 
 
@@ -1171,33 +1309,41 @@ def flash_lse(q, k, v, *, scale=None, softcap=None, window=None, pinned_rows=0,
 
 def check_flash_bwd(gen):
     """The backward kernel against ``attention_bwd_ref`` on the same inputs
-    (the forward kernel's own O and LSE), each gradient by ``grad_err`` at
-    ``TOL`` of the dtype; at S 1000, at GQA groups of 3, 7 and 8 and at
-    head_dim 112, the faults of ``bwd_faults`` planted in the kernel's dK and
-    dV must fail the same rule.  Returns, for each dtype, the worst ratio (<= 1), the largest
-    absolute error and the smallest ratio of a planted fault (> 1)."""
+    (the forward kernel's own O and LSE, with the case's scale, softcap and
+    window), each gradient by ``grad_err`` at
+    ``TOL`` of the dtype (dQ and dK under a window of 1, which vanish, on
+    ``vanishing_floor``); at S 1000, at GQA groups of 3, 7 and 8, at head_dim
+    112 and 256 and with a window or a softcap, the faults of ``bwd_faults``
+    planted in the kernel's gradients must fail the same rule.  Returns, for
+    each dtype, the worst ratio (<= 1), the largest absolute error and the
+    smallest ratio of each planted fault (> 1)."""
     from repro_torch.kernels import attention_bwd_ref
     from repro_torch.kernels import flash_attention_bwd
     worst = {}
     for case in flash_bwd_cases():
-        b, s, h, g, d, dtype = case
+        b, s, h, g, d, dtype, kw = case
         q = randn(gen, (b, s, h, d), dtype)
         k = randn(gen, (b, s, g, d), dtype)
         v = randn(gen, (b, s, g, d), dtype)
         do = randn(gen, (b, s, h, d), dtype)
-        o, lse = flash_lse(q, k, v)
-        got = flash_attention_bwd(q, k, v, o, lse, do)
+        o, lse = flash_lse(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        want = attention_bwd_ref(q, k, v, o, lse, do)
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         w = worst.setdefault(str(dtype), {"ratio": 0.0, "max_abs_err": 0.0,
-                                          "fault_min_ratio": float("inf")})
+                                          "fault_min_ratio": {}})
+        floor = vanishing_floor(want, kw)
         for name, a, r in zip(("dq", "dk", "dv"), got, want):
             check(a.dtype == dtype and a.shape == r.shape, f"flash bwd {case}: {name} type")
-            ratio, err, _ = close_grad(a, r, TOL[dtype], f"flash bwd {case} {name}")
+            ratio, err, _ = close_grad(a, r, TOL[dtype], f"flash bwd {case} {name}",
+                                       floor.get(name, 0.0))
             w["ratio"], w["max_abs_err"] = max(w["ratio"], ratio), max(w["max_abs_err"], err)
-        if s == 1000 and (h // g in (3, 7, 8) or d == 112):
-            w["fault_min_ratio"] = min(w["fault_min_ratio"], check_faults_rejected(
-                q, k, v, o, lse, do, got, want, TOL[dtype], f"flash bwd {case}"))
+        if s == 1000 and (h // g in (3, 7, 8) or d in (112, 256) or kw.get("window")
+                          or kw.get("softcap")):
+            least = check_faults_rejected(q, k, v, o, lse, do, got, want, TOL[dtype],
+                                          f"flash bwd {case}", kw)
+            for name, ratio in least.items():
+                w["fault_min_ratio"][name] = min(w["fault_min_ratio"].get(name, ratio), ratio)
     return worst
 
 
@@ -1264,11 +1410,12 @@ def not_implemented(fn, what):
 
 def check_refused_under_grad(gen):
     """A CUDA tensor that autograd would differentiate is refused where no
-    backward kernel exists: decode attention, the SSD scan in bf16, and flash
-    attention with a window (at head_dim 128 and 112), a softcap or head_dim
-    256; without grad the same calls run.  An fp32 SSD scan under grad goes
-    through ``SSDScanFn``, flash attention at head_dim 112 through
-    ``FlashAttentionFn``."""
+    backward kernel exists: decode attention, the SSD scan in bf16 and
+    non-causal flash attention; without grad the same calls run.  An fp32
+    SSD scan under grad goes through ``SSDScanFn``; flash attention at
+    head_dim 112 and 256, with a window (at 128 and 112), a softcap or both
+    through ``FlashAttentionFn``; a head size the kernels are not compiled
+    for (96) is refused with ValueError."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import ssd_scan
@@ -1284,21 +1431,24 @@ def check_refused_under_grad(gen):
     y, _ = ssd_scan(x32, dt, A, B.float(), C.float(), chunk=64)
     check(type(y.grad_fn).__name__ == "SSDScanFnBackward",
           f"fp32 ssd_scan under grad: grad_fn {type(y.grad_fn).__name__}")
-    for d, kw in ((128, dict(window=64)), (128, dict(softcap=50.0)), (112, dict(window=64)),
-                  (256, {})):
-        qf = randn(gen, (1, 128, 4, d), bf).requires_grad_()
-        kf = randn(gen, (1, 128, 2, d), bf)
-        not_implemented(lambda: flash_attention(qf, kf, kf, **kw),
-                        f"flash_attention at D {d} {kw} under grad")
+    qf = randn(gen, (1, 128, 4, 128), bf).requires_grad_()
+    kf = randn(gen, (1, 128, 2, 128), bf)
+    not_implemented(lambda: flash_attention(qf, kf, kf, causal=False),
+                    "non-causal flash_attention under grad")
+    q96 = randn(gen, (1, 128, 4, 96), bf).requires_grad_()
+    refused(lambda: flash_attention(q96, q96[:, :, :2], q96[:, :, :2]),
+            "flash_attention at D 96 under grad")
     with torch.no_grad():
         decode_attention(q, k, k, cl)
         ssd_scan(x, dt, A, B, C, chunk=64)
-        flash_attention(qf, kf, kf)
-    q112 = randn(gen, (1, 128, 4, 112), bf).requires_grad_()
-    k112 = randn(gen, (1, 128, 2, 112), bf)
-    o = flash_attention(q112, k112, k112)
-    check(type(o.grad_fn).__name__ == "FlashAttentionFnBackward",
-          f"flash_attention at D 112 under grad: grad_fn {type(o.grad_fn).__name__}")
+        flash_attention(qf, kf, kf, causal=False)
+    for d, kw in ((112, {}), (256, {}), (128, dict(window=64)), (128, dict(softcap=50.0)),
+                  (112, dict(window=64)), (256, dict(window=64, softcap=50.0))):
+        qg = randn(gen, (1, 128, 4, d), bf).requires_grad_()
+        kg = randn(gen, (1, 128, 2, d), bf)
+        o = flash_attention(qg, kg, kg, **kw)
+        check(type(o.grad_fn).__name__ == "FlashAttentionFnBackward",
+              f"flash_attention at D {d} {kw} under grad: grad_fn {type(o.grad_fn).__name__}")
     torch.cuda.synchronize()
 
 
@@ -1325,56 +1475,83 @@ def time_ms_events(fn, flush, iters=10):
     return statistics.median(runs) / iters
 
 
-def flash_bwd_record(gen, flush, path, ptxas=None):
-    """The backward kernel's record at the training shape of the train phase
-    ``path`` (one microbatch, ``BWD_SHAPES``, bf16, causal): its time (the three
-    launches of one call) beside the plain version's and one library call's,
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (a
-    yardstick only: the port never calls it), and the bound: the larger of
-    the bytes moved once (q, k, v, o, dO and lse read, dq, dk, dv written)
+def visible_pairs(s, window=None):
+    """(row, column) pairs that causal attention over ``s`` rows sees, each
+    row at most ``window`` of them."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bwd_record(gen, flush, key, ptxas=None):
+    """The backward kernel's record at the training shape ``BWD_SHAPES[key]``
+    of a train phase (one microbatch, bf16, causal; its scale, softcap and
+    window where it has them): its time (the three launches of one call)
+    beside the plain version's and one library call's, ``torch.autograd.grad``
+    through ``scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it; it has no softcap, so with one it computes another function,
+    and a window that binds is its boolean mask), and the bound: the larger
+    of the bytes moved once (q, k, v, o, dO and lse read, dq, dk, dv written)
     over the card's memory rate and the operations over its bf16 peak, five
-    products (S again, dP, dV, dK, dQ) of 2 * D FLOP for each visible
-    (row, column) pair of each query head.  Also the forward's time with and
+    products (S again, dP, dV, dK, dQ) of 2 * D FLOP for each visible (row,
+    column) pair of each query head.  Also the forward's time with and
     without the LSE at this shape, beside its plain version (with the LSE),
-    the library's causal call and its bound (two products a visible pair;
-    q, k, v read, o and the LSE written).  With the build's ``ptxas`` map
+    the library's call and its bound (two products a visible pair; q, k, v
+    read, o and the LSE written).  With the build's ``ptxas`` map
     (``--build-log``), the registers and spills of the bf16 kernels at this
-    head_dim."""
+    head_dim (the ``_ext_`` ones where the shape has a window or a
+    softcap)."""
     from repro_torch.kernels import attention_bwd_ref
     from repro_torch.kernels import attention_ref
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import _mask
     bf = torch.bfloat16
-    b, s, h, g, d = (BWD_SHAPES[path][k] for k in ("b", "s", "h", "g", "d"))
+    shape = BWD_SHAPES[key]
+    b, s, h, g, d = (shape[k] for k in ("b", "s", "h", "g", "d"))
+    kw = {k: shape[k] for k in ("scale", "softcap", "window") if k in shape}
+    window = kw.get("window")
     q = randn(gen, (b, s, h, d), bf)
     k = randn(gen, (b, s, g, d), bf)
     v = randn(gen, (b, s, g, d), bf)
     do = randn(gen, (b, s, h, d), bf)
-    o, lse = flash_lse(q, k, v)
-    got = flash_attention_bwd(q, k, v, o, lse, do)
-    want = attention_bwd_ref(q, k, v, o, lse, do)
+    o, lse = flash_lse(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     # (worst ratio, max abs err, the row scale where it is) of dq, dk, dv
-    held = {n: close_grad(a, r, TOL[bf], f"flash bwd at the training shape, {n}")
+    held = {n: close_grad(a, r, TOL[bf], f"flash bwd at the training shape {key}, {n}")
             for n, a, r in zip(("dq", "dk", "dv"), got, want)}
     del got, want
     ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    binds = bool(window) and window < s
+    lib_kw = dict(scale=kw.get("scale"), enable_gqa=True)
+    if binds:
+        lib_kw["attn_mask"] = _mask(s, s, True, window, q.device)
+    else:
+        lib_kw["is_causal"] = True
+
+    def lib_fwd(a, bb, c):
+        return F.scaled_dot_product_attention(a, bb, c, **lib_kw)
+
+    lib_out = lib_fwd(ql, kl, vl)
     dol = do.transpose(1, 2)
 
     def lib_bwd():
         return torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True)
 
     lib = lib_bwd()
-    close_grad(lib[0].transpose(1, 2), attention_bwd_ref(q, k, v, o, lse, do)[0],
-               TOL[bf], "library bwd dq vs plain")
+    if not kw.get("softcap"):
+        close_grad(lib[0].transpose(1, 2), attention_bwd_ref(q, k, v, o, lse, do, **kw)[0],
+                   TOL[bf], "library bwd dq vs plain")
     del lib
-    n_seen = s * (s + 1) // 2
+    n_seen = visible_pairs(s, window)
     n_flops = 10 * d * n_seen * h * b
     n_bytes = 2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel() + 2 * (q.numel()
                                                                          + 2 * k.numel())
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
     fwd_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()   # q, k, v, o; lse
-    ms = time_ms_events(lambda: flash_attention_bwd(q, k, v, o, lse, do), flush)
+    ms = time_ms_events(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), flush)
+    ext = "_ext" if kw.get("window") or kw.get("softcap") else ""
     return {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1383,28 +1560,31 @@ def flash_bwd_record(gen, flush, path, ptxas=None):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
         "replaces_note": "gradient of flash_kernel's attention; the JAX package takes it "
                          "by autodiff of src/repro/models/layers.py:124 gqa_attention",
-        "path": path,
+        "path": shape.get("path", key),
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
-                  "causal": True, "visible_pairs": n_seen},
-        **kernel_usage(ptxas, (f"delta_kernel<13__nv_bfloat16Li{d}>", f"dkdv_mma_kernel<Li{d}>",
-                               f"dq_mma_kernel<Li{d}>")),
+                  "causal": True, "visible_pairs": n_seen, **kw},
+        **kernel_usage(ptxas, (f"delta_kernel<13__nv_bfloat16Li{d}>",
+                               f"dkdv_mma{ext}_kernel<Li{d}>", f"dq_mma{ext}_kernel<Li{d}>")),
         "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
         "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
                     f"element's row and of its {BWD_TILE}-row tile of its head (grad_err)",
         "held": {n: {"worst_ratio": r, "max_abs_err": e, "scale_at_max_abs_err": a}
                  for n, (r, e, a) in held.items()},
         "ms": ms, "tflops": n_flops / ms * 1e-9,
-        "plain_ms": time_ms_events(lambda: attention_bwd_ref(q, k, v, o, lse, do), flush),
+        "plain_ms": time_ms_events(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                                   flush),
         "library_ms": time_ms_events(lib_bwd, flush),
+        **({"library_note": "scaled_dot_product_attention without the softcap"
+                            + (", the window as a boolean mask" if binds else "")}
+           if kw.get("softcap") else {}),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "forward_ms": time_ms(lambda: flash_attention(q, k, v), flush),
-        "forward_ms_with_lse": time_ms(lambda: flash_lse(q, k, v), flush),
-        "forward_plain_ms_with_lse": time_ms(lambda: attention_ref(q, k, v, return_lse=True),
-                                             flush),
-        "forward_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True), flush),
+        "forward_ms": time_ms(lambda: flash_attention(q, k, v, **kw), flush),
+        "forward_ms_with_lse": time_ms(lambda: flash_lse(q, k, v, **kw), flush),
+        "forward_plain_ms_with_lse": time_ms(
+            lambda: attention_ref(q, k, v, return_lse=True, **kw), flush),
+        "forward_library_ms": time_ms(lambda: lib_fwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), flush),
         "forward_bound_ms": max(fwd_bytes / PEAK_BYTES * 1e3,
                                 4 * d * n_seen * h * b / PEAK_FLOPS[bf] * 1e3),
     }
@@ -1684,8 +1864,8 @@ def phase_kernels(ptxas=None):
         main, more = time_ssd(gen, flush, path)
         records += main
         extra += more
-    for path in BWD_SHAPES:
-        records.append(flash_bwd_record(gen, flush, path, ptxas))
+    for key in BWD_SHAPES:
+        records.append(flash_bwd_record(gen, flush, key, ptxas))
     for path in SSD_BWD_SHAPES:
         records.append(ssd_bwd_record(gen, flush, path, ptxas))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
@@ -2252,6 +2432,24 @@ TRAIN_PATHS = {
         # the dense layer and one MoE layer; at the published capacity factor
         # 1.25, 2 x 64 tokens overfill some experts' 15 slots: tokens drop
         parity_cut={"n_layers": 2}, parity_tokens=(2, 64), checkpoint=False),
+    "gemma2-27b": dict(
+        phase="train_gemma2", parity="parity_train_gemma2", n_layers=2, lr=SMALL_LR,
+        depth_cut=DEPTH_CUT.format(
+            n=46, params="28.4 B parameters", keep="2 = one local layer (window 4096) and "
+            "one global, the published alternation; 3.49 B parameters, 2.36 B of them the "
+            "embedding and the head of the 256,000-word vocabulary"),
+        # one local and one global layer, the window cut to 64 so that it
+        # binds in 2 x 128 tokens (2 x 256 took 134 s, most of it the CPU's
+        # two runs at full width)
+        parity_cut={"n_layers": 2, "window": 64}, parity_tokens=(2, 128), checkpoint=False),
+    "gemma-7b": dict(
+        phase="train_gemma7b", parity="parity_train_gemma7b", n_layers=8, lr=SMALL_LR,
+        depth_cut=DEPTH_CUT.format(
+            n=28, params="9.32 B parameters", keep="8 layers, 3.79 B parameters, 1.57 B "
+            "of them the embedding and the head of the 256,000-word vocabulary"),
+        # 2 x 128 tokens: head_dim 256 across two 64-row tiles (2 x 256 took
+        # 78 s)
+        parity_cut={"n_layers": 2}, parity_tokens=(2, 128), checkpoint=False),
 }
 
 
@@ -2373,10 +2571,12 @@ def phase_parity_train(arch):
     """One train step of ``arch``'s parity cut at full width (``TRAIN_PATHS``:
     2 layers; for zamba2-7b one group of 2 Mamba2 layers, one application of
     the shared block and a tail of 1; for deepseek-moe-16b the dense layer
-    and one MoE layer) on the card (kernels) against the same step on the CPU
+    and one MoE layer; for gemma2-27b a local and a global layer with the
+    window cut to 64) on the card (kernels) against the same step on the CPU
     (plain versions), from the same weights and batch (``SyntheticLM``
     tokens: 2 x 64 for llama3.2-3b and deepseek-moe-16b, 2 x 256 for
-    mamba2-2.7b and zamba2-7b, one SSD chunk a sequence): the loss and
+    mamba2-2.7b and zamba2-7b, one SSD chunk a sequence, 2 x 128 for
+    gemma2-27b, whose window binds there, and gemma-7b): the loss and
     gradients that ``train_step`` computes (``loss_and_grads``), then
     ``adamw_update`` on the card.  Every gradient leaf must be nonzero on the
     card, in both types.  Where the cut has SSD layers the fp32 CPU run takes
@@ -2471,7 +2671,7 @@ def phase_parity_train(arch):
     check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
           f"{what} fp32: loss {loss_card} vs {loss_cpu}")
     check(sorted(g_card) == sorted(g_cpu), f"{what}: gradient keys differ")
-    worst = (0.0, None)
+    worst = (0.0, "")
     for key in g_cpu:
         a, r = g_card[key], g_cpu[key]
         scale = float(r.abs().max())
@@ -2557,36 +2757,45 @@ def main() -> None:
         if p not in PHASES:
             ap.error(f"unknown phase {p!r}")
 
-    smi = phase_device()
-    ptxas = phase_build(args.build_log)
-    records = phase_kernels(ptxas) if "kernels" in phases else []
+    seconds = {}   # host seconds of each phase run, for the timing line
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        seconds[name] = round(time.time() - t0, 1)
+        return out
+
+    smi = timed("device", phase_device)
+    ptxas = timed("build", phase_build, args.build_log)
+    records = timed("kernels", phase_kernels, ptxas) if "kernels" in phases else []
     for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
                              ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS),
                              ("gemma2-27b", PATH_REQUESTS), ("gemma-7b", PATH_REQUESTS)):
         path = PATHS[arch]
         if path["serve"] not in phases:
             continue
-        cfg, params, counts = phase_serve(arch, n_requests, args.max_new)
+        cfg, params, counts = timed(path["serve"], phase_serve, arch, n_requests, args.max_new)
         for rec in records:
             if rec["path"] == arch:
                 rec["launches"] = counts[rec["name"]]
                 check(rec["launches"] > 0, f"{rec['name']} was not launched by the "
                       f"{arch} serve run")
         if path["parity"] in phases:
-            phase_parity(arch, cfg, params)
+            timed(path["parity"], phase_parity, arch, cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
     for arch, train in TRAIN_PATHS.items():
         if train["phase"] in phases:
-            counts = phase_train(arch)
+            counts = timed(train["phase"], phase_train, arch)
             for rec in records:
                 if rec["path"] == train["phase"]:
                     rec["launches"] = counts[rec["name"]]
                     check(rec["launches"] > 0, f"{rec['name']} was not launched by the "
                           f"{train['phase']} run")
         if train["parity"] in phases:
-            phase_parity_train(arch)
+            timed(train["parity"], phase_parity_train, arch)
+    emit("timing", seconds=seconds)
     complete = set(phases) == set(PHASES)
     if complete:
         check(all("launches" in rec for rec in records), "a kernel has no launch count")

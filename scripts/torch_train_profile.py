@@ -15,7 +15,8 @@ head sums), the weight products (cuBLAS's GEMM kernels) and everything else
 (elementwise, reductions, the embedding's backward, copies).  Beside it, timed alone with
 CUDA events on the same state: ``adamw_update`` on gradients of the
 parameters' shapes, and ``lm_loss`` forward + backward on logits of the
-step's shape.
+step's shape (with a final softcap, as gemma2-27b's ``lm_logits`` applies
+it, also timed with the cap before the loss).
 
     python scripts/torch_train_profile.py [--arch mamba2-2.7b] [--steps 2] [--layers N]
         [--microbatches 2]
@@ -52,7 +53,7 @@ from repro_torch.train import make_train_step
 from repro_torch.tree import tree_map
 
 KINDS = (("flash_forward", re.compile(r"flash_mma")),
-         ("flash_backward", re.compile(r"dkdv_|dq_(mma_)?kernel|delta_kernel")),
+         ("flash_backward", re.compile(r"dkdv_|dq_(mma_)?(ext_)?kernel|delta_kernel")),
          ("ssd_forward", re.compile(r"ssd_scan_kernel")),
          ("ssd_backward", re.compile(r"fwd_walk_kernel|rev_walk_kernel|head_sum_kernel")),
          ("weight_products", re.compile(r"gemm|nvjet|xmma|cutlass|s16816|Kernel2")))
@@ -132,6 +133,9 @@ def main() -> None:
                          dtype=torch.bfloat16).requires_grad_()
     tokens = torch.as_tensor(data.batch(0), device="cuda").long()
     loss_ms = events_ms(lambda: torch.autograd.grad(lm_loss(logits, tokens), logits))
+    cap = cfg.final_softcap
+    capped_ms = events_ms(lambda: torch.autograd.grad(
+        lm_loss(torch.tanh(logits / cap) * cap, tokens), logits)) if cap else None
     del logits
 
     print(json.dumps({
@@ -144,6 +148,7 @@ def main() -> None:
         "device_ms_by_kind": by_kind,
         "adamw_update_ms_alone": adamw_ms,
         "lm_loss_fwd_bwd_ms_alone": loss_ms,
+        **({"lm_loss_with_final_softcap_fwd_bwd_ms_alone": capped_ms} if cap else {}),
         "launches": launches,
         "top_device_kernels": [
             {"name": k[:80], "ms_per_step": ms / args.steps, "count": n}

@@ -1,6 +1,9 @@
 """Wrappers of the flash-attention CUDA kernels: the forward
 (csrc/flash_attention.cu) and, for training, its backward
-(csrc/flash_attention_bwd.cu), tied together by ``FlashAttentionFn``."""
+(csrc/flash_attention_bwd.cu), tied together by ``FlashAttentionFn``.  Both
+take causal attention at head_dim 64, 112, 128 and 256 with a sliding
+window and a softcap; the forward also takes non-causal attention, which has
+no backward kernel."""
 
 from __future__ import annotations
 
@@ -25,15 +28,17 @@ BWD_KERNELS = 3                # kernels a dco_flash_attention_bwd call launches
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
 HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
-BWD_HEAD_DIMS = (64, 112, 128)    # head sizes the backward kernel is compiled for
+BWD_HEAD_DIMS = (64, 112, 128, 256)   # head sizes the backward kernel is compiled for
+BWD_FP32_TILE_256 = 32         # rows of the fp32 backward's tiles at head_dim 256 (fp32_tile in csrc)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C interface dco_flash_attention: q, k, v, out, lse; dtype, B, Sq, Sk, H, G,
 # D, tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
 # dco_flash_attention_bwd: q, k, v, o, dout, lse, delta, dq, dk, dv; dtype, B, S,
-# H, G, D; scale; stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# H, G, D, window; scale, softcap; stream
+BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                + [ctypes.c_void_p])
 _fns = {}
 
 
@@ -99,6 +104,33 @@ def kv_tiles(q_lo: int, q_rows: int, sk: int, *, causal: bool = True,
     return range(lo, -(-end // FLASH_TILE_ROWS))
 
 
+def bwd_tile_rows(head_dim: int, itemsize: int) -> int:
+    """Rows of the backward kernel's Q and KV tiles: ``FLASH_TILE_ROWS``, or
+    ``BWD_FP32_TILE_256`` in fp32 at head_dim 256, where four staged 64-row
+    fp32 tiles pass a block's shared memory."""
+    return BWD_FP32_TILE_256 if itemsize == 4 and head_dim > 128 else FLASH_TILE_ROWS
+
+
+def bwd_q_tiles(kt: int, s: int, *, window: Optional[int] = None,
+                tile: int = FLASH_TILE_ROWS) -> range:
+    """The Q tiles that the backward's dK/dV block of KV tile ``kt`` walks
+    (tiles of ``tile`` rows, length ``s``): from its own, the first at or
+    below the causal diagonal, to the last that the ``window`` of the tile's
+    last row reaches, as ``q_tile_end`` in csrc/flash_attention_bwd.cu."""
+    n = -(-s // tile)
+    end = min(n, (kt * tile + tile - 1 + window - 1) // tile + 1) if window else n
+    return range(kt, end)
+
+
+def bwd_kv_tiles(qt: int, *, window: Optional[int] = None,
+                 tile: int = FLASH_TILE_ROWS) -> range:
+    """The KV tiles that the backward's dQ block of Q tile ``qt`` walks: up
+    to the diagonal, from the first that the tile's first row can see under
+    a ``window``, as ``kv_tile_begin`` in csrc/flash_attention_bwd.cu."""
+    lo = max(0, qt * tile - window + 1) // tile if window else 0
+    return range(lo, qt + 1)
+
+
 def check_window(window: Optional[int], causal: bool) -> None:
     """Raise unless ``window`` is None or a positive int, given with causal
     masking (a window counts back from each query's own position)."""
@@ -139,26 +171,21 @@ def check_rows_aligned(name: str, t: torch.Tensor) -> None:
 
 def check_backward(d: int, causal: bool, window: Optional[int],
                    softcap: Optional[float]) -> None:
-    """Raise ``NotImplementedError`` for attention whose gradient the backward
-    kernel does not compute: it takes causal attention at head_dim 64, 112 or
-    128, with no window and no softcap (the training paths of the dense, MoE
-    and hybrid families).  gemma2's window and softcap and gemma-7b's
-    head_dim 256 are refused: they come with gemma training."""
-    why = []
+    """Raise for attention whose gradient the backward kernel does not
+    compute: ``NotImplementedError`` for non-causal attention (no training
+    path runs it); ``ValueError`` for a head size outside ``BWD_HEAD_DIMS``,
+    a window that is not a positive int or a softcap that is not positive.
+    Causal attention with or without gemma2's window and softcap, at every
+    head size of the forward, gemma-7b's 256 among them, goes through."""
     if not causal:
-        why.append("non-causal attention")
-    if window is not None:
-        why.append(f"a sliding window ({window} rows; gemma2 training)")
-    if softcap is not None:
-        why.append(f"a softcap ({softcap}; gemma2 training)")
-    if d not in BWD_HEAD_DIMS:
-        why.append(f"head_dim {d} (256 is gemma-7b training; the kernel takes "
-                   f"{BWD_HEAD_DIMS})")
-    if why:
         raise NotImplementedError(
             "the flash-attention backward kernel does not compute the gradient of "
-            + ", ".join(why) + "; it comes with a later training slice of the port "
-            "(gemma training)")
+            "non-causal attention")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head_dim in {BWD_HEAD_DIMS}, got {d}")
+    check_window(window, causal)
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be positive")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -180,9 +207,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CPU tensor this computes the plain version, which autograd
     differentiates.  On a CUDA tensor it launches the kernel or raises; when
     autograd records the call (grad enabled and q, k or v requiring grad) it
-    goes through ``FlashAttentionFn``, whose backward is the backward kernel,
-    and raises ``NotImplementedError`` before any launch for what that kernel
-    does not compute (``check_backward``)."""
+    goes through ``FlashAttentionFn``, whose backward is the backward kernel
+    with the same scale, window and softcap, and raises
+    ``NotImplementedError`` before any launch for non-causal attention, which
+    that kernel does not compute (``check_backward``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, Sq, H, D) and k/v (B, Sk, G, D)")
     b, sq, h, d = q.shape
@@ -213,7 +241,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if needs_grad(q, k, v):
         check_backward(d, causal, window, softcap)
-        return FlashAttentionFn.apply(q, k, v, scale, pinned_rows, tiles_per_chunk)
+        return FlashAttentionFn.apply(q, k, v, scale, softcap, window, pinned_rows,
+                                      tiles_per_chunk)
     return _forward(q, k, v, None, causal=causal, scale=scale, softcap=softcap,
                     window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
 
@@ -249,33 +278,39 @@ def _forward(q, k, v, lse: Optional[torch.Tensor], *, causal: bool, scale: float
 
 class FlashAttentionFn(torch.autograd.Function):
     """Causal flash attention with its gradient on the card: the forward
-    kernel, also writing the per-row log-sum-exp, and the backward kernel
-    from it.  Built by ``flash_attention`` on checked inputs only."""
+    kernel, also writing the per-row log-sum-exp of the scaled, capped and
+    windowed scores, and the backward kernel from it with the same scale,
+    softcap and window.  Built by ``flash_attention`` on checked inputs
+    only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, pinned_rows: int,
-                tiles_per_chunk: Optional[int]):
+    def forward(ctx, q, k, v, scale: float, softcap: Optional[float],
+                window: Optional[int], pinned_rows: int, tiles_per_chunk: Optional[int]):
         b, sq, h, _ = q.shape
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        out = _forward(q, k, v, lse, causal=True, scale=scale, softcap=None, window=None,
+        out = _forward(q, k, v, lse, causal=True, scale=scale, softcap=softcap, window=window,
                        pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.softcap, ctx.window = scale, softcap, window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         # autograd hands dO over with any strides; the kernel reads it contiguous
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), scale=ctx.scale,
+                                         softcap=ctx.softcap, window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        softcap: Optional[float] = None,
+                        window: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of causal attention from the forward's output ``o`` and
+    """(dq, dk, dv) of causal attention, with the ``softcap`` and sliding
+    ``window`` of its forward, from the forward's output ``o`` and
     log-sum-exp ``lse`` (B, H, S) and the output's gradient ``do``.
 
     On a CUDA tensor this calls the backward kernel (``BWD_KERNELS``
@@ -292,9 +327,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "n_heads is no multiple of n_kv_heads")
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse must be (B, H, S) = {(b, h, sq)}")
+    check_window(window, True)
     if not q.is_cuda:
-        return attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
-    check_backward(d, True, None, None)
+        return attention_bwd_ref(q, k, v, o, lse, do, scale=scale, softcap=softcap,
+                                 window=window)
+    check_backward(d, True, window, softcap)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError("the backward kernel takes bf16 or fp32, one type for q, k, v, "
                         "o and do")
@@ -311,7 +348,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _kernel("dco_flash_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], b, sq, h, g, d, float(scale), stream)
+            _DTYPES[q.dtype], b, sq, h, g, d, int(window or 0), float(scale),
+            float(softcap or 0.0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed (code {rc})")
     BWD_LAUNCHES[0] += BWD_KERNELS

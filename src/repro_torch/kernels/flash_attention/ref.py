@@ -58,18 +58,23 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                      causal: bool = True, scale: Optional[float] = None
+                      causal: bool = True, scale: Optional[float] = None,
+                      softcap: Optional[float] = None, window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The FlashAttention-2 backward of ``attention_ref`` (no softcap, no
-    window), in fp32 from the forward's output ``o`` and log-sum-exp ``lse``
-    (B, H, Sq): with S the unscaled scores,
+    """The FlashAttention-2 backward of ``attention_ref``, in fp32 from the
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, Sq), the natural
+    log-sum-exp of the scaled, capped and masked scores: with S the unscaled
+    scores, s = S·scale and s_c = softcap·tanh(s / softcap) (s_c = s
+    without a softcap),
 
-        Δ = rowsum(dO ∘ O),  P = exp(S·scale − lse),  dV = Pᵀ dO,
-        dP = dO Vᵀ,  dS = P ∘ (dP − Δ),  dQ = dS K·scale,  dK = dSᵀ Q·scale,
+        Δ = rowsum(dO ∘ O),  P = exp(s_c − lse),  dV = Pᵀ dO,
+        dP = dO Vᵀ,  dS = P ∘ (dP − Δ) ∘ (1 − (s_c / softcap)²),
+        dQ = dS K·scale,  dK = dSᵀ Q·scale,
 
-    dK and dV summed over the query heads of each KV head's group.  Returns
-    (dq, dk, dv) in the inputs' types.  It is the oracle the backward kernel
-    is held against."""
+    P 0 where the causal mask or the ``window`` (as ``_mask``) hides the
+    pair, and the softcap's factor 1 without one; dK and dV summed over the
+    query heads of each KV head's group.  Returns (dq, dk, dv) in the
+    inputs' types.  It is the oracle the backward kernel is held against."""
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -80,12 +85,18 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf = k.float(), v.float()
     delta = (dog * og).sum(-1)                                    # (b, sq, g, grp)
     s = torch.einsum("bsgqd,btgd->bgqst", qg, kf) * scale
+    cap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s, cap = t * softcap, 1.0 - t * t
     p = torch.exp(s - lse.float().reshape(b, g, grp, sq, 1))
-    if causal:
-        p = p.masked_fill(~_mask(sq, sk, True, None, q.device), 0.0)
+    if causal or window is not None:
+        p = p.masked_fill(~_mask(sq, sk, causal, window, q.device), 0.0)
     dv = torch.einsum("bgqst,bsgqd->btgd", p, dog)
     dp = torch.einsum("bsgqd,btgd->bgqst", dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if cap is not None:
+        ds = ds * cap
     dq = torch.einsum("bgqst,btgd->bsgqd", ds, kf) * scale
     dk = torch.einsum("bgqst,bsgqd->btgd", ds, qg) * scale
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -4,20 +4,21 @@ auto-resume and the straggler watchdog, as the JAX package's
 
 Runs on the card unless ``--device cpu`` is given; there is no fallback.  On
 the card attention's gradient is the hand-written flash backward kernel,
-which takes causal attention at head_dim 64, 112 or 128 with no window or
-softcap (the dense and MoE families and the hybrid's shared block), and the
+which takes causal attention at head_dim 64, 112, 128 and 256, with or
+without a sliding window and a softcap (every family: gemma2's local layers
+and softcaps, gemma-7b's head_dim 256, the hybrid's shared block), and the
 SSD scan's gradient is the hand-written SSD backward kernel, which takes
 fp32 scans at head_dim 32 or 64 (the SSM and hybrid families, as
 ``mamba2_block`` passes them); a MoE layer's gradient is plain PyTorch.
-gemma2 and gemma-7b raise ``NotImplementedError`` in their first step, at
-the flash backward's check and before that kernel launches: gemma2's window
-and softcap, gemma-7b's head_dim 256.
 
-zamba2-7b (6.75 B parameters) and deepseek-moe-16b (16.4 B) do not fit one
-80 GB card with Adam's state (12 bytes a parameter); ``--layers`` cuts the
-depth: 45 layers of zamba2 keep its 6 k + 3 shape, 7 of deepseek its dense
-layer and 6 MoE layers.  At full width their losses fall at ``--lr 1e-4``;
-at the default 3e-3 Adam's first steps throw them up.
+zamba2-7b (6.75 B parameters), deepseek-moe-16b (16.4 B), gemma2-27b (28.4
+B) and gemma-7b (9.32 B) do not fit one 80 GB card with Adam's state (12
+bytes a parameter); ``--layers`` cuts the depth: 45 layers of zamba2 keep
+its 6 k + 3 shape, 7 of deepseek its dense layer and 6 MoE layers, 2 of
+gemma2 one local and one global layer, 8 of gemma-7b 3.79 B parameters (the
+256,000-word embedding and head are 2.36 B and 1.57 B of the cuts).  At
+full width their losses fall at ``--lr 1e-4``; at the default 3e-3 Adam's
+first steps throw them up.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --reduce --device cpu --steps 20
@@ -27,6 +28,10 @@ Examples:
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --reduce \\
         --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-27b --reduce \\
+        --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --reduce \\
+        --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
         --steps 100 --batch 8 --seq 512 --microbatches 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
@@ -34,6 +39,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b --layers 45 \\
         --lr 1e-4 --steps 100 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --layers 7 \\
+        --lr 1e-4 --steps 100 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-27b --layers 2 \\
+        --lr 1e-4 --steps 100 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --layers 8 \\
         --lr 1e-4 --steps 100 --batch 8 --seq 512
 """
 

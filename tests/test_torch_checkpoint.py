@@ -259,3 +259,66 @@ def test_mamba2_port_checkpoint_restores_into_jax(ssm_states, tmp_path):
         np.testing.assert_array_equal(np.asarray(a, ref.dtype), ref, err_msg=k)
     assert str(got[".params/layers/a_log"].dtype) == "float32"
     assert int(got[".opt/.step"]) == 9
+
+
+# ---------------------------------------------------------------------------
+# gemma2: a TrainState of the local/global model across the two packages
+# ---------------------------------------------------------------------------
+GEMMA2_ARCH = "gemma2-27b"
+
+
+@pytest.fixture(scope="module")
+def gemma2_states():
+    """A JAX and a port ``TrainState`` of the reduced gemma2 (its gemma
+    norms, a local and a global layer; bf16 weights, fp32 moments), made,
+    not trained."""
+    rng = np.random.default_rng(3)
+    jparams = jm.init_params(jax_reduce(jax_get_arch(GEMMA2_ARCH)), jax.random.key(0))
+
+    def noise(a):
+        return jnp.asarray(rng.standard_normal(a.shape).astype(np.float32))
+
+    jstate = jt.TrainState(jparams, jt.OptState(jax.tree.map(noise, jparams),
+                                                jax.tree.map(noise, jparams),
+                                                jnp.asarray(5, jnp.int32)))
+    params = tm.init_params(reduce_for_smoke(get_arch(GEMMA2_ARCH)), seed=4, device="cpu")
+
+    def tnoise(t):
+        return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+
+    tstate = tt.TrainState(params, tt.OptState(tree_map(tnoise, params),
+                                               tree_map(tnoise, params),
+                                               torch.tensor(11, dtype=torch.int32)))
+    return jstate, tstate
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_gemma2_state_round_trips_across_packages(gemma2_states, tmp_path, direction):
+    """gemma2's state written by one package is read back, bit-equal and
+    with the same keys, types and shapes, by the other."""
+    jstate, tstate = gemma2_states
+    if direction == "port_to_jax":
+        CheckpointManager(str(tmp_path)).save(7, tstate)
+        step, got = JaxCheckpointManager(str(tmp_path)).restore_latest(jstate)
+        got, want = jax_leaves(got), dict(flatten_with_keys(tstate))
+        assert int(got[".opt/.step"]) == 11
+    else:
+        JaxCheckpointManager(str(tmp_path)).save(7, jstate)
+        step, got = CheckpointManager(str(tmp_path)).restore_latest(tstate)
+        got, want = dict(flatten_with_keys(got)), jax_leaves(jstate)
+        like = dict(flatten_with_keys(tstate))
+        for k, t in got.items():
+            assert t.dtype == like[k].dtype, k
+        assert int(got[".opt/.step"]) == 5
+    assert step == 7
+    assert sorted(got) == sorted(want)
+    assert {".params/layers/attn/wq", ".params/layers/mlp/w_gate", ".params/ln_f",
+            ".opt/.v/lm_head"} <= set(got)
+    for k, a in got.items():
+        a = a.float().numpy() if isinstance(a, torch.Tensor) and a.is_floating_point() \
+            else np.asarray(a)
+        r = want[k]
+        r = r.float().numpy() if isinstance(r, torch.Tensor) and r.is_floating_point() \
+            else np.asarray(r)
+        assert a.shape == r.shape, k
+        np.testing.assert_array_equal(a.astype(np.float32), r.astype(np.float32), err_msg=k)
