@@ -137,6 +137,17 @@ run with a non-zero exit code:
             layers, head_dim 256; 28 do not fit), as in 20.
 27. parity_train_gemma7b  one train step of its 2-layer cut, 2 x 128
             tokens: card against CPU as in 25.
+28. simulator   the DCO cache-simulator stack, on the host (numpy, no
+            kernel): all 56 cells of the conformance matrix (14 suite
+            scenarios x 4 policies; the step engine, the compiled engine and
+            the compiled engine fed in segments agree event for event) against
+            the frozen digests of ``tests/golden/conformance_digests.json``,
+            where one digest that differs fails the run; one serving replay
+            of 5,000 requests (the replay benchmark's budget check) under
+            ``lru`` and ``all`` with its SLO metrics; and the analytical model
+            fitted to the suite's 70 simulated points and asked to predict
+            them (R^2 and Kendall's tau at least the reference test's 0.80
+            and 0.65).
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -145,7 +156,7 @@ every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backwards': of their train phases).  The
-whole run takes about 8 to 9 minutes of command time on an H100, the
+whole run takes about 9 to 10 minutes of command time on an H100, the
 build's 30 to 45 seconds included; the ``timing`` line gives each phase's
 host seconds.
 
@@ -236,7 +247,7 @@ PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_
           "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
-          "parity_train_gemma7b")
+          "parity_train_gemma7b", "simulator")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -2743,6 +2754,89 @@ def phase_parity_train(arch):
 
 
 # ---------------------------------------------------------------------------
+REPLAY_REQUESTS = 5000        # the replay benchmark's budget check (N_SMOKE)
+REPLAY_LLC_BYTES = 128 * 1024  # its LLC: about the live KV of a full batch
+FIT_MIN_R2 = 0.80             # tests/test_analytical.py's validation floor
+FIT_MIN_TAU = 0.65
+
+
+def phase_simulator():
+    """The cache-simulator stack on the host: the conformance matrix against
+    the frozen digests, a serving replay, and the analytical fit."""
+    from repro_torch.conformance import load_golden
+    from repro_torch.conformance import matrix_entries
+    from repro_torch.conformance import run_matrix
+    from repro_torch.core import SimConfig
+    from repro_torch.core import fit_params
+    from repro_torch.core import kendall_tau
+    from repro_torch.core import named_policy
+    from repro_torch.core import predict
+    from repro_torch.core import r_squared
+    from repro_torch.core import run_policies
+    from repro_torch.dataflows import SUITE_POLICIES
+    from repro_torch.dataflows import lower_to_counts
+    from repro_torch.dataflows import lower_to_trace
+    from repro_torch.dataflows import registry_keys
+    from repro_torch.dataflows import suite_case
+    from repro_torch.serve.replay import run_replay
+    from repro_torch.serve.traffic import TrafficConfig
+
+    golden = load_golden()
+    check(golden is not None, "simulator: tests/golden/conformance_digests.json is "
+          "missing or of another event schema")
+    entries = list(matrix_entries())
+    t0 = time.time()
+    cells = run_matrix(entries, golden=golden)
+    matrix_s = time.time() - t0
+    failed = [f"{c.scenario}/{c.policy}: {c.failure}" for c in cells if not c.ok]
+    check(not failed, f"simulator: conformance cells failed: {failed}")
+    equal = sum(c.digest == golden[f"{c.scenario}/{c.policy}"] for c in cells)
+    check(len(cells) == len(entries) == equal, f"simulator: {equal} of {len(entries)} "
+          "cells equal their frozen digests")
+
+    traffic = TrafficConfig(n_requests=REPLAY_REQUESTS)
+    replay = {}
+    t0 = time.time()
+    for pol in ("lru", "all"):
+        res = run_replay(traffic, pol, SimConfig(llc_bytes=REPLAY_LLC_BYTES))
+        check(res.slo["completed"]["n"] == REPLAY_REQUESTS and res.rounds > 0,
+              f"simulator: replay under {pol} completed {res.slo['completed']}")
+        check(all(np.isfinite(v) for m in ("ttft_ms", "tpot_ms") for v in res.slo[m].values()),
+              f"simulator: replay under {pol}: SLO metrics not finite: {res.slo}")
+        replay[pol] = dict(slo=res.slo, rounds=res.rounds, segments=res.segments,
+                           hit_rate=res.sim.hit_rate, cycles=res.sim.cycles)
+    replay_s = time.time() - t0
+
+    t0 = time.time()
+    points = []
+    for key in registry_keys():
+        case = suite_case(key)
+        counts = lower_to_counts(case.spec)
+        results = run_policies(lower_to_trace(case.spec),
+                               [named_policy(p, gqa=case.gqa) for p in SUITE_POLICIES],
+                               case.cfg, record_history=False)
+        points += [(counts, case.cfg.llc_bytes, p, "optimal", case.gqa, counts.n_rounds,
+                    r.cycles) for p, r in zip(SUITE_POLICIES, results)]
+    hw = suite_case(registry_keys()[0]).cfg
+    params = fit_params(points, hw)
+    pred = np.array([predict(c, llc, p, hw, params, v, g, n_rounds=n).cycles
+                     for c, llc, p, v, g, n, _ in points])
+    target = np.array([t for *_, t in points])
+    r2, tau = r_squared(pred, target), kendall_tau(pred, target)
+    fit_s = time.time() - t0
+    check(bool(np.isfinite(pred).all() and (pred > 0).all()), "simulator: a prediction is "
+          "not a positive finite cycle count")
+    check(r2 >= FIT_MIN_R2 and tau >= FIT_MIN_TAU, f"simulator: fit R^2 {r2:.4f}, tau "
+          f"{tau:.4f} below {FIT_MIN_R2} / {FIT_MIN_TAU}")
+    emit("simulator", ran_on="host", cells=len(cells), cells_equal=equal,
+         events=sum(c.n_events for c in cells), matrix_seconds=matrix_s,
+         replay_requests=REPLAY_REQUESTS, replay_llc_bytes=REPLAY_LLC_BYTES,
+         replay=replay, replay_seconds=replay_s, fit_points=len(points),
+         fit_params=dict(theta1=params.theta1, theta2=params.theta2, theta3=params.theta3,
+                         lam=params.lam, round_overhead=params.round_overhead),
+         fit_r2=r2, fit_kendall_tau=tau, fit_seconds=fit_s)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2795,6 +2889,8 @@ def main() -> None:
                           f"{train['phase']} run")
         if train["parity"] in phases:
             timed(train["parity"], phase_parity_train, arch)
+    if "simulator" in phases:
+        timed("simulator", phase_simulator)
     emit("timing", seconds=seconds)
     complete = set(phases) == set(PHASES)
     if complete:

@@ -31,6 +31,14 @@ from repro_torch.tree import tree_map
 ARCH = "llama3.2-3b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def manifest(path):
     with open(os.path.join(path, "manifest.json")) as f:
         return json.load(f)

@@ -24,12 +24,45 @@ def _run(code: str) -> subprocess.CompletedProcess:
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.kernels", "repro_torch.convert", "repro_torch.models.moe", "chip_smoke",
     "repro_torch.train", "repro_torch.data", "repro_torch.checkpoint",
-    "repro_torch.launch.train", "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm"])
+    "repro_torch.launch.train", "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+    "repro_torch.core.simulator", "repro_torch.dataflows", "repro_torch.conformance",
+    "repro_torch.serve.replay"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"
         "sys.path.insert(0, '.')\n"
         f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("clean")
+
+
+def test_running_the_simulator_stack_leaves_jax_and_repro_out():
+    """Not only importing: a conformance cell, a replay and an analytical
+    fit run through the port, and neither jax nor the JAX package is loaded
+    by any lazy import on their way."""
+    code = (
+        "import sys\n"
+        "from repro_torch.conformance import compare_scenario, load_golden\n"
+        "from repro_torch.core import fit_params, predict, run_policy, named_policy\n"
+        "from repro_torch.dataflows import lower_to_counts, lower_to_trace, suite_case\n"
+        "from repro_torch.serve.replay import run_replay\n"
+        "from repro_torch.serve.traffic import TrafficConfig\n"
+        "res, = compare_scenario('serve-replay', ('at+dbp',), golden=load_golden())\n"
+        "assert res.ok and res.golden == res.digest, res\n"
+        "rep = run_replay(TrafficConfig(n_requests=16, seed=1), 'all', verify=True)\n"
+        "assert rep.slo and rep.rounds > 0\n"
+        "case = suite_case('matmul')\n"
+        "counts = lower_to_counts(case.spec)\n"
+        "sim = run_policy(lower_to_trace(case.spec), named_policy('lru'), case.cfg)\n"
+        "pts = [(counts, case.cfg.llc_bytes, 'lru', 'optimal', False, counts.n_rounds,"
+        " sim.cycles)]\n"
+        "params = fit_params(pts, case.cfg)\n"
+        "assert predict(counts, case.cfg.llc_bytes, 'lru', case.cfg, params).cycles > 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

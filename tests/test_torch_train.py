@@ -76,6 +76,14 @@ def held_by_share(got, want, what):
     assert share >= 0.99, f"{what}: {share:.4f} within {SHARE_TOL} of {scale:.3e}"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def jax_op_by_op():
     with jax.disable_jit():

@@ -64,6 +64,14 @@ JCFG = replace(JCFG, moe=replace(JCFG.moe, capacity_factor=CAPACITY_FACTOR))
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def f32(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
