@@ -137,7 +137,26 @@ run with a non-zero exit code:
             layers, head_dim 256; 28 do not fit), as in 20.
 27. parity_train_gemma7b  one train step of its 2-layer cut, 2 x 128
             tokens: card against CPU as in 25.
-28. simulator   the DCO cache-simulator stack, on the host (numpy, no
+28. train_mesh   training under a mesh: two processes share the one card,
+            each joined to a gloo process group (NCCL refuses two ranks on one
+            GPU; every collective goes through the host, so this shows
+            correctness and per-rank memory, not multi-card speed).
+            llama3.2-3b at full width and 4 layers on meshes (data, model)
+            = (1, 2), (1, 2) with ACT_SEQ (the residual stream sharded on
+            the sequence) and (2, 1) (ZeRO-1), and deepseek-moe-16b at 3
+            layers (the dense layer and 2 MoE layers) on (1, 2) (expert
+            parallelism): 3 bf16 steps of 8 x 512 tokens each, the state
+            placed by the sharding rules; each rank's step seconds, peak
+            memory and launches (exactly those of its layers' attention on
+            its heads: 12 query and 4 KV heads a rank for llama, 8 x 8 for
+            deepseek).
+29. parity_train_mesh  each layout of 28: one fp32 step on the mesh, its
+            parameters gathered, against one process on the card (loss,
+            gradient norm and every parameter leaf elementwise within 1e-5
+            of the leaf's scale); llama also in bf16 (every gathered gradient
+            leaf by the share rules of 17). Both mesh phases run in one start
+            of the two processes.
+30. simulator   the DCO cache-simulator stack, on the host (numpy, no
             kernel): all 56 cells of the conformance matrix (14 suite
             scenarios x 4 policies; the step engine, the compiled engine and
             the compiled engine fed in segments agree event for event) against
@@ -247,7 +266,7 @@ PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_
           "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
-          "parity_train_gemma7b", "simulator")
+          "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "simulator")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -2340,8 +2359,8 @@ def dropped(counts):
     from repro_torch.models import moe
     real = moe._slots
 
-    def slots(w, idx, n_experts, capacity):
-        tok_ids, valid, gw = real(w, idx, n_experts, capacity)
+    def slots(w, idx, n_experts, capacity, *rest):
+        tok_ids, valid, gw = real(w, idx, n_experts, capacity, *rest)
         counts.append(int(idx.numel()) - int(valid.sum()))
         return tok_ids, valid, gw
 
@@ -2754,6 +2773,327 @@ def phase_parity_train(arch):
 
 
 # ---------------------------------------------------------------------------
+# Training under a mesh: two ranks share the one card, joined by gloo (NCCL
+# refuses two ranks on one GPU); each is a process of its own (MESH_RANKS)
+MESH_RANKS = 2
+MESH_STEPS = 3
+MESH_TIMEOUT_S = 900
+# each layout of train_mesh: (arch, layers, (data, model), ACT_SEQ); the
+# parity phase holds each against one process on the card
+MESH_RUNS = (("llama3.2-3b", 4, (1, 2), False), ("llama3.2-3b", 4, (1, 2), True),
+             ("llama3.2-3b", 4, (2, 1), False), ("deepseek-moe-16b", 3, (1, 2), False))
+MESH_PARITY_TOKENS = (2, 128)
+# parity's optimizer: Adam's first step moves a parameter by lr g / (|g| + eps);
+# at eps 1 that is smooth in g (about lr g), so the two runs' parameters can
+# be held elementwise (at eps 1e-8 a gradient within rounding of 0 could move
+# either way by lr); weight decay moves every matrix by lr wd |p|
+MESH_PARITY_OPT = dict(lr=0.1, eps=1.0, warmup_steps=0, total_steps=10)
+MESH_TOL = 1e-5          # fp32, mesh vs one process: times each leaf's largest magnitude
+
+
+def mesh_cfg(arch, n_layers):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    check_published(arch, cfg)
+    return replace(cfg, n_layers=n_layers)
+
+
+def run_mesh_children(phases):
+    """Start MESH_RANKS processes of this script (``--mesh-child``) that run
+    ``phases`` (one start for both mesh phases: each costs a CUDA context and
+    the imports), wait for them, and return each rank's results.  A rank that
+    fails, or does not end in MESH_TIMEOUT_S, fails the run; every process
+    is stopped before this returns."""
+    work = ROOT / "build" / "mesh"
+    shutil_rmtree(work)
+    work.mkdir(parents=True)
+    procs = []
+    try:
+        for r in range(MESH_RANKS):
+            log = open(work / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", ",".join(phases),
+                 "--mesh-rank", str(r), "--mesh-dir", str(work)],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.time() + MESH_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs):
+            failed = [p for p, _ in procs if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            tail = (work / f"rank{r}.log").read_text()[-3000:]
+            print(f"{phases} rank {r} exited {p.returncode}:\n{tail}", file=sys.stderr)
+        check(p.returncode == 0, f"{phases}: rank {r} exited with {p.returncode}")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+
+
+def shutil_rmtree(path):
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def mesh_child(phases, rank, work):
+    """One rank of the mesh ``phases``: joins the gloo group of MESH_RANKS
+    processes on card 0 and runs every layout of MESH_RUNS for each phase;
+    writes ``{phase: [run results], phase + "_seconds": s}`` to
+    ``work/rank{rank}.json``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=MESH_RANKS)
+    from repro_torch.kernels import build
+    build.load()
+    from repro_torch.launch.mesh import make_test_mesh
+    meshes, refs = {}, {}
+    out = {}
+    try:
+        for phase in phases:
+            t0 = time.time()
+            out[phase] = []
+            for arch, n_layers, shape, act_seq in MESH_RUNS:
+                if shape not in meshes:
+                    meshes[shape] = make_test_mesh(*shape, device_type="cuda")
+                cfg = mesh_cfg(arch, n_layers)
+                if phase == "train_mesh":
+                    run = mesh_train_run(cfg, meshes[shape], act_seq, rank)
+                else:
+                    run = mesh_parity_run(cfg, meshes[shape], act_seq, rank, refs)
+                out[phase].append(run)
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+            out[phase + "_seconds"] = time.time() - t0
+    finally:
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def mesh_train_run(cfg, mesh, act_seq, rank):
+    """MESH_STEPS bf16 steps of ``cfg`` on ``mesh`` (this rank's part): the
+    whole state from seed 0 placed by the sharding rules, ``SyntheticLM``
+    batches of TRAIN_SHAPE's 8 x 512 tokens (each data rank takes its rows),
+    the cut-depth paths' learning rate.  Every loss and gradient norm finite;
+    this rank's launches exactly ``train_launches`` of the steps (each rank
+    runs every layer's attention on its heads)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ACT_SEQ
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init_sharded_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    ACT_SEQ[0] = act_seq
+    try:
+        with use_mesh(mesh):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            state = init_sharded_train_state(init_params(cfg, seed=0, device="cuda"), cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            setup_s = time.time() - t0
+            peak_setup = torch.cuda.max_memory_allocated()
+            held_bytes = torch.cuda.memory_allocated()
+            local_params = sum(p.numel() for p in leaves(state.params))
+            lr = SMALL_LR[0]
+            step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=0,
+                                                    total_steps=MESH_STEPS), device="cuda")
+            data = SyntheticLM(cfg.vocab, s, b)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            log = []
+            for i in range(MESH_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                state, metrics = step(state, data.batch(i))
+                torch.cuda.synchronize()
+                log.append(dict(step=i, loss=float(metrics["loss"]),
+                                grad_norm=float(metrics["grad_norm"]), seconds=time.time() - t0))
+            counts = launch_counts()
+    finally:
+        ACT_SEQ[0] = False
+    want = train_launches(cfg, MESH_STEPS)
+    check(counts == want, f"train_mesh rank {rank}: launches {counts}, expected {want}")
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
+          f"train_mesh rank {rank}: a loss or gradient norm is not finite")
+    steady = statistics.median(r["seconds"] for r in log[1:])
+    return dict(rank=rank, batch=b, seq=s, peak_lr=lr, steps=log, seconds_per_step=steady,
+                tokens_per_s=b * s / steady, setup_seconds=setup_s, launches=counts,
+                local_params=local_params, state_bytes=held_bytes,
+                peak_memory_bytes_setup=peak_setup,
+                peak_memory_bytes_steps=torch.cuda.max_memory_allocated())
+
+
+def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
+    """One fp32 train step of ``cfg`` on ``mesh``, its parameters gathered,
+    against the same step in one process on the card (``mesh_reference``,
+    run by rank 0 once an architecture, the other rank waiting): loss and
+    gradient norm within MESH_TOL, every parameter leaf after the step
+    elementwise within MESH_TOL of its largest magnitude.  Dense models also
+    in bf16: every gathered gradient leaf by the share rules of
+    phase_parity_train, the loss within LOGIT_TOL (MoE is held in fp32 only:
+    router near-ties flip between the ranks' sums and one process's)."""
+    import torch.distributed as dist
+    from repro_torch.configs import MOE
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ACT_SEQ
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import gather_tree
+    from repro_torch.sharding import shard_tree
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.api import dp_axes
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init_sharded_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train import param_logical_axes
+    from repro_torch.train.loop import local_batch
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.tree import flatten_with_keys
+    from repro_torch.tree import unflatten
+    b, s = MESH_PARITY_TOKENS
+    tokens = torch.as_tensor(SyntheticLM(cfg.vocab, s, b).batch(0)).to("cuda", torch.long)
+    axes, shapes = param_logical_axes(cfg), init_params(cfg, device="meta")
+    dense = cfg.family != MOE
+    fields = {}
+    ACT_SEQ[0] = act_seq
+    try:
+        with use_mesh(mesh):
+            t0 = time.time()
+            state = init_sharded_train_state(
+                init_params(cfg, seed=0, device="cuda", dtype=torch.float32), cfg)
+            state, met = make_train_step(cfg, AdamWConfig(**MESH_PARITY_OPT),
+                                         device="cuda")(state, tokens)
+            got = {k: t.cpu() for k, t in flatten_with_keys(gather_tree(state.params, axes,
+                                                                         shapes))}
+            del state
+            fields["fp32_mesh_seconds"] = time.time() - t0
+            if dense:
+                t0 = time.time()
+                params = shard_tree(init_params(cfg, seed=0, device="cuda"), axes)
+                loss, grads = loss_and_grads(params, local_batch(tokens), cfg)
+                for g in grads:
+                    for axis in dp_axes(mesh):
+                        comm.all_reduce_(g, axis)
+                got_g = {k: t.float().cpu() for k, t in flatten_with_keys(
+                    gather_tree(unflatten(params, grads), axes, shapes))}
+                bf16_loss = float(loss)
+                del params, grads
+                fields["bf16_mesh_seconds"] = time.time() - t0
+    finally:
+        ACT_SEQ[0] = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        if cfg.name not in refs:
+            refs[cfg.name] = mesh_reference(cfg, tokens, dense)
+        ref = refs[cfg.name]
+        check(abs(float(met["loss"]) - ref["loss"]) <= MESH_TOL * max(1.0, abs(ref["loss"])),
+              f"parity_train_mesh fp32: loss {float(met['loss'])} vs {ref['loss']}")
+        check(abs(float(met["grad_norm"]) - ref["grad_norm"]) <= MESH_TOL * ref["grad_norm"],
+              f"parity_train_mesh fp32: grad norm {float(met['grad_norm'])} vs "
+              f"{ref['grad_norm']}")
+        worst = (0.0, "")
+        for key, want in ref["params"].items():
+            scale = float(want.abs().max())
+            err = float((got[key] - want).abs().max())
+            check(err <= MESH_TOL * scale, f"parity_train_mesh fp32: {key} max abs err "
+                  f"{err:.3e} beyond {MESH_TOL} x {scale:.3e}")
+            worst = max(worst, (err / scale, key))
+        fields.update(fp32_loss_mesh=float(met["loss"]), fp32_loss_one=ref["loss"],
+                      fp32_grad_norm_mesh=float(met["grad_norm"]),
+                      fp32_grad_norm_one=ref["grad_norm"], fp32_param_max_rel_err=worst[0],
+                      fp32_param_max_rel_err_leaf=worst[1], parameter_leaves=len(got),
+                      one_process_seconds=ref["seconds"])
+        if dense:
+            check(abs(bf16_loss - ref["bf16_loss"]) <= LOGIT_TOL,
+                  f"parity_train_mesh bf16: loss {bf16_loss} vs {ref['bf16_loss']}")
+            shares, rmss, caps = [], [], []
+            for key, want in ref["bf16_grads"].items():
+                rel = (got_g[key] - want).abs() / float(want.abs().max())
+                shares.append(float((rel <= GRAD_SHARE_TOL).float().mean()))
+                rmss.append(float(rel.square().mean().sqrt()))
+                caps.append(float(rel.max()))
+                check(shares[-1] >= 0.99 and rmss[-1] <= GRAD_SHARE_TOL / 2 and caps[-1] <= 0.5,
+                      f"parity_train_mesh bf16: {key} share {shares[-1]:.4f}, RMS "
+                      f"{rmss[-1]:.4f}, cap {caps[-1]:.4f}")
+            fields.update(bf16_loss_mesh=bf16_loss, bf16_loss_one=ref["bf16_loss"],
+                          bf16_grad_min_share=min(shares), bf16_grad_max_rms=max(rmss),
+                          bf16_grad_max_rel_err=max(caps), gradient_leaves=len(shares))
+    dist.barrier()
+    return dict(rank=rank, tokens=[b, s], opt=MESH_PARITY_OPT, **fields)
+
+
+def mesh_reference(cfg, tokens, dense):
+    """The one-process side of ``mesh_parity_run`` on the card, kept on the
+    host: the fp32 step's loss, gradient norm and parameters, and (dense) the
+    bf16 loss and gradients."""
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.tree import flatten_with_keys
+    t0 = time.time()
+    one = init_train_state(init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+    one, met = make_train_step(cfg, AdamWConfig(**MESH_PARITY_OPT), device="cuda")(one, tokens)
+    ref = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+               params={k: t.cpu() for k, t in flatten_with_keys(one.params)})
+    del one
+    if dense:
+        params = init_params(cfg, seed=0, device="cuda")
+        loss, grads = loss_and_grads(params, tokens, cfg)
+        ref.update(bf16_loss=float(loss), bf16_grads={
+            k: g.float().cpu() for (k, _), g in zip(flatten_with_keys(params), grads)})
+        del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["seconds"] = time.time() - t0
+    return ref
+
+
+def phase_mesh(phases):
+    """The mesh phases asked for, run by one start of MESH_RANKS ranks on the
+    one card (``run_mesh_children``).  ``train_mesh``: every layout of
+    MESH_RUNS trained (``mesh_train_run``); its lines hold each rank's step
+    seconds and peak memory.  ``parity_train_mesh``: every layout's step
+    against one process (``mesh_parity_run``).  Two ranks on one card show
+    correctness and per-rank memory, not multi-card speed: the collectives go
+    through gloo and the host, not NVLink and NCCL."""
+    # the children share the card with this process: give back what its
+    # earlier phases left in PyTorch's cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    ranks = run_mesh_children(phases)
+    for phase in phases:
+        for i, (arch, n_layers, shape, act_seq) in enumerate(MESH_RUNS):
+            head = dict(arch=arch, n_layers=n_layers, mesh=list(shape), act_seq=act_seq)
+            if phase == "train_mesh":
+                emit(phase, **head, d_model=mesh_cfg(arch, n_layers).d_model,
+                     dtype="bfloat16", backend="gloo", ranks=[r[phase][i] for r in ranks],
+                     phase_seconds=ranks[0][phase + "_seconds"], parent_reserved_bytes=held)
+            else:
+                emit(phase, **head, tol_fp32=MESH_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL,
+                     loss_tol_bf16=LOGIT_TOL, phase_seconds=ranks[0][phase + "_seconds"],
+                     **ranks[0][phase][i])
+
+
+# ---------------------------------------------------------------------------
 REPLAY_REQUESTS = 5000        # the replay benchmark's budget check (N_SMOKE)
 REPLAY_LLC_BYTES = 128 * 1024  # its LLC: about the live KV of a full batch
 FIT_MIN_R2 = 0.80             # tests/test_analytical.py's validation floor
@@ -2845,7 +3185,14 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--build-log", metavar="PATH",
                     help="pass -Xptxas -v to nvcc and write its output to PATH")
+    # one rank of a mesh phase, started by run_mesh_children
+    ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_child:
+        mesh_child(args.mesh_child.split(","), args.mesh_rank, Path(args.mesh_dir))
+        return
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
         if p not in PHASES:
@@ -2889,6 +3236,9 @@ def main() -> None:
                           f"{train['phase']} run")
         if train["parity"] in phases:
             timed(train["parity"], phase_parity_train, arch)
+    mesh_phases = [p for p in ("train_mesh", "parity_train_mesh") if p in phases]
+    if mesh_phases:
+        timed(",".join(mesh_phases), phase_mesh, mesh_phases)
     if "simulator" in phases:
         timed("simulator", phase_simulator)
     emit("timing", seconds=seconds)

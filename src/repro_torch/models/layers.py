@@ -6,9 +6,19 @@ package's keys and layouts (``wq (d, h, e)``, ``wk/wv (d, g, e)``,
 of those weights.  The attention core of ``attention_block`` is the two
 hand-written kernels (flash attention for full sequences, decode attention
 for one token against the cache); ``gqa_attention`` stays as the plain
-oracle the tests hold them against.  The single-device serving path needs
-no sharding hints, so the JAX package's ``constrain`` calls have no
-counterpart here.
+oracle the tests hold them against.
+
+Under a bound mesh with a model axis of more than one rank (tensor
+parallelism, Megatron's split) each rank holds its shard of every weight, as
+``train/sharding_rules.py`` lays them out: q/k/v and gate/up are
+column-parallel over the heads and ``d_ff``, ``wo`` and ``w_down``
+row-parallel, their partial products all-reduced.  The residual stream
+between blocks is laid out by ``act_axes()``: ``d_model`` sharded over the
+model axis, or with ``ACT_SEQ`` the sequence, where ``row_parallel_out``
+reduce-scatters it.  Each ``constrain`` of the reference has its
+counterpart at the same place, a move of local shards; the kernels always
+receive plain local tensors: this rank's query heads and the KV heads they
+read.
 """
 
 from __future__ import annotations
@@ -21,11 +31,20 @@ import torch
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..sharding import comm
+from ..sharding.api import ACT_SEQ
+from ..sharding.api import act_axes
+from ..sharding.api import constrain
+from ..sharding.api import current_mesh
+from ..sharding.api import model_size
 
 
 def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """N(0, std²) weights drawn in fp32 from ``gen`` on its device, cast to
-    ``dtype``, as the JAX package's ``(normal(key, shape) * std).astype(dtype)``."""
+    ``dtype``, as the JAX package's ``(normal(key, shape) * std).astype(dtype)``.
+    On the meta device (``make_generator(seed, "meta")``) the shape only."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return w.mul_(std).to(dtype)
 
@@ -37,7 +56,7 @@ def init_stacked(gen: torch.Generator, n_layers: int, shape, std: float,
     more than one layer (gemma2-27b's ``w_down`` in fp32 is 31.3 GB whole, 0.68
     GB a layer)."""
     out = torch.empty((n_layers,) + tuple(shape), dtype=dtype, device=gen.device)
-    for i in range(n_layers):
+    for i in range(n_layers if gen.device.type != "meta" else 0):
         out[i] = init_normal(gen, shape, std, dtype)
     return out
 
@@ -55,6 +74,105 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     x = x * torch.rsqrt(var + eps)
     w = (1.0 + scale) if plus_one else scale
     return (x * w.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the residual stream's layout and the block's edges
+# ---------------------------------------------------------------------------
+def resid_shape(x: torch.Tensor, cfg) -> Tuple[int, int, int]:
+    """The whole shape over the model axis of ``x``, this rank's part of the
+    residual stream (its batch rows are its data shard's): the sequence is
+    sharded whenever ``ACT_SEQ`` is set under a model axis of more than one
+    rank (``embed_tokens`` refuses a sequence that does not split), and
+    ``d_model`` is ``cfg.d_model``."""
+    m = model_size()
+    b, s, _ = x.shape
+    return b, (s * m if ACT_SEQ[0] and m > 1 else s), cfg.d_model
+
+
+def resid_norm(x: torch.Tensor, scale: torch.Tensor, cfg) -> torch.Tensor:
+    """``rms_norm(x, scale)`` of the residual stream's local part ``x``.
+    ``d_model`` sharded (``act_axes()``'s ``tp_act``): the sum of squares is
+    all-reduced and each rank scales by its slice of ``scale``.  The sequence
+    sharded (``ACT_SEQ``): each rank's rows alone, and the gradient of the
+    whole ``scale`` summed over the ranks (``comm.copy_to``)."""
+    if model_size() == 1:
+        return rms_norm(x, scale, plus_one=cfg.gemma_norm)
+    whole = resid_shape(x, cfg)
+    if x.shape[2] != whole[2]:
+        dtype = x.dtype
+        xf = x.float()
+        var = comm.all_sum(xf.square().sum(dim=-1, keepdim=True)) / whole[2]
+        xf = xf * torch.rsqrt(var + 1e-6)
+        w = constrain(scale, ("tp_act",))
+        w = (1.0 + w) if cfg.gemma_norm else w
+        return (xf * w.float()).to(dtype)
+    if x.shape[1] != whole[1]:
+        scale = comm.copy_to(scale)
+    return rms_norm(x, scale, plus_one=cfg.gemma_norm)
+
+
+def tp_input(h: torch.Tensor, cfg, like: torch.Tensor) -> torch.Tensor:
+    """The reference's ``constrain(h, ("dp", None, None))`` before the
+    column-parallel products: the normed residual ``h`` (laid out as the
+    stream ``like`` is) gathered whole on every rank of the model axis,
+    whose gradient then sums every rank's partial one (``comm.copy_to``)."""
+    if model_size() == 1:
+        return h
+    h = constrain(h, ("dp", None, None), have=act_axes(), shape=resid_shape(like, cfg))
+    return comm.copy_to(h)
+
+
+def tp_output(part: torch.Tensor, cfg) -> torch.Tensor:
+    """The row-parallel product's partial sums ``part`` (B, S, d_model), one
+    per rank of the model axis, all-reduced and laid out as the residual
+    stream: the reference's ``einsum`` and ``constrain(out, act_axes())``."""
+    if model_size() == 1:
+        return part
+    return constrain(comm.reduce_from(part), act_axes())
+
+
+def tp_heads(cfg) -> Tuple[int, int, int]:
+    """(query heads a rank, KV heads a rank, first KV head of this rank) under
+    the bound mesh's model axis.  ``wq`` is sharded by heads; ``wk``/``wv``
+    are sharded where the model axis divides the KV heads, and otherwise
+    (``logical_spec``'s divisibility filter) stay whole and each rank uses the
+    one KV head its query heads read."""
+    m = model_size()
+    h, g = cfg.n_heads, cfg.n_kv_heads
+    if m == 1:
+        return h, g, 0
+    r = comm.axis_group("model")[2]
+    if h % m:
+        raise NotImplementedError(
+            f"{h} query heads do not split over a model axis of {m} ranks: tensor "
+            "parallelism shards attention by heads")
+    if g % m == 0:
+        return h // m, g // m, r * (g // m)
+    group = h // g
+    if group % (h // m):
+        raise NotImplementedError(
+            f"{h // m} query heads a rank straddle the KV groups of {group}")
+    return h // m, 1, r * (h // m) // group
+
+
+def row_parallel_out(y: torch.Tensor, w: torch.Tensor) -> Optional[torch.Tensor]:
+    """Megatron-SP row-parallel output projection, as the reference's.
+
+    y (B, S, F/model) is this rank's shard of F; w (F/model, D) its rows.
+    Computes the partial product and **reduce-scatters over the sequence**,
+    so that the residual stream leaves the block sequence-sharded
+    (``ACT_SEQ``).  Returns ``None`` where the reference's does: without
+    ``ACT_SEQ`` or a mesh, with one rank on the model axis, or where the
+    model axis does not divide the sequence (the caller then all-reduces
+    and lays the sum out as ``act_axes()`` says)."""
+    mesh = current_mesh()
+    if not ACT_SEQ[0] or mesh is None:
+        return None
+    mdl = model_size(mesh)
+    if mdl <= 1 or y.shape[1] % mdl:
+        return None
+    return comm.reduce_scatter(torch.matmul(y, w), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -190,17 +308,25 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     ``positions`` (M-RoPE) and chunked prefill.  They belong to later slices
     of the port.
     """
-    b, s, dm = x.shape
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) reach neither attention kernel yet; "
             "they come with the qwen2-vl slice of the port")
     window = cfg.window if layer_is_local and cfg.window is not None else None
-    n_h, n_g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, params["ln"], plus_one=cfg.gemma_norm)
+    n_h, n_g, g0 = tp_heads(cfg)
+    hd = cfg.head_dim
+    wk, wv = params["wk"], params["wv"]
+    if wk.shape[-2] != n_g:
+        # whole K/V weights: this rank's KV head, the gradient summed over ranks
+        wk, wv = (comm.copy_to(w)[:, g0:g0 + n_g] for w in (wk, wv))
+    h = resid_norm(x, params["ln"], cfg)
+    h = tp_input(h, cfg, x)
+    b, s, dm = h.shape
     q = torch.matmul(h, params["wq"].reshape(dm, n_h * hd)).view(b, s, n_h, hd)
-    k = torch.matmul(h, params["wk"].reshape(dm, n_g * hd)).view(b, s, n_g, hd)
-    v = torch.matmul(h, params["wv"].reshape(dm, n_g * hd)).view(b, s, n_g, hd)
+    k = torch.matmul(h, wk.reshape(dm, n_g * hd)).view(b, s, n_g, hd)
+    v = torch.matmul(h, wv.reshape(dm, n_g * hd)).view(b, s, n_g, hd)
+    # the reference's constrain(q/k/v, ("dp", None, "tp", None)): this rank's
+    # heads are what the column-parallel products made
 
     if rope is None:
         rope = block_rope_tables(cfg, b, s, cache_pos, x.device)
@@ -208,8 +334,8 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     k = apply_rope(k, None, cfg.rope_theta, tables=rope)
 
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], plus_one=cfg.gemma_norm)
-        k = rms_norm(k, params["k_norm"], plus_one=cfg.gemma_norm)
+        q = rms_norm(q, comm.copy_to(params["q_norm"]), plus_one=cfg.gemma_norm)
+        k = rms_norm(k, comm.copy_to(params["k_norm"]), plus_one=cfg.gemma_norm)
     scale = cfg.attn_scale or (1.0 / math.sqrt(cfg.head_dim))
 
     if kv_cache is None:
@@ -246,8 +372,12 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
                                   window=window, pinned_rows=pinned_rows)
         new_cache = (ck, cv)
 
-    out = torch.matmul(out.reshape(b, s, n_h * hd), params["wo"].reshape(n_h * hd, dm))
-    return out, new_cache
+    wo = params["wo"].reshape(n_h * hd, dm)
+    rp = row_parallel_out(out.reshape(b, s, n_h * hd), wo)
+    if rp is not None:
+        return rp, new_cache
+    out = torch.matmul(out.reshape(b, s, n_h * hd), wo)
+    return tp_output(out, cfg), new_cache
 
 
 def block_rope_tables(cfg, b: int, s: int, cache_pos: Optional[int], device):
@@ -285,8 +415,18 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(params, x, cfg):
-    h = rms_norm(x, params["ln"], plus_one=cfg.gemma_norm)
+    """Norm, gate/up (column-parallel under a model axis: this rank's
+    ``d_ff`` columns, the reference's ``constrain(gate, ("dp", None,
+    "tp"))``), then ``w_down`` (row-parallel)."""
+    m = model_size()
+    if m > 1 and params["w_down"].shape[0] * m != cfg.d_ff:
+        raise NotImplementedError(
+            f"d_ff {cfg.d_ff} does not split over a model axis of {m} ranks")
+    h = tp_input(resid_norm(x, params["ln"], cfg), cfg, x)
     gate = torch.matmul(h, params["w_gate"])
     up = torch.matmul(h, params["w_up"])
     act = _gelu_tanh(gate) if cfg.act == "gelu" else _silu(gate)
-    return torch.matmul(act * up, params["w_down"])
+    rp = row_parallel_out(act * up, params["w_down"])
+    if rp is not None:
+        return rp
+    return tp_output(torch.matmul(act * up, params["w_down"]), cfg)

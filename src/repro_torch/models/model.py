@@ -28,11 +28,20 @@ Design notes
   and state for each Mamba2 layer.
 * Entry points take an explicit ``device`` (default the card) and raise
   where it is absent; random weights come from an explicit
-  ``torch.Generator`` on that device.
+  ``torch.Generator`` on that device.  ``init_params(cfg, device="meta")``
+  gives the shapes alone, the counterpart of ``jax.eval_shape``.
+* Under a bound mesh (``sharding.use_mesh``) ``forward`` takes this rank's
+  data shard of the batch and its shard of every parameter
+  (``train/sharding_rules.py``): ``embed`` sharded over ``d_model`` and
+  gathered into the residual stream's layout, ``lm_head`` over the
+  vocabulary, whose sharded logits ``lm_loss`` reduces as a vocab-parallel
+  cross-entropy to the global batch's mean.  ``prefill`` and
+  ``decode_step`` refuse a mesh: serving under one is a later slice.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from functools import partial
 import math
 from typing import Any
@@ -51,12 +60,21 @@ from ..configs import DENSE
 from ..configs import HYBRID
 from ..configs import MOE
 from ..configs import SSM
+from ..sharding import comm
+from ..sharding.api import ACT_SEQ
+from ..sharding.api import act_axes
+from ..sharding.api import constrain
+from ..sharding.api import current_mesh
+from ..sharding.api import dp_axes
+from ..sharding.api import model_size
+from ..sharding.api import use_mesh
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
 from .layers import init_stacked
 from .layers import mlp_block
-from .layers import rms_norm
+from .layers import resid_norm
+from .layers import tp_input
 from .moe import init_moe_params
 from .moe import moe_ffn
 from .ssm import Mamba2Cache
@@ -72,12 +90,29 @@ def _require_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"unknown family {cfg.family!r}")
 
 
+def _refuse_mesh(what: str) -> None:
+    if current_mesh() is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh comes with the serving slice of the distribution "
+            "layer: it needs the K/V cache sharded on its sequence (cache_logical_axes' "
+            "kvseq) and a cross-rank merge of the decode kernel's partials")
+
+
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
+class _ShapesOnly:
+    """The stand-in generator of the meta device, which has none: the
+    ``init_*`` functions make empty meta tensors from it."""
+    device = torch.device("meta")
+
+
 def make_generator(seed: int, device="cuda") -> torch.Generator:
     """A seeded generator on ``device`` for ``init_params``."""
-    gen = torch.Generator(device=require_device(device))
+    dev = require_device(device)
+    if dev.type == "meta":
+        return _ShapesOnly()
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return gen
 
@@ -211,19 +246,37 @@ def embed_tokens(params, tokens, cfg: ArchConfig,
                  input_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of ``embed`` (or ``input_embeds``).  ``F.embedding``, whose
     backward sums a repeated token's gradients in a fixed order; indexing's
-    backward on the CPU sums them in an order that varies run to run."""
+    backward on the CPU sums them in an order that varies run to run.  Under
+    a model axis the rows are this rank's ``d_model`` slice (``embed`` is
+    D-sharded), laid out as the residual stream (``act_axes()``)."""
+    b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
+    m = model_size()
+    if m > 1 and ACT_SEQ[0] and s % m:
+        raise NotImplementedError(
+            f"a sequence of {s} does not split over a model axis of {m} ranks; the "
+            "reference then keeps the residual stream whole, which the port does not")
     if input_embeds is not None:
         x = input_embeds.to(params["embed"].dtype)
+        have = None
     else:
         x = torch.nn.functional.embedding(tokens, params["embed"])
+        have = ("dp", None, "tp")
     if cfg.gemma_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return x
+    return constrain(x, act_axes(), have=have, shape=(b, s, cfg.d_model))
 
 
 def lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
-    x = rms_norm(x, params["ln_f"], plus_one=cfg.gemma_norm)
-    logits = torch.matmul(x, params["lm_head"])
+    """Logits of the residual stream ``x``; under a model axis this rank's
+    vocabulary slice (``lm_head`` vocab-sharded, the reference's
+    ``constrain(logits, ("dp", None, "tp"))``), the final softcap applied
+    there."""
+    m = model_size()
+    if m > 1 and cfg.vocab % m:
+        raise NotImplementedError(
+            f"a vocabulary of {cfg.vocab} does not split over a model axis of {m} ranks")
+    h = tp_input(resid_norm(x, params["ln_f"], cfg), cfg, x)
+    logits = torch.matmul(h, params["lm_head"])
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -246,7 +299,9 @@ def forward(params, tokens, cfg: ArchConfig, *,
         for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x = x + mamba(p, x, cfg, None, i)
         return lm_logits(params, x, cfg)
-    rope = block_rope_tables(cfg, x.shape[0], x.shape[1], None, x.device)
+    # the blocks attend over the whole sequence, gathered under ACT_SEQ
+    b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
+    rope = block_rope_tables(cfg, b, s, None, x.device)
     if cfg.family == HYBRID:
         return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, rope=rope,
                                                positions=positions), cfg)
@@ -261,10 +316,20 @@ def _maybe_remat(fn, remat: bool):
     """``fn``, or ``fn`` under ``torch.utils.checkpoint`` (non-reentrant):
     its activations are dropped after the forward and recomputed in the
     backward, as the JAX package's ``jax.checkpoint``.  The model draws no
-    random numbers, so no RNG state is stashed."""
+    random numbers, so no RNG state is stashed.  The recomputation runs
+    under the mesh the forward ran under (``_same_mesh``)."""
     if not remat:
         return fn
-    return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+    return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                   context_fn=_same_mesh)
+
+
+def _same_mesh():
+    """(forward context, recompute context) for ``checkpoint``: the mesh bound
+    at the forward, bound again for the recomputation.  Autograd runs a
+    card's backward on a thread of its own, where the forward thread's mesh
+    is not bound."""
+    return nullcontext(), use_mesh(current_mesh())
 
 
 # ---------------------------------------------------------------------------
@@ -273,12 +338,39 @@ def _maybe_remat(fn, remat: bool):
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token cross-entropy in fp32, averaged: ``logsumexp`` of each
     position's logits less the next token's logit, which ``gather`` picks (the
-    same value as the JAX package's one-hot einsum)."""
+    same value as the JAX package's one-hot einsum).
+
+    Under a bound mesh, ``logits`` and ``tokens`` are this rank's batch rows
+    and, on a model axis of more than one rank, its vocabulary slice: the
+    maximum, the sum of exponentials and the gold logit are reduced over the
+    model axis (a vocab-parallel cross-entropy), and each rank's mean is
+    summed over the data-parallel axes, divided by their ranks: every rank
+    returns the global batch's mean, and its gradient is its own rows' share
+    of that mean's."""
     lg = logits[:, :-1].float()
     tg = tokens[:, 1:].long()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, tg[..., None])[..., 0]
-    return (logz - gold).mean()
+    mesh = current_mesh()
+    if model_size(mesh) > 1:
+        r = comm.axis_group("model")[2]
+        v_loc = lg.shape[-1]
+        mx = lg.detach().amax(dim=-1, keepdim=True)
+        comm.all_reduce_(mx, "model", op=torch.distributed.ReduceOp.MAX)
+        logz = torch.log(comm.reduce_from(torch.exp(lg - mx).sum(dim=-1))) + mx[..., 0]
+        local = tg - r * v_loc
+        mine = (local >= 0) & (local < v_loc)
+        gold = lg.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+        gold = comm.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)))
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, tg[..., None])[..., 0]
+    loss = (logz - gold).mean()
+    if mesh is None:
+        return loss
+    loss = loss / math.prod(comm.axis_group(a)[1] for a in dp_axes(mesh))
+    for axis in dp_axes(mesh):
+        loss = comm.reduce_from(loss, axis)
+    return loss
+
 
 
 def _attn_mlp(attn, mlp, x, cfg: ArchConfig, ffn=mlp_block, **attn_kw) -> torch.Tensor:
@@ -400,6 +492,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
                         require_device(device), dtype)
 
 
+def cache_logical_axes(cfg: ArchConfig) -> Cache:
+    """Logical sharding for the cache, as the reference's (used by its
+    dry-run): K/V on the batch and the ``kvseq`` sequence axis, the SSM's
+    conv history and state on the batch and ``d_inner`` / heads."""
+    has_ssm = cfg.family in (SSM, HYBRID)
+    has_attn = bool(_n_attn_apps(cfg))
+    return Cache(
+        k=(None, "dp", "kvseq", None, None) if has_attn else None,
+        v=(None, "dp", "kvseq", None, None) if has_attn else None,
+        conv_x=(None, "dp", None, "tp") if has_ssm else None,
+        conv_bc=(None, "dp", None, None) if has_ssm else None,
+        ssm=(None, "dp", "tp", None, None) if has_ssm else None,
+        pos=(),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Decode step (one new token against the cache)
 # ---------------------------------------------------------------------------
@@ -419,6 +527,7 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     attention over ``cache.pos + 1`` rows), and then the other rows' K/V at
     ``cache.pos`` is put back as it was."""
     _require_ported(cfg)
+    _refuse_mesh("decode_step")
     b = tokens.shape[0]
     pos = int(cache.pos)
     x = embed_tokens(params, tokens, cfg, input_embeds)
@@ -472,6 +581,7 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     the prompt (all ``d_conv - 1`` for a 1-token prompt, which takes the
     decode branch)."""
     _require_ported(cfg)
+    _refuse_mesh("prefill")
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) come with the qwen2-vl slice of the port")

@@ -6,8 +6,9 @@ forward branch of :func:`mamba2_block` runs the chunked SSD scan through the
 plain chunked algorithm (:func:`ssd_chunked`, :func:`segsum`) stays the
 oracle and lives beside the kernel in ``kernels/ssd_scan/ref.py``.  The
 one-token decode branch is the recurrence in plain torch ops (the JAX
-package has no kernel for it).  ``constrain`` and ``row_parallel_out`` have
-no counterpart on one device.
+package has no kernel for it).  Under a mesh the block runs data-parallel
+only (each rank its batch rows, whole weights); a model axis of more than
+one rank is refused (``mamba2_block``).
 
 Shapes: x (B, S, H, P); dt (B, S, H) [post-softplus]; A (H,) negative;
 B/C (B, S, G, N) with H % G == 0.
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan import ssd_scan
 from ..kernels.ssd_scan.ref import segsum
 from ..kernels.ssd_scan.ref import ssd_chunked
+from ..sharding.api import model_size
 from .layers import _silu
 from .layers import init_stacked
 from .layers import rms_norm
@@ -115,6 +117,12 @@ def mamba2_block(params, x: torch.Tensor, spec, cache: Optional[Mamba2Cache] = N
     that chunk, as in the reference.  Decode mode (a cache and one token)
     runs the one-token recurrence.  The returned cache is new tensors; the
     caller decides where they go."""
+    if model_size() > 1:
+        raise NotImplementedError(
+            "Mamba2 blocks under a model axis of more than one rank come with the SSM "
+            "tensor-parallel slice of the distribution layer: out_ln, an RMSNorm over "
+            "the sharded d_inner, needs a cross-rank sum of squares; this slice runs "
+            "the SSM and hybrid families data-parallel only")
     b, s, d = x.shape
     d_inner = spec.expand * d
     h = d_inner // spec.head_dim

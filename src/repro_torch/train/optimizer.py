@@ -12,6 +12,15 @@ be another 28.9 GB.  It also walks each leaf in slices of at most
 ``SLICE_ELEMENTS`` along its leading axis (a stacked leaf's layers), so that
 the fp32 temporaries of a stacked MLP leaf (704 M elements, 2.8 GB each)
 stay small; the arithmetic is elementwise, so slicing changes no number.
+
+Under a bound mesh the parameters and gradients are this rank's shards
+(``train/sharding_rules.py``), the gradients already summed over the
+data-parallel ranks, and ``specs`` gives each leaf's parameter and moment
+specs.  ZeRO-1: a leaf whose moments ``opt_logical_axes`` shard on the
+leading (stacked layer) axis over ``data`` keeps only this data rank's slice
+of its moments; the rank updates that slice of the parameter, and the slices
+are then all-gathered.  ``global_norm`` counts each model-sharded leaf's
+shards once each and each replicated leaf once.
 """
 
 from __future__ import annotations
@@ -26,6 +35,9 @@ from typing import Tuple
 
 import torch
 
+from ..sharding import comm
+from ..sharding.api import spec_axes
+from ..sharding.state import axes_leaves
 from ..tree import leaves
 from ..tree import tree_map
 
@@ -80,20 +92,39 @@ def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
         yield tuple(t[i:i + rows] for t in ts)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    sums = []
-    for g in leaves(tree):
-        sums.append(sum(torch.sum(torch.square(s.float())) for (s,) in _slices(g)))
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(s.float())) for (s,) in _slices(g))
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares.  With
+    ``specs`` (the parameters' spec tree, under a bound mesh) the leaves
+    sharded over the model axis are summed over its ranks, and the others,
+    whole on every rank, counted once."""
+    if specs is None:
+        return torch.sqrt(torch.sum(torch.stack([_sum_sq(g) for g in leaves(tree)])))
+    sums = torch.zeros(2, dtype=torch.float32, device=leaves(tree)[0].device)
+    for g, spec in zip(leaves(tree), axes_leaves(specs)):
+        sums[0 if any("model" in spec_axes(e) for e in spec) else 1] += _sum_sq(g)
+    comm.all_reduce_(sums[:1], "model")      # the sharded leaves' shards
+    return torch.sqrt(sums.sum())
+
+
+def _zero_sliced(pspec, ospec) -> bool:
+    """The moments of a leaf are this data rank's slice of its leading axis."""
+    return bool(ospec) and "data" in spec_axes(ospec[0]) and \
+        "data" not in spec_axes(pspec[0])
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, specs=None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping; no decay on leaves of fewer
     than 2 dimensions (norms, biases).  Updates ``params`` and the moments in
-    place and returns them with the new step and ``{"lr", "grad_norm"}``."""
-    gnorm = global_norm(grads)
+    place and returns them with the new step and ``{"lr", "grad_norm"}``.
+    ``specs``: (parameter specs, moment specs) under a bound mesh (see the
+    module docstring)."""
+    p_specs, o_specs = specs if specs is not None else (None, None)
+    gnorm = global_norm(grads, p_specs)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = float(lr_schedule(cfg, step))
@@ -101,10 +132,21 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     b1c = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
     b2c = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf)
 
+    zero = [False] * len(leaves(params)) if specs is None else \
+        [_zero_sliced(ps, os) for ps, os in zip(axes_leaves(p_specs), axes_leaves(o_specs))]
+    _, n_data, r_data = comm.axis_group("data")
     with torch.no_grad():
-        for p_leaf, g_leaf, m_leaf, v_leaf in zip(leaves(params), leaves(grads),
-                                                  leaves(state.m), leaves(state.v)):
+        for p_leaf, g_leaf, m_leaf, v_leaf, z in zip(leaves(params), leaves(grads),
+                                                     leaves(state.m), leaves(state.v), zero):
             decay = p_leaf.dim() >= 2      # decided on the whole leaf, as the reference
+            p_all = p_leaf
+            if z:
+                rows = p_leaf.shape[0] // n_data
+                p_leaf = p_leaf.narrow(0, r_data * rows, rows)
+                g_leaf = g_leaf.narrow(0, r_data * rows, rows)
+            if m_leaf.shape != p_leaf.shape:
+                raise ValueError(f"moments {tuple(m_leaf.shape)} for a parameter part "
+                                 f"{tuple(p_leaf.shape)}: place the state by its specs")
             for p, g, m, v in _slices(p_leaf, g_leaf, m_leaf, v_leaf):
                 g = g.float() * clip
                 m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
@@ -115,5 +157,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
                 if decay:
                     delta = delta + cfg.weight_decay * p.float()
                 p.copy_((p.float() - lr * delta).to(p.dtype))
+            if z:
+                p_all.copy_(comm.all_gather_dim(p_leaf, 0, "data"))
     metrics = {"lr": torch.tensor(lr, dtype=torch.float32), "grad_norm": gnorm}
     return params, OptState(state.m, state.v, step), metrics

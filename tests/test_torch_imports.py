@@ -26,7 +26,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
     "repro_torch.train", "repro_torch.data", "repro_torch.checkpoint",
     "repro_torch.launch.train", "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
     "repro_torch.core.simulator", "repro_torch.dataflows", "repro_torch.conformance",
-    "repro_torch.serve.replay"])
+    "repro_torch.serve.replay", "repro_torch.sharding", "repro_torch.launch.mesh",
+    "repro_torch.train.compression"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"
