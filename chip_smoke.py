@@ -143,20 +143,43 @@ run with a non-zero exit code:
             correctness and per-rank memory, not multi-card speed).
             llama3.2-3b at full width and 4 layers on meshes (data, model)
             = (1, 2), (1, 2) with ACT_SEQ (the residual stream sharded on
-            the sequence) and (2, 1) (ZeRO-1), and deepseek-moe-16b at 3
+            the sequence) and (2, 1) (ZeRO-1), deepseek-moe-16b at 3
             layers (the dense layer and 2 MoE layers) on (1, 2) (expert
-            parallelism): 3 bf16 steps of 8 x 512 tokens each, the state
-            placed by the sharding rules; each rank's step seconds, peak
-            memory and launches (exactly those of its layers' attention on
-            its heads: 12 query and 4 KV heads a rank for llama, 8 x 8 for
-            deepseek).
+            parallelism) and zamba2-7b at 7 (6 tensor-parallel Mamba2
+            layers, the shared block, a tail layer) on (1, 2): 3 bf16 steps
+            of 8 x 512 tokens each, the state placed by the sharding rules;
+            each rank's step seconds, peak memory and launches (exactly
+            those of its layers on its heads: 12 query and 4 KV heads a
+            rank for llama, 8 x 8 for deepseek, 56 SSD heads and 16 x 16
+            attention heads for zamba2).
 29. parity_train_mesh  each layout of 28: one fp32 step on the mesh, its
             parameters gathered, against one process on the card (loss,
             gradient norm and every parameter leaf elementwise within 1e-5
             of the leaf's scale); llama also in bf16 (every gathered gradient
-            leaf by the share rules of 17). Both mesh phases run in one start
-            of the two processes.
-30. simulator   the DCO cache-simulator stack, on the host (numpy, no
+            leaf by the share rules of 17). The four mesh phases run in one
+            start of the two processes.
+30. serve_mesh   serving under a mesh of (1, 2), two processes sharing the
+            card as in 28: llama3.2-3b (28 layers) and zamba2-7b (81
+            layers) at published size, each rank's ``ServeEngine`` holding
+            its parameter shards (drawn whole on the card one rank at a
+            time, sliced) and its shard of the pooled cache; 4 requests of
+            96 and 512 tokens, 16 new tokens each, greedy.  Each rank's
+            tokens/s, decode_step calls, peak memory and launches (counts
+            set to 0 just before and read just after: exactly those of its
+            layers on its heads); the two ranks' tokens must be equal.
+31. parity_serve_mesh  prefill of 2 x 64 tokens and 4 decode steps under
+            the mesh against one process on the card, same weights:
+            llama3.2-3b at 2 layers, zamba2-7b at 3 Mamba2 layers of
+            period 2 (one application of the shared block, a tail layer),
+            deepseek-moe-16b at 3 (the dense layer and 2 MoE layers,
+            expert-parallel).  fp32: every call's logits and every gathered
+            cache tensor within 1e-5 of their scale, the greedy tokens
+            equal; bf16 by the share rule of 29 and the greedy tokens where
+            the margin is clear (deepseek's one-process run following the
+            mesh run's expert choices, those it would change a few
+            near-ties); deepseek's router logits against the CPU's fp32
+            product as in 11.
+32. simulator   the DCO cache-simulator stack, on the host (numpy, no
             kernel): all 56 cells of the conformance matrix (14 suite
             scenarios x 4 policies; the step engine, the compiled engine and
             the compiled engine fed in segments agree event for event) against
@@ -175,7 +198,7 @@ every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
 and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backwards': of their train phases).  The
-whole run takes about 9 to 10 minutes of command time on an H100, the
+whole run takes about 15 to 17 minutes of command time on an H100, the
 build's 30 to 45 seconds included; the ``timing`` line gives each phase's
 host seconds.
 
@@ -266,7 +289,8 @@ PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_
           "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
-          "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "simulator")
+          "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "serve_mesh",
+          "parity_serve_mesh", "simulator")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -2781,7 +2805,9 @@ MESH_TIMEOUT_S = 900
 # each layout of train_mesh: (arch, layers, (data, model), ACT_SEQ); the
 # parity phase holds each against one process on the card
 MESH_RUNS = (("llama3.2-3b", 4, (1, 2), False), ("llama3.2-3b", 4, (1, 2), True),
-             ("llama3.2-3b", 4, (2, 1), False), ("deepseek-moe-16b", 3, (1, 2), False))
+             ("llama3.2-3b", 4, (2, 1), False), ("deepseek-moe-16b", 3, (1, 2), False),
+             # one group of 6 Mamba2 layers and the shared block, one tail layer
+             ("zamba2-7b", 7, (1, 2), False))
 MESH_PARITY_TOKENS = (2, 128)
 # parity's optimizer: Adam's first step moves a parameter by lr g / (|g| + eps);
 # at eps 1 that is smooth in g (about lr g), so the two runs' parameters can
@@ -2791,11 +2817,33 @@ MESH_PARITY_OPT = dict(lr=0.1, eps=1.0, warmup_steps=0, total_steps=10)
 MESH_TOL = 1e-5          # fp32, mesh vs one process: times each leaf's largest magnitude
 
 
-def mesh_cfg(arch, n_layers):
+# serving under a mesh (serve_mesh): each path at its published size behind
+# ServeEngine, these prompts, SERVE_MESH_NEW new tokens each, greedy.  Two
+# pairs of equal length: two position groups, so two decode_step calls an
+# engine step (each call is ~60 gloo collectives through the host for
+# llama, ~220 for zamba2; scripts/gloo_cuda_probe.py times one); lengths the
+# reference's SSD chunk rule accepts
+SERVE_MESH_RUNS = (("llama3.2-3b", 28, (1, 2), False), ("zamba2-7b", 81, (1, 2), False))
+SERVE_MESH_PROMPTS = {"llama3.2-3b": (96, 512, 96, 512), "zamba2-7b": (96, 512, 96, 512)}
+SERVE_MESH_NEW = 16
+# parity_serve_mesh: each path's cut at full width, prefill of B x S tokens
+# and PARITY_SERVE_STEPS decode steps; zamba2: 3 Mamba2 layers at period 2,
+# one application of the shared block and a tail layer; deepseek: the dense
+# layer and 2 MoE layers
+PARITY_SERVE_MESH_RUNS = (("llama3.2-3b", 2, (1, 2), False),
+                          ("zamba2-7b", {"n_layers": 3, "hybrid_period": 2}, (1, 2), False),
+                          ("deepseek-moe-16b", 3, (1, 2), False))
+PARITY_SERVE_TOKENS = (2, 64)
+PARITY_SERVE_STEPS = 4
+
+
+def mesh_cfg(arch, cut):
+    """``arch`` at its published size, then cut: to ``cut`` layers, or by the
+    config changes of a dict."""
     from repro_torch.configs import get_arch
     cfg = get_arch(arch)
     check_published(arch, cfg)
-    return replace(cfg, n_layers=n_layers)
+    return replace(cfg, **(cut if isinstance(cut, dict) else {"n_layers": cut}))
 
 
 def run_mesh_children(phases):
@@ -2842,9 +2890,9 @@ def shutil_rmtree(path):
 
 def mesh_child(phases, rank, work):
     """One rank of the mesh ``phases``: joins the gloo group of MESH_RANKS
-    processes on card 0 and runs every layout of MESH_RUNS for each phase;
-    writes ``{phase: [run results], phase + "_seconds": s}`` to
-    ``work/rank{rank}.json``."""
+    processes on card 0 and runs every layout of each phase's runs
+    (``MESH_PHASES``); writes ``{phase: [run results], phase + "_seconds":
+    s}`` to ``work/rank{rank}.json``."""
     import torch.distributed as dist
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2860,15 +2908,11 @@ def mesh_child(phases, rank, work):
         for phase in phases:
             t0 = time.time()
             out[phase] = []
-            for arch, n_layers, shape, act_seq in MESH_RUNS:
+            runs, fn = MESH_PHASES[phase]
+            for arch, cut, shape, act_seq in runs:
                 if shape not in meshes:
                     meshes[shape] = make_test_mesh(*shape, device_type="cuda")
-                cfg = mesh_cfg(arch, n_layers)
-                if phase == "train_mesh":
-                    run = mesh_train_run(cfg, meshes[shape], act_seq, rank)
-                else:
-                    run = mesh_parity_run(cfg, meshes[shape], act_seq, rank, refs)
-                out[phase].append(run)
+                out[phase].append(fn(mesh_cfg(arch, cut), meshes[shape], act_seq, rank, refs))
                 gc.collect()
                 torch.cuda.empty_cache()
                 dist.barrier()
@@ -2878,7 +2922,7 @@ def mesh_child(phases, rank, work):
         dist.destroy_process_group()
 
 
-def mesh_train_run(cfg, mesh, act_seq, rank):
+def mesh_train_run(cfg, mesh, act_seq, rank, refs):
     """MESH_STEPS bf16 steps of ``cfg`` on ``mesh`` (this rank's part): the
     whole state from seed 0 placed by the sharding rules, ``SyntheticLM``
     batches of TRAIN_SHAPE's 8 x 512 tokens (each data rank takes its rows),
@@ -2945,10 +2989,11 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
     gradient norm within MESH_TOL, every parameter leaf after the step
     elementwise within MESH_TOL of its largest magnitude.  Dense models also
     in bf16: every gathered gradient leaf by the share rules of
-    phase_parity_train, the loss within LOGIT_TOL (MoE is held in fp32 only:
-    router near-ties flip between the ranks' sums and one process's)."""
+    phase_parity_train, the loss within LOGIT_TOL (MoE and the hybrid are held
+    in fp32 only: router near-ties flip between the ranks' sums and one
+    process's, and the hybrid's 7 layers are too deep for the bf16 share)."""
     import torch.distributed as dist
-    from repro_torch.configs import MOE
+    from repro_torch.configs import DENSE
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params
     from repro_torch.sharding import ACT_SEQ
@@ -2968,7 +3013,7 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
     b, s = MESH_PARITY_TOKENS
     tokens = torch.as_tensor(SyntheticLM(cfg.vocab, s, b).batch(0)).to("cuda", torch.long)
     axes, shapes = param_logical_axes(cfg), init_params(cfg, device="meta")
-    dense = cfg.family != MOE
+    dense = cfg.family == DENSE
     fields = {}
     ACT_SEQ[0] = act_seq
     try:
@@ -3038,6 +3083,228 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
     return dict(rank=rank, tokens=[b, s], opt=MESH_PARITY_OPT, **fields)
 
 
+def mesh_params(cfg, mesh, rank, dtype=torch.bfloat16):
+    """This rank's shards of ``cfg``'s weights from seed 0, drawn whole on the
+    card one rank at a time (the whole tree and this rank's shards at once
+    are 1.5 times the weights), never through the host."""
+    import torch.distributed as dist
+    from repro_torch.models import init_params
+    from repro_torch.sharding import shard_tree
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import param_logical_axes
+    params = None
+    for r in range(MESH_RANKS):
+        if r == rank:
+            with use_mesh(mesh):
+                params = shard_tree(init_params(cfg, seed=0, device="cuda", dtype=dtype),
+                                    param_logical_axes(cfg))
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def mesh_serve_run(cfg, mesh, act_seq, rank, refs):
+    """``cfg`` served under ``mesh`` by this rank's ``ServeEngine`` (its
+    parameter shards and cache shard): SERVE_MESH_PROMPTS' requests,
+    SERVE_MESH_NEW new tokens each, greedy.  The launch counts, set to 0
+    just before and read just after, exactly those of this rank's layers on
+    its heads; every rank's tokens the same."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serve import Request
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import ACT_SEQ
+    from repro_torch.sharding import use_mesh
+    from repro_torch.tree import leaves
+    prompts = SERVE_MESH_PROMPTS[cfg.name]
+    ACT_SEQ[0] = act_seq
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = mesh_params(cfg, mesh, rank)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        local_params = sum(p.numel() for p in leaves(params))
+        with use_mesh(mesh):
+            engine = ServeEngine(cfg, params, max_batch=len(prompts), max_seq=1024,
+                                 device="cuda")
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=SERVE_MESH_NEW) for i, n in enumerate(prompts)]
+        for r in reqs:
+            engine.add_request(r)
+        dist.barrier()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        steps = engine.run_to_completion(max_steps=10000)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = launch_counts()
+    finally:
+        ACT_SEQ[0] = False
+    tokens = [r.tokens_out for r in reqs]
+    every = [None] * MESH_RANKS
+    dist.all_gather_object(every, tokens)
+    same = all(t == every[0] for t in every)
+    check(same, f"serve_mesh {cfg.name} rank {rank}: the ranks drew different tokens")
+    for r in reqs:
+        check(r.done and len(r.tokens_out) == SERVE_MESH_NEW
+              and all(0 <= t < cfg.vocab for t in r.tokens_out),
+              f"serve_mesh {cfg.name}: request {r.uid} ended with {r.tokens_out}")
+    n_attn, n_ssm = kernel_layers(cfg)
+    want = {"decode_attention": n_attn * engine.decode_calls,
+            "flash_attention": len(reqs) * n_attn, "flash_attention_bwd": 0,
+            "ssd_scan": len(reqs) * n_ssm, "ssd_scan_bwd": 0}
+    check(counts == want, f"serve_mesh {cfg.name} rank {rank}: launches {counts}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(engine.last_logits.float()).all()),
+          f"serve_mesh {cfg.name}: non-finite logits")
+    new, calls = sum(len(t) for t in tokens), engine.decode_calls
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=rank, requests=len(reqs), prompt_lens=list(prompts),
+                new_tokens=new, seconds=seconds, tokens_per_s=new / seconds,
+                engine_steps=steps, decode_step_calls=calls,
+                launches=counts, tokens_same_on_every_rank=same, setup_seconds=setup_s,
+                local_params=local_params,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def serve_calls(cfg, params, mesh=None, calls=None, routes=None):
+    """Prefill of PARITY_SERVE_TOKENS' prompts (seed 1) and
+    PARITY_SERVE_STEPS decode steps, under ``mesh`` or in one process:
+    the logits of each call (steps + 1, B, V) and the cache after the last
+    step, gathered whole, on the host.  A MoE model's router calls go to
+    ``calls`` (``router_log``) and its expert choices are recorded or
+    followed in ``routes`` (``routing``)."""
+    from repro_torch.models import decode_step
+    from repro_torch.models import prefill
+    from repro_torch.models.model import gather_cache
+    from repro_torch.sharding import use_mesh
+    b, s = PARITY_SERVE_TOKENS
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=(b, s)), device="cuda")
+    steps = rng.integers(2, cfg.vocab, size=(PARITY_SERVE_STEPS, b, 1))
+    with ExitStack() as stack:
+        stack.enter_context(use_mesh(mesh))
+        if calls is not None:
+            stack.enter_context(router_log(calls))
+        if routes is not None:
+            stack.enter_context(routing(routes))
+        got, cache = prefill(params, prompt, cfg)
+        if cache.k is not None:
+            pad = torch.zeros_like(cache.k[:, :, :PARITY_SERVE_STEPS])
+            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
+                                   v=torch.cat([cache.v, pad], dim=2))
+        outs = [got]
+        for tok in steps:
+            got, cache = decode_step(params, torch.as_tensor(tok, device="cuda"), cache, cfg)
+            outs.append(got[:, 0])
+        whole = gather_cache(cache, cfg, b)
+    fields = {f: getattr(whole, f).float().cpu() for f in ("k", "v", "conv_x", "conv_bc", "ssm")
+              if getattr(whole, f) is not None}
+    return torch.stack(outs).float().cpu(), fields
+
+
+def share_rule(out, ref, what):
+    """The port's share rule for bf16 results of two runs that sum partial
+    products in other orders (as ``mesh_parity_run`` holds bf16 gradients):
+    of |out - ref| over ref's largest magnitude, at least 0.99 within
+    GRAD_SHARE_TOL, an RMS of at most half that and none beyond 0.5."""
+    rel = (out - ref).abs() / float(ref.abs().max())
+    got = dict(share=float((rel <= GRAD_SHARE_TOL).float().mean()),
+               rms=float(rel.square().mean().sqrt()), cap=float(rel.max()))
+    check(got["share"] >= 0.99 and got["rms"] <= GRAD_SHARE_TOL / 2 and got["cap"] <= 0.5,
+          f"parity_serve_mesh {what}: {got}")
+    return got
+
+
+def mesh_held(out, ref, what):
+    """max |out - ref| over ref's largest magnitude, after checking it is
+    within MESH_TOL."""
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max()) / scale
+    check(scale > 0 and err <= MESH_TOL, f"parity_serve_mesh {what}: max abs err {err:.3e} "
+          f"of the scale {scale:.3e}, beyond {MESH_TOL}")
+    return err
+
+
+def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
+    """``serve_calls`` of ``cfg`` on ``mesh`` against the same calls in one
+    process on the card (rank 0, the other rank waiting), from the same
+    weights: fp32 logits of every call and every gathered cache tensor
+    within MESH_TOL of their scale and the greedy tokens equal; bf16 logits
+    and caches by ``share_rule`` and the greedy tokens where the margin is
+    clear (``held_logits``).  MoE: the
+    mesh run's router logits against the CPU's fp32 product on the same
+    tokens and weights (``router_log``); in bf16 the one-process run follows
+    the mesh run's expert choices, and those it would make otherwise must be
+    a few near-ties (``phase_parity``: router near-ties flip between the
+    ranks' partial sums and one process's)."""
+    import torch.distributed as dist
+    from repro_torch.configs import MOE
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ACT_SEQ
+    moe = cfg.family == MOE
+    fields = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ACT_SEQ[0] = act_seq
+        calls = [] if moe else None
+        routes = {} if moe and dtype == torch.bfloat16 else None
+        try:
+            params = mesh_params(cfg, mesh, rank, dtype)
+            t0 = time.time()
+            got, cache = serve_calls(cfg, params, mesh, calls, routes)
+            fields[f"{name}_mesh_seconds"] = time.time() - t0
+        finally:
+            ACT_SEQ[0] = False
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if moe:
+            fields[f"router_logits_{name}_max_rel_err"] = check_router_logits(
+                calls, f"parity_serve_mesh {cfg.name} {name}")
+        if rank == 0:
+            t0 = time.time()
+            want, want_cache = serve_calls(cfg, init_params(cfg, seed=0, device="cuda",
+                                                            dtype=dtype), routes=routes)
+            if routes is not None:
+                fields["router_bf16"] = check_near_ties(routes, f"parity_serve_mesh {cfg.name}")
+            fields[f"{name}_one_process_seconds"] = time.time() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"parity_serve_mesh {cfg.name} {name}: logits {tuple(got.shape)}")
+            check(sorted(cache) == sorted(want_cache), f"parity_serve_mesh {cfg.name}: "
+                  f"cache fields {sorted(cache)} vs {sorted(want_cache)}")
+            if dtype == torch.float32:
+                worst = [mesh_held(got[i], want[i], f"{cfg.name} fp32 call {i}")
+                         for i in range(got.shape[0])]
+                worst += [mesh_held(cache[f], want_cache[f], f"{cfg.name} fp32 cache {f}")
+                          for f in want_cache]
+                same = bool((got.argmax(-1) == want.argmax(-1)).all())
+                check(same, f"parity_serve_mesh {cfg.name} fp32: greedy tokens differ")
+                fields.update(fp32_max_rel_err=max(worst), fp32_greedy_tokens_equal=same)
+            else:
+                greedy = held_logits(got, want)
+                check(greedy["clear_margin_tokens_equal"], f"parity_serve_mesh {cfg.name} "
+                      "bf16: greedy token differs at a clear margin")
+                shares = {f"call_{i}": share_rule(got[i], want[i], f"{cfg.name} bf16 call {i}")
+                          for i in range(got.shape[0])}
+                shares.update({f: share_rule(cache[f], want_cache[f], f"{cfg.name} bf16 "
+                                             f"cache {f}") for f in want_cache})
+                fields.update(bf16_share_rule=shares, bf16_tokens_equal=greedy["tokens_equal"],
+                              bf16_clear_margin_tokens=greedy["clear_margin_tokens"])
+        dist.barrier()
+    b, s = PARITY_SERVE_TOKENS
+    return dict(rank=rank, calls=f"prefill({b}x{s}) + {PARITY_SERVE_STEPS} decode steps",
+                **fields)
+
+
 def mesh_reference(cfg, tokens, dense):
     """The one-process side of ``mesh_parity_run`` on the card, kept on the
     host: the fp32 step's loss, gradient norm and parameters, and (dense) the
@@ -3066,14 +3333,26 @@ def mesh_reference(cfg, tokens, dense):
     return ref
 
 
+# each mesh phase: its runs (arch, layers or config changes, (data, model),
+# ACT_SEQ) and the function that runs one on a rank
+MESH_PHASES = {"train_mesh": (MESH_RUNS, mesh_train_run),
+               "parity_train_mesh": (MESH_RUNS, mesh_parity_run),
+               "serve_mesh": (SERVE_MESH_RUNS, mesh_serve_run),
+               "parity_serve_mesh": (PARITY_SERVE_MESH_RUNS, mesh_serve_parity_run)}
+
+
 def phase_mesh(phases):
     """The mesh phases asked for, run by one start of MESH_RANKS ranks on the
     one card (``run_mesh_children``).  ``train_mesh``: every layout of
     MESH_RUNS trained (``mesh_train_run``); its lines hold each rank's step
     seconds and peak memory.  ``parity_train_mesh``: every layout's step
-    against one process (``mesh_parity_run``).  Two ranks on one card show
-    correctness and per-rank memory, not multi-card speed: the collectives go
-    through gloo and the host, not NVLink and NCCL."""
+    against one process (``mesh_parity_run``).  ``serve_mesh``: each path of
+    SERVE_MESH_RUNS served (``mesh_serve_run``), each rank's tokens/s, decode
+    calls, peak memory and launches.  ``parity_serve_mesh``: each cut of
+    PARITY_SERVE_MESH_RUNS against one process (``mesh_serve_parity_run``).
+    Two ranks on one card show correctness and per-rank memory, not
+    multi-card speed: the collectives go through gloo and the host, not
+    NVLink and NCCL."""
     # the children share the card with this process: give back what its
     # earlier phases left in PyTorch's cache
     gc.collect()
@@ -3081,12 +3360,17 @@ def phase_mesh(phases):
     held = torch.cuda.memory_reserved()
     ranks = run_mesh_children(phases)
     for phase in phases:
-        for i, (arch, n_layers, shape, act_seq) in enumerate(MESH_RUNS):
-            head = dict(arch=arch, n_layers=n_layers, mesh=list(shape), act_seq=act_seq)
-            if phase == "train_mesh":
-                emit(phase, **head, d_model=mesh_cfg(arch, n_layers).d_model,
-                     dtype="bfloat16", backend="gloo", ranks=[r[phase][i] for r in ranks],
+        for i, (arch, cut, shape, act_seq) in enumerate(MESH_PHASES[phase][0]):
+            cfg = mesh_cfg(arch, cut)
+            head = dict(arch=arch, n_layers=cfg.n_layers, mesh=list(shape), act_seq=act_seq)
+            if phase in ("train_mesh", "serve_mesh"):
+                emit(phase, **head, d_model=cfg.d_model, dtype="bfloat16", backend="gloo",
+                     ranks=[r[phase][i] for r in ranks],
                      phase_seconds=ranks[0][phase + "_seconds"], parent_reserved_bytes=held)
+            elif phase == "parity_serve_mesh":
+                emit(phase, **head, changed=cut if isinstance(cut, dict) else {},
+                     tol_fp32=MESH_TOL, tol_bf16=LOGIT_TOL,
+                     phase_seconds=ranks[0][phase + "_seconds"], **ranks[0][phase][i])
             else:
                 emit(phase, **head, tol_fp32=MESH_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL,
                      loss_tol_bf16=LOGIT_TOL, phase_seconds=ranks[0][phase + "_seconds"],
@@ -3236,7 +3520,7 @@ def main() -> None:
                           f"{train['phase']} run")
         if train["parity"] in phases:
             timed(train["parity"], phase_parity_train, arch)
-    mesh_phases = [p for p in ("train_mesh", "parity_train_mesh") if p in phases]
+    mesh_phases = [p for p in MESH_PHASES if p in phases]
     if mesh_phases:
         timed(",".join(mesh_phases), phase_mesh, mesh_phases)
     if "simulator" in phases:

@@ -8,7 +8,9 @@ group (NCCL refuses two ranks on one GPU, so ``chip_smoke.py``'s mesh phases
 use gloo), and tries ``all_reduce`` (sum, max), ``all_gather``,
 ``all_gather_into_tensor``, ``reduce_scatter`` and ``reduce_scatter_tensor``
 on CUDA tensors in fp32, bf16 and int64; then times one all-reduce of 256
-MB of fp32.  Prints the card's name and power limit and one JSON object.
+MB of fp32, and the median of 50 all-reduces of a decode step's residual
+(4 x 3072 bf16, 24 KB) on CUDA tensors and on host tensors.  Prints the
+card's name and power limit and one JSON object.
 """
 
 import json
@@ -51,6 +53,16 @@ def child(rank, store):
     dist.all_reduce(big)
     torch.cuda.synchronize()
     res["all_reduce_256MB_fp32_seconds"] = time.time() - t0
+    for dev in ("cuda", "cpu"):
+        small = torch.ones((4, 1, 3072), dtype=torch.bfloat16, device=dev)
+        times = []
+        for _ in range(51):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(small)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[f"all_reduce_24KB_bf16_{dev}_median_ms"] = 1e3 * sorted(times[1:])[25]
     if rank == 0:
         print(json.dumps(res), flush=True)
     dist.destroy_process_group()

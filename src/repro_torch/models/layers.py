@@ -37,6 +37,7 @@ from ..sharding.api import act_axes
 from ..sharding.api import constrain
 from ..sharding.api import current_mesh
 from ..sharding.api import model_size
+from ..sharding.api import seq_sharded
 
 
 def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
@@ -82,12 +83,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 def resid_shape(x: torch.Tensor, cfg) -> Tuple[int, int, int]:
     """The whole shape over the model axis of ``x``, this rank's part of the
     residual stream (its batch rows are its data shard's): the sequence is
-    sharded whenever ``ACT_SEQ`` is set under a model axis of more than one
-    rank (``embed_tokens`` refuses a sequence that does not split), and
+    sharded where ``seq_sharded()`` says (``ACT_SEQ`` and a whole sequence
+    that the model axis divides; a decode call's one token stays whole), and
     ``d_model`` is ``cfg.d_model``."""
-    m = model_size()
     b, s, _ = x.shape
-    return b, (s * m if ACT_SEQ[0] and m > 1 else s), cfg.d_model
+    return b, (s * model_size() if seq_sharded() else s), cfg.d_model
 
 
 def resid_norm(x: torch.Tensor, scale: torch.Tensor, cfg) -> torch.Tensor:

@@ -36,11 +36,20 @@ Design notes
   gathered into the residual stream's layout, ``lm_head`` over the
   vocabulary, whose sharded logits ``lm_loss`` reduces as a vocab-parallel
   cross-entropy to the global batch's mean.  ``prefill`` and
-  ``decode_step`` refuse a mesh: serving under one is a later slice.
+  ``decode_step`` take the global batch and this rank's cache shard
+  (``init_cache``'s layout): the batch is split over the data axes that
+  divide it and repeated on every rank otherwise, as the reference's
+  ``logical_spec`` filter places it; they return whole logits on every rank
+  (the vocab-parallel logits gathered over the model axis, and over the data
+  axes where they split the batch).  Each entry point binds its stream's
+  whole shape (``sharding.use_stream``): under ``ACT_SEQ`` a sequence that
+  the model axis does not divide, such as a decode call's one token, keeps
+  the residual stream whole, as the reference's filter leaves it.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from contextlib import nullcontext
 from functools import partial
 import math
@@ -61,24 +70,30 @@ from ..configs import HYBRID
 from ..configs import MOE
 from ..configs import SSM
 from ..sharding import comm
-from ..sharding.api import ACT_SEQ
+from ..sharding.api import Stream
 from ..sharding.api import act_axes
+from ..sharding.api import axis_sizes
+from ..sharding.api import batch_axes
 from ..sharding.api import constrain
 from ..sharding.api import current_mesh
+from ..sharding.api import current_stream
 from ..sharding.api import dp_axes
 from ..sharding.api import model_size
+from ..sharding.api import seq_sharded
 from ..sharding.api import use_mesh
+from ..sharding.api import use_stream
+from ..sharding.state import shard_tree
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
 from .layers import init_stacked
 from .layers import mlp_block
 from .layers import resid_norm
+from .layers import tp_heads
 from .layers import tp_input
 from .moe import init_moe_params
 from .moe import moe_ffn
 from .ssm import Mamba2Cache
-from .ssm import init_mamba2_cache
 from .ssm import init_mamba2_params
 from .ssm import mamba2_block
 
@@ -88,14 +103,6 @@ DTYPE = torch.bfloat16
 def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in (DENSE, MOE, SSM, HYBRID):
         raise NotImplementedError(f"unknown family {cfg.family!r}")
-
-
-def _refuse_mesh(what: str) -> None:
-    if current_mesh() is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh comes with the serving slice of the distribution "
-            "layer: it needs the K/V cache sharded on its sequence (cache_logical_axes' "
-            "kvseq) and a cross-rank merge of the decode kernel's partials")
 
 
 # ---------------------------------------------------------------------------
@@ -248,13 +255,9 @@ def embed_tokens(params, tokens, cfg: ArchConfig,
     backward sums a repeated token's gradients in a fixed order; indexing's
     backward on the CPU sums them in an order that varies run to run.  Under
     a model axis the rows are this rank's ``d_model`` slice (``embed`` is
-    D-sharded), laid out as the residual stream (``act_axes()``)."""
+    D-sharded), laid out as the residual stream (``act_axes()``; a sequence
+    that the axis does not divide stays whole)."""
     b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
-    m = model_size()
-    if m > 1 and ACT_SEQ[0] and s % m:
-        raise NotImplementedError(
-            f"a sequence of {s} does not split over a model axis of {m} ranks; the "
-            "reference then keeps the residual stream whole, which the port does not")
     if input_embeds is not None:
         x = input_embeds.to(params["embed"].dtype)
         have = None
@@ -293,6 +296,12 @@ def forward(params, tokens, cfg: ArchConfig, *,
     group of a hybrid) keeps only its input for the backward pass and runs
     again there (``_maybe_remat``); without grad it changes nothing."""
     _require_ported(cfg)
+    b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
+    with use_stream(Stream(_whole_batch(b), s)):
+        return _forward(params, tokens, cfg, positions, input_embeds, remat)
+
+
+def _forward(params, tokens, cfg: ArchConfig, positions, input_embeds, remat: bool):
     x = embed_tokens(params, tokens, cfg, input_embeds)
     if cfg.family == SSM:
         mamba = _maybe_remat(_mamba_layer, remat)
@@ -325,11 +334,27 @@ def _maybe_remat(fn, remat: bool):
 
 
 def _same_mesh():
-    """(forward context, recompute context) for ``checkpoint``: the mesh bound
-    at the forward, bound again for the recomputation.  Autograd runs a
-    card's backward on a thread of its own, where the forward thread's mesh
-    is not bound."""
-    return nullcontext(), use_mesh(current_mesh())
+    """(forward context, recompute context) for ``checkpoint``: the mesh and
+    the stream bound at the forward, bound again for the recomputation.
+    Autograd runs a card's backward on a thread of its own, where the
+    forward thread's bindings are not."""
+    return nullcontext(), _bound(current_mesh(), current_stream())
+
+
+@contextmanager
+def _bound(mesh, stream):
+    with use_mesh(mesh), use_stream(stream):
+        yield
+
+
+def _whole_batch(b: int) -> int:
+    """The global batch of ``forward``'s ``b`` rows: this rank's data shard
+    of it (the train step's ``local_batch``) under a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return b
+    sizes = axis_sizes(mesh)
+    return b * math.prod(sizes[a] for a in dp_axes(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -457,25 +482,42 @@ def _n_attn_apps(cfg: ArchConfig) -> int:
     return cfg.n_layers
 
 
+def _local_widths(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(KV heads, conv_x channels, SSM heads) of this rank's cache under the
+    bound mesh: the KV heads its query heads read (``tp_heads``), and the
+    channels and heads of its Mamba2 shards where the model axis divides the
+    heads (the weights' rules), else all of them."""
+    g = tp_heads(cfg)[1] if _n_attn_apps(cfg) else 0
+    d_inner = h = 0
+    if cfg.ssm is not None:
+        d_inner = cfg.ssm.expand * cfg.d_model
+        h = d_inner // cfg.ssm.head_dim
+        m = model_size()
+        if h % m == 0:
+            d_inner, h = d_inner // m, h // m
+    return g, d_inner, h
+
+
 def _empty_cache(cfg: ArchConfig, batch: int, kv_rows: int, conv_rows: int, device,
                  dtype) -> Cache:
     """Zero K/V of ``kv_rows`` positions for each attention application and
     zero SSM state for each Mamba2 layer, as the family has them: fp32 state
     and ``conv_rows`` rows of conv history (``d_conv - 1`` except after a
-    prefill of fewer tokens)."""
+    prefill of fewer tokens).  ``batch`` rows; under a mesh this rank's
+    widths (``_local_widths``)."""
+    g, d_inner, h = _local_widths(cfg)
     cache = Cache()
     if cfg.family in (SSM, HYBRID):
-        one = init_mamba2_cache(batch, cfg.d_model, cfg.ssm, device=device, dtype=dtype)
-        L = cfg.n_layers
+        spec, L = cfg.ssm, cfg.n_layers
         cache = Cache(
-            conv_x=torch.zeros((L, batch, conv_rows) + one.conv_x.shape[2:], dtype=dtype,
-                               device=device),
-            conv_bc=torch.zeros((L, batch, conv_rows) + one.conv_bc.shape[2:], dtype=dtype,
-                                device=device),
-            ssm=torch.zeros((L,) + tuple(one.ssm.shape), dtype=torch.float32, device=device))
+            conv_x=torch.zeros((L, batch, conv_rows, d_inner), dtype=dtype, device=device),
+            conv_bc=torch.zeros((L, batch, conv_rows, 2 * spec.n_groups * spec.d_state),
+                                dtype=dtype, device=device),
+            ssm=torch.zeros((L, batch, h, spec.head_dim, spec.d_state), dtype=torch.float32,
+                            device=device))
     n_attn = _n_attn_apps(cfg)
     if n_attn:
-        shape = (n_attn, batch, kv_rows, cfg.n_kv_heads, cfg.head_dim)
+        shape = (n_attn, batch, kv_rows, g, cfg.head_dim)
         cache = cache._replace(k=torch.zeros(shape, dtype=dtype, device=device),
                                v=torch.zeros(shape, dtype=dtype, device=device))
     return cache
@@ -486,16 +528,34 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
     """Dense and MoE: K/V for ``max_seq`` rows, one entry per layer (a MoE
     model's dense layers first).  SSM: conv history and fp32 state, whose
     size does not depend on ``max_seq``.  Hybrid: both, K/V for each
-    application of the shared block."""
+    application of the shared block.
+
+    Under a bound mesh, this rank's shard of the cache of a global batch of
+    ``batch`` rows: its data shard's rows where the data axes divide the
+    batch (all rows otherwise), K/V of the KV heads its query heads read
+    (``tp_heads``: a KV head that the model axis does not split is kept by
+    every rank that reads it), ``conv_x`` on its channels, ``ssm`` on its
+    heads, and ``conv_bc`` whole.  ``gather_cache`` and ``shard_cache`` move
+    between this layout and the whole cache."""
     _require_ported(cfg)
-    return _empty_cache(cfg, batch, max_seq, cfg.ssm.d_conv - 1 if cfg.ssm else 0,
+    with use_stream(Stream(batch, 1)):
+        rows = batch // _data_parts()
+    return _empty_cache(cfg, rows, max_seq, cfg.ssm.d_conv - 1 if cfg.ssm else 0,
                         require_device(device), dtype)
 
 
 def cache_logical_axes(cfg: ArchConfig) -> Cache:
     """Logical sharding for the cache, as the reference's (used by its
     dry-run): K/V on the batch and the ``kvseq`` sequence axis, the SSM's
-    conv history and state on the batch and ``d_inner`` / heads."""
+    conv history and state on the batch and ``d_inner`` / heads.
+
+    The port executes another K/V layout (``init_cache``): K/V by KV heads
+    over the model axis, as the reference's ``build_cell`` places it
+    wherever the KV heads divide the model axis (``REPRO_KV_HEAD_SHARD``),
+    so that each rank's attention reads its own heads and the decode kernel
+    needs no cross-rank merge.  The logits do not depend on the layout; the
+    sequence-sharded layout waits for a decode kernel that writes each row's
+    log-sum-exp."""
     has_ssm = cfg.family in (SSM, HYBRID)
     has_attn = bool(_n_attn_apps(cfg))
     return Cache(
@@ -506,6 +566,110 @@ def cache_logical_axes(cfg: ArchConfig) -> Cache:
         ssm=(None, "dp", "tp", None, None) if has_ssm else None,
         pos=(),
     )
+
+
+def _data_parts() -> int:
+    """Parts the bound stream's batch is split into (``batch_axes``)."""
+    sizes = axis_sizes(current_mesh()) if current_mesh() is not None else {}
+    return math.prod(sizes[a] for a in batch_axes())
+
+
+def _first_row() -> int:
+    """The global index of this rank's first batch row."""
+    part = 0
+    for a in batch_axes():
+        _, n, r = comm.axis_group(a)
+        part = part * n + r
+    return part * (current_stream().batch // _data_parts())
+
+
+def _kv_holders(cfg: ArchConfig):
+    """The first model rank that holds each KV head, for a model axis that
+    does not divide the KV heads (each rank holds one, ``tp_heads``)."""
+    m, h, g = model_size(), cfg.n_heads, cfg.n_kv_heads
+    held = [r * (h // m) // (h // g) for r in range(m)]
+    return [held.index(j) for j in range(g)]
+
+
+def gather_cache(cache: Cache, cfg: ArchConfig, batch: int) -> Cache:
+    """The whole cache of a global batch of ``batch`` rows on every rank,
+    from each rank's shard (``init_cache``'s layout under the bound mesh);
+    the cache itself without a mesh.  For tests and checks: it moves every
+    tensor through the collectives."""
+    if current_mesh() is None:
+        return cache
+    g, d_inner, h = _local_widths(cfg)
+    with use_stream(Stream(batch, 1)):
+        axes = batch_axes()
+
+    def rows(t):
+        for a in reversed(axes):
+            t = comm.all_gather_dim(t, 1, a)
+        return t
+
+    def heads(t, dim, local, whole):
+        return t if local == whole else comm.all_gather_dim(t, dim, "model")
+
+    out = {}
+    if cache.k is not None:
+        for f in ("k", "v"):
+            t = heads(rows(getattr(cache, f)), 3, g, cfg.n_kv_heads)
+            if t.shape[3] != cfg.n_kv_heads:
+                # every rank's one KV head: keep the first copy of each
+                t = t[:, :, :, _kv_holders(cfg)]
+            out[f] = t
+    if cache.ssm is not None:
+        whole = cfg.ssm.expand * cfg.d_model
+        out.update(conv_x=heads(rows(cache.conv_x), 3, d_inner, whole),
+                   conv_bc=rows(cache.conv_bc),
+                   ssm=heads(rows(cache.ssm), 2, h, whole // cfg.ssm.head_dim))
+    return cache._replace(**out)
+
+
+def shard_cache(cache: Cache, cfg: ArchConfig) -> Cache:
+    """This rank's shard (``init_cache``'s layout under the bound mesh) of a
+    whole cache, the same on every rank: new tensors.  The inverse of
+    ``gather_cache``."""
+    if current_mesh() is None:
+        return cache
+    g, d_inner, h = _local_widths(cfg)
+    r = comm.axis_group("model")[2]
+    out = {}
+    with use_stream(Stream((cache.k if cache.k is not None else cache.ssm).shape[1], 1)):
+        n, first = _data_parts(), _first_row()
+
+    def part(t, dim, k):
+        t = t.narrow(1, first, t.shape[1] // n)
+        return t.narrow(dim, r * k, k) if k != t.shape[dim] else t
+
+    if cache.k is not None:
+        g0 = tp_heads(cfg)[2]
+        out.update({f: getattr(cache, f).narrow(1, first, cache.k.shape[1] // n)
+                    .narrow(3, g0, g).clone() for f in ("k", "v")})
+    if cache.ssm is not None:
+        out.update(conv_x=part(cache.conv_x, 3, d_inner).clone(),
+                   conv_bc=part(cache.conv_bc, 3, cache.conv_bc.shape[3]).clone(),
+                   ssm=part(cache.ssm, 2, h).clone())
+    return cache._replace(**out)
+
+
+def _data_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """This rank's rows of a global batch under the bound stream: its data
+    shard's where the data axes divide the batch, all of them otherwise."""
+    if t is None or current_mesh() is None:
+        return t
+    return shard_tree(t, ("dp",) + (None,) * (t.dim() - 1))
+
+
+def _whole_logits(logits: torch.Tensor) -> torch.Tensor:
+    """This rank's logits (its rows, its vocabulary slice under a model
+    axis) gathered whole: over the model axis on the vocabulary, then over
+    the data axes that split the batch.  Every rank gets the same bits."""
+    if model_size() > 1:
+        logits = comm.all_gather_dim(logits, logits.dim() - 1, "model")
+    for a in reversed(batch_axes()):
+        logits = comm.all_gather_dim(logits, 0, a)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -525,9 +689,24 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     compete for the experts' slots, so every row takes the step as the
     reference's whole-batch step does (K/V written at ``cache.pos``,
     attention over ``cache.pos + 1`` rows), and then the other rows' K/V at
-    ``cache.pos`` is put back as it was."""
+    ``cache.pos`` is put back as it was.
+
+    Under a bound mesh ``tokens`` and ``rows`` are the global batch's,
+    ``cache`` is this rank's shard (``init_cache``) and the logits are whole
+    on every rank (see the module docstring)."""
     _require_ported(cfg)
-    _refuse_mesh("decode_step")
+    with use_stream(Stream(tokens.shape[0], 1)):
+        tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)
+        if rows is not None and current_mesh() is not None:
+            first = _first_row()
+            rows = [i - first for i in rows if first <= i < first + tokens.shape[0]]
+        logits = _decode(params, tokens, cache, cfg, input_embeds, rows)
+        return _whole_logits(logits), cache._replace(pos=int(cache.pos) + 1)
+
+
+def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
+            ) -> torch.Tensor:
+    """``decode_step`` on this rank's rows (``rows`` among them): its logits."""
     b = tokens.shape[0]
     pos = int(cache.pos)
     x = embed_tokens(params, tokens, cfg, input_embeds)
@@ -537,7 +716,7 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
     if cfg.family == SSM:
         for i in range(cfg.n_layers):
             x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i, cache_rows)
-        return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
+        return lm_logits(params, x, cfg)
     if cfg.family == MOE and rows is not None:
         group = set(rows)
         others = torch.as_tensor([i for i in range(b) if i not in group],
@@ -553,7 +732,7 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
                 rope=block_rope_tables(cfg, b, 1, pos, x.device))
     if cfg.family == HYBRID:
         x = _hybrid_stack(params, x, cfg, cache, cache_rows, **attn)
-        return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
+        return lm_logits(params, x, cfg)
     for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):
         x = _attn_mlp(la, fp, x, cfg, ffn=ffn, layer_is_local=fl,
                       kv_cache=(cache.k[i], cache.v[i]), **attn)
@@ -561,7 +740,7 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
         others, k, v = saved
         cache.k[:, others, pos] = k
         cache.v[:, others, pos] = v
-    return lm_logits(params, x, cfg), cache._replace(pos=pos + 1)
+    return lm_logits(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -579,12 +758,32 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     SSM and hybrid: every Mamba2 layer starts from a zero state, as in the
     reference; its conv history keeps the last ``min(S, d_conv - 1)`` rows of
     the prompt (all ``d_conv - 1`` for a 1-token prompt, which takes the
-    decode branch)."""
+    decode branch).
+
+    Under a bound mesh ``tokens`` are the global batch, the logits are
+    whole on every rank and the cache is this rank's shard (``init_cache``'s
+    layout)."""
     _require_ported(cfg)
-    _refuse_mesh("prefill")
     if positions is not None:
         raise NotImplementedError(
             "explicit positions (M-RoPE) come with the qwen2-vl slice of the port")
+    b, s = tokens.shape
+    with use_stream(Stream(b, s)):
+        tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)
+        x, cache = _prefill(params, tokens, cfg, input_embeds, pinned_rows)
+        last = x[:, -1:]
+        if seq_sharded():
+            # the last model rank holds the sequence's last row
+            last = comm.all_gather_dim(last, 1, "model")[:, -1:]
+        with use_stream(Stream(b, 1)):
+            logits = _whole_logits(lm_logits(params, last, cfg))[:, 0]
+    return logits, cache._replace(pos=s)
+
+
+def _prefill(params, tokens, cfg: ArchConfig, input_embeds, pinned_rows: int
+             ) -> Tuple[torch.Tensor, Cache]:
+    """``prefill`` of this rank's rows: the residual stream after the last
+    layer, and the cache it filled."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg, input_embeds)
     conv = cfg.ssm.d_conv - 1 if cfg.ssm else 0
@@ -592,13 +791,12 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     if cfg.family == SSM:
         for i in range(cfg.n_layers):
             x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i)
-        return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)
+        return x, cache
     attn = dict(cache_pos=0, pinned_rows=pinned_rows,
                 rope=block_rope_tables(cfg, b, s, 0, x.device))
     if cfg.family == HYBRID:
-        x = _hybrid_stack(params, x, cfg, cache, **attn)
-    else:
-        for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):
-            x = _attn_mlp(la, fp, x, cfg, ffn=ffn, layer_is_local=fl,
-                          kv_cache=(cache.k[i], cache.v[i]), **attn)
-    return lm_logits(params, x[:, -1:], cfg)[:, 0], cache._replace(pos=s)
+        return _hybrid_stack(params, x, cfg, cache, **attn), cache
+    for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):
+        x = _attn_mlp(la, fp, x, cfg, ffn=ffn, layer_is_local=fl,
+                      kv_cache=(cache.k[i], cache.v[i]), **attn)
+    return x, cache

@@ -16,7 +16,9 @@ axis.  The capacity, and the order in which tokens win slots, are then those
 of the data shard's tokens, as in the reference.  With one rank on the model
 axis the reference takes the global batch's view (GSPMD, no ``shard_map``):
 each data shard's tokens then find the slots that the earlier shards'
-tokens left, so the capacity and the drop order are the global batch's.
+tokens left, so the capacity and the drop order are the global batch's.  A
+batch that the data axes do not split is whole on every rank
+(``batch_axes``), and each rank then routes all of it, as one device does.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ import torch
 
 from ..sharding import comm
 from ..sharding.api import act_axes
+from ..sharding.api import batch_axes
 from ..sharding.api import constrain
-from ..sharding.api import current_mesh
-from ..sharding.api import dp_axes
 from ..sharding.api import model_size
 from .layers import _gelu_tanh
 from .layers import _silu
@@ -134,24 +135,23 @@ def _moe_shard(x, p, *, spec, act, axis: Optional[str] = None) -> torch.Tensor:
     """The reference's per-shard body: on one device (``axis=None``), or as
     this rank of the model axis ``axis`` (its experts and shared-expert
     slice; the partial output summed over the axis by the caller).  Under a
-    mesh without ``axis`` the tokens of the earlier data shards come first
-    (``_taken``)."""
+    mesh without ``axis`` the tokens of the earlier data shards of a split
+    batch come first (``_taken``)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     w_gate = p["w_gate"]
     e0, t_all = 0, xt.shape[0]
-    mesh = current_mesh()
+    shards = () if axis else batch_axes()
     if axis:
         w_gate = comm.copy_to(w_gate, axis)
         e0 = comm.axis_group(axis)[2] * p["w1"].shape[0]
-    elif mesh is not None:
-        t_all *= math.prod(comm.axis_group(a)[1] for a in dp_axes(mesh))
+    t_all *= math.prod(comm.axis_group(a)[1] for a in shards)
     w, idx = _route(xt, w_gate, spec.top_k)
     capacity = min(max(int(spec.capacity_factor * t_all * spec.top_k
                            / spec.n_experts), 4), t_all)
     taken = None
-    if mesh is not None and not axis:
-        taken = _taken(idx, spec.n_experts, capacity, mesh)
+    if shards:
+        taken = _taken(idx, spec.n_experts, capacity, shards)
     kw = {} if axis is None and taken is None else dict(e0=e0, taken=taken)
     out = _routed_experts(xt, w, idx, p["w1"], p["w3"], p["w2"], capacity, act, **kw)
     if spec.n_shared:
@@ -159,12 +159,13 @@ def _moe_shard(x, p, *, spec, act, axis: Optional[str] = None) -> torch.Tensor:
     return out.reshape(b, s, d).to(x.dtype)
 
 
-def _taken(idx: torch.Tensor, n_experts: int, capacity: int, mesh) -> torch.Tensor:
+def _taken(idx: torch.Tensor, n_experts: int, capacity: int, axes) -> torch.Tensor:
     """Each expert's slots taken by the data shards before this one, which
     hold the global batch's earlier rows: every shard's count of the tokens
-    that chose each expert, gathered over the data-parallel axes, summed over
-    the earlier shards and capped at ``capacity``."""
-    axes = list(dp_axes(mesh))
+    that chose each expert, gathered over the data-parallel ``axes`` that
+    split the batch, summed over the earlier shards and capped at
+    ``capacity``."""
+    axes = list(axes)
     chose = torch.zeros(n_experts, dtype=torch.int64, device=idx.device)
     chose.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
     counts = comm.stack_over(chose, axes)                       # (shards, E)

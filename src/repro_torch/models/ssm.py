@@ -6,9 +6,20 @@ forward branch of :func:`mamba2_block` runs the chunked SSD scan through the
 plain chunked algorithm (:func:`ssd_chunked`, :func:`segsum`) stays the
 oracle and lives beside the kernel in ``kernels/ssd_scan/ref.py``.  The
 one-token decode branch is the recurrence in plain torch ops (the JAX
-package has no kernel for it).  Under a mesh the block runs data-parallel
-only (each rank its batch rows, whole weights); a model axis of more than
-one rank is refused (``mamba2_block``).
+package has no kernel for it).
+
+Under a bound mesh with a model axis of more than one rank the block is
+tensor-parallel over its heads, as the reference's ``_mamba_axes`` lay it
+out: ``w_z``, ``w_x`` and ``w_dt`` are column-parallel (this rank's
+``d_inner / model`` channels and ``H / model`` heads), the conv over ``x``,
+``dt_bias``, ``a_log``, ``d_skip`` and ``out_ln`` are the rank's, and the
+small ``w_bc`` and the conv over B/C stay whole on every rank (their
+gradients summed over the ranks).  The SSD scan and the decode recurrence
+run on the rank's heads against the whole B and C; ``out_ln`` normalises
+over the whole ``d_inner`` from an all-reduced sum of squares; ``w_out`` is
+row-parallel.  Where the model axis divides neither ``d_inner`` nor the
+heads, the rules leave every weight whole and the block runs whole on each
+rank.
 
 Shapes: x (B, S, H, P); dt (B, S, H) [post-softplus]; A (H,) negative;
 B/C (B, S, G, N) with H % G == 0.
@@ -32,12 +43,20 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan import ssd_scan
 from ..kernels.ssd_scan.ref import segsum
 from ..kernels.ssd_scan.ref import ssd_chunked
+from ..sharding import comm
+from ..sharding.api import act_axes
+from ..sharding.api import constrain
 from ..sharding.api import model_size
 from .layers import _silu
 from .layers import init_stacked
+from .layers import resid_norm
+from .layers import resid_shape
 from .layers import rms_norm
+from .layers import row_parallel_out
+from .layers import tp_input
+from .layers import tp_output
 
-__all__ = ["Mamba2Cache", "init_mamba2_cache", "init_mamba2_params", "mamba2_block",
+__all__ = ["Mamba2Cache", "init_mamba2_params", "mamba2_block",
            "segsum", "ssd_chunked", "ssd_decode_step"]
 
 
@@ -107,6 +126,25 @@ def _conv_step(hist: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return _silu(out.to(hist.dtype) + b)
 
 
+class _Norm(NamedTuple):
+    """What ``resid_norm`` and ``tp_input`` read of a config: a Mamba2
+    block's ``ln`` is a plain RMSNorm over the whole ``d_model``."""
+    d_model: int
+    gemma_norm: bool = False
+
+
+def _out_norm(y: torch.Tensor, scale: torch.Tensor, d_inner: int) -> torch.Tensor:
+    """``rms_norm`` over the whole ``d_inner``.  Where ``y`` holds this
+    rank's channels, the fp32 sum of squares is summed over the model axis
+    (its gradient too) and divided by the whole width, and each rank scales
+    by its slice of ``out_ln``."""
+    if y.shape[-1] == d_inner:
+        return rms_norm(y, scale)
+    yf = y.float()
+    var = comm.all_sum(yf.square().sum(dim=-1, keepdim=True)) / d_inner
+    return (yf * torch.rsqrt(var + 1e-6) * scale.float()).to(y.dtype)
+
+
 def mamba2_block(params, x: torch.Tensor, spec, cache: Optional[Mamba2Cache] = None
                  ) -> Tuple[torch.Tensor, Optional[Mamba2Cache]]:
     """One Mamba2 block: projections → conv → SSD → gated norm → out-proj.
@@ -116,43 +154,65 @@ def mamba2_block(params, x: torch.Tensor, spec, cache: Optional[Mamba2Cache] = N
     from ``cache.ssm`` where a cache is given; S must then be a multiple of
     that chunk, as in the reference.  Decode mode (a cache and one token)
     runs the one-token recurrence.  The returned cache is new tensors; the
-    caller decides where they go."""
-    if model_size() > 1:
-        raise NotImplementedError(
-            "Mamba2 blocks under a model axis of more than one rank come with the SSM "
-            "tensor-parallel slice of the distribution layer: out_ln, an RMSNorm over "
-            "the sharded d_inner, needs a cross-rank sum of squares; this slice runs "
-            "the SSM and hybrid families data-parallel only")
-    b, s, d = x.shape
-    d_inner = spec.expand * d
+    caller decides where they go.
+
+    Under a model axis ``x`` is this rank's part of the residual stream
+    (``act_axes()``) and ``params`` and ``cache`` are its shards (see the
+    module docstring); the output is laid out as the stream.  A model axis
+    that splits ``d_inner`` but not the heads, or the heads of more than
+    one B/C group, raises ``NotImplementedError`` before any work."""
+    b, s, _ = x.shape
+    norm = _Norm(params["ln"].shape[-1])
+    d_inner = spec.expand * norm.d_model
     h = d_inner // spec.head_dim
     p, n, g = spec.head_dim, spec.d_state, spec.n_groups
+    m = model_size()
+    split = params["w_x"].shape[-1] != d_inner
+    if split and params["dt_bias"].shape[-1] == h:
+        raise NotImplementedError(
+            f"a model axis of {m} ranks splits d_inner {d_inner} but not the {h} heads: "
+            "the SSD scan needs each rank's channels to be whole heads")
+    if split and g > 1:
+        raise NotImplementedError(
+            f"{g} B/C groups under a tensor-parallel Mamba2 block: each rank would "
+            "need the groups of its heads; every ported config has one")
+    h_loc, d_loc = params["dt_bias"].shape[-1], params["w_x"].shape[-1]
+    w_bc, conv_bc_w, conv_bc_b = params["w_bc"], params["conv_bc_w"], params["conv_bc_b"]
 
-    res = rms_norm(x, params["ln"])
+    res = resid_norm(x, params["ln"], norm)
+    if split:
+        # the whole B/C weights meet this rank's heads only: sum their
+        # gradients over the ranks, as layers.py does for whole K/V weights
+        res = tp_input(res, norm, x)
+        w_bc, conv_bc_w, conv_bc_b = (comm.copy_to(w) for w in (w_bc, conv_bc_w, conv_bc_b))
+    elif m > 1:
+        # whole weights: every rank runs the whole block on the whole stream
+        res = constrain(res, ("dp", None, None), have=act_axes(), shape=resid_shape(x, norm))
+    s = res.shape[1]              # the whole sequence, gathered under ACT_SEQ
     z = torch.matmul(res, params["w_z"])
     xr = torch.matmul(res, params["w_x"])
-    bc = torch.matmul(res, params["w_bc"])
+    bc = torch.matmul(res, w_bc)
     dt = _softplus(torch.matmul(res, params["w_dt"]) + params["dt_bias"])
     A = -torch.exp(params["a_log"].float())
 
     if cache is not None and s == 1:
-        hist_x = torch.cat([cache.conv_x, xr], dim=1)          # (b,K,d_in)
+        hist_x = torch.cat([cache.conv_x, xr], dim=1)          # (b,K,d_loc)
         hist_bc = torch.cat([cache.conv_bc, bc], dim=1)
         cx = _conv_step(hist_x, params["conv_x_w"], params["conv_x_b"])
-        cbc = _conv_step(hist_bc, params["conv_bc_w"], params["conv_bc_b"])
-        xs = cx.reshape(b, h, p)
+        cbc = _conv_step(hist_bc, conv_bc_w, conv_bc_b)
+        xs = cx.reshape(b, h_loc, p)
         Bv = cbc[..., :g * n].reshape(b, g, n)
         Cv = cbc[..., g * n:].reshape(b, g, n)
         y, new_ssm = ssd_decode_step(cache.ssm, xs.float(), dt[:, 0].float(), A,
                                      Bv.float(), Cv.float())
-        y = y[:, None]                                           # (b,1,h,p)
+        y = y[:, None]                                           # (b,1,h_loc,p)
         xs = xs[:, None]
         new_cache = Mamba2Cache(conv_x=hist_x[:, 1:], conv_bc=hist_bc[:, 1:],
                                 ssm=new_ssm)
     else:
         cx = _causal_conv(xr, params["conv_x_w"], params["conv_x_b"])
-        cbc = _causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"]).float()
-        xs = cx.reshape(b, s, h, p)
+        cbc = _causal_conv(bc, conv_bc_w, conv_bc_b).float()
+        xs = cx.reshape(b, s, h_loc, p)
         # B and C stay strided views of one fp32 tensor: the kernel reads them
         # through their strides
         Bv = cbc[..., :g * n].view(b, s, g, n)
@@ -167,9 +227,14 @@ def mamba2_block(params, x: torch.Tensor, spec, cache: Optional[Mamba2Cache] = N
                                     ssm=final_state)
 
     y = y + xs.to(y.dtype) * params["d_skip"][None, None, :, None]
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = rms_norm(y * _silu(z), params["out_ln"])
-    return torch.matmul(y, params["w_out"]), new_cache
+    y = y.reshape(b, s, d_loc).to(x.dtype)
+    y = _out_norm(y * _silu(z), params["out_ln"], d_inner)
+    if m > 1 and not split:
+        return constrain(torch.matmul(y, params["w_out"]), act_axes()), new_cache
+    rp = row_parallel_out(y, params["w_out"])
+    if rp is not None:
+        return rp, new_cache
+    return tp_output(torch.matmul(y, params["w_out"]), norm), new_cache
 
 
 def init_mamba2_params(gen: torch.Generator, d_model: int, spec, n_layers: int,
@@ -204,16 +269,3 @@ def init_mamba2_params(gen: torch.Generator, d_model: int, spec, n_layers: int,
         "out_ln": torch.ones((L, d_inner), dtype=dtype, device=dev),
         "w_out": init_stacked(gen, L, (d_inner, d_model), d_inner ** -0.5, dtype),
     }
-
-
-def init_mamba2_cache(batch: int, d_model: int, spec, *, device, dtype=torch.bfloat16
-                      ) -> Mamba2Cache:
-    d_inner = spec.expand * d_model
-    h = d_inner // spec.head_dim
-    bc_dim = 2 * spec.n_groups * spec.d_state
-    return Mamba2Cache(
-        conv_x=torch.zeros((batch, spec.d_conv - 1, d_inner), dtype=dtype, device=device),
-        conv_bc=torch.zeros((batch, spec.d_conv - 1, bc_dim), dtype=dtype, device=device),
-        ssm=torch.zeros((batch, h, spec.head_dim, spec.d_state), dtype=torch.float32,
-                        device=device),
-    )

@@ -20,6 +20,15 @@ updated rows of the group, the old rows of everyone else) amounts to on a
 cache that is not copied.  In a MoE model the rows of a call compete for the
 experts' slots, so there every row still takes the step, as in the JAX
 engine, and only the group's rows keep what it wrote (``decode_step``).
+
+Under a mesh bound when the engine is made (``sharding.use_mesh``), with a
+data axis of one rank, the engine serves tensor- and expert-parallel: every
+rank makes its own engine with its parameter shards (``shard_tree``), holds
+its shard of the pooled cache (``init_cache``), gets the same requests and
+runs the same scheduler.  ``prefill`` and ``decode_step`` give every rank the
+same whole logits, so every rank picks the same tokens and makes the same
+calls.  Data-parallel serving is a set of replicas behind a router, which
+the reference does not have: a data axis of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -46,6 +55,10 @@ from ..models import Cache
 from ..models import decode_step
 from ..models import init_cache
 from ..models import prefill
+from ..sharding.api import axis_sizes
+from ..sharding.api import current_mesh
+from ..sharding.api import dp_axes
+from ..sharding.api import use_mesh
 from .scheduler import ServeTruncation
 from .scheduler import SlotScheduler
 
@@ -63,14 +76,23 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 4,
                  max_seq: int = 256, greedy: bool = True, device="cuda"):
+        self.mesh = current_mesh()
+        if self.mesh is not None:
+            sizes = axis_sizes(self.mesh)
+            data = [f"{a}={sizes[a]}" for a in dp_axes(self.mesh) if sizes[a] > 1]
+            if data:
+                raise NotImplementedError(
+                    f"serving under a data axis ({', '.join(data)}): data-parallel "
+                    "serving is replicas behind a router, which no slice ports")
         self.cfg = cfg
         self.params = params
         self.device = require_device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq
         dtype = params["embed"].dtype
-        self.cache = init_cache(cfg, max_batch, max_seq, device=self.device,
-                                dtype=dtype)
+        with use_mesh(self.mesh):
+            self.cache = init_cache(cfg, max_batch, max_seq, device=self.device,
+                                    dtype=dtype)
         self.sched: SlotScheduler[Request] = SlotScheduler(max_batch)
         self.slot_pos = np.zeros(max_batch, dtype=np.int32)
         self.greedy = greedy
@@ -123,7 +145,8 @@ class ServeEngine:
         if self._orch is not None:
             plan["pinned_rows"], _ = self._orch.plan_kv_split(
                 plen, FLASH_TILE_ROWS, self._kv_row_bytes)
-        logits, pcache = prefill(self.params, prompt, self.cfg, **plan)
+        with use_mesh(self.mesh):
+            logits, pcache = prefill(self.params, prompt, self.cfg, **plan)
         self.prefill_calls += 1
         # splice this request's prefilled KV / state into the pooled cache
         _splice(self.cache, pcache, slot)
@@ -163,9 +186,10 @@ class ServeEngine:
         for pos, slots in groups.items():
             if self.cache.k is not None and pos >= self.max_seq:
                 raise ValueError(f"slot(s) {slots} ran past max_seq {self.max_seq}")
-            logits, _ = decode_step(self.params, tokens,
-                                    self.cache._replace(pos=pos), self.cfg,
-                                    rows=slots)
+            with use_mesh(self.mesh):
+                logits, _ = decode_step(self.params, tokens,
+                                        self.cache._replace(pos=pos), self.cfg,
+                                        rows=slots)
             self.decode_calls += 1
             self.last_logits = logits
             for i in slots:

@@ -12,17 +12,21 @@ from .api import ACT_SEQ
 from .api import LOGICAL_RULES
 from .api import NamedSharding
 from .api import ShapeMesh
+from .api import Stream
 from .api import act_axes
 from .api import constrain
 from .api import current_mesh
+from .api import current_stream
 from .api import logical_spec
 from .api import named_sharding
 from .api import placements
 from .api import use_mesh
+from .api import use_stream
 from .state import gather_tree
 from .state import shard_tree
 from .state import shardings_for
 
-__all__ = ["ACT_SEQ", "LOGICAL_RULES", "NamedSharding", "ShapeMesh", "act_axes",
-           "constrain", "current_mesh", "gather_tree", "logical_spec", "named_sharding",
-           "placements", "shard_tree", "shardings_for", "use_mesh"]
+__all__ = ["ACT_SEQ", "LOGICAL_RULES", "NamedSharding", "ShapeMesh", "Stream", "act_axes",
+           "constrain", "current_mesh", "current_stream", "gather_tree", "logical_spec",
+           "named_sharding", "placements", "shard_tree", "shardings_for", "use_mesh",
+           "use_stream"]

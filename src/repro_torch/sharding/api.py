@@ -106,6 +106,31 @@ def use_mesh(mesh):
         _state.mesh = prev
 
 
+class Stream(NamedTuple):
+    """The whole batch and sequence of the residual stream of the model call
+    running on this thread.  A rank's part of the stream does not tell them:
+    under ``ACT_SEQ`` a local sequence of one row is a whole one-token
+    sequence or a two-token one split over two ranks."""
+    batch: int
+    seq: int
+
+
+def current_stream() -> Optional[Stream]:
+    return getattr(_state, "stream", None)
+
+
+@contextmanager
+def use_stream(stream: Optional[Stream]):
+    """Bind the residual stream's whole shape (or ``None``) for this thread,
+    as ``use_mesh`` binds the mesh."""
+    prev = current_stream()
+    _state.stream = stream
+    try:
+        yield stream
+    finally:
+        _state.stream = prev
+
+
 def _resolve(axis, sizes: Dict[str, int]) -> Optional[Tuple[str, ...]]:
     phys = tuple(a for a in LOGICAL_RULES.get(axis, ()) if a in sizes)
     return phys or None
@@ -204,6 +229,33 @@ def model_size(mesh=None) -> int:
     if mesh is None:
         return 1
     return axis_sizes(mesh).get("model", 1)
+
+
+def seq_sharded() -> bool:
+    """Whether the residual stream is sharded on its sequence over the model
+    axis: ``ACT_SEQ``, a model axis of more than one rank and a whole
+    sequence (the bound ``Stream``'s) that the axis divides.  Otherwise
+    ``logical_spec``'s filter keeps the sequence whole, as the reference's
+    does for a decode call's one token."""
+    m = model_size()
+    if not ACT_SEQ[0] or m == 1:
+        return False
+    stream = current_stream()
+    return stream is None or stream.seq % m == 0
+
+
+def batch_axes(mesh=None) -> Tuple[str, ...]:
+    """The data-parallel axes that split the bound stream's batch: those of
+    ``logical_spec``'s filter on its whole batch (all of ``dp_axes`` where
+    no stream is bound).  A batch they do not split is whole on every rank,
+    as the reference replicates it."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return ()
+    stream = current_stream()
+    if stream is None:
+        return dp_axes(mesh)
+    return spec_axes(logical_spec(("dp",), mesh, (stream.batch,))[0])
 
 
 def _model_dims(axes, mesh, shape) -> Tuple[int, ...]:

@@ -14,11 +14,18 @@ first data x model CPU devices, whose axes are Auto: under JAX 0.9
 function is jitted with ``in_shardings`` from the sharding rules, as
 ``launch/dryrun.py::build_cell`` does, and traced under ``use_mesh``.
 ``OUT.pkl`` gets one dict of numpy results a case.
+
+A ``serve`` case (``run_serve``) prefills the first S tokens of its batch
+rows and takes STEPS decode steps from that cache, grown by STEPS rows (K/V
+in the weights' type), each jitted as ``build_cell`` compiles them: the cache placed by
+``cache_logical_axes``, K/V by heads where the KV heads divide the model axis
+and the batch is larger than 1.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import partial
 import pickle
 import sys
 
@@ -147,11 +154,89 @@ def run_compression(grads):
     return out
 
 
+CACHE_FIELDS = ("k", "v", "conv_x", "conv_bc", "ssm")
+
+
+def cache_out(cache):
+    """{field: fp32 numpy array} of a cache's tensors, and {field: dtype name}."""
+    arrays = {f: np.asarray(getattr(cache, f), np.float32) for f in CACHE_FIELDS
+              if getattr(cache, f) is not None}
+    dtypes = {f: str(getattr(cache, f).dtype) for f in arrays}
+    return arrays, dtypes
+
+
+def run_serve(case, arrays, tokens):
+    """Prefill of ``case["batch"]`` rows of ``tokens[:, :S]`` (S = its width
+    less ``case["steps"]``), then that many decode steps from the cache
+    grown to the whole width, under the case's mesh: every logit and cache,
+    and the grown cache the decode started from (in its own types)."""
+    from jax.sharding import NamedSharding as NS
+    cfg = config(case["arch"], case.get("changes", {}))
+    params = params_in(arrays[case["arch"]], cfg, case["dtype"])
+    steps = case["steps"]
+    tok = jnp.asarray(tokens[:case["batch"]])
+    s = tok.shape[1] - steps
+    ACT_SEQ[0] = bool(case.get("act_seq"))
+    shape = case["mesh"]
+    devs = np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
+    mesh = jax.sharding.Mesh(devs, ("data", "model"))
+    out = {}
+    try:
+        with use_mesh(mesh):
+            p_shard = shardings_for(jt.param_logical_axes(cfg), params, mesh)
+            prompt = tok[:, :s]
+            t_shard = NS(mesh, logical_spec(("dp", None), mesh, prompt.shape))
+            logits, cache = jax.jit(partial(jm.prefill, cfg=cfg),
+                                    in_shardings=(p_shard, t_shard))(params, prompt)
+            out["prefill_logits"] = np.asarray(logits, np.float32)
+            out["prefill_cache"], _ = cache_out(cache)
+            # the forward's logits at the prompt's last position: the
+            # prefill's, without the bf16 K/V buffers it attends over
+            out["forward_last"] = np.asarray(jax.jit(
+                lambda p, t: jm.forward(p, t, cfg)[:, -1],
+                in_shardings=(p_shard, t_shard))(params, prompt), np.float32)
+            if cache.k is not None:
+                # grown by the decode steps' rows; an fp32 model's K/V widened
+                # to fp32 (exactly): the steps then write fp32 rows, which a
+                # rounding of the two sides' fp32 values to bf16 would not
+                # leave within 1e-5 (see tests/test_torch_mesh_serve.py)
+                pad = [(0, 0), (0, 0), (0, steps), (0, 0), (0, 0)]
+                kv = params["embed"].dtype
+                cache = cache._replace(k=jnp.pad(cache.k, pad).astype(kv),
+                                       v=jnp.pad(cache.v, pad).astype(kv))
+            out["decode_from"], out["decode_from_dtypes"] = cache_out(cache)
+            out["decode_from_pos"] = int(cache.pos)
+            axes = jm.cache_logical_axes(cfg)
+            if axes.k is not None and cfg.n_kv_heads % shape[1] == 0 and tok.shape[0] > 1:
+                axes = axes._replace(k=(None, "dp", None, "tp", None),
+                                     v=(None, "dp", None, "tp", None))
+            one = tok[:, s:s + 1]
+            o_shard = NS(mesh, logical_spec(("dp", None), mesh, one.shape))
+            c_shard = shardings_for(axes, cache, mesh)
+            step = jax.jit(partial(jm.decode_step, cfg=cfg),
+                           in_shardings=(p_shard, o_shard, c_shard))
+            out["decode_logits"] = []
+            for t in range(s, s + steps):
+                # each call takes its cache placed as build_cell places it
+                logits, cache = step(params, tok[:, t:t + 1], jax.device_put(cache, c_shard))
+                out["decode_logits"].append(np.asarray(logits, np.float32))
+            out["decode_cache"], _ = cache_out(cache)
+    finally:
+        ACT_SEQ[0] = False
+    return out
+
+
 def main(job_path, out_path):
     with open(job_path, "rb") as f:
         job = pickle.load(f)
-    results = [run_compression(job["compression"]) if c["what"] == ("compression",)
-               else run_case(c, job["arrays"], job["tokens"]) for c in job["cases"]]
+    results = []
+    for c in job["cases"]:
+        if c["what"] == ("compression",):
+            results.append(run_compression(job["compression"]))
+        elif c["what"] == ("serve",):
+            results.append(run_serve(c, job["arrays"], job["serve_tokens"]))
+        else:
+            results.append(run_case(c, job["arrays"], job["tokens"]))
     with open(out_path, "wb") as f:
         pickle.dump(results, f)
 

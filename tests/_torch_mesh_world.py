@@ -7,8 +7,10 @@ collide).  Each builds ``make_test_mesh(data, model, device_type="cpu")``
 and runs every case on it: the weights of ``job["arrays"]`` placed by the
 sharding rules, the global batch ``job["tokens"]``, and what the case asks
 for, gathered whole (loss, gradient norm and gradients; logits; one train
-step's loss, gradient norm and parameters).  Rank 0 writes the results;
-a rank that fails fails the world.
+step's loss, gradient norm and parameters; a prefill and decode steps from
+the JAX package's prefilled cache, the caches gathered whole; a serving
+engine's tokens).  Rank 0 writes the results; a rank that fails fails the
+world.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ def _config(arch, changes):
     cf = changes.get("capacity_factor")
     if cf is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
+    if "vocab" in changes:
+        cfg = replace(cfg, vocab=changes["vocab"])
     return cfg
 
 
@@ -62,7 +66,7 @@ def run_case(case, job, mesh):
             return _compression(job["compression"])
     cfg = _config(case["arch"], case.get("changes", {}))
     dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
-    whole = convert.params_from_numpy(job["arrays"][case["arch"]], "cpu", dtype=dtype)
+    whole = convert.params_from_numpy(job["arrays"][weights_key(case)], "cpu", dtype=dtype)
     tokens = torch.from_numpy(np.asarray(job["tokens"])).long()
     axes = tt.param_logical_axes(cfg)
     shapes = tm.init_params(cfg, device="meta")
@@ -71,6 +75,12 @@ def run_case(case, job, mesh):
     try:
         with use_mesh(mesh):
             params = shard_tree(whole, axes)
+            if "serve" in case["what"]:
+                return _serve(case, job, cfg, params, whole)
+            if "engine" in case["what"]:
+                return _engine(case, cfg, params, whole)
+            if "own" in case["what"]:
+                return _own_serve(case, job, cfg, params, whole)
             local = local_batch(tokens)
             if "step" in case["what"]:
                 loss, grads = grads_on_another_thread(params, local, cfg)
@@ -98,8 +108,8 @@ def run_case(case, job, mesh):
                 out.update(step_loss=float(metrics["loss"]),
                            step_grad_norm=float(metrics["grad_norm"]),
                            step_lr=float(metrics["lr"]), step_params=_np(state.params))
-            if "refusals" in case["what"]:
-                out["refusals"] = _refusals(cfg, params, local)
+            if "runs" in case["what"]:
+                out["runs"] = _entry_points(cfg, params, tokens)
     finally:
         ACT_SEQ[0] = False
     return out
@@ -148,22 +158,139 @@ def _compression(grads):
     return out
 
 
-def _refusals(cfg, params, tokens):
+def _entry_points(cfg, params, tokens):
     """{entry point: the message of the NotImplementedError it raised under
-    the bound mesh, or None where it raised none}: ``forward``, and
-    ``prefill`` and ``decode_step``, which no mesh runs yet."""
+    the bound mesh, or None where it ran and gave finite logits}:
+    ``forward``, ``prefill`` and ``decode_step`` on the global batch."""
     from repro_torch import models as tm
+    from repro_torch.train.loop import local_batch
     out = {}
     cache = tm.init_cache(cfg, tokens.shape[0], tokens.shape[1], device="cpu")
-    calls = {"forward": lambda: tm.forward(params, tokens, cfg),
-             "prefill": lambda: tm.prefill(params, tokens, cfg),
-             "decode_step": lambda: tm.decode_step(params, tokens[:, :1], cache, cfg)}
+    calls = {"forward": lambda: tm.forward(params, local_batch(tokens), cfg),
+             "prefill": lambda: tm.prefill(params, tokens, cfg)[0],
+             "decode_step": lambda: tm.decode_step(params, tokens[:, :1], cache, cfg)[0]}
     for name, call in calls.items():
         try:
-            call()
-            out[name] = None
+            with torch.no_grad():
+                out[name] = None if bool(torch.isfinite(call()).all()) else "not finite"
         except NotImplementedError as exc:
             out[name] = str(exc)
+    return out
+
+
+def _cache_np(cache):
+    return {f: getattr(cache, f).float().numpy() for f in CACHE_FIELDS
+            if getattr(cache, f) is not None}
+
+
+def _same_on_every_rank(t):
+    """Whether every rank of the mesh holds the same bits as this one."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import current_mesh
+    every = comm.stack_over(t.contiguous(), list(current_mesh().mesh_dim_names))
+    return all(torch.equal(every[0], x) for x in every)
+
+
+def _serve(case, job, cfg, params, whole):
+    """The port's side of ``_torch_mesh_jax.run_serve`` under the bound mesh:
+    the prefill's logits and its cache gathered whole; the decode steps from
+    the JAX package's grown cache (``case["decode_from"]``, in its own
+    types) sharded onto the ranks, each step's logits and the last cache
+    gathered whole; whether every rank got the same logits; and, on rank 0
+    without the mesh, the same prefill in one process."""
+    from repro_torch import models as tm
+    from repro_torch.models.model import gather_cache
+    from repro_torch.models.model import shard_cache
+    from repro_torch.sharding import use_mesh
+    tok = torch.from_numpy(np.asarray(job["serve_tokens"])[:case["batch"]]).long()
+    b, s = tok.shape[0], tok.shape[1] - case["steps"]
+    out = {}
+    same = []
+    with torch.no_grad():
+        logits, cache = tm.prefill(params, tok[:, :s], cfg)
+        same.append(_same_on_every_rank(logits))
+        out["prefill_logits"] = logits.float().numpy()
+        out["prefill_cache"] = _cache_np(gather_cache(cache, cfg, b))
+        arrays, dtypes = case["decode_from"]
+        whole_cache = tm.Cache(pos=case["decode_from_pos"], **{
+            f: torch.from_numpy(a).to(getattr(torch, dtypes[f])) for f, a in arrays.items()})
+        cache = shard_cache(whole_cache, cfg)
+        out["decode_logits"] = []
+        for t in range(s, s + case["steps"]):
+            logits, cache = tm.decode_step(params, tok[:, t:t + 1], cache, cfg)
+            same.append(_same_on_every_rank(logits))
+            out["decode_logits"].append(logits.float().numpy())
+        out["decode_cache"] = _cache_np(gather_cache(cache, cfg, b))
+        out["same_on_every_rank"] = same
+        if dist.get_rank() == 0:
+            with use_mesh(None):
+                logits, cache = tm.prefill(whole, tok[:, :s], cfg)
+            out["one_logits"], out["one_cache"] = logits.float().numpy(), _cache_np(cache)
+    return out
+
+
+def _own_serve(case, job, cfg, params, whole):
+    """The port alone: a prefill of S tokens and SERVE_STEPS decode steps
+    from its own cache, grown, under the bound mesh (logits, and the cache
+    after each call gathered whole) and in one process on rank 0."""
+    from repro_torch import models as tm
+    from repro_torch.models.model import gather_cache
+    from repro_torch.sharding import use_mesh
+    tok = torch.from_numpy(np.asarray(job["serve_tokens"])).long() % cfg.vocab
+    b, s = tok.shape[0], tok.shape[1] - SERVE_STEPS
+
+    def run(p, gather):
+        with torch.no_grad():
+            logits, cache = tm.prefill(p, tok[:, :s], cfg)
+            out = [(logits.numpy(), _cache_np(gather(cache)))]
+            if cache.k is not None:
+                pad = torch.zeros_like(cache.k[:, :, :SERVE_STEPS])
+                cache = cache._replace(k=torch.cat([cache.k, pad], 2),
+                                       v=torch.cat([cache.v, pad], 2))
+            for t in range(s, s + SERVE_STEPS):
+                logits, cache = tm.decode_step(p, tok[:, t:t + 1], cache, cfg)
+                out.append((logits.numpy(), _cache_np(gather(cache))))
+        return out
+
+    out = dict(mesh=run(params, lambda c: gather_cache(c, cfg, b)))
+    if dist.get_rank() == 0:
+        with use_mesh(None):
+            out["one"] = run(whole, lambda c: c)
+    return out
+
+
+ENGINE_PROMPTS = (5, 17, 32, 9, 24, 12)      # 6 requests; the last two reuse slots
+ENGINE_NEW = (6, 3, 8, 4, 5, 7)              # ragged, so slots retire at other steps
+ENGINE_SLOTS = 4
+
+
+def _engine(case, cfg, params, whole):
+    """Every request's tokens from a ``ServeEngine`` made under the bound
+    mesh, every rank's, and (rank 0) the one-process engine's on the whole
+    weights."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import use_mesh
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in ENGINE_PROMPTS]
+
+    def serve(p):
+        eng = ServeEngine(cfg, p, max_batch=ENGINE_SLOTS, max_seq=64, device="cpu")
+        reqs = [Request(uid=i, prompt=q, max_new_tokens=n)
+                for i, (q, n) in enumerate(zip(prompts, ENGINE_NEW))]
+        for r in reqs:
+            eng.add_request(r)
+        with torch.no_grad():
+            eng.run_to_completion()
+        return [r.tokens_out for r in reqs], eng.decode_calls
+
+    mine = serve(params)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out = dict(ranks=every)
+    if dist.get_rank() == 0:
+        with use_mesh(None):
+            out["one"] = serve(whole)
     return out
 
 
@@ -213,8 +340,13 @@ def run_world(shape, cases, job_path, tmp):
 # ---------------------------------------------------------------------------
 # Both packages on the same cases, and the comparisons
 # ---------------------------------------------------------------------------
+CACHE_FIELDS = ("k", "v", "conv_x", "conv_bc", "ssm")
+PORT_ONLY = {("engine",), ("own",)}     # cases the JAX package does not run
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 4, 32            # the global batch: 4 sequences of 32 tokens
+# serving: a prompt of S tokens (a multiple of the reduced SSM chunk of 32),
+# then this many decode steps
+SERVE_STEPS = 3
 JAX_TIMEOUT_S = 600
 # fp32: every compared value within this of its leaf's (or tensor's) scale
 TOL = 1e-5
@@ -232,8 +364,17 @@ def case(arch, mesh, act_seq=False, dtype="fp32", **extra):
                 opt=STEP_OPT, **extra)
 
 
+def serve_case(arch, mesh, act_seq=False, dtype="fp32", batch=B, **extra):
+    """A prefill of ``batch`` rows of S tokens and SERVE_STEPS decode steps
+    from the JAX package's prefilled cache, on both sides."""
+    return dict(arch=arch, mesh=tuple(mesh), act_seq=act_seq, dtype=dtype, what=("serve",),
+                batch=batch, steps=SERVE_STEPS, **extra)
+
+
 def case_id(c) -> str:
     parts = [c["arch"].split("-")[0].split(".")[0], "x".join(map(str, c["mesh"]))]
+    if c.get("batch", B) != B:
+        parts.append(f"b{c['batch']}")
     if c["act_seq"]:
         parts.append("actseq")
     if c.get("changes", {}).get("capacity_factor") is not None:
@@ -244,6 +385,13 @@ def case_id(c) -> str:
     return "-".join(parts)
 
 
+def weights_key(c) -> str:
+    """The key of a case's weights in a job: its architecture, and the
+    vocabulary where the case changes it."""
+    vocab = c.get("changes", {}).get("vocab")
+    return c["arch"] if vocab is None else f"{c['arch']}@{vocab}"
+
+
 def make_job(cases, path):
     """The weights of each architecture (the port's ``init_params``, seed 0,
     bf16, as numpy) and a global batch, written to ``path``."""
@@ -251,17 +399,20 @@ def make_job(cases, path):
     from repro_torch import models as tm
     arrays = {}
     for c in cases:
-        if "arch" in c and c["arch"] not in arrays:
-            cfg = _config(c["arch"], {})
-            arrays[c["arch"]] = convert.params_to_numpy(tm.init_params(cfg, seed=0,
-                                                                       device="cpu"))
+        if "arch" in c and weights_key(c) not in arrays:
+            vocab = {k: v for k, v in c.get("changes", {}).items() if k == "vocab"}
+            cfg = _config(c["arch"], vocab)
+            arrays[weights_key(c)] = convert.params_to_numpy(tm.init_params(cfg, seed=0,
+                                                                            device="cpu"))
     rng = np.random.default_rng(3)
     tokens = rng.integers(0, 512, (B, S))
     # two ranks' gradients for the compression cases: unequal scales, values
     # on both sides of a quantization step
     compression = {"w": (rng.standard_normal((2, 8, 8)) * [[[1.0]], [[0.3]]]).astype(np.float32),
                    "b": rng.uniform(-0.01, 0.01, (2, 5)).astype(np.float32)}
-    job = dict(arrays=arrays, tokens=tokens, compression=compression, cases=cases)
+    serve_tokens = rng.integers(0, 512, (B, S + SERVE_STEPS))
+    job = dict(arrays=arrays, tokens=tokens, compression=compression, cases=cases,
+               serve_tokens=serve_tokens)
     with open(path, "wb") as f:
         pickle.dump(job, f)
     return job
@@ -269,9 +420,13 @@ def make_job(cases, path):
 
 def run_both(cases, tmp):
     """[(port result, JAX result)] of every case: the JAX process runs while
-    the port's worlds (one a mesh shape) do."""
+    the port's worlds (one a mesh shape) do; with ``serve`` cases it runs
+    first, and each serve case takes its prefilled cache to the port's
+    decode steps."""
     import subprocess
     import sys
+    if all(c["what"] in PORT_ONLY for c in cases):
+        return [(r, None) for r in run_port(cases, tmp)]
     os.makedirs(tmp, exist_ok=True)
     job_path = os.path.join(tmp, "job.pkl")
     make_job(cases, job_path)
@@ -285,23 +440,49 @@ def run_both(cases, tmp):
                              job_path, out_path], cwd=REPO, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        port = [None] * len(cases)
-        for shape in sorted({c["mesh"] for c in cases}):
-            idx = [i for i, c in enumerate(cases) if c["mesh"] == shape]
-            res = run_world(shape, [cases[i] for i in idx], job_path,
-                            os.path.join(tmp, "x".join(map(str, shape))))
-            for i, r in zip(idx, res):
-                port[i] = r
-        log, _ = proc.communicate(timeout=JAX_TIMEOUT_S)
+        if any(c["what"] == ("serve",) for c in cases):
+            ref = _jax_result(proc, out_path)
+            cases = [dict(c, decode_from=(r["decode_from"], r["decode_from_dtypes"]),
+                          decode_from_pos=r["decode_from_pos"]) if c["what"] == ("serve",)
+                     else c for c, r in zip(cases, ref)]
+        port = _worlds(cases, job_path, tmp)
+        ref = _jax_result(proc, out_path)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    if proc.returncode:
-        raise RuntimeError(f"the JAX side failed:\n{log[-4000:]}")
-    with open(out_path, "rb") as f:
-        ref = pickle.load(f)
     return list(zip(port, ref))
+
+
+def _worlds(cases, job_path, tmp):
+    """The port's result of every case, one world a mesh shape."""
+    port = [None] * len(cases)
+    for shape in sorted({c["mesh"] for c in cases}):
+        idx = [i for i, c in enumerate(cases) if c["mesh"] == shape]
+        res = run_world(shape, [cases[i] for i in idx], job_path,
+                        os.path.join(tmp, "x".join(map(str, shape))))
+        for i, r in zip(idx, res):
+            port[i] = r
+    return port
+
+
+def run_port(cases, tmp):
+    """The port's result of every case, for cases that only the port runs."""
+    os.makedirs(tmp, exist_ok=True)
+    job_path = os.path.join(tmp, "job.pkl")
+    make_job(cases, job_path)
+    return _worlds(cases, job_path, tmp)
+
+
+def _jax_result(proc, out_path):
+    """The JAX process's results, once it has ended."""
+    if proc.returncode is None:
+        log, _ = proc.communicate(timeout=JAX_TIMEOUT_S)
+        proc.log = log
+    if proc.returncode:
+        raise RuntimeError(f"the JAX side failed:\n{proc.log[-4000:]}")
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
 
 
 def held(got, want, what, tol=TOL):
@@ -332,10 +513,13 @@ def check_loss(port, ref):
     assert port["step_lr"] == pytest.approx(ref["step_lr"], rel=1e-6)
 
 
-def check_leaves(got, want, what):
+def check_leaves(got, want, what, skip=(), tols=None):
+    """Every leaf but ``skip`` within its tolerance (``tols`` by the key's
+    last part, TOL otherwise) of its scale."""
     assert sorted(got) == sorted(want), f"{what}: keys differ"
     for k in want:
-        held(got[k], want[k], f"{what} {k}")
+        if k not in skip:
+            held(got[k], want[k], f"{what} {k}", (tols or {}).get(k.split("/")[-1], TOL))
 
 
 def single_device(c):
@@ -352,3 +536,34 @@ def single_device(c):
     loss, grads = loss_and_grads(params, tokens, cfg)
     keys = [k for k, _ in flatten_with_keys(params)]
     return float(loss), {k: g.numpy() for k, g in zip(keys, grads)}
+
+
+# ---------------------------------------------------------------------------
+# Serving cases
+# ---------------------------------------------------------------------------
+def check_cache(got, want, what, hold=held):
+    """Every field of two caches (gathered whole), each held by ``hold``."""
+    assert sorted(got) == sorted(want), f"{what}: fields {sorted(got)} vs {sorted(want)}"
+    for f in want:
+        hold(got[f], want[f], f"{what} {f}")
+
+
+def check_decode(port, ref, hold=held):
+    """Each decode step's logits and the cache after the last step."""
+    assert len(port["decode_logits"]) == len(ref["decode_logits"]) == SERVE_STEPS
+    for i, (got, want) in enumerate(zip(port["decode_logits"], ref["decode_logits"])):
+        hold(got, want, f"decode step {i} logits")
+    check_cache(port["decode_cache"], ref["decode_cache"], "cache after decoding", hold)
+
+
+def check_prefill_logits(port, ref):
+    """The fp32 prefill's logits against the JAX package's forward at the
+    prompt's last position under the same mesh, within TOL of their scale."""
+    held(port["prefill_logits"], ref["forward_last"], "prefill logits")
+
+
+def check_prefill_one_process(port):
+    """The fp32 prefill under the mesh against the port's own one-process
+    call: logits and every gathered cache tensor within TOL of its scale."""
+    held(port["prefill_logits"], port["one_logits"], "prefill logits")
+    check_cache(port["prefill_cache"], port["one_cache"], "prefill cache")
