@@ -88,56 +88,79 @@ run with a non-zero exit code:
             counts as in 4.
 15. parity_gemma7b  its 2-layer cut: prefill of 2 x 64 tokens + 4 decode
             steps, card against CPU.
-16. train   llama3.2-3b trained at full width and depth (bf16, seeded random
+16. serve_qwen2vl   qwen2-vl-7b's text backbone at full width and depth (28
+            layers, d_model 3584, 28 query and 4 KV heads of 128: GQA group 7;
+            M-RoPE sections (16, 24, 24), whose text-only positions are the
+            plain rotary ones; vocab 152064; bf16, seeded random weights)
+            behind ``ServeEngine(max_batch=8, max_seq=2048)``: 8 requests
+            drawn as in 4, 32 new tokens each; counts as in 4.
+17. parity_qwen2vl  its 2-layer cut as in 5; before any launch, explicit
+            positions, 3-plane (3, B, S) and (B, S), refused by ``prefill``
+            and ``forward``.
+18. serve_mistral   mistral-nemo-12b at full width and depth (40 layers,
+            d_model 5120, 32 query and 8 KV heads of 128, vocab 131072; bf16,
+            24.5 GB) as in 16.
+19. parity_mistral  its 2-layer cut as in 5.
+20. serve_musicgen   musicgen-large's decoder at full width and depth (48
+            layers, d_model 2048, MHA 32 x 64, GeGLU d_ff 8192, vocab 2048;
+            bf16) as in 16.
+21. parity_musicgen  its 2-layer cut as in 5, and one prefill of 2 x 48
+            precomputed frame embeddings (``input_embeds``, the audio
+            frontend's contract), card against CPU by the same rules.
+22. serve_moonshot   moonshot-v1-16b-a3b at full width and depth (48 layers:
+            one dense, 47 with 64 routed experts, top-6, and 2 shared; MHA 16
+            x 128; vocab 163840; bf16, 56.8 GB) as in 16.
+23. parity_moonshot  its cut to the dense layer and one MoE layer, as in 11.
+24. train   llama3.2-3b trained at full width and depth (bf16, seeded random
             weights, 8 x 512 tokens a step, remat, AdamW as launch/train.py
             builds it): 6 steps, the last 2 in 2 microbatches; losses finite
             and falling, launch counts (set to 0 just before, read just
             after) exactly those of the forward, its recomputation and the
             backward of every layer and microbatch.
-17. parity_train  one train step of its 2-layer cut at full width on the
+25. parity_train  one train step of its 2-layer cut at full width on the
             card against the CPU (fp32 gradients elementwise, bf16 by share),
             then the card's state, each leaf cut to its first 1024 rows and
             columns, checkpointed and restored on the CPU, bit-equal.
-18. train_ssm   mamba2-2.7b trained at full width and depth (64 layers,
-            d_model 2560, 2.83 B parameters), as in 16: the SSD forward twice
+26. train_ssm   mamba2-2.7b trained at full width and depth (64 layers,
+            d_model 2560, 2.83 B parameters), as in 24: the SSD forward twice
             and its backward's three kernels once a layer and microbatch,
             nothing else launched.
-19. parity_train_ssm  one train step of its 2-layer cut at full width, 2 x
-            256 tokens (two SSD chunks), card against CPU as in 17 (the
+27. parity_train_ssm  one train step of its 2-layer cut at full width, 2 x
+            256 tokens (two SSD chunks), card against CPU as in 25 (the
             CPU's fp32 scan in float64), without the checkpoint; every
-            gradient leaf nonzero on the card (so in 17, 21 and 23 too).
-20. train_hybrid   zamba2-7b trained at full width and a cut depth (45
+            gradient leaf nonzero on the card (so in 25, 29 and 31 too).
+28. train_hybrid   zamba2-7b trained at full width and a cut depth (45
             layers: 7 groups of 6 Mamba2 layers, each followed by the shared
             attention block at head_dim 112, and a tail of 3; 81 do not fit
-            one card with Adam's state), as in 16 at a peak learning rate
+            one card with Adam's state), as in 24 at a peak learning rate
             of 1e-4 (``TRAIN_PATHS``): the flash forward twice
             and its backward once an application of the shared block, the
             SSD forward twice and its backward once a Mamba2 layer, each a
             microbatch.
-21. parity_train_hybrid  one train step of its cut to one group of 2 Mamba2
+29. parity_train_hybrid  one train step of its cut to one group of 2 Mamba2
             layers, the shared block and a tail of 1, 2 x 256 tokens, card
-            against CPU as in 19.
-22. train_moe   deepseek-moe-16b trained at full width and a cut depth (7
+            against CPU as in 27.
+30. train_moe   deepseek-moe-16b trained at full width and a cut depth (7
             layers: the dense layer and 6 MoE layers; 28 do not fit), as in
-            20, tokens dropped at the published capacity factor 1.25.
-23. parity_train_moe  one train step of its cut to the dense layer and one
+            28, tokens dropped at the published capacity factor 1.25.
+31. parity_train_moe  one train step of its cut to the dense layer and one
             MoE layer, 2 x 64 tokens, which drop at the capacity: card against
-            CPU as in 17 without the checkpoint, the CPU following the card's
+            CPU as in 25 without the checkpoint, the CPU following the card's
             expert choices, the tokens each side dropped counted and the
             router logits held as in 11.
-24. train_gemma2   gemma2-27b trained at full width and a cut depth (2 layers:
+32. train_gemma2   gemma2-27b trained at full width and a cut depth (2 layers:
             one local, window 4096, and one global; attention softcap 50,
-            final softcap 30, score scale 144^-0.5; 46 do not fit), as in 20:
+            final softcap 30, score scale 144^-0.5; 46 do not fit), as in 28:
             the flash forward twice and its backward, with the window and the
             softcap, once a layer and microbatch.
-25. parity_train_gemma2  one train step of its 2 layers with the window cut
+33. parity_train_gemma2  one train step of its 2 layers with the window cut
             to 64, 2 x 128 tokens, so that the window binds: card against CPU
-            as in 17 without the checkpoint.
-26. train_gemma7b   gemma-7b trained at full width and a cut depth (8
-            layers, head_dim 256; 28 do not fit), as in 20.
-27. parity_train_gemma7b  one train step of its 2-layer cut, 2 x 128
-            tokens: card against CPU as in 25.
-28. train_mesh   training under a mesh: two processes share the one card,
+            as in 25 without the checkpoint.
+34. train_gemma7b   gemma-7b trained at full width and a cut depth (8
+            layers, head_dim 256; 28 do not fit), as in 28.
+35. parity_train_gemma7b  one train step of its 2-layer cut, 2 x 128
+            tokens: card against CPU as in 33.
+36. train_mesh   training under a mesh: two processes share the one card,
             each joined to a gloo process group (NCCL refuses two ranks on one
             GPU; every collective goes through the host, so this shows
             correctness and per-rank memory, not multi-card speed).
@@ -152,34 +175,34 @@ run with a non-zero exit code:
             those of its layers on its heads: 12 query and 4 KV heads a
             rank for llama, 8 x 8 for deepseek, 56 SSD heads and 16 x 16
             attention heads for zamba2).
-29. parity_train_mesh  each layout of 28: one fp32 step on the mesh, its
+37. parity_train_mesh  each layout of 36: one fp32 step on the mesh, its
             parameters gathered, against one process on the card (loss,
             gradient norm and every parameter leaf elementwise within 1e-5
             of the leaf's scale); llama also in bf16 (every gathered gradient
-            leaf by the share rules of 17). The four mesh phases run in one
+            leaf by the share rules of 25). The four mesh phases run in one
             start of the two processes.
-30. serve_mesh   serving under a mesh of (1, 2), two processes sharing the
-            card as in 28: llama3.2-3b (28 layers) and zamba2-7b (81
+38. serve_mesh   serving under a mesh of (1, 2), two processes sharing the
+            card as in 36: llama3.2-3b (28 layers) and zamba2-7b (81
             layers) at published size, each rank's ``ServeEngine`` holding
             its parameter shards (drawn whole on the card one rank at a
             time, sliced) and its shard of the pooled cache; 4 requests of
-            96 and 512 tokens, 16 new tokens each, greedy.  Each rank's
+            96 and 512 tokens, 8 new tokens each, greedy.  Each rank's
             tokens/s, decode_step calls, peak memory and launches (counts
             set to 0 just before and read just after: exactly those of its
             layers on its heads); the two ranks' tokens must be equal.
-31. parity_serve_mesh  prefill of 2 x 64 tokens and 4 decode steps under
+39. parity_serve_mesh  prefill of 2 x 64 tokens and 4 decode steps under
             the mesh against one process on the card, same weights:
             llama3.2-3b at 2 layers, zamba2-7b at 3 Mamba2 layers of
             period 2 (one application of the shared block, a tail layer),
             deepseek-moe-16b at 3 (the dense layer and 2 MoE layers,
             expert-parallel).  fp32: every call's logits and every gathered
             cache tensor within 1e-5 of their scale, the greedy tokens
-            equal; bf16 by the share rule of 29 and the greedy tokens where
+            equal; bf16 by the share rule of 37 and the greedy tokens where
             the margin is clear (deepseek's one-process run following the
             mesh run's expert choices, those it would change a few
             near-ties); deepseek's router logits against the CPU's fp32
             product as in 11.
-32. simulator   the DCO cache-simulator stack, on the host (numpy, no
+40. simulator   the DCO cache-simulator stack, on the host (numpy, no
             kernel): all 56 cells of the conformance matrix (14 suite
             scenarios x 4 policies; the step engine, the compiled engine and
             the compiled engine fed in segments agree event for event) against
@@ -194,13 +217,15 @@ run with a non-zero exit code:
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
 the SSD scan at d_state 16 to 128, and times each kernel at the shapes of
-every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b
-and gemma-7b for attention, mamba2-2.7b and zamba2-7b for the SSD scan);
+every path that runs it (llama3.2-3b, zamba2-7b, deepseek-moe-16b, gemma2-27b,
+gemma-7b, qwen2-vl-7b, mistral-nemo-12b and musicgen-large for attention,
+moonshot-v1-16b-a3b sharing deepseek-moe-16b's heads; mamba2-2.7b and
+zamba2-7b for the SSD scan);
 each record of the ``kernels`` line names its path and carries the launches
 of that path's serve phase (the backwards': of their train phases).  The
-whole run takes about 15 to 17 minutes of command time on an H100, the
-build's 30 to 45 seconds included; the ``timing`` line gives each phase's
-host seconds.
+whole run takes under 1100 seconds of command time on an H100, the build's
+30 to 50 seconds included; the ``timing`` line gives each phase's host
+seconds.
 
 fp32 products run in full fp32 on the card: TF32 is switched off for
 matmuls and cuDNN.  The last lines are the ``timing`` line, the
@@ -254,7 +279,8 @@ SSD_PROMPTS = (1024, 256)   # prompt lengths the SSD scan is timed at
 # the timed shapes of each path: attention (H, G, D), SSD scan (H, P, N)
 ATTN_SHAPES = {"llama3.2-3b": (24, 8, 128), "zamba2-7b": (32, 32, 112),
                "deepseek-moe-16b": (16, 16, 128), "gemma2-27b": (32, 16, 128),
-               "gemma-7b": (16, 16, 256)}
+               "gemma-7b": (16, 16, 256), "qwen2-vl-7b": (28, 4, 128),
+               "mistral-nemo-12b": (32, 8, 128), "musicgen-large": (32, 32, 64)}
 SSD_SHAPES = {"mamba2-2.7b": (80, 64, 128), "zamba2-7b": (112, 64, 64)}
 # each path's attention timings: its attention's options (a local layer's
 # window, softcap, score scale), the decode pool's rows, and the cases in
@@ -286,7 +312,9 @@ ROUTER_MAX_FLIPS = 0.1
 ROUTER_LOGIT_TOL = 1e-4
 PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
           "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
-          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "train", "parity_train",
+          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "serve_qwen2vl",
+          "parity_qwen2vl", "serve_mistral", "parity_mistral", "serve_musicgen",
+          "parity_musicgen", "serve_moonshot", "parity_moonshot", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
           "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "serve_mesh",
@@ -1996,6 +2024,30 @@ PATHS = {
         published=(28, 3072, 16, 16, 256, 24576, 256000, True, "gelu"),
         serve="serve_gemma7b", parity="parity_gemma7b", prompt_len=llama_prompt_len,
         parity_cut={"layers": 2}, parity_layers=2, parity_prompt=64),
+    "qwen2-vl-7b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+               "mrope_sections"),
+        published=(28, 3584, 28, 4, 128, 18944, 152064, (16, 24, 24)),
+        serve="serve_qwen2vl", parity="parity_qwen2vl", prompt_len=llama_prompt_len,
+        parity_cut={"layers": 2}, parity_layers=2),
+    "mistral-nemo-12b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab"),
+        published=(40, 5120, 32, 8, 128, 14336, 131072),
+        serve="serve_mistral", parity="parity_mistral", prompt_len=llama_prompt_len,
+        parity_cut={"layers": 2}, parity_layers=2),
+    "musicgen-large": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+               "act"),
+        published=(48, 2048, 32, 32, 64, 8192, 2048, "gelu"),
+        serve="serve_musicgen", parity="parity_musicgen", prompt_len=llama_prompt_len,
+        parity_cut={"layers": 2}, parity_layers=2),
+    "moonshot-v1-16b-a3b": dict(
+        sizes=("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab"),
+        published=(48, 2048, 16, 16, 128, 11264, 163840),
+        moe=(64, 6, 1408, 2, 1.25, 1), serve="serve_moonshot", parity="parity_moonshot",
+        prompt_len=llama_prompt_len,
+        # the dense layer and the first MoE layer
+        parity_cut={"moe_layers": 1}, parity_layers=2),
 }
 
 
@@ -2102,17 +2154,38 @@ def parity_logits(arch, cfg, params, dev, dtype, plain=False, routes=None):
     plain versions; ``routes`` (a MoE path) records or follows expert choices
     (``routing``)."""
     from repro_torch.configs import SSM
-    from repro_torch.core.orchestrator import flash_smem_bytes
-    from repro_torch.core.orchestrator import H100_SMEM_PER_BLOCK
     from repro_torch.models import decode_step
     from repro_torch.models import prefill
+    cfg2, p = parity_params(arch, cfg, params, dev, dtype)
+    plen = parity_prompt_len(arch, cfg)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(2, cfg.vocab, size=(2, plen))
+    steps = rng.integers(2, cfg.vocab, size=(4, 2, 1))
+    tok = torch.as_tensor(prompt, device=dev)
+    follow = routing(routes) if routes is not None else nullcontext()
+    with plain_versions() if plain else nullcontext(), follow:
+        if cfg.family == SSM:
+            got, cache = prefill(p, tok, cfg2)
+        else:
+            got, cache = prefill(p, tok, cfg2, pinned_rows=parity_pins(plen, cfg, dtype))
+            pad = torch.zeros_like(cache.k[:, :, :4])
+            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
+                                   v=torch.cat([cache.v, pad], dim=2))
+        outs = [got]
+        for tok in steps:
+            got, cache = decode_step(p, torch.as_tensor(tok, device=dev), cache, cfg2)
+            outs.append(got[:, 0])
+    return torch.stack(outs).float().cpu()
+
+
+def parity_params(arch, cfg, params, dev, dtype):
+    """The parity cut of ``arch``'s config, and of ``params`` on ``dev`` in
+    ``dtype``: the first layers of each leaf below a key of ``parity_cut``
+    (all of them elsewhere); leaves the model keeps in fp32 stay fp32."""
     path = PATHS[arch]
     cfg2 = replace(cfg, n_layers=path["parity_layers"], **path.get("parity_changes", {}))
-    plen = parity_prompt_len(arch, cfg)
 
     def cut(tree, keep=None):
-        """The tree with the first ``keep`` layers of each leaf below a key of
-        ``parity_cut`` (all of them elsewhere), on ``dev``."""
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
@@ -2123,28 +2196,51 @@ def parity_logits(arch, cfg, params, dev, dtype, plain=False, routes=None):
                               else dtype)
         return out
 
-    rng = np.random.default_rng(1)
-    prompt = rng.integers(2, cfg.vocab, size=(2, plen))
-    steps = rng.integers(2, cfg.vocab, size=(4, 2, 1))
-    p = cut(params)
-    tok = torch.as_tensor(prompt, device=dev)
-    follow = routing(routes) if routes is not None else nullcontext()
-    with plain_versions() if plain else nullcontext(), follow:
-        if cfg.family == SSM:
-            got, cache = prefill(p, tok, cfg2)
-        else:
-            # the whole prompt pinned where the kernel's shared memory holds
-            # it (not in fp32 at head_dim 256, which streams it)
-            fits = flash_smem_bytes(plen, cfg.head_dim, dtype.itemsize) <= H100_SMEM_PER_BLOCK
-            got, cache = prefill(p, tok, cfg2, pinned_rows=plen if fits else 0)
-            pad = torch.zeros_like(cache.k[:, :, :4])
-            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
-                                   v=torch.cat([cache.v, pad], dim=2))
-        outs = [got]
-        for tok in steps:
-            got, cache = decode_step(p, torch.as_tensor(tok, device=dev), cache, cfg2)
-            outs.append(got[:, 0])
-    return torch.stack(outs).float().cpu()
+    return cfg2, cut(params)
+
+
+def parity_pins(plen, cfg, dtype):
+    """A parity prefill's ``pinned_rows``: the whole prompt where the flash
+    kernel's shared memory holds it (not in fp32 at head_dim 256, which
+    streams it)."""
+    from repro_torch.core.orchestrator import flash_smem_bytes
+    from repro_torch.core.orchestrator import H100_SMEM_PER_BLOCK
+    fits = flash_smem_bytes(plen, cfg.head_dim, dtype.itemsize) <= H100_SMEM_PER_BLOCK
+    return plen if fits else 0
+
+
+def embeds_logits(arch, cfg, params, dev, dtype):
+    """Logits (2, vocab) of one prefill of the path's cut of ``params`` from
+    2 x ``parity_prompt_len`` precomputed frame embeddings (``input_embeds``,
+    drawn from seed 2 at the embedding table's scale, d_model ** -0.5) in
+    place of tokens, on ``dev`` in ``dtype``."""
+    from repro_torch.models import prefill
+    cfg2, p = parity_params(arch, cfg, params, dev, dtype)
+    plen = parity_prompt_len(arch, cfg)
+    emb = np.random.default_rng(2).standard_normal((2, plen, cfg.d_model)) * cfg.d_model ** -0.5
+    tok = torch.zeros((2, plen), dtype=torch.long, device=dev)
+    got, _ = prefill(p, tok, cfg2, input_embeds=torch.as_tensor(emb, dtype=dtype, device=dev),
+                     pinned_rows=parity_pins(plen, cfg, dtype))
+    return got.float().cpu()
+
+
+def check_positions_refused(arch, cfg, params):
+    """Explicit positions, M-RoPE's 3-plane (3, B, S) and plain (B, S),
+    refused with NotImplementedError by ``prefill`` and ``forward`` on the
+    card before any launch; the calls refused."""
+    from repro_torch.models import forward
+    from repro_torch.models import prefill
+    b, s = 2, 64
+    tok = torch.zeros((b, s), dtype=torch.long, device="cuda")
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    calls = []
+    with torch.no_grad():
+        for planes, positions in (("(3, B, S)", pos.expand(3, b, s)), ("(B, S)", pos)):
+            for name, entry in (("prefill", prefill), ("forward", forward)):
+                not_implemented(lambda: entry(params, tok, cfg, positions=positions),
+                                f"{arch} {name} with {planes} positions")
+                calls.append(f"{name} {planes}")
+    return calls
 
 
 def held_logits(got, want):
@@ -2226,10 +2322,19 @@ def phase_parity(arch, cfg, params):
     card, a router check sees: the card's router logits (``router_log``, in
     both types) must agree with the CPU's fp32 product on the same tokens and
     weights within ROUTER_LOGIT_TOL of their largest magnitude, and a router
-    planted in bf16 (``bf16_router``) must fail that."""
+    planted in bf16 (``bf16_router``) must fail that.
+
+    A model with M-RoPE sections (qwen2-vl-7b) first checks that explicit
+    positions are refused before any launch (``check_positions_refused``);
+    one with an audio frontend (musicgen-large) also holds a prefill from
+    frame embeddings (``embeds_logits``), card against CPU, by the rules
+    above."""
     from repro_torch.configs import MOE
     path = PATHS[arch]
     moe = cfg.family == MOE
+    extra = {}
+    if cfg.mrope_sections:
+        extra["positions_refused"] = check_positions_refused(arch, cfg, params)
     calls = {"fp32": [], "bf16": []}   # the card's router calls (a MoE path)
     with router_log(calls["fp32"]) if moe else nullcontext():
         card = parity_logits(arch, cfg, params, "cuda", torch.float32)
@@ -2260,6 +2365,15 @@ def phase_parity(arch, cfg, params):
         fields["bf16_card_plain"] = held(
             card, parity_logits(arch, cfg, params, "cuda", torch.bfloat16, plain=True),
             "card kernels vs card plain versions")
+    if cfg.modality_stub == "audio":
+        extra["embeds_fp32_max_abs_err"] = close(
+            embeds_logits(arch, cfg, params, "cuda", torch.float32),
+            embeds_logits(arch, cfg, params, "cpu", torch.float32), LOGIT_TOL,
+            f"{arch} parity fp32, input_embeds prefill: card vs CPU logits")
+        fields["embeds_bf16"] = held(
+            embeds_logits(arch, cfg, params, "cuda", torch.bfloat16),
+            embeds_logits(arch, cfg, params, "cpu", torch.bfloat16),
+            "input_embeds prefill, card vs CPU")
     if moe:
         fields["router_bf16"] = check_near_ties(routes, f"{arch} parity bf16")
         fields["router_logits"] = {
@@ -2276,7 +2390,7 @@ def phase_parity(arch, cfg, params):
     emit(path["parity"], arch=cfg.name, n_layers=path["parity_layers"],
          changed=path.get("parity_changes", {}),
          calls=f"prefill(2x{parity_prompt_len(arch, cfg)}) + 4 decode steps",
-         tol=LOGIT_TOL, fp32_max_abs_err=err32,
+         tol=LOGIT_TOL, fp32_max_abs_err=err32, **extra,
          **{f"{k}_{f}": v for k, d in fields.items() for f, v in d.items()})
 
 
@@ -2686,9 +2800,11 @@ def phase_parity_train(arch):
     fields = {}
 
     def grads(dev, dtype, routes, fp64_scan=False):
-        """(params, gradient tree, loss, {key: gradient on the CPU}); a MoE
-        cut records or follows ``routes``, counts its drops and, on the card,
-        checks its router logits."""
+        """(params, gradient tree, loss, {key: gradient}), all on ``dev``;
+        a MoE cut records or follows ``routes``, counts its drops and, on the
+        card, checks its router logits.  Its seconds go to ``fields``."""
+        t0 = time.time()
+        tag = f"{'fp32' if dtype == torch.float32 else 'bf16'}_{dev.replace('cuda', 'card')}"
         params = train_parity_params(cfg2, dev, dtype)
         drops, calls = [], []
         with ExitStack() as stack:
@@ -2701,9 +2817,9 @@ def phase_parity_train(arch):
                     stack.enter_context(router_log(calls))
             loss, g = loss_and_grads(params, torch.as_tensor(tokens).to(dev, torch.long), cfg2)
         g = unflatten(params, g)
-        flat = {k: t.float().cpu() for k, t in flatten_with_keys(g)}
+        flat = dict(flatten_with_keys(g))
+        fields[f"{tag}_seconds"] = time.time() - t0
         if moe:
-            tag = f"{'fp32' if dtype == torch.float32 else 'bf16'}_{dev.replace('cuda', 'card')}"
             check(sum(drops) > 0, f"{what} {tag}: no token was dropped")
             fields[f"{tag}_tokens_dropped"] = drops
             if dev == "cuda":
@@ -2716,6 +2832,14 @@ def phase_parity_train(arch):
         for key, t in g_card.items():
             check(bool((t != 0).any()), f"{what} {dtype}: no gradient reaches {key} on the card")
 
+    def pairs(g_card, g_cpu):
+        """(key, card gradient, CPU gradient) of each leaf in fp32, both on
+        the card, where the comparisons run: a leaf at a time crosses the
+        bus, in its own type."""
+        check(sorted(g_card) == sorted(g_cpu), f"{what}: gradient keys differ")
+        for key in g_cpu:
+            yield key, g_card[key].float(), g_cpu[key].to("cuda").float()
+
     routes = {}
     _, _, loss_card, g_card = grads("cuda", torch.float32, routes)
     on_card(g_card, "fp32")
@@ -2724,10 +2848,8 @@ def phase_parity_train(arch):
         fields["router_fp32"] = check_near_ties(routes, f"{what} fp32")
     check(abs(loss_card - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu)),
           f"{what} fp32: loss {loss_card} vs {loss_cpu}")
-    check(sorted(g_card) == sorted(g_cpu), f"{what}: gradient keys differ")
     worst = (0.0, "")
-    for key in g_cpu:
-        a, r = g_card[key], g_cpu[key]
+    for key, a, r in pairs(g_card, g_cpu):
         scale = float(r.abs().max())
         check(scale > 0, f"{what} fp32: {key} has a zero gradient on the CPU")
         err = float((a - r).abs().max())
@@ -2746,8 +2868,8 @@ def phase_parity_train(arch):
     check(abs(loss_card - loss_cpu) <= LOGIT_TOL, f"{what} bf16: loss {loss_card} vs "
           f"{loss_cpu}")
     shares, rmss, caps = [], [], []
-    for key in g_cpu:
-        rel = (g_card[key] - g_cpu[key]).abs() / float(g_cpu[key].abs().max())
+    for key, a, r in pairs(g_card, g_cpu):
+        rel = (a - r).abs() / float(r.abs().max())
         shares.append(float((rel <= GRAD_SHARE_TOL).float().mean()))
         rmss.append(float(rel.square().mean().sqrt()))
         caps.append(float(rel.max()))
@@ -2825,7 +2947,7 @@ MESH_TOL = 1e-5          # fp32, mesh vs one process: times each leaf's largest 
 # reference's SSD chunk rule accepts
 SERVE_MESH_RUNS = (("llama3.2-3b", 28, (1, 2), False), ("zamba2-7b", 81, (1, 2), False))
 SERVE_MESH_PROMPTS = {"llama3.2-3b": (96, 512, 96, 512), "zamba2-7b": (96, 512, 96, 512)}
-SERVE_MESH_NEW = 16
+SERVE_MESH_NEW = 8
 # parity_serve_mesh: each path's cut at full width, prefill of B x S tokens
 # and PARITY_SERVE_STEPS decode steps; zamba2: 3 Mamba2 layers at period 2,
 # one application of the shared block and a tail layer; deepseek: the dense
@@ -2917,6 +3039,7 @@ def mesh_child(phases, rank, work):
                 torch.cuda.empty_cache()
                 dist.barrier()
             out[phase + "_seconds"] = time.time() - t0
+            refs.clear()    # the one-process results of this phase, on the card
     finally:
         (work / f"rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
@@ -3023,8 +3146,7 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
                 init_params(cfg, seed=0, device="cuda", dtype=torch.float32), cfg)
             state, met = make_train_step(cfg, AdamWConfig(**MESH_PARITY_OPT),
                                          device="cuda")(state, tokens)
-            got = {k: t.cpu() for k, t in flatten_with_keys(gather_tree(state.params, axes,
-                                                                         shapes))}
+            got = dict(flatten_with_keys(gather_tree(state.params, axes, shapes)))
             del state
             fields["fp32_mesh_seconds"] = time.time() - t0
             if dense:
@@ -3034,8 +3156,8 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
                 for g in grads:
                     for axis in dp_axes(mesh):
                         comm.all_reduce_(g, axis)
-                got_g = {k: t.float().cpu() for k, t in flatten_with_keys(
-                    gather_tree(unflatten(params, grads), axes, shapes))}
+                got_g = dict(flatten_with_keys(gather_tree(unflatten(params, grads), axes,
+                                                           shapes)))
                 bf16_loss = float(loss)
                 del params, grads
                 fields["bf16_mesh_seconds"] = time.time() - t0
@@ -3069,7 +3191,7 @@ def mesh_parity_run(cfg, mesh, act_seq, rank, refs):
                   f"parity_train_mesh bf16: loss {bf16_loss} vs {ref['bf16_loss']}")
             shares, rmss, caps = [], [], []
             for key, want in ref["bf16_grads"].items():
-                rel = (got_g[key] - want).abs() / float(want.abs().max())
+                rel = (got_g[key].float() - want).abs() / float(want.abs().max())
                 shares.append(float((rel <= GRAD_SHARE_TOL).float().mean()))
                 rmss.append(float(rel.square().mean().sqrt()))
                 caps.append(float(rel.max()))
@@ -3306,9 +3428,9 @@ def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
 
 
 def mesh_reference(cfg, tokens, dense):
-    """The one-process side of ``mesh_parity_run`` on the card, kept on the
-    host: the fp32 step's loss, gradient norm and parameters, and (dense) the
-    bf16 loss and gradients."""
+    """The one-process side of ``mesh_parity_run`` on the card, kept there
+    for the comparisons: the fp32 step's loss, gradient norm and parameters,
+    and (dense) the bf16 loss and gradients in fp32."""
     from repro_torch.models import init_params
     from repro_torch.train import AdamWConfig
     from repro_torch.train import init_train_state
@@ -3319,13 +3441,13 @@ def mesh_reference(cfg, tokens, dense):
     one = init_train_state(init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
     one, met = make_train_step(cfg, AdamWConfig(**MESH_PARITY_OPT), device="cuda")(one, tokens)
     ref = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
-               params={k: t.cpu() for k, t in flatten_with_keys(one.params)})
+               params=dict(flatten_with_keys(one.params)))
     del one
     if dense:
         params = init_params(cfg, seed=0, device="cuda")
         loss, grads = loss_and_grads(params, tokens, cfg)
         ref.update(bf16_loss=float(loss), bf16_grads={
-            k: g.float().cpu() for (k, _), g in zip(flatten_with_keys(params), grads)})
+            k: g.float() for (k, _), g in zip(flatten_with_keys(params), grads)})
         del params, grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -3493,10 +3615,8 @@ def main() -> None:
     smi = timed("device", phase_device)
     ptxas = timed("build", phase_build, args.build_log)
     records = timed("kernels", phase_kernels, ptxas) if "kernels" in phases else []
-    for arch, n_requests in (("llama3.2-3b", args.requests), ("mamba2-2.7b", PATH_REQUESTS),
-                             ("zamba2-7b", PATH_REQUESTS), ("deepseek-moe-16b", PATH_REQUESTS),
-                             ("gemma2-27b", PATH_REQUESTS), ("gemma-7b", PATH_REQUESTS)):
-        path = PATHS[arch]
+    for arch, path in PATHS.items():   # in the order of PHASES
+        n_requests = args.requests if arch == "llama3.2-3b" else PATH_REQUESTS
         if path["serve"] not in phases:
             continue
         cfg, params, counts = timed(path["serve"], phase_serve, arch, n_requests, args.max_new)

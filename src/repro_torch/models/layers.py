@@ -39,6 +39,14 @@ from ..sharding.api import current_mesh
 from ..sharding.api import model_size
 from ..sharding.api import seq_sharded
 
+# why ``attention_block``, ``forward`` and ``prefill`` refuse explicit
+# positions: text-only positions (the default) are the rows' own indices
+POSITIONS_REFUSED = (
+    "explicit positions are refused: both attention kernels mask by row index "
+    "(causal over the sequence's rows, a decode step's keys below cache_len), not "
+    "by position ids, and the JAX package's forward and prefill fail on M-RoPE's "
+    "3-plane (3, B, S) positions, so no reference holds such a run")
+
 
 def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """N(0, std²) weights drawn in fp32 from ``gen`` on its device, cast to
@@ -305,13 +313,10 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     alternation) attends over the last ``cfg.window`` positions only, in both
     kernels; ``cfg.attn_softcap`` caps the scores in both.  What the two
     kernels do not compute raises ``NotImplementedError``: explicit
-    ``positions`` (M-RoPE) and chunked prefill.  They belong to later slices
-    of the port.
+    ``positions`` (``POSITIONS_REFUSED`` says why) and chunked prefill.
     """
     if positions is not None:
-        raise NotImplementedError(
-            "explicit positions (M-RoPE) reach neither attention kernel yet; "
-            "they come with the qwen2-vl slice of the port")
+        raise NotImplementedError(POSITIONS_REFUSED)
     window = cfg.window if layer_is_local and cfg.window is not None else None
     n_h, n_g, g0 = tp_heads(cfg)
     hd = cfg.head_dim

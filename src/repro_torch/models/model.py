@@ -83,6 +83,7 @@ from ..sharding.api import seq_sharded
 from ..sharding.api import use_mesh
 from ..sharding.api import use_stream
 from ..sharding.state import shard_tree
+from .layers import POSITIONS_REFUSED
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
@@ -294,14 +295,17 @@ def forward(params, tokens, cfg: ArchConfig, *,
             remat: bool = True) -> torch.Tensor:
     """Logits (B, S, vocab) of a full sequence.  ``remat``: each layer (each
     group of a hybrid) keeps only its input for the backward pass and runs
-    again there (``_maybe_remat``); without grad it changes nothing."""
+    again there (``_maybe_remat``); without grad it changes nothing.
+    Explicit ``positions`` are refused (``POSITIONS_REFUSED``)."""
     _require_ported(cfg)
+    if positions is not None:
+        raise NotImplementedError(POSITIONS_REFUSED)
     b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
     with use_stream(Stream(_whole_batch(b), s)):
-        return _forward(params, tokens, cfg, positions, input_embeds, remat)
+        return _forward(params, tokens, cfg, input_embeds, remat)
 
 
-def _forward(params, tokens, cfg: ArchConfig, positions, input_embeds, remat: bool):
+def _forward(params, tokens, cfg: ArchConfig, input_embeds, remat: bool):
     x = embed_tokens(params, tokens, cfg, input_embeds)
     if cfg.family == SSM:
         mamba = _maybe_remat(_mamba_layer, remat)
@@ -312,12 +316,10 @@ def _forward(params, tokens, cfg: ArchConfig, positions, input_embeds, remat: bo
     b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
     rope = block_rope_tables(cfg, b, s, None, x.device)
     if cfg.family == HYBRID:
-        return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, rope=rope,
-                                               positions=positions), cfg)
+        return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, rope=rope), cfg)
     block = _maybe_remat(_attn_mlp, remat)
     for attn, ffn, fp, fl in _attn_layers(params, cfg):
-        x = block(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, positions=positions,
-                  rope=rope)
+        x = block(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, rope=rope)
     return lm_logits(params, x, cfg)
 
 
@@ -348,11 +350,15 @@ def _bound(mesh, stream):
 
 
 def _whole_batch(b: int) -> int:
-    """The global batch of ``forward``'s ``b`` rows: this rank's data shard
-    of it (the train step's ``local_batch``) under a mesh."""
+    """The global batch of ``forward``'s ``b`` rows under a mesh: the bound
+    stream's, where the caller bound one (the train step, whose batch the
+    data axes may not divide: then every rank holds all of it), else ``b``
+    rows a data shard."""
     mesh = current_mesh()
     if mesh is None:
         return b
+    if current_stream() is not None:
+        return current_stream().batch
     sizes = axis_sizes(mesh)
     return b * math.prod(sizes[a] for a in dp_axes(mesh))
 
@@ -369,9 +375,10 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     and, on a model axis of more than one rank, its vocabulary slice: the
     maximum, the sum of exponentials and the gold logit are reduced over the
     model axis (a vocab-parallel cross-entropy), and each rank's mean is
-    summed over the data-parallel axes, divided by their ranks: every rank
-    returns the global batch's mean, and its gradient is its own rows' share
-    of that mean's."""
+    summed over the data-parallel axes that split the batch (``batch_axes``
+    of the bound stream), divided by their ranks: every rank returns the
+    global batch's mean, and its gradient is its own rows' share of that
+    mean's."""
     lg = logits[:, :-1].float()
     tg = tokens[:, 1:].long()
     mesh = current_mesh()
@@ -391,8 +398,9 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     loss = (logz - gold).mean()
     if mesh is None:
         return loss
-    loss = loss / math.prod(comm.axis_group(a)[1] for a in dp_axes(mesh))
-    for axis in dp_axes(mesh):
+    axes = batch_axes(mesh)
+    loss = loss / math.prod(comm.axis_group(a)[1] for a in axes)
+    for axis in axes:
         loss = comm.reduce_from(loss, axis)
     return loss
 
@@ -765,8 +773,7 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     layout)."""
     _require_ported(cfg)
     if positions is not None:
-        raise NotImplementedError(
-            "explicit positions (M-RoPE) come with the qwen2-vl slice of the port")
+        raise NotImplementedError(POSITIONS_REFUSED)
     b, s = tokens.shape
     with use_stream(Stream(b, s)):
         tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)

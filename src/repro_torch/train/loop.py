@@ -11,10 +11,12 @@ does not depend on the family.  It updates the state in place
 
 Under a bound mesh (``sharding.use_mesh``) the step runs as one rank of it:
 the state holds this rank's shards (``shard_train_state``), the step takes
-the global batch and keeps its data shard's rows (``batch_logical_axes``),
-the loss and the gradients are the global batch's mean (the gradients summed
-over the data-parallel ranks), and ``adamw_update`` takes the parameters'
-and moments' specs (ZeRO-1).  Microbatches split each rank's rows.
+the global batch and keeps its data shard's rows (``batch_logical_axes``;
+all of them where the data axes do not divide it, as the reference repeats
+such a batch), the loss and the gradients are the global batch's mean (the
+gradients summed over the data-parallel ranks that split it), and
+``adamw_update`` takes the parameters' and moments' specs (ZeRO-1).
+Microbatches split each rank's rows.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ from ..models import forward
 from ..models import init_params
 from ..models import lm_loss
 from ..sharding import comm
+from ..sharding.api import Stream
+from ..sharding.api import batch_axes
 from ..sharding.api import current_mesh
-from ..sharding.api import dp_axes
-from ..sharding.api import logical_spec
-from ..sharding.api import spec_axes
+from ..sharding.api import use_stream
 from ..sharding.state import gather_tree
 from ..sharding.state import map_axes
 from ..sharding.state import shard_tree
@@ -118,15 +120,10 @@ def train_specs(cfg: ArchConfig, mesh=None):
 
 def local_batch(tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """This rank's rows of a global batch (B, S), laid out by
-    ``batch_logical_axes``; a batch that the data-parallel ranks do not
-    split is refused (the reference would repeat it on every rank)."""
-    mesh = mesh or current_mesh()
-    spec = logical_spec(batch_logical_axes(), mesh, tuple(tokens.shape))
-    if spec_axes(spec[0]) != dp_axes(mesh):
-        raise NotImplementedError(
-            f"a batch of {tokens.shape[0]} rows does not split over the data-parallel "
-            f"axes {dp_axes(mesh)}")
-    return shard_tree(tokens, batch_logical_axes(), mesh)
+    ``batch_logical_axes``: its data shard's, or all B rows where the
+    data-parallel axes do not divide B, as the reference repeats such a
+    batch on every rank (``train_step`` then sums no gradient over them)."""
+    return shard_tree(tokens, batch_logical_axes(), mesh or current_mesh())
 
 
 def loss_and_grads(params, tokens: torch.Tensor,
@@ -160,6 +157,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
     def train_step(state: TrainState, tokens):
         tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
         mesh = current_mesh()
+        # a microbatch's whole shape: the data axes that split it are those
+        # the gradients are summed over (``batch_axes``)
+        stream = Stream(tokens.shape[0] // microbatches, tokens.shape[1])
         if mesh is not None:
             tokens = local_batch(tokens, mesh)
             if mesh not in specs:
@@ -167,28 +167,29 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
         for p in leaves(state.params):
             if p.device != tokens.device:
                 raise ValueError(f"train_step runs on {dev}; a parameter lies on {p.device}")
-        if microbatches == 1:
-            loss, grads = loss_and_grads(state.params, tokens, cfg)
-        else:
-            b = tokens.shape[0]
-            if b % microbatches:
-                raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
-            mb = tokens.reshape(microbatches, b // microbatches, tokens.shape[1])
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in leaves(state.params)]
-            loss = 0.0
-            for batch in mb:
-                loss_i, g_i = loss_and_grads(state.params, batch, cfg)
-                for acc, g in zip(grads, g_i):
-                    acc.add_(g)
-                del g_i
-                loss = loss + loss_i
+        with use_stream(stream):
+            if microbatches == 1:
+                loss, grads = loss_and_grads(state.params, tokens, cfg)
+            else:
+                b = tokens.shape[0]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} does not split into {microbatches} "
+                                     "microbatches")
+                mb = tokens.reshape(microbatches, b // microbatches, tokens.shape[1])
+                grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for p in leaves(state.params)]
+                loss = 0.0
+                for batch in mb:
+                    loss_i, g_i = loss_and_grads(state.params, batch, cfg)
+                    for acc, g in zip(grads, g_i):
+                        acc.add_(g)
+                    del g_i
+                    loss = loss + loss_i
+                for g in grads:
+                    g.div_(microbatches)
+                loss = loss / microbatches
             for g in grads:
-                g.div_(microbatches)
-            loss = loss / microbatches
-        if mesh is not None:
-            for g in grads:
-                for axis in dp_axes(mesh):
+                for axis in batch_axes():
                     comm.all_reduce_(g, axis)
         params, opt, om = adamw_update(opt_cfg, state.params, unflatten(state.params, grads),
                                        state.opt, specs.get(mesh))

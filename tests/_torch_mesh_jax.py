@@ -83,7 +83,7 @@ def flat(tree):
 def run_case(case, arrays, tokens):
     cfg = config(case["arch"], case.get("changes", {}))
     params = params_in(arrays[case["arch"]], cfg, case["dtype"])
-    tok = jnp.asarray(tokens)
+    tok = jnp.asarray(tokens[:case.get("batch", len(tokens))])
     ACT_SEQ[0] = bool(case.get("act_seq"))
     shape = case.get("mesh")
     mesh = None

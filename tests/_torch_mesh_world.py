@@ -52,12 +52,14 @@ def run_case(case, job, mesh):
     from repro_torch import convert
     from repro_torch import models as tm
     from repro_torch import train as tt
-    from repro_torch.sharding.api import dp_axes
     from repro_torch.sharding import ACT_SEQ
     from repro_torch.sharding import comm
     from repro_torch.sharding import gather_tree
     from repro_torch.sharding import shard_tree
     from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.api import Stream
+    from repro_torch.sharding.api import batch_axes
+    from repro_torch.sharding.api import use_stream
     from repro_torch.train.loop import local_batch
     from repro_torch.tree import leaves
     from repro_torch.tree import unflatten
@@ -67,7 +69,7 @@ def run_case(case, job, mesh):
     cfg = _config(case["arch"], case.get("changes", {}))
     dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
     whole = convert.params_from_numpy(job["arrays"][weights_key(case)], "cpu", dtype=dtype)
-    tokens = torch.from_numpy(np.asarray(job["tokens"])).long()
+    tokens = torch.from_numpy(np.asarray(job["tokens"])[:case.get("batch", B)]).long()
     axes = tt.param_logical_axes(cfg)
     shapes = tm.init_params(cfg, device="meta")
     out = {}
@@ -83,15 +85,18 @@ def run_case(case, job, mesh):
                 return _own_serve(case, job, cfg, params, whole)
             local = local_batch(tokens)
             if "step" in case["what"]:
-                loss, grads = grads_on_another_thread(params, local, cfg)
-                for g in grads:
-                    for a in dp_axes(mesh):
-                        comm.all_reduce_(g, a)
+                # as the train step: the batch's whole shape bound, the
+                # gradients summed over the data axes that split it
+                with use_stream(Stream(*tokens.shape)):
+                    loss, grads = grads_on_another_thread(params, local, cfg)
+                    for g in grads:
+                        for a in batch_axes():
+                            comm.all_reduce_(g, a)
                 grads = unflatten(params, grads)
                 out.update(loss=float(loss), grads=_np(gather_tree(grads, axes, shapes)),
                            grad_norm=float(tt.global_norm(grads, tt.loop.train_specs(cfg)[0])))
             if "logits" in case["what"] or "step" in case["what"]:
-                with torch.no_grad():
+                with torch.no_grad(), use_stream(Stream(*tokens.shape)):
                     logits = tm.forward(params, local, cfg, remat=False)
                 out["logits"] = gather_tree(
                     logits, ("dp", None, "tp"),

@@ -6,7 +6,8 @@ the model axis has more than one rank.  tests/test_torch_mesh_train_tp4.py
 holds (2, 2) with ``ACT_SEQ`` and (1, 4), where the model axis divides the
 query heads but not the KV heads; the MoE and SSM files the other families.
 
-One batch of 4 x 32 tokens, the weights of the port's ``init_params`` (seed
+One batch of 4 x 32 tokens (and its first 3 rows on (2, 1): a batch the
+data axis does not divide), the weights of the port's ``init_params`` (seed
 0).  The JAX side (``tests/_torch_mesh_jax.py``, one process for the
 module) jits its train step with the sharding rules' ``in_shardings`` on an
 Auto-axis mesh of 4 host devices; the port (``tests/_torch_mesh_world.py``)
@@ -29,7 +30,9 @@ import pytest
 
 ARCH = "llama3.2-3b"
 LAYOUTS = [((2, 1), False), ((1, 2), False), ((1, 2), True), ((2, 2), False)]
-FP32 = [case(ARCH, m, a) for m, a in LAYOUTS]
+# and a batch of 3 on (2, 1), which the data axis does not split: every rank
+# trains on all of it, as the reference repeats it, and sums no gradient
+FP32 = [case(ARCH, m, a) for m, a in LAYOUTS] + [case(ARCH, (2, 1), batch=3)]
 BF16 = [case(ARCH, m, a, dtype="bf16") for m, a in LAYOUTS]
 CASES = FP32 + BF16
 

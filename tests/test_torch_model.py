@@ -12,6 +12,8 @@ JAX package differ from each other by up to 0.047 in a logit, beyond the
 tolerance; the port follows the op-by-op one."""
 
 from dataclasses import replace
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +51,8 @@ def jax_op_by_op():
         yield
 
 
-@pytest.fixture(scope="module", params=["llama3.2-3b", "gemma-7b", "mistral-nemo-12b"])
+@pytest.fixture(scope="module", params=["llama3.2-3b", "gemma-7b", "mistral-nemo-12b",
+                                        "qwen2-vl-7b"])
 def arch(request):
     jcfg = jax_reduce(jax_get_arch(request.param))
     cfg = reduce_for_smoke(get_arch(request.param))
@@ -183,6 +186,77 @@ def test_windowed_config_matches_jax_on_its_local_layer(window):
     tail = np.abs(f32(wide) - f32(got))[:, 64:]
     assert (tail.max() > 0.1) == (window is not None)
     assert np.array_equal(f32(wide)[:, :8], f32(got)[:, :8])
+
+
+# the published sizes the chip run serves these configurations at
+# (chip_smoke.PATHS), as (n_layers, d_model, n_heads, n_kv_heads, head_dim,
+# d_ff, vocab) and the fields each adds
+PUBLISHED = {
+    "qwen2-vl-7b": ((28, 3584, 28, 4, 128, 18944, 152064), dict(mrope_sections=(16, 24, 24))),
+    "mistral-nemo-12b": ((40, 5120, 32, 8, 128, 14336, 131072), {}),
+    "musicgen-large": ((48, 2048, 32, 32, 64, 8192, 2048), dict(act="gelu")),
+}
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``, whose ``check_published`` the serve phases call."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", sorted(PUBLISHED))
+def test_published_sizes(smoke, name):
+    """The port's config of each dense configuration the chip run serves is
+    its published one, and the chip run checks the same tuple."""
+    cfg = get_arch(name)
+    sizes, more = PUBLISHED[name]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab) == sizes
+    assert {k: getattr(cfg, k) for k in more} == more
+    assert cfg.family == "dense" and cfg.moe is None and cfg.window is None
+    smoke.check_published(name, cfg)
+    with pytest.raises(AssertionError, match="published size"):
+        smoke.check_published(name, replace(cfg, n_layers=2))
+
+
+@pytest.fixture(scope="module")
+def qwen2vl():
+    jcfg = jax_reduce(jax_get_arch("qwen2-vl-7b"))
+    cfg = reduce_for_smoke(get_arch("qwen2-vl-7b"))
+    jparams = jm.init_params(jcfg, jax.random.key(0))
+    return jcfg, cfg, jparams, convert.params_from_numpy(to_numpy(jparams), "cpu")
+
+
+POSITIONS = {"three_plane": (3, B, S), "one_plane": (B, S)}
+
+
+@pytest.mark.parametrize("planes", sorted(POSITIONS))
+@pytest.mark.parametrize("entry", ["forward", "prefill"])
+def test_explicit_positions_are_refused_with_the_reason(qwen2vl, entry, planes):
+    """qwen2-vl-7b's M-RoPE positions, 3-plane or (B, S), are refused by
+    ``forward`` and ``prefill`` before any layer runs, with why: the kernels
+    mask by row index, and the JAX package cannot run 3-plane positions."""
+    _, cfg, _, params = qwen2vl
+    pos = torch.arange(S).expand(POSITIONS[planes])
+    tokens = torch.zeros((B, S), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="mask by row index") as err:
+        getattr(tm, entry)(params, tokens, cfg, positions=pos)
+    assert str(err.value) == tmodel.POSITIONS_REFUSED
+
+
+@pytest.mark.parametrize("entry", ["forward", "prefill"])
+def test_the_reference_fails_on_three_plane_positions(qwen2vl, entry):
+    """The reason the refusal gives: the JAX package's ``forward`` and
+    ``prefill`` raise on 3-plane positions (its attention takes them as
+    (B, S) query positions), so no reference holds what the port would do."""
+    jcfg, _, jparams, _ = qwen2vl
+    pos = jnp.broadcast_to(jnp.arange(S), (3, B, S))
+    with pytest.raises(ValueError):
+        getattr(jm, entry)(jparams, jnp.zeros((B, S), jnp.int32), jcfg, positions=pos)
 
 
 def test_entry_points_raise_without_a_card():

@@ -48,7 +48,10 @@ D, E, F, K = 64, 8, 32, 2
 CAPACITY = 5           # below the 8 slots an expert needs on average: tokens drop
 DTYPES = {"float32": (torch.float32, jnp.float32, FP32_TOL),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, TOL)}
-SETTINGS = {"reduced": {}, "dropping": dict(capacity_factor=0.5)}
+# (architecture, MoE spec changes) of the reduced model cases
+SETTINGS = {"reduced": ("deepseek-moe-16b", {}),
+            "dropping": ("deepseek-moe-16b", dict(capacity_factor=0.5)),
+            "moonshot_dropping": ("moonshot-v1-16b-a3b", dict(capacity_factor=0.5))}
 
 
 def f32(x):
@@ -241,9 +244,9 @@ def case(request):
     """Configs, weights on both sides, tokens, and JAX's results op by op:
     forward over S tokens (bf16 and fp32), prefill of S tokens, STEPS decode
     steps from that prefill's cache (grown by STEPS rows)."""
-    changes = SETTINGS[request.param]
-    cfg = reduce_for_smoke(get_arch("deepseek-moe-16b"))
-    jcfg = jax_reduce(jax_get_arch("deepseek-moe-16b"))
+    arch, changes = SETTINGS[request.param]
+    cfg = reduce_for_smoke(get_arch(arch))
+    jcfg = jax_reduce(jax_get_arch(arch))
     cfg = replace(cfg, moe=replace(cfg.moe, **changes))
     jcfg = replace(jcfg, moe=replace(jcfg.moe, **changes))
     arrays = convert.params_to_numpy(tm.init_params(cfg, seed=0, device="cpu"))
@@ -447,3 +450,33 @@ def test_published_sizes_and_spec():
             m.first_dense) == (64, 6, 1408, 2, 1.25, 1)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab) == (28, 2048, 16, 16, 128, 10944, 102400)
+
+
+def test_moonshot_published_sizes_and_spec():
+    """moonshot-v1-16b-a3b's published sizes and MoE spec, as the chip run
+    serves them (``chip_smoke.PATHS``): deepseek-moe-16b's experts and heads
+    at 48 layers, a dense layer of 11264 and a vocabulary of 163840."""
+    cfg = get_arch("moonshot-v1-16b-a3b")
+    m = cfg.moe
+    assert (m.n_experts, m.top_k, m.d_ff_expert, m.n_shared, m.capacity_factor,
+            m.first_dense) == (64, 6, 1408, 2, 1.25, 1)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab) == (48, 2048, 16, 16, 128, 11264, 163840)
+
+
+@pytest.mark.parametrize("case", ["moonshot_dropping"], indirect=True)
+def test_moonshot_case_drops_tokens(case, monkeypatch):
+    """The moonshot case has teeth: at capacity factor 0.5 its MoE layer
+    drops tokens of the prefill of S tokens that the cases above hold
+    against JAX."""
+    drops = []
+    real = tmoe._slots
+
+    def slots(w, idx, n_experts, capacity, *rest):
+        tok_ids, valid, gw = real(w, idx, n_experts, capacity, *rest)
+        drops.append(int(idx.numel()) - int(valid.sum()))
+        return tok_ids, valid, gw
+
+    monkeypatch.setattr(tmoe, "_slots", slots)
+    tm.prefill(case["params"], torch.from_numpy(case["tokens"][:, :S]), case["cfg"])
+    assert len(drops) == 1 and drops[0] > 0

@@ -1,6 +1,6 @@
-"""The port's serving engine on the MoE family (reduced deepseek-moe-16b)
-against the JAX engine on the same requests, with a capacity that binds at
-decode.
+"""The port's serving engine on the MoE family (reduced deepseek-moe-16b and
+moonshot-v1-16b-a3b) against the JAX engine on the same requests, with a
+capacity that binds at decode.
 
 A MoE is the first family whose batch rows interact: the tokens of one call
 compete for the experts' slots, earlier rows first.  The JAX engine decodes
@@ -49,30 +49,37 @@ PROMPT_LENS = (9, 14, 5, 11, 7)
 MAX_NEW = 6
 MAX_BATCH, MAX_SEQ = 8, 32
 BINDING = dict(n_experts=4, top_k=3, capacity_factor=0.5)
-CFG = reduce_for_smoke(get_arch("deepseek-moe-16b"))
-CFG = replace(CFG, moe=replace(CFG.moe, **BINDING))
-JCFG = jax_reduce(jax_get_arch("deepseek-moe-16b"))
-JCFG = replace(JCFG, moe=replace(JCFG.moe, **BINDING))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    params = init_params(CFG, seed=0, device="cpu")
+def configs(arch):
+    """(port config, JAX config) of ``arch`` reduced, with the binding MoE
+    spec."""
+    cfg = reduce_for_smoke(get_arch(arch))
+    jcfg = jax_reduce(jax_get_arch(arch))
+    return (replace(cfg, moe=replace(cfg.moe, **BINDING)),
+            replace(jcfg, moe=replace(jcfg.moe, **BINDING)))
+
+
+CFG, JCFG = configs("deepseek-moe-16b")
+MOONSHOT = configs("moonshot-v1-16b-a3b")
+
+
+def make_setup(cfg, jcfg):
+    params = init_params(cfg, seed=0, device="cpu")
     arrays = convert.params_to_numpy(params)
-    shapes = jax.eval_shape(lambda: jm.init_params(JCFG, jax.random.key(0)))
+    shapes = jax.eval_shape(lambda: jm.init_params(jcfg, jax.random.key(0)))
     jparams = jax.tree.map(lambda a, sd: jnp.asarray(a, sd.dtype), arrays, shapes)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, CFG.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
+    prompts = [rng.integers(2, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
     return jparams, params, prompts
 
 
-@pytest.fixture(scope="module")
-def reference(setup):
+def run_reference(jcfg, setup):
     """The JAX engine, op by op: its requests and, decode call by decode
     call, the logits, the group's rows and the tokens its capacity dropped
     (the two ``top_k`` of the MoE layer: the routing, then the slots)."""
     jparams, _, prompts = setup
-    eng = JaxServeEngine(JCFG, jparams, max_batch=MAX_BATCH, max_seq=MAX_SEQ)
+    eng = JaxServeEngine(jcfg, jparams, max_batch=MAX_BATCH, max_seq=MAX_SEQ)
     calls, picks = [], []
     inner_decode, merge, top_k = eng._decode, jax_engine_mod._merge_slots, jax.lax.top_k
 
@@ -80,9 +87,9 @@ def reference(setup):
         first = len(picks)
         out = inner_decode(p, t, c)
         (_, idx), (top_prio, tok_ids) = picks[first:]
-        selected = np.zeros((JCFG.moe.n_experts, MAX_BATCH), dtype=bool)
+        selected = np.zeros((jcfg.moe.n_experts, MAX_BATCH), dtype=bool)
         kept = np.zeros_like(selected)
-        for e in range(JCFG.moe.n_experts):
+        for e in range(jcfg.moe.n_experts):
             selected[e] = (np.asarray(idx) == e).any(-1)
             kept[e, np.asarray(tok_ids[e])[np.isfinite(np.asarray(top_prio[e]))]] = True
         calls.append(dict(logits=np.asarray(out[0], np.float32)[:, 0],
@@ -111,19 +118,17 @@ def reference(setup):
     return reqs, calls, steps
 
 
-def test_capacity_binds_at_decode_in_the_reference(reference):
-    """The setting has teeth: in some decode calls the reference's capacity
-    drops the token of a row of the position group."""
+def check_capacity_binds(reference):
+    """In some decode calls the reference's capacity drops the token of a
+    row of the position group."""
     _, calls, _ = reference
     assert len(calls) == len(PROMPT_LENS) * (MAX_NEW - 1)     # one call a request a step
     hit = [c for c in calls if c["dropped"][c["rows"]].any()]
     assert hit, "no group row's token was dropped at decode"
 
 
-def test_engine_gives_the_reference_engines_tokens(setup, reference, monkeypatch):
-    """Free running, the port's engine gives every request the reference
-    engine's tokens, with the same steps and decode calls; the group rows'
-    logits follow the reference's."""
+def check_engine(cfg, setup, reference, monkeypatch):
+    """The port's engine, free running, against the reference's."""
     _, params, prompts = setup
     jreqs, jcalls, jsteps = reference
     calls = []
@@ -135,7 +140,7 @@ def test_engine_gives_the_reference_engines_tokens(setup, reference, monkeypatch
         return out
 
     monkeypatch.setattr(engine_mod, "decode_step", decode_step)
-    eng = ServeEngine(CFG, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device="cpu")
+    eng = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device="cpu")
     reqs = [Request(uid=i, prompt=p, max_new_tokens=MAX_NEW) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.add_request(r)
@@ -153,8 +158,55 @@ def test_engine_gives_the_reference_engines_tokens(setup, reference, monkeypatch
     assert eng._tmu.live_tiles == 0 and eng.sched.drained
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup(CFG, JCFG)
+
+
+@pytest.fixture(scope="module")
+def reference(setup):
+    return run_reference(JCFG, setup)
+
+
+@pytest.fixture(scope="module")
+def moonshot():
+    """moonshot-v1-16b-a3b's (setup, reference)."""
+    setup = make_setup(*MOONSHOT)
+    return setup, run_reference(MOONSHOT[1], setup)
+
+
+def test_capacity_binds_at_decode_in_the_reference(reference):
+    """The setting has teeth: in some decode calls the reference's capacity
+    drops the token of a row of the position group."""
+    check_capacity_binds(reference)
+
+
+def test_engine_gives_the_reference_engines_tokens(setup, reference, monkeypatch):
+    """Free running, the port's engine gives every request the reference
+    engine's tokens, with the same steps and decode calls; the group rows'
+    logits follow the reference's."""
+    check_engine(CFG, setup, reference, monkeypatch)
+
+
+def test_moonshot_capacity_binds_at_decode_in_the_reference(moonshot):
+    """As for deepseek-moe-16b, on the reduced moonshot-v1-16b-a3b."""
+    check_capacity_binds(moonshot[1])
+
+
+def test_moonshot_engine_gives_the_reference_engines_tokens(moonshot, monkeypatch):
+    """As for deepseek-moe-16b, on the reduced moonshot-v1-16b-a3b."""
+    check_engine(MOONSHOT[0], *moonshot, monkeypatch)
+
+
 def test_launcher_serves_deepseek_moe_on_the_cpu(capsys):
     launch_serve.main(["--arch", "deepseek-moe-16b", "--device", "cpu", "--requests", "3",
+                       "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in out and "on cpu" in out
+
+
+def test_launcher_serves_moonshot_on_the_cpu(capsys):
+    launch_serve.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu", "--requests", "3",
                        "--max-new", "3"])
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out and "on cpu" in out
