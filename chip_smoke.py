@@ -40,7 +40,16 @@ run with a non-zero exit code:
             final-state gradient, and on strided views through
             ``SSDScanFn``, by the same rule at 1e-4 (``ssd_grad_err``),
             which planted faults must fail; timed at the training shapes of
-            mamba2-2.7b and zamba2-7b.
+            mamba2-2.7b and zamba2-7b.  The decode kernel's slice variant
+            (``decode_attention_lse``, ``csrc/decode_attention_lse.cu``) at
+            every decode case, cut into three slices at rows off any unit
+            and one past the cache: each slice's output and log-sum-exp
+            against the plain version, the slices merged
+            (``comm.merge_parts``) against the whole cache's plain version,
+            with planted faults (an offset off by half a slice, an LSE off by
+            0.7) that must fail; timed at llama3.2-3b's heads, batch 1, one
+            rank's 16,384 rows of 32,768, beside its bound, its plain version
+            and the library's flash call that also returns an LSE.
 4. serve    llama3.2-3b at full width and depth (28 layers, bf16, random
             weights from a seeded generator on the card) behind
             ``ServeEngine(max_batch=8, max_seq=2048)``: 16 requests with
@@ -202,7 +211,24 @@ run with a non-zero exit code:
             mesh run's expert choices, those it would change a few
             near-ties); deepseek's router logits against the CPU's fp32
             product as in 11.
-40. simulator   the DCO cache-simulator stack, on the host (numpy, no
+40. serve_kvseq   the sequence-sharded K/V layout, two ranks sharing the
+            card as in 36: llama3.2-3b at published size, batch 1 (so
+            ``kv_layout`` picks ``kvseq``), a 4,096-token prompt grown into a
+            32,768-row cache (``grow_cache``), 8 greedy decode steps, on (1, 2)
+            and (2, 1); each rank's tokens/s, peak memory, launches (28 flash
+            launches for the prefill, the slice kernel once a layer and step)
+            and collective operand bytes a call (``comm.collective_bytes``);
+            the ranks' tokens equal.
+41. parity_serve_kvseq  as 39 at a batch of 1 x 64 (``kvseq``): llama3.2-3b
+            (2 layers) on (1, 2) and (2, 1), gemma2-27b (2 layers, window cut
+            to 32 so that it binds across a slice boundary) on (1, 2),
+            zamba2-7b (3 Mamba2 layers, period 2) on (2, 1); the four mesh
+            phases and these two run in one start of the two children.
+42. dryrun   ``launch/dryrun.py`` on the host: every (arch x shape x mesh)
+            cell of the production meshes, its K/V layout, a rank's argument
+            bytes and its roofline terms with the H100's constants (64 cells
+            ok, 16 skipped).
+43. simulator   the DCO cache-simulator stack, on the host (numpy, no
             kernel): all 56 cells of the conformance matrix (14 suite
             scenarios x 4 policies; the step engine, the compiled engine and
             the compiled engine fed in segments agree event for event) against
@@ -318,7 +344,7 @@ PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
           "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "serve_mesh",
-          "parity_serve_mesh", "simulator")
+          "parity_serve_mesh", "serve_kvseq", "parity_serve_kvseq", "dryrun", "simulator")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -424,12 +450,20 @@ def kernel_name(mangled):
 
 
 def ptxas_usage(log):
-    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``."""
-    usage, name = {}, None
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``; a
+    name that an earlier source already gave (the decode body compiled again
+    as the slice kernel) is prefixed with its source's."""
+    usage, name, source = {}, None, ""
     for line in log.splitlines():
+        m = re.match(r"== (\S+)", line)
+        if m:
+            source = m.group(1)
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = kernel_name(m.group(1))
+            if name in usage:
+                name = f"{source}:{name}"
             usage[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -627,6 +661,104 @@ def check_decode(gen):
     torch.cuda.synchronize()
     check(all(int(c.abs().sum()) == 0 for c in decode_ops._counters.values()),
           "decode: merge counters not back at 0")
+    return worst
+
+
+def lse_cuts(s):
+    """Three slices of a cache of ``s`` rows, cut at rows that are not
+    multiples of a step or a unit, and one beyond it (rows past every
+    length: no live row, as on a rank whose slice starts beyond them)."""
+    a, b = s * 3 // 8 + 5, s * 3 // 4 + 3
+    return [(0, a), (a, b), (b, s), (s, s + 64)]
+
+
+def lse_slices(q, k, v, cl, fn, cuts, **kw):
+    """``fn`` (the kernel's wrapper or its plain version) on each slice of
+    ``cuts``; the rows past the cache are drawn anew (``lse_cuts``)."""
+    out = []
+    for lo, hi in cuts:
+        if hi <= k.shape[1]:
+            ks, vs = k[:, lo:hi], v[:, lo:hi]
+        else:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(hi)
+            ks = randn(gen, (k.shape[0], hi - lo) + tuple(k.shape[2:]), k.dtype)
+            vs = randn(gen, ks.shape, k.dtype)
+        out.append(fn(q, ks, vs, cl, row_offset=lo, **kw))
+    return out
+
+
+def merged(parts, dtype):
+    from repro_torch.sharding.comm import merge_parts
+    return merge_parts(torch.stack([o for o, _ in parts]),
+                       torch.stack([lse for _, lse in parts])).to(dtype)
+
+
+def close_lse(got, want, tol, what):
+    """The log-sum-exp: -inf exactly where the plain version's is, and
+    within tol + tol * |want| elsewhere."""
+    dead = torch.isneginf(want)
+    check(torch.equal(torch.isneginf(got), dead), f"{what}: -inf where a row has no live key")
+    return close(got[~dead], want[~dead], tol, what) if bool((~dead).any()) else 0.0
+
+
+def check_decode_lse(gen):
+    """The slice kernel (``decode_attention_lse``) at every case of
+    ``check_decode``: each slice of ``lse_cuts`` (row offsets, a window cut
+    by a slice where the case has one, a slice with no live row) against
+    the plain version, output and log-sum-exp, with R chosen and fixed; the
+    slices merged (``comm.merge_parts``) against the whole cache's plain
+    version; and planted faults (a slice's offset or log-sum-exp shifted)
+    that the merge check must fail."""
+    from repro_torch.kernels import decode_attention_lse
+    from repro_torch.kernels import decode_attention_lse_ref
+    from repro_torch.kernels import decode_attention_ref
+    worst = {}
+    planted = 0
+    for i, case in enumerate(decode_cases()):
+        b, s, h, g, d, dtype, lens, window, softcap = (case + (None, None))[:9]
+        kw = dict(window=window, softcap=softcap)
+        q = randn(gen, (b, h, d), dtype)
+        k = randn(gen, (b, s, g, d), dtype)
+        v = randn(gen, (b, s, g, d), dtype)
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cuts = lse_cuts(s)
+        refs = lse_slices(q, k, v, cl, decode_attention_lse_ref, cuts, **kw)
+        whole = decode_attention_ref(q, k, v, cl, **kw)
+        what = f"decode_lse {(b, s, h, g, d, dtype, lens)} window {window} softcap {softcap}"
+        for rows in (None, UNIT_ROWS):
+            parts = lse_slices(q, k, v, cl, decode_attention_lse, cuts, rows_per_split=rows,
+                               **kw)
+            torch.cuda.synchronize()
+            err = 0.0
+            for (lo, hi), (o, lse), (ro, rl) in zip(cuts, parts, refs):
+                err = max(err, close(o, ro, TOL[dtype], f"{what} slice {lo}:{hi} output"),
+                          close_lse(lse, rl, TOL[dtype], f"{what} slice {lo}:{hi} lse"))
+            check(bool(torch.isneginf(parts[-1][1]).all()) and not parts[-1][0].any(),
+                  f"{what}: the slice past every length must give -inf and zeros")
+            err = max(err, close(merged(parts, dtype), whole, TOL[dtype], f"{what} merged"))
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+        if i == 0 or (window is not None and window > 32 and s <= 1024 and planted < 3):
+            # planted faults: the merge of a slice read half its length off
+            # its offset, or of a log-sum-exp off by 0.7, must fail the check
+            # (short caches and windows of more than 32 rows: a window of one
+            # row leaves one slice live a row, whose weight the merge divides
+            # out, and in a window of 4096 rows a few rows move the output
+            # less than the bf16 tolerance)
+            lo, hi = cuts[1]
+            shifted = list(parts)
+            shifted[1] = decode_attention_lse(q, k[:, lo:hi], v[:, lo:hi], cl,
+                                              row_offset=lo + (hi - lo) // 2, **kw)
+            bumped = list(parts)
+            bumped[1] = (parts[1][0], parts[1][1] + 0.7)
+            for bad, name in ((shifted, "offset"), (bumped, "lse")):
+                try:
+                    close(merged(bad, dtype), whole, TOL[dtype], f"{what} planted {name}")
+                except AssertionError:
+                    continue
+                raise AssertionError(f"{what}: a planted {name} fault passed the merge check")
+            planted += 1
+    check(planted >= 3, "decode_lse: too few planted faults")
     return worst
 
 
@@ -911,6 +1043,65 @@ def decode_record(q, k, v, cl, flush, window=None, softcap=None, scale=None):
         **({} if softcap is None else {"library_ms_no_softcap": lib_ms}),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+# the slice kernel's timed call: llama3.2-3b's heads, batch 1, one rank's
+# 16,384 rows of a 32,768-row cache (the second half: every row live)
+LSE_TIMED = dict(h=24, g=8, d=128, rows=16384, whole=32768)
+
+
+def decode_lse_record(gen, flush):
+    """The slice kernel's record at ``LSE_TIMED``: its time beside the plain
+    version's, the bound (every row of the slice read once, q read, the fp32
+    output and log-sum-exp written) and one library call that also returns
+    a log-sum-exp: ``aten._scaled_dot_product_flash_attention`` with each
+    KV head's query heads as its rows (the GQA group as a query sequence),
+    a yardstick only: the port never calls it."""
+    from repro_torch.kernels import decode_attention_lse
+    from repro_torch.kernels import decode_attention_lse_ref
+    bf = torch.bfloat16
+    h, g, d, rows, whole = (LSE_TIMED[k] for k in ("h", "g", "d", "rows", "whole"))
+    q = randn(gen, (1, h, d), bf)
+    k = randn(gen, (1, rows, g, d), bf)
+    v = randn(gen, (1, rows, g, d), bf)
+    cl = torch.tensor([whole], dtype=torch.int32, device="cuda")
+    off = whole - rows
+    scale = d ** -0.5
+
+    def kernel():
+        return decode_attention_lse(q, k, v, cl, row_offset=off)
+
+    def plain():
+        return decode_attention_lse_ref(q, k, v, cl, row_offset=off)
+
+    qg, kt, vt = q.view(1, g, h // g, d), k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib():
+        out = torch.ops.aten._scaled_dot_product_flash_attention(qg, kt, vt, scale=scale)
+        return out[0], out[1]
+
+    (o, lse), (ro, rl) = kernel(), plain()
+    err = max(close(o, ro, TOL[bf], "decode_lse at the timed shape"),
+              close_lse(lse, rl, TOL[bf], "decode_lse lse at the timed shape"))
+    lo, ll = lib()
+    close(lo.reshape(1, h, d), ro, TOL[bf], "library decode with lse vs plain")
+    close(ll.reshape(1, h), rl, TOL[bf], "library log-sum-exp vs plain")
+    n_bytes = 2 * g * d * 2 * rows + q.numel() * 2 + o.numel() * 4 + lse.numel() * 4 + 4
+    n_flops = 4 * h * d * rows
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+    return {
+        "name": "decode_attention_lse", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention_lse.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
+        "shape": {"B": 1, "S": rows, "H": h, "G": g, "D": d, "dtype": "bfloat16",
+                  "row_offset": off, "cache_len": [whole], "live_rows": rows},
+        "max_abs_err": err, "tol": TOL[bf],
+        "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+        "library_ms": time_ms(lib, flush), "library": "aten._scaled_dot_product_flash_attention",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "path": "serve_kvseq",
     }
 
 
@@ -1936,6 +2127,7 @@ def phase_kernels(ptxas=None):
     worst_bwd = check_flash_bwd(gen)
     worst_lse = check_flash_lse(gen)
     worst_ssd_bwd = check_ssd_bwd(gen)
+    worst_decode_lse = check_decode_lse(gen)
     check_refused_under_grad(gen)
     records, extra = [], []
     for path in ATTN_SHAPES:
@@ -1950,7 +2142,9 @@ def phase_kernels(ptxas=None):
         records.append(flash_bwd_record(gen, flush, key, ptxas))
     for path in SSD_BWD_SHAPES:
         records.append(ssd_bwd_record(gen, flush, path, ptxas))
+    records.append(decode_lse_record(gen, flush))
     emit("kernels", decode_cases_max_abs_err=worst_decode,
+         decode_lse_cases_max_abs_err=worst_decode_lse,
          flash_cases_max_abs_err=worst_flash, ssd_cases_max_abs_err=worst_ssd,
          flash_bwd_cases=worst_bwd, flash_lse_cases_max_abs_err=worst_lse,
          ssd_bwd_cases=worst_ssd_bwd,
@@ -2124,7 +2318,7 @@ def phase_serve(arch, n_requests, max_new):
     check(engine.decode_calls > 0, "no decode_step call")
     # every prompt has 3 tokens or more, so each prefill scans
     n_attn, n_ssm = kernel_layers(cfg)
-    want = {"decode_attention": n_attn * engine.decode_calls,
+    want = {"decode_attention": n_attn * engine.decode_calls, "decode_attention_lse": 0,
             "flash_attention": n_requests * n_attn, "flash_attention_bwd": 0,
             "ssd_scan": n_requests * n_ssm, "ssd_scan_bwd": 0}
     check(counts == want, f"{arch}: launches {counts}, expected {want} "
@@ -2629,7 +2823,8 @@ def train_launches(cfg, microbatches):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     n_attn, n_ssm = kernel_layers(cfg)
-    return {"decode_attention": 0, "flash_attention": 2 * n_attn * microbatches,
+    return {"decode_attention": 0, "decode_attention_lse": 0,
+            "flash_attention": 2 * n_attn * microbatches,
             "flash_attention_bwd": flash_ops.BWD_KERNELS * n_attn * microbatches,
             "ssd_scan": 2 * n_ssm * microbatches,
             "ssd_scan_bwd": ssd_ops.BWD_KERNELS * n_ssm * microbatches}
@@ -2957,6 +3152,20 @@ PARITY_SERVE_MESH_RUNS = (("llama3.2-3b", 2, (1, 2), False),
                           ("deepseek-moe-16b", 3, (1, 2), False))
 PARITY_SERVE_TOKENS = (2, 64)
 PARITY_SERVE_STEPS = 4
+# serve_kvseq: llama3.2-3b at published size, batch 1 (so kv_layout picks
+# kvseq: every KV head over a rank's slice of the rows), a prompt of
+# KVSEQ_PROMPT tokens into a cache of KVSEQ_ROWS rows, KVSEQ_NEW greedy
+# decode steps, on (1, 2) (the rows split over model) and (2, 1) (over data)
+SERVE_KVSEQ_RUNS = (("llama3.2-3b", 28, (1, 2), False), ("llama3.2-3b", 28, (2, 1), False))
+KVSEQ_PROMPT, KVSEQ_ROWS, KVSEQ_NEW = 4096, 32768, 8
+# parity_serve_kvseq: batch 1 (kvseq) cuts against one process, as
+# parity_serve_mesh; gemma2's window cut to 32 rows so that the prompt and
+# every step overrun it and the 68-row cache's slice boundary (row 34) falls
+# inside it
+PARITY_KVSEQ_RUNS = (("llama3.2-3b", 2, (1, 2), False), ("llama3.2-3b", 2, (2, 1), False),
+                     ("gemma2-27b", {"n_layers": 2, "window": 32}, (1, 2), False),
+                     ("zamba2-7b", {"n_layers": 3, "hybrid_period": 2}, (2, 1), False))
+PARITY_KVSEQ_TOKENS = (1, 64)
 
 
 def mesh_cfg(arch, cut):
@@ -3277,7 +3486,7 @@ def mesh_serve_run(cfg, mesh, act_seq, rank, refs):
               and all(0 <= t < cfg.vocab for t in r.tokens_out),
               f"serve_mesh {cfg.name}: request {r.uid} ended with {r.tokens_out}")
     n_attn, n_ssm = kernel_layers(cfg)
-    want = {"decode_attention": n_attn * engine.decode_calls,
+    want = {"decode_attention": n_attn * engine.decode_calls, "decode_attention_lse": 0,
             "flash_attention": len(reqs) * n_attn, "flash_attention_bwd": 0,
             "ssd_scan": len(reqs) * n_ssm, "ssd_scan_bwd": 0}
     check(counts == want, f"serve_mesh {cfg.name} rank {rank}: launches {counts}, "
@@ -3296,18 +3505,43 @@ def mesh_serve_run(cfg, mesh, act_seq, rank, refs):
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
-def serve_calls(cfg, params, mesh=None, calls=None, routes=None):
-    """Prefill of PARITY_SERVE_TOKENS' prompts (seed 1) and
-    PARITY_SERVE_STEPS decode steps, under ``mesh`` or in one process:
-    the logits of each call (steps + 1, B, V) and the cache after the last
-    step, gathered whole, on the host.  A MoE model's router calls go to
-    ``calls`` (``router_log``) and its expert choices are recorded or
-    followed in ``routes`` (``routing``)."""
+def grow_cache(cache, cfg, batch, rows):
+    """``cache`` (a prefill's, under the bound mesh or none) with its K/V
+    grown to ``rows`` rows of zeros after the prompt's.  A ``kvseq`` cache's
+    rows are sliced over ranks: its K/V are gathered whole, grown, and
+    sliced again for ``rows``; the other layout grows each rank's part."""
+    from repro_torch.models import Cache
+    from repro_torch.models.model import gather_cache
+    from repro_torch.models.model import kv_rows
+    from repro_torch.models.model import shard_cache
+
+    def grown(t):
+        shape = list(t.shape)
+        shape[2] = rows - shape[2]
+        return torch.cat([t, t.new_zeros(shape)], dim=2)
+
+    if cache.k is None:
+        return cache
+    if not kv_rows(cache):
+        return cache._replace(k=grown(cache.k), v=grown(cache.v))
+    whole = gather_cache(Cache(k=cache.k, v=cache.v), cfg, batch)
+    part = shard_cache(Cache(k=grown(whole.k), v=grown(whole.v)), cfg, layout="kvseq")
+    return cache._replace(k=part.k, v=part.v)
+
+
+def serve_calls(cfg, params, mesh=None, calls=None, routes=None, tokens=PARITY_SERVE_TOKENS):
+    """Prefill of ``tokens``' prompts (B, S; seed 1) and PARITY_SERVE_STEPS
+    decode steps, under ``mesh`` or in one process: the logits of each call
+    (steps + 1, B, V), the cache after the last step, gathered whole, on the
+    host, and the K/V layout.  A MoE model's router calls go to ``calls``
+    (``router_log``) and its expert choices are recorded or followed in
+    ``routes`` (``routing``)."""
     from repro_torch.models import decode_step
     from repro_torch.models import prefill
     from repro_torch.models.model import gather_cache
+    from repro_torch.models.model import kv_rows
     from repro_torch.sharding import use_mesh
-    b, s = PARITY_SERVE_TOKENS
+    b, s = tokens
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=(b, s)), device="cuda")
     steps = rng.integers(2, cfg.vocab, size=(PARITY_SERVE_STEPS, b, 1))
@@ -3318,10 +3552,8 @@ def serve_calls(cfg, params, mesh=None, calls=None, routes=None):
         if routes is not None:
             stack.enter_context(routing(routes))
         got, cache = prefill(params, prompt, cfg)
-        if cache.k is not None:
-            pad = torch.zeros_like(cache.k[:, :, :PARITY_SERVE_STEPS])
-            cache = cache._replace(k=torch.cat([cache.k, pad], dim=2),
-                                   v=torch.cat([cache.v, pad], dim=2))
+        layout = "kvseq" if kv_rows(cache) else "heads"
+        cache = grow_cache(cache, cfg, b, s + PARITY_SERVE_STEPS)
         outs = [got]
         for tok in steps:
             got, cache = decode_step(params, torch.as_tensor(tok, device="cuda"), cache, cfg)
@@ -3329,7 +3561,7 @@ def serve_calls(cfg, params, mesh=None, calls=None, routes=None):
         whole = gather_cache(cache, cfg, b)
     fields = {f: getattr(whole, f).float().cpu() for f in ("k", "v", "conv_x", "conv_bc", "ssm")
               if getattr(whole, f) is not None}
-    return torch.stack(outs).float().cpu(), fields
+    return torch.stack(outs).float().cpu(), fields, layout
 
 
 def share_rule(out, ref, what):
@@ -3355,7 +3587,8 @@ def mesh_held(out, ref, what):
     return err
 
 
-def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
+def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs, tokens=PARITY_SERVE_TOKENS,
+                          layout=None):
     """``serve_calls`` of ``cfg`` on ``mesh`` against the same calls in one
     process on the card (rank 0, the other rank waiting), from the same
     weights: fp32 logits of every call and every gathered cache tensor
@@ -3366,7 +3599,8 @@ def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
     tokens and weights (``router_log``); in bf16 the one-process run follows
     the mesh run's expert choices, and those it would make otherwise must be
     a few near-ties (``phase_parity``: router near-ties flip between the
-    ranks' partial sums and one process's)."""
+    ranks' partial sums and one process's).  ``tokens``: the prompts' (B, S);
+    ``layout``: the K/V layout the mesh run must have taken."""
     import torch.distributed as dist
     from repro_torch.configs import MOE
     from repro_torch.models import init_params
@@ -3380,8 +3614,11 @@ def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
         try:
             params = mesh_params(cfg, mesh, rank, dtype)
             t0 = time.time()
-            got, cache = serve_calls(cfg, params, mesh, calls, routes)
+            got, cache, took = serve_calls(cfg, params, mesh, calls, routes, tokens)
             fields[f"{name}_mesh_seconds"] = time.time() - t0
+            fields["kv_layout"] = took
+            check(layout is None or took == layout, f"parity_serve_mesh {cfg.name}: the "
+                  f"cache took the {took} layout, not {layout}")
         finally:
             ACT_SEQ[0] = False
         del params
@@ -3392,8 +3629,9 @@ def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
                 calls, f"parity_serve_mesh {cfg.name} {name}")
         if rank == 0:
             t0 = time.time()
-            want, want_cache = serve_calls(cfg, init_params(cfg, seed=0, device="cuda",
-                                                            dtype=dtype), routes=routes)
+            want, want_cache, _ = serve_calls(cfg, init_params(cfg, seed=0, device="cuda",
+                                                               dtype=dtype),
+                                              routes=routes, tokens=tokens)
             if routes is not None:
                 fields["router_bf16"] = check_near_ties(routes, f"parity_serve_mesh {cfg.name}")
             fields[f"{name}_one_process_seconds"] = time.time() - t0
@@ -3422,9 +3660,87 @@ def mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs):
                 fields.update(bf16_share_rule=shares, bf16_tokens_equal=greedy["tokens_equal"],
                               bf16_clear_margin_tokens=greedy["clear_margin_tokens"])
         dist.barrier()
-    b, s = PARITY_SERVE_TOKENS
+    b, s = tokens
     return dict(rank=rank, calls=f"prefill({b}x{s}) + {PARITY_SERVE_STEPS} decode steps",
                 **fields)
+
+
+def mesh_kvseq_parity_run(cfg, mesh, act_seq, rank, refs):
+    """``mesh_serve_parity_run`` at a batch of 1, where the cache takes the
+    kvseq layout."""
+    return mesh_serve_parity_run(cfg, mesh, act_seq, rank, refs, tokens=PARITY_KVSEQ_TOKENS,
+                                 layout="kvseq")
+
+
+def mesh_kvseq_serve_run(cfg, mesh, act_seq, rank, refs):
+    """``cfg`` at published size under ``mesh``, batch 1: a prefill of
+    KVSEQ_PROMPT tokens (seed 0), its cache grown to KVSEQ_ROWS rows in the
+    kvseq layout (``grow_cache``), then KVSEQ_NEW greedy decode steps.
+    Each rank's prefill and decode seconds, tokens/s, peak memory, launches
+    (set to 0 just before each part, read just after: the flash kernel once
+    a layer for the prefill, the slice kernel once a layer and step for the
+    decode, nothing else) and the collectives' operand bytes per decode
+    call (``comm.collective_bytes``); every rank's tokens the same."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.models import prefill
+    from repro_torch.models.model import kv_rows
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import use_mesh
+    params = mesh_params(cfg, mesh, rank)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=(1, KVSEQ_PROMPT)), device="cuda")
+    n_attn, _ = kernel_layers(cfg)
+    none = {k: 0 for k in launch_counts()}
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), use_mesh(mesh):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, cache = prefill(params, prompt, cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        prefill_counts = launch_counts()
+        check(kv_rows(cache) == KVSEQ_PROMPT, f"serve_kvseq {cfg.name}: the prefill's cache "
+              "is not in the kvseq layout")
+        cache = grow_cache(cache, cfg, 1, KVSEQ_ROWS)
+        local_rows = cache.k.shape[2]
+        tokens = [int(logits[0].argmax())]
+        dist.barrier()
+        reset_launch_counts()
+        comm.reset_collective_bytes()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(KVSEQ_NEW):
+            tok = torch.tensor([[tokens[-1]]], device="cuda")
+            logits, cache = decode_step(params, tok, cache, cfg)
+            tokens.append(int(logits[0, 0].argmax()))
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        counts = launch_counts()
+        coll = comm.collective_bytes()
+    check(prefill_counts == dict(none, flash_attention=n_attn),
+          f"serve_kvseq {cfg.name} rank {rank}: prefill launches {prefill_counts}")
+    check(counts == dict(none, decode_attention_lse=n_attn * KVSEQ_NEW),
+          f"serve_kvseq {cfg.name} rank {rank}: decode launches {counts}")
+    every = [None] * MESH_RANKS
+    dist.all_gather_object(every, tokens)
+    same = all(t == every[0] for t in every)
+    check(same, f"serve_kvseq {cfg.name} rank {rank}: the ranks drew different tokens")
+    check(all(0 <= t < cfg.vocab for t in tokens), f"serve_kvseq {cfg.name}: {tokens}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=rank, prompt=KVSEQ_PROMPT, cache_rows=KVSEQ_ROWS, local_rows=local_rows,
+                new_tokens=KVSEQ_NEW, prefill_seconds=prefill_s, decode_seconds=decode_s,
+                tokens_per_s=KVSEQ_NEW / decode_s, prefill_launches=prefill_counts,
+                launches=counts, collective_bytes_per_call={k: v / KVSEQ_NEW
+                                                            for k, v in coll.items()},
+                tokens=tokens, tokens_same_on_every_rank=same, peak_memory_bytes=peak)
 
 
 def mesh_reference(cfg, tokens, dense):
@@ -3460,7 +3776,9 @@ def mesh_reference(cfg, tokens, dense):
 MESH_PHASES = {"train_mesh": (MESH_RUNS, mesh_train_run),
                "parity_train_mesh": (MESH_RUNS, mesh_parity_run),
                "serve_mesh": (SERVE_MESH_RUNS, mesh_serve_run),
-               "parity_serve_mesh": (PARITY_SERVE_MESH_RUNS, mesh_serve_parity_run)}
+               "parity_serve_mesh": (PARITY_SERVE_MESH_RUNS, mesh_serve_parity_run),
+               "serve_kvseq": (SERVE_KVSEQ_RUNS, mesh_kvseq_serve_run),
+               "parity_serve_kvseq": (PARITY_KVSEQ_RUNS, mesh_kvseq_parity_run)}
 
 
 def phase_mesh(phases):
@@ -3485,11 +3803,11 @@ def phase_mesh(phases):
         for i, (arch, cut, shape, act_seq) in enumerate(MESH_PHASES[phase][0]):
             cfg = mesh_cfg(arch, cut)
             head = dict(arch=arch, n_layers=cfg.n_layers, mesh=list(shape), act_seq=act_seq)
-            if phase in ("train_mesh", "serve_mesh"):
+            if phase in ("train_mesh", "serve_mesh", "serve_kvseq"):
                 emit(phase, **head, d_model=cfg.d_model, dtype="bfloat16", backend="gloo",
                      ranks=[r[phase][i] for r in ranks],
                      phase_seconds=ranks[0][phase + "_seconds"], parent_reserved_bytes=held)
-            elif phase == "parity_serve_mesh":
+            elif phase in ("parity_serve_mesh", "parity_serve_kvseq"):
                 emit(phase, **head, changed=cut if isinstance(cut, dict) else {},
                      tol_fp32=MESH_TOL, tol_bf16=LOGIT_TOL,
                      phase_seconds=ranks[0][phase + "_seconds"], **ranks[0][phase][i])
@@ -3497,6 +3815,39 @@ def phase_mesh(phases):
                 emit(phase, **head, tol_fp32=MESH_TOL, grad_share_tol_bf16=GRAD_SHARE_TOL,
                      loss_tol_bf16=LOGIT_TOL, phase_seconds=ranks[0][phase + "_seconds"],
                      **ranks[0][phase][i])
+    return ranks
+
+
+# ---------------------------------------------------------------------------
+def phase_dryrun():
+    """The dry run of every (arch x shape x mesh) cell on the production
+    meshes (``launch/dryrun.py``, on the host: shapes only, no device): the
+    K/V layout, one rank's argument bytes and the roofline terms with the
+    H100's constants; 64 cells ok and the 16 full-attention long_500k cells
+    skipped."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.time()
+    rows = []
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            for mesh in ("16x16", "2x16x16"):
+                rec = run_cell(arch, shape, mesh)
+                row = [arch, shape, mesh, rec["status"]]
+                if rec["status"] == "ok":
+                    rf = rec["roofline"]
+                    row += [rec["kv_layout"], rec["argument_size_in_bytes"], rf["t_compute"],
+                            rf["t_memory"], rf["bottleneck"]]
+                else:
+                    row.append(rec["reason"])
+                rows.append(row)
+    n_ok = sum(r[3] == "ok" for r in rows)
+    check(len(rows) == 80 and n_ok == 64, f"dryrun: {n_ok} of {len(rows)} cells ok")
+    emit("dryrun", ran_on="host", cells=len(rows), ok=n_ok, skipped=len(rows) - n_ok,
+         columns=["arch", "shape", "mesh", "status", "kv_layout", "argument_bytes_per_rank",
+                  "t_compute_s", "t_memory_s", "bottleneck"], table=rows,
+         seconds=time.time() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3642,7 +3993,15 @@ def main() -> None:
             timed(train["parity"], phase_parity_train, arch)
     mesh_phases = [p for p in MESH_PHASES if p in phases]
     if mesh_phases:
-        timed(",".join(mesh_phases), phase_mesh, mesh_phases)
+        ranks = timed(",".join(mesh_phases), phase_mesh, mesh_phases)
+        for rec in records:
+            if rec["path"] in mesh_phases:
+                # the first run's rank 0 (the other rank launches as many)
+                rec["launches"] = ranks[0][rec["path"]][0]["launches"][rec["name"]]
+                check(rec["launches"] > 0, f"{rec['name']} was not launched by the "
+                      f"{rec['path']} run")
+    if "dryrun" in phases:
+        timed("dryrun", phase_dryrun)
     if "simulator" in phases:
         timed("simulator", phase_simulator)
     emit("timing", seconds=seconds)

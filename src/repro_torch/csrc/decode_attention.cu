@@ -83,6 +83,18 @@
 //    one, q is scaled by scale / softcap and each score becomes
 //    tanh(s) * softcap * log2(e) before the max; without one, the scores are
 //    the products of the log2-scaled q as before.
+//  * The slice kernel (decode_attention_lse.cu compiles this file with
+//    DCO_DECODE_SLICE defined: entry point dco_decode_attention_lse) runs the
+//    same body on one rank's slice of a sequence-sharded cache (the `kvseq`
+//    layout): its rows are rows [row_offset, row_offset + S) of the whole
+//    cache, cache_len counts whole rows, and the window counts back from the
+//    whole length, so that the slice attends exactly the rows of it that the
+//    whole cache's query sees.  It writes an fp32 output and each row's
+//    natural-log log-sum-exp, m + log l of the unit (or of the merge) that
+//    finishes the row, for the exact merge across ranks; a row with no live
+//    key on the slice writes zeros and -inf.  Each variant is a translation
+//    unit of its own, built in parallel; SLICE is a constant of the unit, so
+//    the serving kernel keeps its code and its registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,8 +102,15 @@
 
 namespace {
 
+#ifdef DCO_DECODE_SLICE
+constexpr bool SLICE = true;   // this unit's kernel: one rank's slice, with the LSE
+#else
+constexpr bool SLICE = false;  // this unit's kernel: the serving one
+#endif
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int LANES_PER_ROW = 8;
@@ -209,6 +228,9 @@ struct Args {
   float scale;
   float softcap;    // 0: none
   long long q_sb, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg;
+  float* out_f;     // SLICE: the fp32 output (B, H, D)
+  float* lse;       // SLICE: each row's log-sum-exp (B, H)
+  int row_offset;   // SLICE: the whole cache's row of this slice's row 0
 };
 
 // cache_len is read-only here and read twice a block (the per-call sum, then
@@ -226,6 +248,20 @@ __device__ __forceinline__ long long round_up(long long x, int to) {
 // the window of its query (and of every later one)
 __device__ __forceinline__ int first_live(int len, int window) {
   return window > 0 && len > window ? len - window : 0;
+}
+
+// SLICE: the live rows [lo, len) of batch row b on a slice of whole rows
+// [row_offset, row_offset + S); cache_len and the window count whole rows,
+// and a slice that holds none of the live ones gives len 0.
+template <typename T>
+__device__ __forceinline__ int slice_rows(const Args<T>& a, int b, int& lo) {
+  const int n = max(__ldg(a.cache_len + b), 0);
+  const int len = min(max(n - a.row_offset, 0), a.S);
+  const int first = first_live(n, a.window) - a.row_offset;
+  lo = 0;
+  if (first >= len) return 0;  // the window ends below this slice, or nothing is on it
+  lo = max(first, 0);
+  return len;
 }
 
 // R for a call whose live rows (within the window) sum to `total`: the least multiple of STEP_ROWS
@@ -462,7 +498,12 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
     }
     const long long bh = (long long)b * a.H + h0 + hh;
     if (direct) {
-      a.out[bh * D + d] = Vec<T>::to(x / fmaxf(ls, 1e-30f));
+      if (SLICE) {
+        a.out_f[bh * D + d] = x / fmaxf(ls, 1e-30f);
+        if (d == 0) a.lse[bh] = (mx + log2f(ls)) * LN2;
+      } else {
+        a.out[bh * D + d] = Vec<T>::to(x / fmaxf(ls, 1e-30f));
+      }
     } else {
       const long long slot = bh * a.units + unit;
       a.part_acc[slot * D + d] = x;
@@ -509,6 +550,7 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
     const float inv = 1.f / fmaxf(ls, 1e-30f);
+    if (SLICE && lane == 0) a.lse[bh0 + warp] = (mx + log2f(ls)) * LN2;
     __syncwarp();
     for (int i = lane; i < live; i += 32) w[i] = exp2f(w[i] - mx) * inv;
   }
@@ -537,6 +579,11 @@ __device__ __forceinline__ void attend_unit(const Args<T>& a, int R, int b, int 
         x[3] = fmaf(r[j].w, wj, x[3]);
       }
     }
+    if constexpr (SLICE) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a.out_f[(bh0 + hh) * D + 4 * d4 + e] = x[e];
+      continue;
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) a.out[(bh0 + hh) * D + 4 * d4 + e] = Vec<T>::to(x[e]);
   }
@@ -562,8 +609,14 @@ decode_kernel(const Args<T> a) {
   if (R == 0) {
     long long total = 0;
     for (int i = threadIdx.x; i < a.B; i += THREADS) {
-      const int len = clamp_len(a.cache_len, i, a.S);
-      total += len - first_live(len, a.window);
+      if constexpr (SLICE) {
+        int lo;
+        const int len = slice_rows(a, i, lo);
+        total += len - lo;
+      } else {
+        const int len = clamp_len(a.cache_len, i, a.S);
+        total += len - first_live(len, a.window);
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
@@ -579,8 +632,12 @@ decode_kernel(const Args<T> a) {
   for (int item = blockIdx.x;; item += gridDim.x) {
     int len = 0, lo = 0, live = 1;
     for (; b < a.B; ++b) {
-      len = clamp_len(a.cache_len, b, a.S);
-      lo = first_live(len, a.window);
+      if constexpr (SLICE) {
+        len = slice_rows(a, b, lo);
+      } else {
+        len = clamp_len(a.cache_len, b, a.S);
+        lo = first_live(len, a.window);
+      }
       live = len > 0 ? (len - lo + R - 1) / R : 1;
       if (item < base + live * a.head_blocks) break;
       base += live * a.head_blocks;
@@ -594,8 +651,14 @@ decode_kernel(const Args<T> a) {
       const int group = a.H / a.G;
       const int blocks_per_group = group / HPB;
       const int h0 = hb / blocks_per_group * group + (hb % blocks_per_group) * HPB;
-      for (int idx = threadIdx.x; idx < HPB * D; idx += THREADS)
-        a.out[((long long)b * a.H + h0) * D + idx] = Vec<T>::to(0.f);
+      if constexpr (SLICE) {
+        const long long bh = (long long)b * a.H + h0;
+        for (int idx = threadIdx.x; idx < HPB * D; idx += THREADS) a.out_f[bh * D + idx] = 0.f;
+        if (threadIdx.x < HPB) a.lse[bh + threadIdx.x] = __int_as_float(0xff800000);  // -inf
+      } else {
+        for (int idx = threadIdx.x; idx < HPB * D; idx += THREADS)
+          a.out[((long long)b * a.H + h0) * D + idx] = Vec<T>::to(0.f);
+      }
       continue;
     }
     attend_unit<T, D, HPB, CAP>(a, rows, b, hb, unit, lo, len, live, ring, sm_m, sm_l, sm_acc,
@@ -630,17 +693,23 @@ int launch_hpb(int hpb, const Args<T>& a, int blocks, cudaStream_t stream) {
   return -1;
 }
 
+// SLICE: `out` is the fp32 output and `lse` the log-sum-exp, `row_offset`
+// the slice's first whole row; otherwise `out` is of T and the two unused.
 template <typename T>
 int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
-             const void* cache_len, void* out, void* scratch, void* counters, int B, int S,
-             int H, int G, int rows, int min_rows, int target, int window, float scale,
-             float softcap, const long long* st, int blocks, cudaStream_t stream) {
+             const void* cache_len, void* out, void* lse, void* scratch, void* counters, int B,
+             int S, int H, int G, int rows, int min_rows, int target, int window,
+             int row_offset, float scale, float softcap, const long long* st, int blocks,
+             cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
   a.v = static_cast<const T*>(v);
   a.cache_len = static_cast<const int*>(cache_len);
-  a.out = static_cast<T*>(out);
+  a.out = SLICE ? nullptr : static_cast<T*>(out);
+  a.out_f = SLICE ? static_cast<float*>(out) : nullptr;
+  a.lse = static_cast<float*>(lse);
+  a.row_offset = row_offset;
   a.B = B;
   a.S = S;
   a.H = H;
@@ -673,8 +742,7 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
   return -1;
 }
 
-}  // namespace
-
+// The entry points' checks and the dtype switch.
 // dtype: 0 = bf16, 1 = fp32.  `hpb` query heads of one KV head share a block
 // (1 to max_hpb(D), dividing H / G).  `rows` is R, a positive multiple of
 // STEP_ROWS, or 0 for R chosen on the device from cache_len (rows_for);
@@ -695,14 +763,14 @@ int launch_d(int D, int hpb, const void* q, const void* k, const void* v,
 // the counters zeroed anew) and that no two launches on them run at once.
 // Returns 0, a cudaError_t of the launch, or -1 for arguments the kernel does
 // not take.
-extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* cache_len, void* out, void* scratch,
-                                    void* counters, int dtype, int B, int S, int H, int G,
-                                    int D, int hpb, int rows, int min_rows, int target,
-                                    int blocks, int window, float scale, float softcap,
-                                    const long long* strides, void* stream) {
+int launch_call(const void* q, const void* k, const void* v, const void* cache_len, void* out,
+                void* lse, void* scratch, void* counters, int dtype, int B, int S, int H, int G,
+                int D, int hpb, int rows, int min_rows, int target, int blocks, int window,
+                int row_offset, float scale, float softcap, const long long* strides,
+                void* stream) {
   if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || blocks <= 0) return -1;
   if (window < 0 || !(softcap >= 0.f)) return -1;
+  if (SLICE && (lse == nullptr || row_offset < 0)) return -1;
   if (min_rows <= 0 || min_rows % STEP_ROWS != 0) return -1;
   if (rows != 0 && rows != min_rows) return -1;
   if (target <= 0) return -1;
@@ -710,11 +778,44 @@ extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
   if (hpb < 1 || hpb > max_hpb(D) || (H / G) % hpb != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S,
-                                   H, G, rows, min_rows, target, window, scale, softcap,
-                                   strides, blocks, s);
+    return launch_d<__nv_bfloat16>(D, hpb, q, k, v, cache_len, out, lse, scratch, counters, B,
+                                   S, H, G, rows, min_rows, target, window, row_offset, scale,
+                                   softcap, strides, blocks, s);
   if (dtype == 1)
-    return launch_d<float>(D, hpb, q, k, v, cache_len, out, scratch, counters, B, S, H, G,
-                           rows, min_rows, target, window, scale, softcap, strides, blocks, s);
+    return launch_d<float>(D, hpb, q, k, v, cache_len, out, lse, scratch, counters, B, S, H, G,
+                           rows, min_rows, target, window, row_offset, scale, softcap, strides,
+                           blocks, s);
   return -1;
 }
+
+}  // namespace
+
+#ifndef DCO_DECODE_SLICE
+extern "C" int dco_decode_attention(const void* q, const void* k, const void* v,
+                                    const void* cache_len, void* out, void* scratch,
+                                    void* counters, int dtype, int B, int S, int H, int G,
+                                    int D, int hpb, int rows, int min_rows, int target,
+                                    int blocks, int window, float scale, float softcap,
+                                    const long long* strides, void* stream) {
+  return launch_call(q, k, v, cache_len, out, nullptr, scratch, counters, dtype, B, S, H, G, D,
+                     hpb, rows, min_rows, target, blocks, window, 0, scale, softcap, strides,
+                     stream);
+}
+#else
+// One rank's slice of a sequence-sharded cache: as dco_decode_attention, with
+// k / v holding whole rows [row_offset, row_offset + S), cache_len counting
+// whole rows (a window counts back from it), `out` an fp32 (B, H, D) output
+// and `lse` (B, H) floats: each row's natural-log sum of exp(score) over its
+// live keys on the slice, -inf (and a zero output) where it has none.
+extern "C" int dco_decode_attention_lse(const void* q, const void* k, const void* v,
+                                        const void* cache_len, void* out, void* lse,
+                                        void* scratch, void* counters, int dtype, int B, int S,
+                                        int H, int G, int D, int hpb, int rows, int min_rows,
+                                        int target, int blocks, int window, int row_offset,
+                                        float scale, float softcap, const long long* strides,
+                                        void* stream) {
+  return launch_call(q, k, v, cache_len, out, lse, scratch, counters, dtype, B, S, H, G, D, hpb,
+                     rows, min_rows, target, blocks, window, row_offset, scale, softcap, strides,
+                     stream);
+}
+#endif

@@ -1,4 +1,8 @@
-"""Wrapper of the decode-attention CUDA kernel (csrc/decode_attention.cu)."""
+"""Wrappers of the decode-attention CUDA kernels: ``decode_attention`` over a
+whole cache (csrc/decode_attention.cu), and ``decode_attention_lse`` over one
+rank's slice of a sequence-sharded cache, which also gives each row's
+log-sum-exp for the merge across ranks (``sharding.comm.merge_attention``;
+csrc/decode_attention_lse.cu, the same body compiled as the slice's)."""
 
 from __future__ import annotations
 
@@ -16,9 +20,11 @@ import torch
 from ..build import load
 from ..flash_attention.ops import check_window
 from ..flash_attention.ops import needs_grad
+from .ref import decode_attention_lse_ref
 from .ref import decode_attention_ref
 
-LAUNCHES = [0]                 # kernel launches made by this wrapper
+LAUNCHES = [0]                 # kernel launches made by decode_attention
+LSE_LAUNCHES = [0]             # kernel launches made by decode_attention_lse
 STEP_ROWS = 32                 # rows a block scores a step (csrc: STEP_ROWS)
 MAX_HPB = 4                    # query heads a block at most (csrc: MAX_HPB)
 MAX_HPB_WIDE = 1               # ... above head_dim 128 (csrc: MAX_HPB_WIDE)
@@ -35,20 +41,25 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # scale, softcap; strides, stream
 ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-_fn = None
+# dco_decode_attention_lse: q, k, v, cache_len, out, lse, scratch, counters;
+# dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, window, row_offset;
+# scale, softcap; strides, stream
+LSE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+_fns: Dict[str, object] = {}
 # merge counters of each (device, stream); zeroed once, when allocated
 _counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _retired: List[torch.Tensor] = []   # outgrown counters: a captured graph may hold them
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load().dco_decode_attention
-        fn.argtypes = ARGTYPES
+def _kernel(name: str = "dco_decode_attention", argtypes=ARGTYPES):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def heads_per_block(group: int, head_dim: int) -> int:
@@ -100,18 +111,28 @@ class DecodePlan(NamedTuple):
     scratch_floats: int  # partial (acc, m, l) of every unit: B * H * units * (D + 2)
     counters: int        # one merge counter a (batch row, head block)
     window: int = 0      # live rows a sequence at most, or 0: all of them
+    row_offset: Optional[int] = None   # a slice's first whole row, or None: a whole cache
 
-    def _clamp(self, length: int) -> int:
-        return max(0, min(length, self.capacity))
+    def span(self, length: int) -> Tuple[int, int]:
+        """(first live row, end) of a sequence of ``length`` on this cache's
+        rows (csrc's live_rows): no row outside them is read; (0, 0) where
+        none is live."""
+        if self.row_offset is None:
+            n = max(0, min(length, self.capacity))
+            return (n - self.window if 0 < self.window < n else 0), n
+        n = max(length, 0)
+        end = min(max(n - self.row_offset, 0), self.capacity)
+        first = (n - self.window if 0 < self.window < n else 0) - self.row_offset
+        return (0, 0) if first >= end else (max(first, 0), end)
 
     def first_live(self, length: int) -> int:
         """The first row of a sequence of ``length`` inside its query's
         window (csrc's first_live): no row below it is read."""
-        n = self._clamp(length)
-        return n - self.window if 0 < self.window < n else 0
+        return self.span(length)[0]
 
     def _live(self, length: int) -> int:
-        return self._clamp(length) - self.first_live(length)
+        lo, end = self.span(length)
+        return end - lo
 
     def rows_for(self, lengths: Sequence[int]) -> int:
         """R for a call at ``lengths``: the caller's, or the least multiple of
@@ -135,10 +156,10 @@ class DecodePlan(NamedTuple):
         """The cache rows unit ``unit`` reads for a sequence of ``length``:
         its live rows cut evenly into ``live_units`` units of a multiple of
         STEP_ROWS rows."""
-        n = self._clamp(length)
+        lo, n = self.span(length)
         even = _round_up(-(-self._live(length) // max(self.live_units(length, rows), 1)),
                          STEP_ROWS)
-        start = self.first_live(length) + unit * even
+        start = lo + unit * even
         return range(start, max(start, min(n, start + even)))
 
     def merges(self, length: int, rows: int) -> bool:
@@ -148,7 +169,13 @@ class DecodePlan(NamedTuple):
 
     def items(self, lengths: Sequence[int]) -> List[Tuple[int, int, int]]:
         """(batch row, head block, unit) of every work item, in the kernel's
-        order: a row with cache_len 0 has one item (it writes zeros)."""
+        order: a row with cache_len 0 has one item (it writes zeros).
+
+    With ``row_offset`` set (``decode_attention_lse``) the cache is a slice:
+    its S rows are whole rows [row_offset, row_offset + S), a length counts
+    whole rows and the window counts back from it, and only the slice's
+    live rows count (none where the window ends below the slice or the
+    length before it)."""
         rows = self.rows_for(lengths)
         return [(b, hb, u) for b, n in enumerate(lengths)
                 for hb in range(self.head_blocks)
@@ -157,7 +184,7 @@ class DecodePlan(NamedTuple):
 
 def decode_plan(b: int, s: int, h: int, g: int, d: int,
                 rows_per_split: Optional[int] = None, sm_count: int = 132,
-                window: Optional[int] = None) -> DecodePlan:
+                window: Optional[int] = None, row_offset: Optional[int] = None) -> DecodePlan:
     if rows_per_split is not None and (rows_per_split <= 0 or rows_per_split % STEP_ROWS):
         raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
                          f"got {rows_per_split}")
@@ -173,7 +200,7 @@ def decode_plan(b: int, s: int, h: int, g: int, d: int,
                       blocks=min(b * head_blocks * units, ITEMS_PER_SM * sm_count),
                       target=ITEMS_PER_SM * sm_count,
                       scratch_floats=b * h * units * (d + 2), counters=b * head_blocks,
-                      window=window or 0)
+                      window=window or 0, row_offset=row_offset)
 
 
 def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -205,6 +232,8 @@ def _check(q, k, v, cache_len):
         raise ValueError("q, k/v and cache_len disagree on batch or head_dim")
     if h % k.shape[2]:
         raise ValueError("n_heads must be divisible by n_kv_heads")
+    if k.shape[1] < 1:
+        raise ValueError("the cache needs at least one row")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -234,6 +263,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, cache_len, scale=scale, window=window,
                                     softcap=softcap)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, cache_len, out, None, None, scale, window, softcap, rows_per_split)
+    LAUNCHES[0] += 1
+    return out
+
+
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len: torch.Tensor, *, row_offset: int = 0,
+                         scale: Optional[float] = None,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         rows_per_split: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention`` on one rank's slice of a sequence-sharded cache:
+    k/v (B, S, G, D) hold whole rows [row_offset, row_offset + S), and
+    cache_len (B,) counts whole rows, so that the slice attends exactly the
+    rows of it that the whole cache's query at ``cache_len - 1`` sees (a
+    window counts back from the whole length).  Returns the fp32 output
+    (B, H, D) over the slice's live rows and each row's log-sum-exp (B, H),
+    the natural log of the sum of exp(scaled, capped score) over them; a row
+    with none gives zeros and ``-inf``.  ``sharding.comm.merge_attention``
+    merges the slices' pairs into the whole cache's output.  One launch on
+    a CUDA tensor (or a raise), the plain version on a CPU tensor, as
+    ``decode_attention``."""
+    _check(q, k, v, cache_len)
+    _check_options(window, softcap)
+    if isinstance(row_offset, bool) or not isinstance(row_offset, int) or row_offset < 0:
+        raise ValueError(f"row_offset must be a non-negative int, got {row_offset!r}")
+    if not q.is_cuda:
+        return decode_attention_lse_ref(q, k, v, cache_len, row_offset=row_offset, scale=scale,
+                                        window=window, softcap=softcap)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch(q, k, v, cache_len, out, lse, row_offset, scale, window, softcap, rows_per_split)
+    LSE_LAUNCHES[0] += 1
+    return out, lse
+
+
+def _launch(q, k, v, cache_len, out, lse, row_offset, scale, window, softcap,
+            rows_per_split) -> None:
+    """The card's checks and one launch of the serving kernel (``lse`` None)
+    or of the slice's (``lse`` and ``row_offset`` given)."""
     if needs_grad(q, k, v):
         raise NotImplementedError(
             "decode_attention has no backward kernel: decoding is not differentiated "
@@ -255,11 +326,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "head_dim; it needs stride 1 there and 16-byte "
                              "aligned rows")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = decode_plan(b, s, h, g, d, rows_per_split, sms, window)
+    plan = decode_plan(b, s, h, g, d, rows_per_split, sms, window, row_offset)
     lens = cache_len if cache_len.dtype == torch.int32 else cache_len.to(torch.int32)
     lens = lens.contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
@@ -267,12 +337,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         counters = _counter_buffer(q.device, stream, plan.counters)
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                       out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
-                       _DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.fixed_rows,
-                       plan.min_rows, plan.target, plan.blocks, plan.window, float(scale),
-                       float(softcap or 0.0), strides, stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr())
+        shape = (_DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.fixed_rows, plan.min_rows,
+                 plan.target, plan.blocks, plan.window)
+        tail = (float(scale), float(softcap or 0.0), strides, stream)
+        if lse is None:
+            rc = _kernel()(*head, scratch.data_ptr(), counters.data_ptr(), *shape, *tail)
+        else:
+            rc = _kernel("dco_decode_attention_lse", LSE_ARGTYPES)(
+                *head, lse.data_ptr(), scratch.data_ptr(), counters.data_ptr(), *shape,
+                row_offset, *tail)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
-    LAUNCHES[0] += 1
-    return out

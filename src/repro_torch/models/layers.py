@@ -18,7 +18,9 @@ model axis, or with ``ACT_SEQ`` the sequence, where ``row_parallel_out``
 reduce-scatters it.  Each ``constrain`` of the reference has its
 counterpart at the same place, a move of local shards; the kernels always
 receive plain local tensors: this rank's query heads and the KV heads they
-read.
+read, or, decoding against a sequence-sharded cache (the ``kvseq`` layout,
+``models.model.kv_layout``), every head over this rank's slice of rows,
+whose partial outputs ``comm.merge_attention`` sums across the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Tuple
 import torch
 
 from ..kernels.decode_attention import decode_attention
+from ..kernels.decode_attention import decode_attention_lse
 from ..kernels.flash_attention import flash_attention
 from ..sharding import comm
 from ..sharding.api import ACT_SEQ
@@ -164,6 +167,26 @@ def tp_heads(cfg) -> Tuple[int, int, int]:
     return h // m, 1, r * (h // m) // group
 
 
+def kv_holders(cfg):
+    """The first model rank that holds each KV head, for a model axis that
+    does not divide the KV heads (each rank holds one, ``tp_heads``)."""
+    m, h, g = model_size(), cfg.n_heads, cfg.n_kv_heads
+    held = [r * (h // m) // (h // g) for r in range(m)]
+    return [held.index(j) for j in range(g)]
+
+
+def all_kv_heads(t: torch.Tensor, cfg, dim: int) -> torch.Tensor:
+    """Every KV head of ``t``, this rank's KV heads (``tp_heads``) on
+    ``dim``: gathered over the model axis, and where the axis does not
+    divide the KV heads, the first copy of each kept."""
+    if model_size() == 1:
+        return t
+    t = comm.all_gather_dim(t, dim, "model")
+    if t.shape[dim] == cfg.n_kv_heads:
+        return t
+    return t.index_select(dim, torch.tensor(kv_holders(cfg), device=t.device))
+
+
 def row_parallel_out(y: torch.Tensor, w: torch.Tensor) -> Optional[torch.Tensor]:
     """Megatron-SP row-parallel output projection, as the reference's.
 
@@ -287,7 +310,8 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
                     cache_rows: Optional[torch.Tensor] = None,
                     cache_len: Optional[torch.Tensor] = None,
                     pinned_rows: int = 0,
-                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    kv_slice: Optional[Tuple[int, Tuple[str, ...]]] = None):
     """Full attention sub-block: norm → qkv → rope → attn → out-proj.
 
     Three modes, each ending in one kernel call:
@@ -308,6 +332,16 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     schedule parameter (see ``CacheOrchestrator.plan_kv_split``).  ``rope`` are
     the ``rope_tables`` of this call's positions, which a model makes once
     for all its layers; without them the block makes its own.
+
+    ``kv_slice = (first row, mesh axes)`` (decode only): the cache is this
+    rank's slice of a sequence-sharded one (``kvseq``), every KV head over
+    whole rows [first, first + S_max) of a sequence split over the mesh
+    axes; ``cache_pos`` and ``cache_len`` count whole rows.  The new row's
+    K/V heads are gathered over the model axis and written on the rank
+    whose slice holds ``cache_pos``; the query heads are gathered, attend
+    the slice (``decode_attention_lse``), and the slices' outputs are merged
+    across the axes (``comm.merge_attention``); this rank keeps its own
+    query heads for the row-parallel ``wo``.
 
     A local layer (``layer_is_local`` with ``cfg.window``, gemma2's
     alternation) attends over the last ``cfg.window`` positions only, in both
@@ -352,7 +386,10 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
         ck, cv = kv_cache
         if cache_pos is None:
             raise ValueError("kv_cache needs cache_pos")
-        if s == 1:
+        if s == 1 and kv_slice is not None:
+            out = _decode_slice(q, k, v, ck, cv, cfg, kv_slice, cache_pos, cache_rows,
+                                cache_len, scale=scale, window=window)
+        elif s == 1:
             if cache_rows is None:
                 ck[:, cache_pos] = k[:, 0].to(ck.dtype)
                 cv[:, cache_pos] = v[:, 0].to(cv.dtype)
@@ -383,6 +420,33 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
         return rp, new_cache
     out = torch.matmul(out.reshape(b, s, n_h * hd), wo)
     return tp_output(out, cfg), new_cache
+
+
+def _decode_slice(q, k, v, ck, cv, cfg, kv_slice, cache_pos: int, cache_rows, cache_len,
+                  *, scale: float, window: Optional[int]) -> torch.Tensor:
+    """``attention_block``'s decode against a ``kvseq`` cache slice ``ck`` /
+    ``cv`` (B, S_max, G, D): this rank's query heads' output (B, 1, n_h, D)."""
+    first, axes = kv_slice
+    n_h = q.shape[2]
+    q_all = comm.all_gather_dim(q[:, 0], 1, "model") if model_size() > 1 else q[:, 0]
+    k_all, v_all = all_kv_heads(k[:, 0], cfg, 1), all_kv_heads(v[:, 0], cfg, 1)
+    p = cache_pos - first
+    if 0 <= p < ck.shape[1]:   # this rank's slice holds the new row
+        if cache_rows is None:
+            ck[:, p] = k_all.to(ck.dtype)
+            cv[:, p] = v_all.to(cv.dtype)
+        else:
+            ck[cache_rows, p] = k_all[cache_rows].to(ck.dtype)
+            cv[cache_rows, p] = v_all[cache_rows].to(cv.dtype)
+    if cache_len is None:
+        cache_len = torch.full((q.shape[0],), cache_pos + 1, dtype=torch.int32,
+                               device=q.device)
+    o, lse = decode_attention_lse(q_all, _as(ck, q.dtype), _as(cv, q.dtype), cache_len,
+                                  row_offset=first, scale=scale, window=window,
+                                  softcap=cfg.attn_softcap)
+    o = comm.merge_attention(o, lse, axes, q.dtype)
+    r = comm.axis_group("model")[2]
+    return o[:, r * n_h:(r + 1) * n_h][:, None]
 
 
 def block_rope_tables(cfg, b: int, s: int, cache_pos: Optional[int], device):

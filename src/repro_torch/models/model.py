@@ -45,6 +45,11 @@ Design notes
   whole shape (``sharding.use_stream``): under ``ACT_SEQ`` a sequence that
   the model axis does not divide, such as a decode call's one token, keeps
   the residual stream whole, as the reference's filter leaves it.
+* Under a mesh the K/V cache takes one of the reference's two layouts
+  (``kv_layout``, its dry-run's rule): by KV heads over the model axis, or
+  ``kvseq``, every KV head over this rank's slice of the rows, the rows
+  split over whatever of (data, model) the batch leaves unused.  A
+  ``kvseq`` cache's K tensor records the whole rows (``kv_rows``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from contextlib import contextmanager
 from contextlib import nullcontext
 from functools import partial
 import math
+import os
 from typing import Any
 from typing import Dict
 from typing import NamedTuple
@@ -78,12 +84,16 @@ from ..sharding.api import constrain
 from ..sharding.api import current_mesh
 from ..sharding.api import current_stream
 from ..sharding.api import dp_axes
+from ..sharding.api import logical_spec
 from ..sharding.api import model_size
 from ..sharding.api import seq_sharded
+from ..sharding.api import spec_axes
 from ..sharding.api import use_mesh
 from ..sharding.api import use_stream
+from ..sharding.state import rank_part
 from ..sharding.state import shard_tree
 from .layers import POSITIONS_REFUSED
+from .layers import all_kv_heads
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
@@ -471,7 +481,9 @@ def _hybrid_stack(params, x, cfg: ArchConfig, cache: Optional[Cache] = None,
 class Cache(NamedTuple):
     """Attention K/V stacked over layers (a hybrid: over applications of the
     shared block) and/or SSM state stacked over Mamba2 layers, and the next
-    position; the fields a family does not use stay ``None``."""
+    position; the fields a family does not use stay ``None``.  The fields
+    are the reference's; a ``kvseq`` cache's whole row count rides on its K
+    tensor (``kv_rows``)."""
     k: Optional[torch.Tensor] = None          # (L, B, S, G, hd)
     v: Optional[torch.Tensor] = None
     conv_x: Optional[torch.Tensor] = None     # (L, B, K-1, d_inner)
@@ -507,13 +519,14 @@ def _local_widths(cfg: ArchConfig) -> Tuple[int, int, int]:
 
 
 def _empty_cache(cfg: ArchConfig, batch: int, kv_rows: int, conv_rows: int, device,
-                 dtype) -> Cache:
+                 dtype, all_kv: bool = False) -> Cache:
     """Zero K/V of ``kv_rows`` positions for each attention application and
     zero SSM state for each Mamba2 layer, as the family has them: fp32 state
     and ``conv_rows`` rows of conv history (``d_conv - 1`` except after a
     prefill of fewer tokens).  ``batch`` rows; under a mesh this rank's
-    widths (``_local_widths``)."""
+    widths (``_local_widths``), or every KV head with ``all_kv``."""
     g, d_inner, h = _local_widths(cfg)
+    g = cfg.n_kv_heads if all_kv else g
     cache = Cache()
     if cfg.family in (SSM, HYBRID):
         spec, L = cfg.ssm, cfg.n_layers
@@ -532,7 +545,7 @@ def _empty_cache(cfg: ArchConfig, batch: int, kv_rows: int, conv_rows: int, devi
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
-               dtype=DTYPE) -> Cache:
+               dtype=DTYPE, layout: Optional[str] = None) -> Cache:
     """Dense and MoE: K/V for ``max_seq`` rows, one entry per layer (a MoE
     model's dense layers first).  SSM: conv history and fp32 state, whose
     size does not depend on ``max_seq``.  Hybrid: both, K/V for each
@@ -540,16 +553,76 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda",
 
     Under a bound mesh, this rank's shard of the cache of a global batch of
     ``batch`` rows: its data shard's rows where the data axes divide the
-    batch (all rows otherwise), K/V of the KV heads its query heads read
-    (``tp_heads``: a KV head that the model axis does not split is kept by
-    every rank that reads it), ``conv_x`` on its channels, ``ssm`` on its
-    heads, and ``conv_bc`` whole.  ``gather_cache`` and ``shard_cache`` move
-    between this layout and the whole cache."""
+    batch (all rows otherwise), ``conv_x`` on its channels, ``ssm`` on its
+    heads, ``conv_bc`` whole, and K/V in ``layout`` (``kv_layout``'s choice
+    for ``batch`` by default): ``"heads"``, the KV heads its query heads
+    read (``tp_heads``: a KV head that the model axis does not split is
+    kept by every rank that reads it), or ``"kvseq"``, every KV head over
+    this rank's slice of the rows (``kv_slice``).  ``gather_cache`` and
+    ``shard_cache`` move between these layouts and the whole cache."""
     _require_ported(cfg)
     with use_stream(Stream(batch, 1)):
         rows = batch // _data_parts()
-    return _empty_cache(cfg, rows, max_seq, cfg.ssm.d_conv - 1 if cfg.ssm else 0,
-                        require_device(device), dtype)
+    conv = cfg.ssm.d_conv - 1 if cfg.ssm else 0
+    if not _sliced(cfg, batch, layout):
+        return _empty_cache(cfg, rows, max_seq, conv, require_device(device), dtype)
+    _, n, _ = kv_slice(cfg, batch, max_seq)
+    return _mark_kvseq(_empty_cache(cfg, rows, n, conv, require_device(device), dtype,
+                                    all_kv=True), max_seq)
+
+
+def kv_rows(cache: Cache) -> int:
+    """The whole K/V rows of a ``kvseq`` cache under a mesh, whose tensors
+    hold this rank's slice of them (a rank's tensors do not tell the whole
+    length), as its K tensor records them; 0 for the heads layout or a
+    cache without a mesh.  A new tensor (a copy, a move to another device)
+    does not carry the record: such a cache is placed anew with
+    ``shard_cache``."""
+    return getattr(cache.k, "kv_rows", 0) if cache.k is not None else 0
+
+
+def _mark_kvseq(cache: Cache, rows: int) -> Cache:
+    """``cache``, its K tensor recording ``rows`` whole rows (``kv_rows``)."""
+    cache.k.kv_rows = rows
+    return cache
+
+
+def kv_layout(cfg: ArchConfig, batch: int, mesh=None) -> str:
+    """The K/V cache's layout for a global batch of ``batch`` rows on
+    ``mesh`` (the bound one by default), by the reference's rule
+    (``launch/dryrun.py::build_cell``): ``"heads"`` (K/V sharded by KV heads
+    over the model axis) where ``REPRO_KV_HEAD_SHARD`` is ``"1"`` (its
+    default), the model has K/V, its KV heads divide the model axis and the
+    batch is above 1; otherwise ``"kvseq"``, ``cache_logical_axes``' layout.
+    A cell then means the same layout in both packages."""
+    mesh = mesh or current_mesh()
+    mdl = axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if (os.environ.get("REPRO_KV_HEAD_SHARD", "1") == "1"
+            and _n_attn_apps(cfg) and cfg.n_kv_heads % mdl == 0 and batch > 1):
+        return "heads"
+    return "kvseq"
+
+
+def _sliced(cfg: ArchConfig, batch: int, layout: Optional[str]) -> bool:
+    """Whether a cache of ``batch`` rows takes the ``kvseq`` layout under the
+    bound mesh (``layout``, or ``kv_layout``'s choice)."""
+    if layout not in (None, "heads", "kvseq"):
+        raise ValueError(f"layout must be 'heads' or 'kvseq', got {layout!r}")
+    if current_mesh() is None or not _n_attn_apps(cfg):
+        return False
+    return (layout or kv_layout(cfg, batch)) == "kvseq"
+
+
+def kv_slice(cfg: ArchConfig, batch: int, rows: int) -> Tuple[int, int, Tuple[str, ...]]:
+    """(first whole row, rows, mesh axes) of this rank's slice of a
+    ``kvseq`` cache of ``rows`` rows and a global batch of ``batch``: the
+    K/V spec ``cache_logical_axes`` gives under the bound mesh (the
+    sequence split over whatever of (data, model) the batch leaves unused,
+    the largest prefix of them that divides ``rows``)."""
+    shape = (_n_attn_apps(cfg), batch, rows, cfg.n_kv_heads, cfg.head_dim)
+    axes = spec_axes(logical_spec(cache_logical_axes(cfg).k, shape=shape)[2])
+    i, n = rank_part(axes)
+    return i * (rows // n), rows // n, axes
 
 
 def cache_logical_axes(cfg: ArchConfig) -> Cache:
@@ -557,13 +630,14 @@ def cache_logical_axes(cfg: ArchConfig) -> Cache:
     dry-run): K/V on the batch and the ``kvseq`` sequence axis, the SSM's
     conv history and state on the batch and ``d_inner`` / heads.
 
-    The port executes another K/V layout (``init_cache``): K/V by KV heads
-    over the model axis, as the reference's ``build_cell`` places it
-    wherever the KV heads divide the model axis (``REPRO_KV_HEAD_SHARD``),
-    so that each rank's attention reads its own heads and the decode kernel
-    needs no cross-rank merge.  The logits do not depend on the layout; the
-    sequence-sharded layout waits for a decode kernel that writes each row's
-    log-sum-exp."""
+    The port executes both of the reference's K/V layouts, chosen by
+    ``kv_layout``: this one (``kvseq``), where each rank holds every KV head
+    over its slice of the rows, its attention reads the slice with
+    ``decode_attention_lse`` and ``comm.merge_attention`` sums the slices'
+    outputs by their log-sum-exp; and K/V by KV heads over the model axis,
+    as ``build_cell`` places them where the KV heads divide the model axis
+    and the batch is above 1, where each rank's attention reads its own
+    heads and needs no merge.  The logits do not depend on the layout."""
     has_ssm = cfg.family in (SSM, HYBRID)
     has_attn = bool(_n_attn_apps(cfg))
     return Cache(
@@ -591,19 +665,11 @@ def _first_row() -> int:
     return part * (current_stream().batch // _data_parts())
 
 
-def _kv_holders(cfg: ArchConfig):
-    """The first model rank that holds each KV head, for a model axis that
-    does not divide the KV heads (each rank holds one, ``tp_heads``)."""
-    m, h, g = model_size(), cfg.n_heads, cfg.n_kv_heads
-    held = [r * (h // m) // (h // g) for r in range(m)]
-    return [held.index(j) for j in range(g)]
-
-
 def gather_cache(cache: Cache, cfg: ArchConfig, batch: int) -> Cache:
     """The whole cache of a global batch of ``batch`` rows on every rank,
-    from each rank's shard (``init_cache``'s layout under the bound mesh);
-    the cache itself without a mesh.  For tests and checks: it moves every
-    tensor through the collectives."""
+    from each rank's shard (``init_cache``'s layouts under the bound mesh,
+    the K/V one the cache records); the cache itself without a mesh.  For
+    tests and checks: it moves every tensor through the collectives."""
     if current_mesh() is None:
         return cache
     g, d_inner, h = _local_widths(cfg)
@@ -619,13 +685,16 @@ def gather_cache(cache: Cache, cfg: ArchConfig, batch: int) -> Cache:
         return t if local == whole else comm.all_gather_dim(t, dim, "model")
 
     out = {}
-    if cache.k is not None:
+    if cache.k is not None and kv_rows(cache):
+        seq = kv_slice(cfg, batch, kv_rows(cache))[2]
         for f in ("k", "v"):
-            t = heads(rows(getattr(cache, f)), 3, g, cfg.n_kv_heads)
-            if t.shape[3] != cfg.n_kv_heads:
-                # every rank's one KV head: keep the first copy of each
-                t = t[:, :, :, _kv_holders(cfg)]
+            t = rows(getattr(cache, f))
+            for a in reversed(seq):
+                t = comm.all_gather_dim(t, 2, a)
             out[f] = t
+    elif cache.k is not None:
+        for f in ("k", "v"):
+            out[f] = all_kv_heads(rows(getattr(cache, f)), cfg, 3)
     if cache.ssm is not None:
         whole = cfg.ssm.expand * cfg.d_model
         out.update(conv_x=heads(rows(cache.conv_x), 3, d_inner, whole),
@@ -634,23 +703,29 @@ def gather_cache(cache: Cache, cfg: ArchConfig, batch: int) -> Cache:
     return cache._replace(**out)
 
 
-def shard_cache(cache: Cache, cfg: ArchConfig) -> Cache:
-    """This rank's shard (``init_cache``'s layout under the bound mesh) of a
-    whole cache, the same on every rank: new tensors.  The inverse of
-    ``gather_cache``."""
+def shard_cache(cache: Cache, cfg: ArchConfig, layout: Optional[str] = None) -> Cache:
+    """This rank's shard (``init_cache``'s layouts under the bound mesh, K/V
+    in ``layout``, ``kv_layout``'s choice by default) of a whole cache, the
+    same on every rank: new tensors.  The inverse of ``gather_cache``."""
     if current_mesh() is None:
         return cache
     g, d_inner, h = _local_widths(cfg)
     r = comm.axis_group("model")[2]
     out = {}
-    with use_stream(Stream((cache.k if cache.k is not None else cache.ssm).shape[1], 1)):
+    batch = (cache.k if cache.k is not None else cache.ssm).shape[1]
+    with use_stream(Stream(batch, 1)):
         n, first = _data_parts(), _first_row()
 
     def part(t, dim, k):
         t = t.narrow(1, first, t.shape[1] // n)
         return t.narrow(dim, r * k, k) if k != t.shape[dim] else t
 
-    if cache.k is not None:
+    sliced = cache.k is not None and _sliced(cfg, batch, layout)
+    if sliced:
+        s0, rows, _ = kv_slice(cfg, batch, cache.k.shape[2])
+        out.update({f: getattr(cache, f).narrow(1, first, batch // n).narrow(2, s0, rows)
+                    .clone() for f in ("k", "v")})
+    elif cache.k is not None:
         g0 = tp_heads(cfg)[2]
         out.update({f: getattr(cache, f).narrow(1, first, cache.k.shape[1] // n)
                     .narrow(3, g0, g).clone() for f in ("k", "v")})
@@ -658,7 +733,8 @@ def shard_cache(cache: Cache, cfg: ArchConfig) -> Cache:
         out.update(conv_x=part(cache.conv_x, 3, d_inner).clone(),
                    conv_bc=part(cache.conv_bc, 3, cache.conv_bc.shape[3]).clone(),
                    ssm=part(cache.ssm, 2, h).clone())
-    return cache._replace(**out)
+    shard = cache._replace(**out)
+    return _mark_kvseq(shard, cache.k.shape[2]) if sliced else shard
 
 
 def _data_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -701,20 +777,31 @@ def decode_step(params, tokens, cache: Cache, cfg: ArchConfig, *,
 
     Under a bound mesh ``tokens`` and ``rows`` are the global batch's,
     ``cache`` is this rank's shard (``init_cache``) and the logits are whole
-    on every rank (see the module docstring)."""
+    on every rank (see the module docstring).  A cache in the ``kvseq``
+    layout (``kv_rows``) is read as ``attention_block`` reads a
+    ``kv_slice``: the new row written on the rank whose slice holds
+    ``cache.pos``, each slice attended, the slices merged; a MoE step's
+    put-back of the other rows' K/V at ``cache.pos`` is that rank's too."""
     _require_ported(cfg)
-    with use_stream(Stream(tokens.shape[0], 1)):
+    batch = tokens.shape[0]
+    with use_stream(Stream(batch, 1)):
         tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)
         if rows is not None and current_mesh() is not None:
             first = _first_row()
             rows = [i - first for i in rows if first <= i < first + tokens.shape[0]]
-        logits = _decode(params, tokens, cache, cfg, input_embeds, rows)
+        sliced = None
+        if kv_rows(cache) and current_mesh() is not None:
+            first_row, _, axes = kv_slice(cfg, batch, kv_rows(cache))
+            sliced = (first_row, axes)
+        logits = _decode(params, tokens, cache, cfg, input_embeds, rows, sliced)
         return _whole_logits(logits), cache._replace(pos=int(cache.pos) + 1)
 
 
-def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
+def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows, sliced
             ) -> torch.Tensor:
-    """``decode_step`` on this rank's rows (``rows`` among them): its logits."""
+    """``decode_step`` on this rank's rows (``rows`` among them), its cache's
+    K/V a ``kvseq`` slice where ``sliced`` (``attention_block``'s
+    ``kv_slice``): its logits."""
     b = tokens.shape[0]
     pos = int(cache.pos)
     x = embed_tokens(params, tokens, cfg, input_embeds)
@@ -725,11 +812,15 @@ def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
         for i in range(cfg.n_layers):
             x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i, cache_rows)
         return lm_logits(params, x, cfg)
+    # the cache row of position pos on this rank (None: another rank's)
+    at = pos if sliced is None else pos - sliced[0]
+    at = at if 0 <= at < (cache.k.shape[2] if cache.k is not None else 0) else None
     if cfg.family == MOE and rows is not None:
         group = set(rows)
         others = torch.as_tensor([i for i in range(b) if i not in group],
                                  dtype=torch.long, device=x.device)
-        saved = others, cache.k[:, others, pos], cache.v[:, others, pos]
+        if at is not None:
+            saved = others, cache.k[:, others, at], cache.v[:, others, at]
         cache_rows = None
     if cache_rows is not None:
         cache_len = torch.zeros((b,), dtype=torch.int32, device=x.device)
@@ -738,6 +829,8 @@ def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
         cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     attn = dict(cache_pos=pos, cache_rows=cache_rows, cache_len=cache_len,
                 rope=block_rope_tables(cfg, b, 1, pos, x.device))
+    if sliced is not None:
+        attn["kv_slice"] = sliced
     if cfg.family == HYBRID:
         x = _hybrid_stack(params, x, cfg, cache, cache_rows, **attn)
         return lm_logits(params, x, cfg)
@@ -746,8 +839,8 @@ def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
                       kv_cache=(cache.k[i], cache.v[i]), **attn)
     if saved is not None:
         others, k, v = saved
-        cache.k[:, others, pos] = k
-        cache.v[:, others, pos] = v
+        cache.k[:, others, at] = k
+        cache.v[:, others, at] = v
     return lm_logits(params, x, cfg)
 
 
@@ -757,7 +850,7 @@ def _decode(params, tokens, cache: Cache, cfg: ArchConfig, input_embeds, rows
 def prefill(params, tokens, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             input_embeds: Optional[torch.Tensor] = None,
-            pinned_rows: int = 0) -> Tuple[torch.Tensor, Cache]:
+            pinned_rows: int = 0, layout: Optional[str] = None) -> Tuple[torch.Tensor, Cache]:
     """Returns (last-token logits (B, V), a new cache sized and filled to S).
     ``pinned_rows`` is handed to the flash kernel of every attention call
     (dense and MoE layers, and each application of a hybrid's shared
@@ -770,7 +863,11 @@ def prefill(params, tokens, cfg: ArchConfig, *,
 
     Under a bound mesh ``tokens`` are the global batch, the logits are
     whole on every rank and the cache is this rank's shard (``init_cache``'s
-    layout)."""
+    layouts, K/V in ``layout``, ``kv_layout``'s choice for the batch by
+    default).  In the ``kvseq`` layout the layers write K/V by heads, as in
+    the other, and the prefill then gathers them over the model axis and
+    keeps this rank's slice of the rows: for that moment a rank holds every
+    KV head of every prompt row, the model axis' times its heads' share."""
     _require_ported(cfg)
     if positions is not None:
         raise NotImplementedError(POSITIONS_REFUSED)
@@ -778,6 +875,11 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     with use_stream(Stream(b, s)):
         tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)
         x, cache = _prefill(params, tokens, cfg, input_embeds, pinned_rows)
+        if cache.k is not None and _sliced(cfg, b, layout):
+            s0, rows, _ = kv_slice(cfg, b, s)
+            cache = _mark_kvseq(cache._replace(**{
+                f: all_kv_heads(getattr(cache, f), cfg, 3).narrow(2, s0, rows).clone()
+                for f in ("k", "v")}), s)
         last = x[:, -1:]
         if seq_sharded():
             # the last model rank holds the sequence's last row

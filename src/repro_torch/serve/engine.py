@@ -28,7 +28,12 @@ its shard of the pooled cache (``init_cache``), gets the same requests and
 runs the same scheduler.  ``prefill`` and ``decode_step`` give every rank the
 same whole logits, so every rank picks the same tokens and makes the same
 calls.  Data-parallel serving is a set of replicas behind a router, which
-the reference does not have: a data axis of more than one rank raises.
+the reference does not have: a data axis of more than one rank raises.  The
+pool's K/V take ``models.model.kv_layout``'s layout for its ``max_batch``
+rows: by KV heads over the model axis where the KV heads divide it (the
+engine's batch is above 1), else ``kvseq``, every KV head over a slice of
+each slot's rows; each prefill returns its K/V in the pool's layout, and a
+``kvseq`` prefill is gathered whole before its rows are spliced in.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ from ..models import Cache
 from ..models import decode_step
 from ..models import init_cache
 from ..models import prefill
+from ..models.model import gather_cache
+from ..models.model import kv_rows
+from ..models.model import kv_slice
 from ..sharding.api import axis_sizes
 from ..sharding.api import current_mesh
 from ..sharding.api import dp_axes
@@ -145,8 +153,18 @@ class ServeEngine:
         if self._orch is not None:
             plan["pinned_rows"], _ = self._orch.plan_kv_split(
                 plen, FLASH_TILE_ROWS, self._kv_row_bytes)
+        sliced = bool(kv_rows(self.cache))
+        if self.mesh is not None and self.cache.k is not None:
+            # the pool's layout, not the one a batch of 1 would get
+            plan["layout"] = "kvseq" if sliced else "heads"
         with use_mesh(self.mesh):
             logits, pcache = prefill(self.params, prompt, self.cfg, **plan)
+            if sliced:
+                # every row of the prompt's K/V, then this rank's slice of them
+                kv = gather_cache(Cache(k=pcache.k, v=pcache.v), self.cfg, 1)
+                first, rows, _ = kv_slice(self.cfg, self.max_batch, self.max_seq)
+                pcache = pcache._replace(k=kv.k[:, :, first:first + rows],
+                                         v=kv.v[:, :, first:first + rows])
         self.prefill_calls += 1
         # splice this request's prefilled KV / state into the pooled cache
         _splice(self.cache, pcache, slot)

@@ -19,17 +19,46 @@ gradient) over one named axis of the bound ``DeviceMesh``:
 The process group of an axis is the mesh's own (``DeviceMesh.get_group``);
 an axis of one rank moves nothing.  Every rank must make the same moves in
 the same order, as every rank runs the same model code.
+
+``merge_attention`` sums the partial attention of each rank's slice of a
+sequence-sharded K/V cache (``kernels.decode_attention_lse``), the
+counterpart of what GSPMD inserts around the reference's ``gqa_attention``.
+
+Every collective this module issues adds the bytes of this rank's operand to
+``BYTES`` by kind (``collective_bytes()`` / ``reset_collective_bytes()``), as
+the kernel wrappers count their launches: the shard an all-gather sends, the
+whole tensor an all-reduce or a reduce-scatter takes.
 """
 
 from __future__ import annotations
 
+from typing import Dict
 from typing import List
+from typing import Optional
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
 from .api import axis_sizes
 from .api import current_mesh
+
+# operand bytes of this rank's collectives since the last reset, by kind
+BYTES: Dict[str, int] = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+
+
+def collective_bytes() -> Dict[str, int]:
+    """This rank's collectives' operand bytes by kind since the last reset."""
+    return dict(BYTES)
+
+
+def reset_collective_bytes() -> None:
+    for kind in BYTES:
+        BYTES[kind] = 0
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    BYTES[kind] += x.numel() * x.element_size()
 
 
 def axis_group(axis: str, mesh=None):
@@ -46,12 +75,14 @@ def axis_group(axis: str, mesh=None):
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.contiguous().clone()
+    _count("all-reduce", y)
     dist.all_reduce(y, op=op, group=group)
     return y
 
 
 def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     x = x.contiguous()
+    _count("all-gather", x)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
@@ -68,6 +99,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int, r: int) -> torch.T
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
     parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
+    _count("reduce-scatter", x)
     out = torch.empty_like(parts[r])
     dist.reduce_scatter(out, parts, group=group)
     return out
@@ -137,6 +169,7 @@ def all_reduce_(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM) -> torch.Tenso
     """All-reduce ``x`` in place over ``axis``; ``x`` unchanged on one rank."""
     group, n, _ = axis_group(axis)
     if n > 1:
+        _count("all-reduce", x)
         dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -154,3 +187,36 @@ def stack_over(x: torch.Tensor, axes: List[str]) -> torch.Tensor:
     for axis in reversed(axes):
         out = all_gather_dim(out[None], 0, axis).flatten(0, 1)
     return out
+
+
+def merge_attention(o: torch.Tensor, lse: torch.Tensor, axes: Sequence[str],
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The attention over a whole sequence from each rank's partial one over
+    its slice: ``o`` (B, H, D) fp32 and ``lse`` (B, H), the log-sum-exp of
+    the slice's scores (``-inf`` where the slice holds no live key), over
+    the mesh ``axes`` that split the sequence: every rank's pair gathered
+    (in the order of ``stack_over``) and summed by ``merge_parts``, so that
+    every rank gets the same bits; cast to ``dtype`` (``o``'s by default)."""
+    axes = [a for a in axes if axis_group(a)[1] > 1]
+    parts_o = stack_over(o.float(), axes) if axes else o.float()[None]
+    parts_l = stack_over(lse.float(), axes) if axes else lse.float()[None]
+    return merge_parts(parts_o, parts_l).to(dtype or o.dtype)
+
+
+def merge_parts(parts_o: torch.Tensor, parts_l: torch.Tensor) -> torch.Tensor:
+    """``sum_r exp(lse_r - m) o_r / sum_r exp(lse_r - m)`` with ``m = max_r
+    lse_r``, over the leading dim of ``parts_o`` (n, B, H, D) and
+    ``parts_l`` (n, B, H), in fp32, the parts summed one after another in
+    their order; zeros where every part's ``lse`` is ``-inf`` (no live key
+    anywhere), with no NaN from ``-inf - -inf``."""
+    parts_o, parts_l = parts_o.float(), parts_l.float()
+    m = parts_l.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = torch.zeros_like(parts_o[0])
+    den = torch.zeros_like(m)
+    for part_o, part_l in zip(parts_o, parts_l):
+        w = torch.exp(part_l - m)
+        num = num + w[..., None] * part_o
+        den = den + w
+    return torch.where(den[..., None] > 0, num / den.clamp_min(1e-30)[..., None],
+                       torch.zeros_like(num))

@@ -66,9 +66,10 @@ def shardings_for(axes_tree, struct_tree, mesh=None):
     return map_axes(one, axes_tree, struct_tree)
 
 
-def _index(axes, mesh):
-    """(this rank's part, number of parts) of a dim split over mesh ``axes``,
-    the first axis outermost."""
+def rank_part(axes, mesh=None):
+    """(this rank's part, number of parts) of a dim split over mesh ``axes``
+    (of the bound mesh by default), the first axis outermost."""
+    mesh = mesh or current_mesh()
     idx, n = 0, 1
     for a in axes:
         _, size, r = axis_group(a, mesh)
@@ -87,7 +88,7 @@ def shard_tree(tree, axes_tree, mesh=None):
             return None
         spec = () if axes is None else logical_spec(tuple(axes), mesh, tuple(t.shape))
         for d, entry in enumerate(spec):
-            i, n = _index(spec_axes(entry), mesh)
+            i, n = rank_part(spec_axes(entry), mesh)
             if n > 1:
                 k = t.shape[d] // n
                 t = t.narrow(d, i * k, k)

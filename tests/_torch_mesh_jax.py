@@ -16,10 +16,13 @@ function is jitted with ``in_shardings`` from the sharding rules, as
 ``OUT.pkl`` gets one dict of numpy results a case.
 
 A ``serve`` case (``run_serve``) prefills the first S tokens of its batch
-rows and takes STEPS decode steps from that cache, grown by STEPS rows (K/V
-in the weights' type), each jitted as ``build_cell`` compiles them: the cache placed by
-``cache_logical_axes``, K/V by heads where the KV heads divide the model axis
-and the batch is larger than 1.
+rows (``prompt`` of them where the case says) and takes STEPS decode steps
+from that cache, grown by STEPS rows (to ``cache_rows`` where the case says;
+K/V in the weights' type), each jitted as ``build_cell`` compiles them: the
+cache placed by ``cache_logical_axes``, K/V by heads where the KV heads
+divide the model axis, the batch is larger than 1 and the case leaves the
+head sharding on (``kv_head_shard``, ``REPRO_KV_HEAD_SHARD`` in
+``build_cell``), else by ``kvseq``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def config(arch, changes):
     moe = changes.get("capacity_factor")
     if moe is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=moe))
+    if "window" in changes:
+        cfg = replace(cfg, window=changes["window"])
     return cfg
 
 
@@ -174,7 +179,8 @@ def run_serve(case, arrays, tokens):
     cfg = config(case["arch"], case.get("changes", {}))
     params = params_in(arrays[case["arch"]], cfg, case["dtype"])
     steps = case["steps"]
-    tok = jnp.asarray(tokens[:case["batch"]])
+    width = case["prompt"] + steps if "prompt" in case else tokens.shape[1]
+    tok = jnp.asarray(tokens[:case["batch"], :width])
     s = tok.shape[1] - steps
     ACT_SEQ[0] = bool(case.get("act_seq"))
     shape = case["mesh"]
@@ -200,14 +206,16 @@ def run_serve(case, arrays, tokens):
                 # to fp32 (exactly): the steps then write fp32 rows, which a
                 # rounding of the two sides' fp32 values to bf16 would not
                 # leave within 1e-5 (see tests/test_torch_mesh_serve.py)
-                pad = [(0, 0), (0, 0), (0, steps), (0, 0), (0, 0)]
+                pad = [(0, 0), (0, 0), (0, case.get("cache_rows", s + steps) - s), (0, 0),
+                       (0, 0)]
                 kv = params["embed"].dtype
                 cache = cache._replace(k=jnp.pad(cache.k, pad).astype(kv),
                                        v=jnp.pad(cache.v, pad).astype(kv))
             out["decode_from"], out["decode_from_dtypes"] = cache_out(cache)
             out["decode_from_pos"] = int(cache.pos)
             axes = jm.cache_logical_axes(cfg)
-            if axes.k is not None and cfg.n_kv_heads % shape[1] == 0 and tok.shape[0] > 1:
+            if (case.get("kv_head_shard", True) and axes.k is not None
+                    and cfg.n_kv_heads % shape[1] == 0 and tok.shape[0] > 1):
                 axes = axes._replace(k=(None, "dp", None, "tp", None),
                                      v=(None, "dp", None, "tp", None))
             one = tok[:, s:s + 1]

@@ -39,6 +39,8 @@ def _config(arch, changes):
         cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
     if "vocab" in changes:
         cfg = replace(cfg, vocab=changes["vocab"])
+    if "window" in changes:
+        cfg = replace(cfg, window=changes["window"])
     return cfg
 
 
@@ -74,6 +76,9 @@ def run_case(case, job, mesh):
     shapes = tm.init_params(cfg, device="meta")
     out = {}
     ACT_SEQ[0] = bool(case.get("act_seq"))
+    head_shard = os.environ.get("REPRO_KV_HEAD_SHARD")
+    if not case.get("kv_head_shard", True):
+        os.environ["REPRO_KV_HEAD_SHARD"] = "0"
     try:
         with use_mesh(mesh):
             params = shard_tree(whole, axes)
@@ -117,6 +122,10 @@ def run_case(case, job, mesh):
                 out["runs"] = _entry_points(cfg, params, tokens)
     finally:
         ACT_SEQ[0] = False
+        if head_shard is None:
+            os.environ.pop("REPRO_KV_HEAD_SHARD", None)
+        else:
+            os.environ["REPRO_KV_HEAD_SHARD"] = head_shard
     return out
 
 
@@ -201,14 +210,20 @@ def _serve(case, job, cfg, params, whole):
     the prefill's logits and its cache gathered whole; the decode steps from
     the JAX package's grown cache (``case["decode_from"]``, in its own
     types) sharded onto the ranks, each step's logits and the last cache
-    gathered whole; whether every rank got the same logits; and, on rank 0
-    without the mesh, the same prefill in one process."""
+    gathered whole; the K/V layout ``kv_layout`` chose; whether every rank
+    got the same logits; and, on rank 0 without the mesh, the same prefill
+    in one process.  A ``kvseq`` case (``layouts``) also takes the decode
+    steps from the same cache in the heads layout under the mesh and, on
+    rank 0, in one process."""
     from repro_torch import models as tm
     from repro_torch.models.model import gather_cache
+    from repro_torch.models.model import kv_rows
     from repro_torch.models.model import shard_cache
     from repro_torch.sharding import use_mesh
-    tok = torch.from_numpy(np.asarray(job["serve_tokens"])[:case["batch"]]).long()
-    b, s = tok.shape[0], tok.shape[1] - case["steps"]
+    steps = case["steps"]
+    tok = np.asarray(job["serve_tokens"])[:case["batch"], :case.get("prompt", S) + steps]
+    tok = torch.from_numpy(tok).long()
+    b, s = tok.shape[0], tok.shape[1] - steps
     out = {}
     same = []
     with torch.no_grad():
@@ -220,17 +235,32 @@ def _serve(case, job, cfg, params, whole):
         whole_cache = tm.Cache(pos=case["decode_from_pos"], **{
             f: torch.from_numpy(a).to(getattr(torch, dtypes[f])) for f, a in arrays.items()})
         cache = shard_cache(whole_cache, cfg)
+        out["layout"] = "kvseq" if kv_rows(cache) else "heads"
         out["decode_logits"] = []
-        for t in range(s, s + case["steps"]):
+        for t in range(s, s + steps):
             logits, cache = tm.decode_step(params, tok[:, t:t + 1], cache, cfg)
             same.append(_same_on_every_rank(logits))
             out["decode_logits"].append(logits.float().numpy())
         out["decode_cache"] = _cache_np(gather_cache(cache, cfg, b))
         out["same_on_every_rank"] = same
+
+        def steps_from(p, c):
+            got = []
+            for t in range(s, s + steps):
+                logits, c = tm.decode_step(p, tok[:, t:t + 1], c, cfg)
+                got.append(logits.float().numpy())
+            return got
+
+        if case.get("layouts"):
+            out["heads_decode_logits"] = steps_from(
+                params, shard_cache(whole_cache, cfg, layout="heads"))
         if dist.get_rank() == 0:
             with use_mesh(None):
                 logits, cache = tm.prefill(whole, tok[:, :s], cfg)
-            out["one_logits"], out["one_cache"] = logits.float().numpy(), _cache_np(cache)
+                out["one_logits"], out["one_cache"] = logits.float().numpy(), _cache_np(cache)
+                if case.get("layouts"):
+                    out["one_decode_logits"] = steps_from(whole, whole_cache._replace(**{
+                        f: getattr(whole_cache, f).clone() for f in arrays}))
     return out
 
 
@@ -273,14 +303,18 @@ def _engine(case, cfg, params, whole):
     """Every request's tokens from a ``ServeEngine`` made under the bound
     mesh, every rank's, and (rank 0) the one-process engine's on the whole
     weights."""
+    from repro_torch.models.model import kv_rows
     from repro_torch.serve.engine import Request
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding import use_mesh
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, n) for n in ENGINE_PROMPTS]
 
+    layouts = []
+
     def serve(p):
         eng = ServeEngine(cfg, p, max_batch=ENGINE_SLOTS, max_seq=64, device="cpu")
+        layouts.append("kvseq" if kv_rows(eng.cache) else "heads")
         reqs = [Request(uid=i, prompt=q, max_new_tokens=n)
                 for i, (q, n) in enumerate(zip(prompts, ENGINE_NEW))]
         for r in reqs:
@@ -292,7 +326,7 @@ def _engine(case, cfg, params, whole):
     mine = serve(params)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
-    out = dict(ranks=every)
+    out = dict(ranks=every, layout=layouts[0])
     if dist.get_rank() == 0:
         with use_mesh(None):
             out["one"] = serve(whole)
@@ -376,6 +410,26 @@ def serve_case(arch, mesh, act_seq=False, dtype="fp32", batch=B, **extra):
                 batch=batch, steps=SERVE_STEPS, **extra)
 
 
+# kvseq cases: a prompt of KV_PROMPT tokens (within the reduced SSM chunk)
+# into a cache of KV_ROWS rows, so that on 2 or 4 ranks the decode steps
+# write rows 30, 31 and 32: the last row of one slice, then the first of the
+# next; gemma2's window cut to KV_WINDOW rows, so that it binds and a slice
+# boundary falls inside it
+KV_PROMPT, KV_ROWS, KV_WINDOW = 30, 64, 8
+KV_MESHES = ((1, 2), (2, 1), (2, 2), (1, 4))
+
+
+def kvseq_case(arch, mesh, batch=1, **extra):
+    """A serve case whose cache ``kv_layout`` puts in the ``kvseq`` layout
+    (a batch of 1, or KV heads the model axis does not divide, or the head
+    sharding switched off), with the other layout's and one process's decode
+    steps beside it (``layouts``)."""
+    if arch == "gemma2-27b":
+        extra["changes"] = dict(extra.get("changes", {}), window=KV_WINDOW)
+    return serve_case(arch, mesh, batch=batch, prompt=KV_PROMPT, cache_rows=KV_ROWS,
+                      layouts=True, **extra)
+
+
 def case_id(c) -> str:
     parts = [c["arch"].split("-")[0].split(".")[0], "x".join(map(str, c["mesh"]))]
     if c.get("batch", B) != B:
@@ -386,6 +440,10 @@ def case_id(c) -> str:
         parts.append(f"cf{c['changes']['capacity_factor']}")
     if c.get("microbatches", 1) > 1:
         parts.append(f"mb{c['microbatches']}")
+    if c.get("layouts"):
+        parts.append("kvseq")
+    if not c.get("kv_head_shard", True):
+        parts.append("noheadshard")
     parts.append(c["dtype"])
     return "-".join(parts)
 
@@ -565,6 +623,17 @@ def check_prefill_logits(port, ref):
     """The fp32 prefill's logits against the JAX package's forward at the
     prompt's last position under the same mesh, within TOL of their scale."""
     held(port["prefill_logits"], ref["forward_last"], "prefill logits")
+
+
+def check_kvseq_layouts(port):
+    """A kvseq case: the cache took the kvseq layout, and its decode steps'
+    logits equal, within TOL of their scale, those of the same steps from
+    the same cache in the heads layout under the mesh and in one process."""
+    assert port["layout"] == "kvseq"
+    for what in ("heads", "one"):
+        for i, (got, want) in enumerate(zip(port["decode_logits"],
+                                            port[f"{what}_decode_logits"])):
+            held(got, want, f"decode step {i} logits, kvseq vs {what}")
 
 
 def check_prefill_one_process(port):

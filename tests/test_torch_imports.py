@@ -27,7 +27,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
     "repro_torch.launch.train", "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
     "repro_torch.core.simulator", "repro_torch.dataflows", "repro_torch.conformance",
     "repro_torch.serve.replay", "repro_torch.sharding", "repro_torch.launch.mesh",
-    "repro_torch.train.compression"])
+    "repro_torch.train.compression", "repro_torch.launch.dryrun",
+    "repro_torch.launch.roofline"])
 def test_import_leaves_jax_and_repro_out(module):
     code = (
         "import sys, importlib\n"
@@ -114,6 +115,6 @@ def test_chip_smoke_fails_without_a_card():
 def test_cuda_sources_are_in_the_tree():
     from repro_torch.kernels import build
     names = [p.name for p in build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "ssd_scan.cu", "ssd_scan_bwd.cu"]
+    assert names == ["decode_attention.cu", "decode_attention_lse.cu", "flash_attention.cu",
+                     "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu"]
     assert not build.kernels_built()          # nothing is built at import time

@@ -6,7 +6,10 @@ llama3.2-3b (also with ``ACT_SEQ``: prompts the model axis divides run
 sequence-sharded, the others and every decode step keep the stream whole),
 zamba2-7b and deepseek-moe-16b in fp32, greedy.  Every request's tokens
 equal the one-process engine's on the whole weights, and both ranks' tokens
-and decode calls equal each other.  The engine's refusal of a data axis is
+and decode calls equal each other.  On (1, 4) the model axis does not divide
+the reduced llama's KV heads (zamba2, deepseek: the head sharding switched
+off) and the pool takes the ``kvseq`` layout: every rank's tokens
+equal the one-process engine's there too.  The engine's refusal of a data axis is
 in tests/test_torch_mesh_train_ssm.py.
 
 A model axis of 3 ranks divides neither the reduced mamba2-2.7b's d_model
@@ -27,13 +30,21 @@ CASES = [dict(arch=a, mesh=(1, 2), act_seq=q, dtype="fp32", what=("engine",))
          for a, q in (("llama3.2-3b", False), ("llama3.2-3b", True), ("zamba2-7b", False),
                       ("deepseek-moe-16b", False))]
 IDS = [case_id(c) for c in CASES]
+# a model axis of 4 ranks does not divide the reduced llama's 2 KV heads
+# (zamba2's and deepseek's 4 it does: there the head sharding is switched
+# off): the pool's K/V take the kvseq layout, each slot's 64 rows split 16 a
+# rank
+KVSEQ = [dict(arch=a, mesh=(1, 4), act_seq=False, dtype="fp32", what=("engine",), **kw)
+         for a, kw in (("llama3.2-3b", {}), ("zamba2-7b", {"kv_head_shard": False}),
+                       ("deepseek-moe-16b", {"kv_head_shard": False}))]
+KVSEQ_IDS = [case_id(c) for c in KVSEQ]
 WHOLE = dict(arch="mamba2-2.7b", mesh=(1, 3), act_seq=False, dtype="fp32", what=("own",),
              changes={"vocab": 513})
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    return [port for port, _ in run_both(CASES + [WHOLE],
+    return [port for port, _ in run_both(CASES + KVSEQ + [WHOLE],
                                          str(tmp_path_factory.mktemp("mesh")))]
 
 
@@ -56,3 +67,15 @@ def test_blocks_the_model_axis_does_not_split_run_whole_on_each_rank(results, ca
     (got, got_cache), (want, want_cache) = results[-1]["mesh"][call], results[-1]["one"][call]
     held(got, want, "logits")
     check_cache(got_cache, want_cache, "cache")
+
+
+@pytest.mark.parametrize("i", range(len(KVSEQ)), ids=KVSEQ_IDS)
+def test_the_kvseq_pool_serves_the_one_process_tokens(results, i):
+    """Prefills spliced into the pool's slices, decode steps by position
+    group, the MoE step's put-back at the position on the rank that holds
+    it: every rank's tokens and calls equal the one-process engine's."""
+    got = results[len(CASES) + i]
+    assert got["layout"] == "kvseq"
+    want, want_calls = got["one"]
+    assert all(r == (want, want_calls) for r in got["ranks"])
+    assert [len(t) for t in want] == list(ENGINE_NEW)

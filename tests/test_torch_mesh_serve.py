@@ -30,24 +30,43 @@ model cannot equal the reference's elementwise.  It is held four ways:
 * bf16 prefill and decode (K/V in bf16 buffers) against JAX by the port's
   share rules.
 
-Every rank must get the same logits, bit for bit."""
+Every rank must get the same logits, bit for bit.
 
+The ``kvseq`` cases (``_torch_mesh_world.kvseq_case``) take the
+sequence-sharded K/V layout that ``models.model.kv_layout`` picks, as the
+reference's ``build_cell`` does: a batch of 1 on (1, 2), (2, 1), (2, 2) and
+(1, 4), a batch of 4 on (1, 4) (the model axis does not divide the 2 KV
+heads) and a batch of 2 on (2, 2) with ``REPRO_KV_HEAD_SHARD=0`` (the batch
+over data, the rows over model).  A prompt of 30 tokens into a cache of 64
+rows: the 3 decode steps write rows 30, 31 and 32, the last row of a slice
+and the first of the next.  Held as the fp32 cases above against the JAX
+package's ``decode_step`` under the same placement, and against the port's
+heads layout and one process."""
+
+from _torch_mesh_world import KV_MESHES
 from _torch_mesh_world import case_id
 from _torch_mesh_world import check_cache
 from _torch_mesh_world import check_decode
+from _torch_mesh_world import check_kvseq_layouts
 from _torch_mesh_world import check_prefill_logits
 from _torch_mesh_world import check_prefill_one_process
 from _torch_mesh_world import held_by_share
+from _torch_mesh_world import kvseq_case
 from _torch_mesh_world import run_both
 from _torch_mesh_world import serve_case
 import pytest
 
 ARCH = "llama3.2-3b"
+# kvseq also where the model axis does not divide the KV heads at a batch of
+# 4, and with the head sharding switched off at a batch the data axis splits
+KVSEQ = [kvseq_case(ARCH, m) for m in KV_MESHES] + [
+    kvseq_case(ARCH, (1, 4), batch=4), kvseq_case(ARCH, (2, 2), batch=2, kv_head_shard=False)]
 FP32 = [serve_case(ARCH, m, a, batch=b) for m, a, b in [
     ((1, 2), False, 4), ((1, 2), True, 4), ((2, 2), False, 4), ((1, 4), False, 4),
-    ((2, 2), False, 2), ((2, 1), False, 1)]]
+    ((2, 2), False, 2), ((2, 1), False, 1)]] + KVSEQ
 BF16 = [serve_case(ARCH, m, a, dtype="bf16") for m, a in [((1, 2), False), ((1, 2), True)]]
 CASES = FP32 + BF16
+KVSEQ_AT = [i for i, c in enumerate(CASES) if c.get("layouts")]
 
 
 @pytest.fixture(scope="module")
@@ -81,3 +100,8 @@ def test_bf16_prefill_and_decode_match_jax_by_share(results, i):
 @pytest.mark.parametrize("i", range(len(CASES)), ids=[case_id(c) for c in CASES])
 def test_every_rank_gets_the_same_logits(results, i):
     assert all(results[i][0]["same_on_every_rank"])
+
+
+@pytest.mark.parametrize("i", KVSEQ_AT, ids=[case_id(CASES[i]) for i in KVSEQ_AT])
+def test_kvseq_decode_matches_the_heads_layout_and_one_process(results, i):
+    check_kvseq_layouts(results[i][0])

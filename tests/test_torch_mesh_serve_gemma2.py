@@ -1,24 +1,33 @@
 """Serving under a mesh, as tests/test_torch_mesh_serve.py holds it, for the
 reduced gemma2-27b (2 layers: one local, window 64, and one global; 4 query
 and 2 KV heads of 64, attention softcap 50, final softcap 30 on the
-vocab-parallel logits, Gemma's (1 + w) norms and embedding scale)."""
+vocab-parallel logits, Gemma's (1 + w) norms and embedding scale).
 
+The ``kvseq`` cases run with the window cut to 8 rows (``KV_WINDOW``), so
+that it binds, a slice boundary falls inside it and a slice lies wholly
+below it (see tests/test_torch_mesh_serve.py)."""
+
+from _torch_mesh_world import KV_MESHES
 from _torch_mesh_world import case_id
 from _torch_mesh_world import check_cache
 from _torch_mesh_world import check_decode
+from _torch_mesh_world import check_kvseq_layouts
 from _torch_mesh_world import check_prefill_logits
 from _torch_mesh_world import check_prefill_one_process
 from _torch_mesh_world import held_by_share
+from _torch_mesh_world import kvseq_case
 from _torch_mesh_world import run_both
 from _torch_mesh_world import serve_case
 import pytest
 
 ARCH = "gemma2-27b"
+KVSEQ = [kvseq_case(ARCH, m) for m in KV_MESHES]
 FP32 = [serve_case(ARCH, m, a, batch=b) for m, a, b in [
     ((1, 2), False, 4), ((1, 2), True, 4), ((2, 2), False, 4), ((1, 4), False, 4),
-    ((2, 2), False, 2), ((2, 1), False, 1)]]
+    ((2, 2), False, 2), ((2, 1), False, 1)]] + KVSEQ
 BF16 = [serve_case(ARCH, m, a, dtype="bf16") for m, a in [((1, 2), False), ((1, 2), True)]]
 CASES = FP32 + BF16
+KVSEQ_AT = [i for i, c in enumerate(CASES) if c.get("layouts")]
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
@@ -51,3 +60,8 @@ def test_bf16_prefill_and_decode_match_jax_by_share(results, i):
 @pytest.mark.parametrize("i", range(len(CASES)), ids=[case_id(c) for c in CASES])
 def test_every_rank_gets_the_same_logits(results, i):
     assert all(results[i][0]["same_on_every_rank"])
+
+
+@pytest.mark.parametrize("i", KVSEQ_AT, ids=[case_id(CASES[i]) for i in KVSEQ_AT])
+def test_kvseq_decode_matches_the_heads_layout_and_one_process(results, i):
+    check_kvseq_layouts(results[i][0])
