@@ -103,9 +103,9 @@ run with a non-zero exit code:
             plain rotary ones; vocab 152064; bf16, seeded random weights)
             behind ``ServeEngine(max_batch=8, max_seq=2048)``: 8 requests
             drawn as in 4, 32 new tokens each; counts as in 4.
-17. parity_qwen2vl  its 2-layer cut as in 5; before any launch, explicit
-            positions, 3-plane (3, B, S) and (B, S), refused by ``prefill``
-            and ``forward``.
+17. parity_qwen2vl  its 2-layer cut as in 5; before any launch, 3-plane
+            (3, B, S) positions refused with ValueError by ``prefill`` and
+            ``forward``, as the JAX package refuses them.
 18. serve_mistral   mistral-nemo-12b at full width and depth (40 layers,
             d_model 5120, 32 query and 8 KV heads of 128, vocab 131072; bf16,
             24.5 GB) as in 16.
@@ -238,7 +238,40 @@ run with a non-zero exit code:
             ``lru`` and ``all`` with its SLO metrics; and the analytical model
             fitted to the suite's 70 simulated points and asked to predict
             them (R^2 and Kendall's tau at least the reference test's 0.80
-            and 0.65).
+            and 0.65).  It needs no card, so it runs in a process of its
+            own from the end of the build, beside the card's phases; its
+            lines are printed here, and the timing line's entry is the wait
+            for it.
+44. kernels_positions   the flash kernel's position variant
+            (``csrc/flash_attention_pos.cu``) against its plain version
+            over head sizes 64, 112, 128 and 256, both types, a window and a
+            softcap, and three tables: shifted rows and packed non-monotone
+            positions for queries and keys (``forward``'s mode), negative
+            positions and positions past S for queries against keys at their
+            row index (``keys_at_rows``, ``prefill``'s mode: rows that see no
+            key get the mean of every value row); bf16 bit-identical across
+            ``pinned_rows`` and ``tiles_per_chunk``; a table off by one row
+            must fail.  The backward with a table (its ``_ext_`` kernels)
+            against ``attention_bwd_ref`` by ``grad_err``, a table off by one
+            row failing.  The serving flash kernels' registers and spills
+            against SERVING_FLASH_PTXAS (a build without a ptxas report
+            fails).  Timed, each beside its plain version and the library
+            with the table's mask: the variant at qwen2-vl-7b's 1024 tokens
+            with shifted positions in both modes, the backward at
+            llama3.2-3b's training shape with a table.
+45. serve_positions   qwen2-vl-7b at published size (after
+            serve_qwen2vl, its weights): a 1024-token ``prefill`` and
+            ``forward`` with shifted positions, 28 position-variant launches
+            each and nothing else, and the training loss of that ``forward``
+            under autograd (56 forward and 84 backward launches); logits
+            finite.
+46. parity_positions   2-layer cuts at full width of llama3.2-3b,
+            qwen2-vl-7b, gemma2-27b (window 64, which binds), deepseek-moe-16b
+            and zamba2-7b: ``prefill`` and ``forward`` with position tables,
+            the card's kernels against the card's plain versions (fp32
+            elementwise, bf16 by share).
+47. examples   ``examples/quickstart_torch.py`` on the card, in a child
+            process, to its ``done.``.
 
 The kernels phase holds the attention kernels at head_dim 64, 112, 128 and
 256, with and without a sliding window (both) and a softcap (decode too), and
@@ -262,6 +295,7 @@ matmuls and cuDNN.  The last lines are the ``timing`` line, the
 from __future__ import annotations
 
 import argparse
+import atexit
 from contextlib import ExitStack
 from contextlib import contextmanager
 from contextlib import nullcontext
@@ -336,15 +370,17 @@ ROUTER_MAX_FLIPS = 0.1
 # the card's router logits against the CPU's fp32 product on the same tokens
 # and weights: times their largest magnitude (router_log)
 ROUTER_LOGIT_TOL = 1e-4
-PHASES = ("device", "build", "kernels", "serve", "parity", "serve_ssm", "parity_ssm",
-          "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe", "serve_gemma2",
-          "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "serve_qwen2vl",
-          "parity_qwen2vl", "serve_mistral", "parity_mistral", "serve_musicgen",
-          "parity_musicgen", "serve_moonshot", "parity_moonshot", "train", "parity_train",
+PHASES = ("device", "build", "kernels", "kernels_positions", "serve", "parity", "serve_ssm",
+          "parity_ssm", "serve_hybrid", "parity_hybrid", "serve_moe", "parity_moe",
+          "serve_gemma2", "parity_gemma2", "serve_gemma7b", "parity_gemma7b", "serve_qwen2vl",
+          "parity_qwen2vl", "serve_positions", "serve_mistral", "parity_mistral",
+          "serve_musicgen", "parity_musicgen", "serve_moonshot", "parity_moonshot",
+          "parity_positions", "train", "parity_train",
           "train_ssm", "parity_train_ssm", "train_hybrid", "parity_train_hybrid", "train_moe",
           "parity_train_moe", "train_gemma2", "parity_train_gemma2", "train_gemma7b",
           "parity_train_gemma7b", "train_mesh", "parity_train_mesh", "serve_mesh",
-          "parity_serve_mesh", "serve_kvseq", "parity_serve_kvseq", "dryrun", "simulator")
+          "parity_serve_mesh", "serve_kvseq", "parity_serve_kvseq", "dryrun", "simulator",
+          "examples")
 PATH_REQUESTS = 8   # requests of every serve phase but llama3.2-3b's
 
 
@@ -479,14 +515,18 @@ def phase_build(build_log):
     from repro_torch.kernels import build
     from repro_torch.kernels import kernels_built
     t0 = time.time()
-    build.build(verbose=bool(build_log))
+    # -Xptxas -v always: the serving kernels' registers are checked
+    # (check_serving_registers); a library loaded from the build directory
+    # gives the report kept beside it, and one without a report is built again
+    build.build(verbose=True)
     build.load()
     check(kernels_built(), "kernel library did not load")
     extra = {}
+    log = str(build.build_info.get("log", ""))
     if build_log:
-        log = str(build.build_info.get("log", ""))
         Path(build_log).parent.mkdir(parents=True, exist_ok=True)
         Path(build_log).write_text(log)
+    if log:
         extra["ptxas"] = ptxas_usage(log)
     emit("build", seconds=round(time.time() - t0, 2),
          sources=[p.name for p in build.sources()],
@@ -1568,15 +1608,17 @@ def flash_bwd_cases():
 
 
 def flash_lse(q, k, v, *, scale=None, softcap=None, window=None, pinned_rows=0,
-              tiles_per_chunk=None):
+              tiles_per_chunk=None, positions=None):
     """(O, LSE) of one causal forward launch through the entry that
-    ``FlashAttentionFn`` calls (the public wrapper returns O only)."""
+    ``FlashAttentionFn`` calls (the public wrapper returns O only); with
+    ``positions``, the position variant with the keys at the queries'
+    positions, as ``FlashAttentionFn`` passes them."""
     from repro_torch.kernels.flash_attention import ops
     b, s, h, d = q.shape
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     out = ops._forward(q, k, v, lse, causal=True, scale=scale or d ** -0.5,
                        softcap=softcap, window=window, pinned_rows=pinned_rows,
-                       tiles_per_chunk=tiles_per_chunk)
+                       tiles_per_chunk=tiles_per_chunk, positions=positions)
     return out, lse
 
 
@@ -2117,6 +2159,373 @@ def ssd_bwd_record(gen, flush, path, ptxas=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# explicit positions: the flash kernel's position variant (forward and backward)
+POS_PATTERNS = ("shifted", "packed", "negative")
+POS_SHIFT = 5   # the shifted pattern's offset (serve_positions and the records too)
+# the serving flash kernels' registers and spill bytes as csrc/flash_attention.cu
+# of the tree before the position variant (commit 4f56a86) compiles them:
+# nvcc 12.8 -Xptxas -v for sm_90a, the flags of kernels/build.py, held against
+# this tree's build by scripts/ptxas_compare.py --kernel flash (12 of 12 the
+# same).  The variant lives in a translation unit of its own and must leave
+# them unchanged
+SERVING_FLASH_PTXAS = {
+    f"{name}<{args}>": dict(spill_stores=stores, spill_loads=loads, registers=regs)
+    for name, args, regs, stores, loads in (
+        ("flash_kernel", "fLi64", 128, 0, 0), ("flash_kernel", "fLi112", 128, 8, 12),
+        ("flash_kernel", "fLi128", 128, 0, 0), ("flash_kernel", "fLi256", 128, 4, 4),
+        ("flash_mma_kernel", "Li64", 173, 0, 0), ("flash_mma_kernel", "Li112", 214, 0, 0),
+        ("flash_mma_kernel", "Li128", 223, 0, 0), ("flash_mma_kernel", "Li256", 242, 0, 0),
+        ("flash_mma_lse_kernel", "Li64", 167, 0, 0),
+        ("flash_mma_lse_kernel", "Li112", 216, 0, 0),
+        ("flash_mma_lse_kernel", "Li128", 227, 0, 0),
+        ("flash_mma_lse_kernel", "Li256", 244, 0, 0))}
+
+
+def position_tables(pattern, b, s, dev="cuda"):
+    """(positions, keys_at_rows): an int32 (B, S) table of a pattern and
+    where the keys sit.  ``shifted`` (keys at the queries' positions, as
+    ``forward`` passes them): even rows at their index plus POS_SHIFT, odd
+    rows at their index.  ``packed`` (as ``forward``): even rows three packed
+    sequences whose positions restart at 0, odd rows a permutation.
+    ``negative`` (keys at their row index, as ``prefill`` passes it): even
+    rows starting at -7, whose first 7 rows see no key, odd rows at twice
+    their index, past S."""
+    rng = np.random.default_rng(11)
+    rows = []
+    for i in range(b):
+        r = np.arange(s)
+        if pattern == "shifted":
+            rows.append(r + POS_SHIFT if i % 2 == 0 else r)
+        elif pattern == "packed":
+            cut = [s // 3, s // 3, s - 2 * (s // 3)]
+            rows.append(np.concatenate([np.arange(n) for n in cut]) if i % 2 == 0
+                        else rng.permutation(s))
+        else:
+            rows.append(r - 7 if i % 2 == 0 else 2 * r)
+    t = torch.tensor(np.stack(rows), dtype=torch.int32, device=dev)
+    return t, pattern == "negative"
+
+
+def visible_by_tables(qp, keys_at_rows, sk, window=None):
+    """(B, Sq, Sk) bool: the (query, key) pairs the table leaves visible,
+    keys at the queries' positions or (``keys_at_rows``) at their row
+    index."""
+    kpos = torch.arange(sk, device=qp.device).expand(qp.shape[0], sk) if keys_at_rows else qp
+    seen = kpos[:, None, :] <= qp[:, :, None]
+    if window:
+        seen &= kpos[:, None, :] > qp[:, :, None] - window
+    return seen
+
+
+def fails(fn):
+    """Whether ``fn()`` fails a check (raises AssertionError)."""
+    try:
+        fn()
+    except AssertionError:
+        return True
+    return False
+
+
+def flash_pos_cases():
+    """(B, Sq, Sk, H, G, D, dtype, window, softcap, pinned, pattern): each
+    head size at a path's heads (musicgen-large's D 64 at group 4, zamba2-7b's
+    112 MHA, qwen2-vl-7b's 128 at group 7, gemma-7b's 256 at group 2), both
+    types, the three patterns, a window with a softcap and a window alone;
+    prefill-mode queries against a longer cache."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for d, h, g in ((64, 16, 4), (112, 8, 8), (128, 28, 4), (256, 8, 4)):
+        for dtype in (bf, f32):
+            pin = 64 if dtype == bf or d <= 128 else 0
+            for pattern in POS_PATTERNS:
+                cases.append((2, 300, 300, h, g, d, dtype, None, None, pin, pattern))
+            cases.append((2, 300, 300, h, g, d, dtype, 63, 50.0, 0, "shifted"))
+            cases.append((2, 300, 300, h, g, d, dtype, 100, None, 0, "negative"))
+    cases += [(2, 200, 333, 28, 4, 128, bf, None, None, 64, "negative"),
+              (2, 200, 333, 8, 8, 112, f32, 65, 50.0, 0, "negative"),
+              (1, 1024, 1024, 28, 4, 128, bf, None, None, 256, "shifted")]
+    return cases
+
+
+def check_flash_positions(gen):
+    """The position variant against its plain version over ``flash_pos_cases``
+    (TOL of the type); bf16 bit-identical across ``pinned_rows`` and
+    ``tiles_per_chunk`` with a table, in both modes; a table off by one row
+    (rolled) must fail the same check.  Returns the worst error of each
+    type and the smallest error of the planted faults."""
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    worst, planted = {}, []
+    for case in flash_pos_cases():
+        b, sq, sk, h, g, d, dtype, window, softcap, pin, pattern = case
+        kw = dict(window=window, softcap=softcap, scale=GEMMA2_SCALE if window else None)
+        q = randn(gen, (b, sq, h, d), dtype)
+        k = randn(gen, (b, sk, g, d), dtype)
+        v = randn(gen, (b, sk, g, d), dtype)
+        qp, at_rows = position_tables(pattern, b, sq)
+        out = flash_attention(q, k, v, pinned_rows=pin, positions=qp, keys_at_rows=at_rows,
+                              **kw)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, q_positions=qp, kv_positions=None if at_rows else qp, **kw)
+        err = close(out, ref, TOL[dtype], f"flash with positions {case}")
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+        if d == 128 and pattern in ("shifted", "negative") and window is None and sq == sk:
+            bad = torch.roll(qp, 1, dims=1)
+            off = flash_attention(q, k, v, pinned_rows=pin, positions=bad, keys_at_rows=at_rows,
+                                  **kw)
+            check(fails(lambda: close(off, ref, TOL[dtype], "planted")),
+                  f"flash with positions {case}: a table off by one row passes")
+            planted.append(float((off.float() - ref.float()).abs().max()))
+    for d, h, g in ((128, 8, 2), (64, 16, 4), (256, 8, 4)):
+        q = randn(gen, (2, 300, h, d), torch.bfloat16)
+        k = randn(gen, (2, 300, g, d), torch.bfloat16)
+        v = randn(gen, (2, 300, g, d), torch.bfloat16)
+        pins = (0, 64) if d == 256 else (0, 64, 256)
+        for pattern in ("shifted", "negative"):
+            qp, at_rows = position_tables(pattern, 2, 300)
+            base = flash_attention(q, k, v, pinned_rows=0, tiles_per_chunk=1, positions=qp,
+                                   keys_at_rows=at_rows)
+            for pin in pins:
+                for tiles in (None, 1, 2, 3):
+                    other = flash_attention(q, k, v, pinned_rows=pin, tiles_per_chunk=tiles,
+                                            positions=qp, keys_at_rows=at_rows)
+                    check(torch.equal(other, base), f"flash bf16 with {pattern} positions, "
+                          f"D {d}: pinned {pin}, tiles {tiles} differs from pinned 0")
+    return dict(max_abs_err=worst, planted_min_abs_err=min(planted))
+
+
+def check_flash_positions_bwd(gen):
+    """The backward kernel with a positions table (the ``_ext_`` kernels)
+    against ``attention_bwd_ref`` with the same table, on the forward
+    kernel's own O and LSE, each gradient by ``grad_err`` at TOL of the
+    type, over both types, head sizes 64, 112, 128 and 256, the shifted and
+    packed tables, a window and a softcap; the gradients of a table off by
+    one row (rolled) must fail it.  Returns the worst ratio and error of each
+    type and the smallest ratio of the planted faults."""
+    from repro_torch.kernels import attention_bwd_ref
+    from repro_torch.kernels import flash_attention_bwd
+    worst, planted = {}, []
+    for d, h, g in ((64, 8, 2), (112, 8, 8), (128, 24, 8), (256, 8, 4)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for pattern, kw in (("shifted", {}), ("packed", {}),
+                                ("shifted", dict(window=63, softcap=50.0,
+                                                 scale=GEMMA2_SCALE))):
+                b, s = 2, 300
+                q = randn(gen, (b, s, h, d), dtype)
+                k = randn(gen, (b, s, g, d), dtype)
+                v = randn(gen, (b, s, g, d), dtype)
+                do = randn(gen, (b, s, h, d), dtype)
+                pos = position_tables(pattern, b, s)[0]
+                o, lse = flash_lse(q, k, v, positions=pos, **kw)
+                got = flash_attention_bwd(q, k, v, o, lse, do, positions=pos, **kw)
+                torch.cuda.synchronize()
+                want = attention_bwd_ref(q, k, v, o, lse, do, q_positions=pos,
+                                         kv_positions=pos, **kw)
+                w = worst.setdefault(str(dtype), {"ratio": 0.0, "max_abs_err": 0.0})
+                what = f"flash bwd with {pattern} positions D {d} {dtype} {kw}"
+                for name, a, r in zip(("dq", "dk", "dv"), got, want):
+                    ratio, err, _ = close_grad(a, r, TOL[dtype], f"{what} {name}")
+                    w["ratio"], w["max_abs_err"] = max(w["ratio"], ratio), max(w["max_abs_err"],
+                                                                               err)
+                if pattern == "shifted" and not kw:
+                    bad = flash_attention_bwd(q, k, v, o, lse, do,
+                                              positions=torch.roll(pos, 1, dims=1))
+                    ratios = [grad_err(a, r, TOL[dtype])[1] for a, r in zip(bad, want)]
+                    check(max(ratios) > 1, f"{what}: a table off by one row passes")
+                    planted.append(max(ratios))
+    return dict(worst=worst, planted_min_ratio=min(planted))
+
+
+def check_serving_registers(ptxas):
+    """The serving flash kernels' registers and spills against
+    SERVING_FLASH_PTXAS; fails where the build gave no ptxas report."""
+    check(bool(ptxas), "no ptxas report of the build: the serving flash kernels' registers "
+          "cannot be checked")
+    names = [n for n in ptxas if n.startswith(("flash_kernel<", "flash_mma_kernel<",
+                                               "flash_mma_lse_kernel<"))]
+    now = {n: ptxas[n] for n in sorted(names)}
+    check(now == SERVING_FLASH_PTXAS, f"the serving flash kernels' registers moved: {now} "
+          f"against {SERVING_FLASH_PTXAS}")
+    return now
+
+
+def flash_pos_record(gen, flush, ptxas=None):
+    """The position variant's record at qwen2-vl-7b's 1024-token prefill
+    (B 1, H 28, G 4, D 128, bf16, ``pinned_rows`` as the planner splits it)
+    with its queries shifted by POS_SHIFT against the cache's keys at their
+    row index (``prefill`` with explicit positions): its time beside the
+    plain version's and the library's (``scaled_dot_product_attention`` with
+    the boolean mask the table makes), and the bound, whose operations count
+    the (row, column) pairs the table leaves visible.  The same four for the
+    keys at the queries' positions (``forward``'s mode, which ``forward`` and
+    training run: every KV tile not proved hidden from a Q tile), under
+    ``*_forward_mode``; and the serving kernel on the same shape without a
+    table."""
+    from repro_torch.core.orchestrator import CacheOrchestrator
+    from repro_torch.core.orchestrator import FLASH_TILE_ROWS
+    from repro_torch.core.orchestrator import flash_kv_row_bytes
+    from repro_torch.core.orchestrator import hopper_pin_budget_bytes
+    from repro_torch.kernels import attention_ref
+    from repro_torch.kernels import flash_attention
+    bf = torch.bfloat16
+    h, g, d = ATTN_SHAPES["qwen2-vl-7b"]
+    sq = 1024
+    pinned = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(d, 2)).plan_kv_split(
+        sq, FLASH_TILE_ROWS, flash_kv_row_bytes(d, 2))[0]
+    q = randn(gen, (1, sq, h, d), bf)
+    k = randn(gen, (1, sq, g, d), bf)
+    v = randn(gen, (1, sq, g, d), bf)
+    qp = (torch.arange(sq, device="cuda", dtype=torch.int32) + POS_SHIFT)[None].contiguous()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * qp.numel()
+    rec = {}
+    # (suffix, keys_at_rows, pinned_rows): prefill's mode with the planner's
+    # split, forward's as forward calls it (no pinned prefix)
+    for suffix, at_rows, pin in (("", True, pinned), ("_forward_mode", False, 0)):
+        seen = visible_by_tables(qp, at_rows, sq)
+
+        def lib(seen=seen):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=seen[:, None],
+                                                  enable_gqa=True)
+
+        def kernel(at_rows=at_rows, pin=pin):
+            return flash_attention(q, k, v, pinned_rows=pin, positions=qp, keys_at_rows=at_rows)
+
+        def plain(at_rows=at_rows):
+            return attention_ref(q, k, v, q_positions=qp, kv_positions=None if at_rows else qp)
+
+        ref = plain()
+        err = close(kernel(), ref, TOL[bf], f"flash with positions at qwen2-vl-7b's 1024 "
+                    f"tokens, keys_at_rows {at_rows}")
+        close(lib().transpose(1, 2), ref, TOL[bf],
+              f"library flash with a mask vs plain, keys_at_rows {at_rows}")
+        del ref
+        n_seen = int(seen.sum())
+        n_flops = 4 * n_seen * d * h
+        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+        ms = time_ms(kernel, flush)
+        rec.update({
+            f"max_abs_err{suffix}": err, f"visible_pairs{suffix}": n_seen,
+            f"ms{suffix}": ms, f"tflops{suffix}": n_flops / ms * 1e-9,
+            f"plain_ms{suffix}": time_ms(plain, flush),
+            f"library_ms{suffix}": time_ms(lib, flush),
+            f"bound_ms{suffix}": max(t_bytes, t_ops),
+            f"bound_by{suffix}": "bytes" if t_bytes >= t_ops else "operations"})
+        del seen
+    return {
+        "name": "flash_attention_pos", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_pos.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+        "replaces_note": "flash_kernel's attention masked by explicit positions, which the "
+                         "JAX package computes in src/repro/models/layers.py:199-212 "
+                         "gqa_attention",
+        "path": "serve_positions",
+        "shape": {"B": 1, "Sq": sq, "Sk": sq, "H": h, "G": g, "D": d, "dtype": "bfloat16",
+                  "mode": "prefill: queries at their index + 5, keys at their row index",
+                  "mode_forward_mode": "forward: queries and keys at their index + 5",
+                  "pinned_rows": pinned, "pinned_rows_forward_mode": 0},
+        **kernel_usage(ptxas, ("flash_mma_pos_kernel<Li128ELb0>",
+                               "flash_mma_pos_kernel<Li128ELb1>", "flash_pos_kernel<fLi128>")),
+        "tol": TOL[bf], **rec,
+        "ms_serving_kernel_without_positions": time_ms(
+            lambda: flash_attention(q, k, v, pinned_rows=pinned), flush),
+    }
+
+
+def flash_bwd_pos_record(gen, flush, ptxas=None):
+    """The backward kernel with a positions table at llama3.2-3b's training
+    shape (``TRAIN_SHAPE``, bf16): even rows shifted by POS_SHIFT, one table
+    for queries and keys, as ``forward`` with positions passes it under
+    autograd.  Its time (three launches) beside the plain version's, the
+    library's (``torch.autograd.grad`` through ``scaled_dot_product_attention``
+    with the table's boolean mask) and the bound (five products of 2 * D
+    FLOP for each visible pair and query head; the bytes moved once, the
+    table included), and the same call without a table (the causal
+    backward, whose visible pairs are the same here)."""
+    from repro_torch.kernels import attention_bwd_ref
+    from repro_torch.kernels import flash_attention_bwd
+    bf = torch.bfloat16
+    b, s, h, g, d = (TRAIN_SHAPE[k] for k in ("b", "s", "h", "g", "d"))
+    q = randn(gen, (b, s, h, d), bf)
+    k = randn(gen, (b, s, g, d), bf)
+    v = randn(gen, (b, s, g, d), bf)
+    do = randn(gen, (b, s, h, d), bf)
+    pos = position_tables("shifted", b, s)[0]
+    o, lse = flash_lse(q, k, v, positions=pos)
+    got = flash_attention_bwd(q, k, v, o, lse, do, positions=pos)
+    want = attention_bwd_ref(q, k, v, o, lse, do, q_positions=pos, kv_positions=pos)
+    held = {n: close_grad(a, r, TOL[bf], f"flash bwd with positions at the training shape, {n}")
+            for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    seen = visible_by_tables(pos, False, s)
+    ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=seen[:, None],
+                                             enable_gqa=True)
+    dol = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True)
+
+    n_seen = int(seen.sum())
+    n_flops = 10 * d * n_seen * h
+    n_bytes = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+               + 2 * (q.numel() + 2 * k.numel()) + 4 * pos.numel())
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FLOPS[bf] * 1e3
+    ms = time_ms_events(lambda: flash_attention_bwd(q, k, v, o, lse, do, positions=pos), flush)
+    o0, lse0 = flash_lse(q, k, v)
+    return {
+        "name": "flash_attention_bwd_pos", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_pos.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+        "replaces_note": "gradient of flash_kernel's attention masked by explicit positions; "
+                         "the JAX package takes it by autodiff of "
+                         "src/repro/models/layers.py:124 gqa_attention",
+        "path": "serve_positions",
+        "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
+                  "positions": f"even rows at their index + {POS_SHIFT}, one table",
+                  "visible_pairs": n_seen},
+        # the _ext_ kernels compiled again in flash_attention_bwd_pos.cu
+        **kernel_usage(ptxas, tuple(f"flash_attention_bwd_pos.cu:{n}_ext_kernel<Li{d}>"
+                                    for n in ("dkdv_mma", "dq_mma"))),
+        "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
+        "held": {n: {"worst_ratio": r, "max_abs_err": e} for n, (r, e, _) in held.items()},
+        "ms": ms, "tflops": n_flops / ms * 1e-9,
+        "plain_ms": time_ms_events(lambda: attention_bwd_ref(
+            q, k, v, o, lse, do, q_positions=pos, kv_positions=pos), flush),
+        "library_ms": time_ms_events(lib_bwd, flush),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms_without_positions": time_ms_events(
+            lambda: flash_attention_bwd(q, k, v, o0, lse0, do), flush),
+        "forward_ms_with_lse": time_ms(lambda: flash_lse(q, k, v, positions=pos), flush),
+    }
+
+
+def phase_kernels_positions(ptxas=None):
+    """The flash kernel's position variant and the backward with a table:
+    ``check_flash_positions``, ``check_flash_positions_bwd``, the serving
+    kernels' registers (``check_serving_registers``) and the two records
+    (``flash_pos_record``, ``flash_bwd_pos_record``), whose launches come
+    from the serve_positions phase."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.time()
+    fwd = check_flash_positions(gen)
+    bwd = check_flash_positions_bwd(gen)
+    checks_s = time.time() - t0
+    records = [flash_pos_record(gen, flush, ptxas), flash_bwd_pos_record(gen, flush, ptxas)]
+    serving = {n: v for n, v in (ptxas or {}).items()
+               if n.startswith(("flash_kernel<", "flash_mma_kernel<", "flash_mma_lse_kernel<"))}
+    emit("kernels_positions", flash_pos_cases=len(flash_pos_cases()), forward=fwd,
+         backward=bwd, tol={str(k): v for k, v in TOL.items()},
+         serving_ptxas=serving or None, checks_seconds=checks_s, timed=records)
+    check_serving_registers(ptxas)
+    emit("kernels_positions", serving_registers_unchanged=True)
+    return records
+
+
 def phase_kernels(ptxas=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2320,6 +2729,7 @@ def phase_serve(arch, n_requests, max_new):
     n_attn, n_ssm = kernel_layers(cfg)
     want = {"decode_attention": n_attn * engine.decode_calls, "decode_attention_lse": 0,
             "flash_attention": n_requests * n_attn, "flash_attention_bwd": 0,
+            "flash_attention_pos": 0, "flash_attention_bwd_pos": 0,
             "ssd_scan": n_requests * n_ssm, "ssd_scan_bwd": 0}
     check(counts == want, f"{arch}: launches {counts}, expected {want} "
           f"({n_requests} prefills, {engine.decode_calls} decode_step calls)")
@@ -2418,23 +2828,206 @@ def embeds_logits(arch, cfg, params, dev, dtype):
     return got.float().cpu()
 
 
-def check_positions_refused(arch, cfg, params):
-    """Explicit positions, M-RoPE's 3-plane (3, B, S) and plain (B, S),
-    refused with NotImplementedError by ``prefill`` and ``forward`` on the
-    card before any launch; the calls refused."""
+def check_three_planes_refused(arch, cfg, params):
+    """M-RoPE's 3-plane (3, B, S) positions refused with ValueError by
+    ``prefill`` and ``forward`` on the card before any launch, as the JAX
+    package refuses them; the calls refused.  (B, S) positions are computed
+    (``serve_positions``, ``parity_positions``)."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.models import forward
     from repro_torch.models import prefill
     b, s = 2, 64
     tok = torch.zeros((b, s), dtype=torch.long, device="cuda")
-    pos = torch.arange(s, device="cuda").expand(b, s)
+    planes = torch.arange(s, device="cuda").expand(3, b, s)
     calls = []
     with torch.no_grad():
-        for planes, positions in (("(3, B, S)", pos.expand(3, b, s)), ("(B, S)", pos)):
-            for name, entry in (("prefill", prefill), ("forward", forward)):
-                not_implemented(lambda: entry(params, tok, cfg, positions=positions),
-                                f"{arch} {name} with {planes} positions")
-                calls.append(f"{name} {planes}")
+        for name, entry in (("prefill", prefill), ("forward", forward)):
+            before = launch_counts()
+            refused(lambda: entry(params, tok, cfg, positions=planes),
+                    f"{arch} {name} with (3, B, S) positions")
+            check(launch_counts() == before, f"{arch} {name}: launched before refusing")
+            calls.append(f"{name} (3, B, S)")
     return calls
+
+
+# ---------------------------------------------------------------------------
+# explicit positions through the model's entry points
+POS_SERVE_TOKENS = 1024   # serve_positions: one row of qwen2-vl-7b's prompt
+# parity_positions: each path's 2-layer cut at full width (config changes),
+# and its prompt of 2 x POS_PARITY_TOKENS tokens, which overruns gemma2's
+# window cut to 64 as parity_gemma2 does
+POS_PARITY = {"llama3.2-3b": {}, "qwen2-vl-7b": {}, "gemma2-27b": dict(window=64),
+              "deepseek-moe-16b": {}, "zamba2-7b": dict(hybrid_period=2)}
+POS_PARITY_TOKENS = 96
+
+
+def phase_serve_positions(params=None):
+    """qwen2-vl-7b at published size (28 layers, bf16, 15.2 GB of weights:
+    the serve_qwen2vl phase's where it ran) with explicit (B, S) positions,
+    its one row of POS_SERVE_TOKENS tokens at their index + POS_SHIFT: a
+    ``prefill`` (queries at the table, keys at their row index) and a
+    ``forward`` (both at the table), each launching the position variant once
+    a layer and nothing else, then the training loss of the same ``forward``
+    under autograd (gradients of every layer's ``wq``), which launches it
+    twice a layer (forward and recompute) and the backward's three kernels
+    once.  Launch counts are set to 0 just before each call and read just
+    after; logits finite.  Returns the launches of the two records."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import forward
+    from repro_torch.models import init_params
+    from repro_torch.models import lm_loss
+    from repro_torch.models import prefill
+    arch = "qwen2-vl-7b"
+    cfg = get_arch(arch)
+    check_published(arch, cfg)
+    if params is None:
+        params = init_params(cfg, seed=0, device="cuda")
+    s, n_attn = POS_SERVE_TOKENS, cfg.n_layers
+    tok = torch.as_tensor(np.random.default_rng(3).integers(2, cfg.vocab, (1, s)), device="cuda")
+    pos = (torch.arange(s, device="cuda") + POS_SHIFT)[None]
+    none = {k: 0 for k in launch_counts()}
+    wq = params["layers"]["attn"]["wq"]
+
+    def train_call():
+        wq.requires_grad_(True)
+        try:
+            loss = lm_loss(forward(params, tok, cfg, positions=pos), tok)
+            grad, = torch.autograd.grad(loss, [wq])
+        finally:
+            wq.requires_grad_(False)
+        check(bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0),
+              "serve_positions: the gradient of wq is not finite, or zero")
+        return loss[None, None]
+
+    runs, total = {}, dict(none)
+    calls = (("prefill", lambda: prefill(params, tok, cfg, positions=pos)[0],
+              dict(none, flash_attention_pos=n_attn)),
+             ("forward", lambda: forward(params, tok, cfg, positions=pos),
+              dict(none, flash_attention_pos=n_attn)),
+             ("train", train_call,
+              dict(none, flash_attention_pos=2 * n_attn,
+                   flash_attention_bwd_pos=flash_ops.BWD_KERNELS * n_attn)))
+    for name, call, want in calls:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad() if name != "train" else nullcontext():
+            out = call()
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = launch_counts()
+        check(counts == want, f"serve_positions {name}: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(out.float()).all()), f"serve_positions {name}: not finite")
+        runs[name] = dict(seconds=seconds, launches={k: v for k, v in counts.items() if v},
+                          shape=list(out.shape))
+        total = {k: total[k] + counts[k] for k in total}
+    emit("serve_positions", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16", batch=1,
+         tokens=s, positions=f"index + {POS_SHIFT}", runs=runs,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return total
+
+
+def pos_parity_logits(cfg, params, tokens, plain=False, routes=None):
+    """The logits of ``parity_positions``' two calls, on the card: ``prefill``
+    with the ``negative`` table (its last-token logits and the cache's K/V)
+    and ``forward`` with the ``packed`` one; ``plain`` runs the kernels'
+    plain versions; ``routes`` records or follows a MoE's expert choices."""
+    from repro_torch.models import forward
+    from repro_torch.models import prefill
+    b, s = tokens.shape
+    follow = routing(routes) if routes is not None else nullcontext()
+    with torch.no_grad(), plain_versions() if plain else nullcontext(), follow:
+        last, cache = prefill(params, tokens, cfg,
+                              positions=position_tables("negative", b, s)[0])
+        logits = forward(params, tokens, cfg, positions=position_tables("packed", b, s)[0])
+    return dict(prefill=last.float(), cache_k=cache.k.float(), cache_v=cache.v.float(),
+                forward=logits.float())
+
+
+def phase_parity_positions():
+    """Explicit (B, S) positions through ``prefill`` (the ``negative`` table:
+    rows that see no key, and positions past S) and ``forward`` (the
+    ``packed`` one) of 2-layer cuts at full width of llama3.2-3b,
+    qwen2-vl-7b, gemma2-27b (window cut to 64, which the 96-token prompt
+    overruns), deepseek-moe-16b (its dense layer and one MoE layer) and
+    zamba2-7b (one group of 2 Mamba2 layers and the shared block), seeded
+    random weights: the card's kernels against the card's plain versions of
+    the same steps (``plain_versions``), fp32 elementwise within LOGIT_TOL,
+    bf16 by the share rule of ``phase_parity`` (a MoE's plain run following
+    the kernels' run's expert choices, those it would change a few
+    near-ties)."""
+    from repro_torch.configs import MOE
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    out = {}
+    for arch, changes in POS_PARITY.items():
+        t0 = time.time()
+        cfg = get_arch(arch)
+        check_published(arch, cfg)
+        cfg2 = replace(cfg, n_layers=2, **changes)
+        tokens = torch.as_tensor(np.random.default_rng(4).integers(
+            2, cfg.vocab, (2, POS_PARITY_TOKENS)), device="cuda")
+        bf = init_params(cfg2, seed=0, device="cuda")
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            params = bf if dtype == torch.bfloat16 else _tree_to(bf, torch.float32)
+            routes = {} if cfg.family == MOE and dtype == torch.bfloat16 else None
+            kern = pos_parity_logits(cfg2, params, tokens, routes=routes)
+            plain = pos_parity_logits(cfg2, params, tokens, plain=True, routes=routes)
+            for what in kern:
+                key = f"{'fp32' if dtype == torch.float32 else 'bf16'}_{what}"
+                if dtype == torch.float32:
+                    res[key + "_max_abs_err"] = close(kern[what], plain[what], LOGIT_TOL,
+                                                      f"parity_positions {arch} fp32 {what}")
+                    continue
+                got = held_logits(kern[what], plain[what])
+                check(got["share_within_tol"] >= 0.999 and got["rms_err"] <= LOGIT_TOL / 2,
+                      f"parity_positions {arch} bf16 {what}: {got}")
+                if what in ("prefill", "forward"):
+                    check(got["clear_margin_tokens_equal"],
+                          f"parity_positions {arch} bf16 {what}: greedy token differs")
+                res[key] = got
+            if routes is not None:
+                res["router_bf16"] = check_near_ties(routes, f"parity_positions {arch}")
+            del params
+        del bf
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["seconds"] = time.time() - t0
+        out[arch] = res
+    emit("parity_positions", n_layers=2, tokens=POS_PARITY_TOKENS, changed=POS_PARITY,
+         calls="prefill (negative table) + forward (packed table)", tol=LOGIT_TOL,
+         compared="card kernels vs card plain versions", **out)
+
+
+def _tree_to(tree, dtype):
+    """A parameter tree with every leaf in ``dtype``."""
+    return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def phase_examples():
+    """``examples/quickstart_torch.py`` on the card, in a child process: the
+    DCO policies simulated, a reduced llama3.2-3b trained 30 steps and the
+    flash kernel against its plain version; it must end with ``done.``
+    after saying that it ran the CUDA kernel."""
+    import os
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and lines and lines[-1] == "done.",
+          f"quickstart_torch.py exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+          f"\n{proc.stderr[-2000:]}")
+    check("(the CUDA kernel)" in lines[-2], f"quickstart_torch.py: {lines[-2]}")
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", proc.stdout)]
+    check(len(losses) == 4 and losses[-1] < losses[0], f"quickstart_torch.py losses {losses}")
+    emit("examples", script="examples/quickstart_torch.py", ended="done.", losses=losses,
+         kernel_line=lines[-2].strip(), seconds=time.time() - t0)
 
 
 def held_logits(got, want):
@@ -2518,8 +3111,8 @@ def phase_parity(arch, cfg, params):
     weights within ROUTER_LOGIT_TOL of their largest magnitude, and a router
     planted in bf16 (``bf16_router``) must fail that.
 
-    A model with M-RoPE sections (qwen2-vl-7b) first checks that explicit
-    positions are refused before any launch (``check_positions_refused``);
+    A model with M-RoPE sections (qwen2-vl-7b) first checks that 3-plane
+    positions are refused before any launch (``check_three_planes_refused``);
     one with an audio frontend (musicgen-large) also holds a prefill from
     frame embeddings (``embeds_logits``), card against CPU, by the rules
     above."""
@@ -2528,7 +3121,7 @@ def phase_parity(arch, cfg, params):
     moe = cfg.family == MOE
     extra = {}
     if cfg.mrope_sections:
-        extra["positions_refused"] = check_positions_refused(arch, cfg, params)
+        extra["three_planes_refused"] = check_three_planes_refused(arch, cfg, params)
     calls = {"fp32": [], "bf16": []}   # the card's router calls (a MoE path)
     with router_log(calls["fp32"]) if moe else nullcontext():
         card = parity_logits(arch, cfg, params, "cuda", torch.float32)
@@ -2714,9 +3307,11 @@ def plain_versions():
     from repro_torch.models import layers
     from repro_torch.models import ssm
 
-    def flash(q, k, v, *, causal=True, scale=None, softcap=None, window=None, pinned_rows=0):
+    def flash(q, k, v, *, causal=True, scale=None, softcap=None, window=None, pinned_rows=0,
+              positions=None, keys_at_rows=False):
         return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
-                             window=window)
+                             window=window, q_positions=positions,
+                             kv_positions=None if keys_at_rows else positions)
 
     def decode(q, k, v, cache_len, *, scale=None, window=None, softcap=None):
         return decode_attention_ref(q, k, v, cache_len, scale=scale, window=window,
@@ -2823,7 +3418,8 @@ def train_launches(cfg, microbatches):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     n_attn, n_ssm = kernel_layers(cfg)
-    return {"decode_attention": 0, "decode_attention_lse": 0,
+    return {"decode_attention": 0, "decode_attention_lse": 0, "flash_attention_pos": 0,
+            "flash_attention_bwd_pos": 0,
             "flash_attention": 2 * n_attn * microbatches,
             "flash_attention_bwd": flash_ops.BWD_KERNELS * n_attn * microbatches,
             "ssd_scan": 2 * n_ssm * microbatches,
@@ -3488,6 +4084,7 @@ def mesh_serve_run(cfg, mesh, act_seq, rank, refs):
     n_attn, n_ssm = kernel_layers(cfg)
     want = {"decode_attention": n_attn * engine.decode_calls, "decode_attention_lse": 0,
             "flash_attention": len(reqs) * n_attn, "flash_attention_bwd": 0,
+            "flash_attention_pos": 0, "flash_attention_bwd_pos": 0,
             "ssd_scan": len(reqs) * n_ssm, "ssd_scan_bwd": 0}
     check(counts == want, f"serve_mesh {cfg.name} rank {rank}: launches {counts}, "
           f"expected {want}")
@@ -3857,6 +4454,31 @@ FIT_MIN_R2 = 0.80             # tests/test_analytical.py's validation floor
 FIT_MIN_TAU = 0.65
 
 
+def start_simulator():
+    """``phase_simulator`` in a process of its own (it needs no card), its
+    lines held back for ``finish_simulator``; killed at exit if still
+    running."""
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--simulator-child"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def finish_simulator(proc):
+    """Wait for ``start_simulator``'s process and print its lines."""
+    out, err = proc.communicate()
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    check(proc.returncode == 0, f"simulator phase failed (exit {proc.returncode}): "
+          f"{err[-3000:]}")
+
+
 def phase_simulator():
     """The cache-simulator stack on the host: the conformance matrix against
     the frozen digests, a serving replay, and the analytical fit."""
@@ -3942,6 +4564,8 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--build-log", metavar="PATH",
                     help="pass -Xptxas -v to nvcc and write its output to PATH")
+    # the simulator phase, started by start_simulator
+    ap.add_argument("--simulator-child", action="store_true", help=argparse.SUPPRESS)
     # one rank of a mesh phase, started by run_mesh_children
     ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -3949,6 +4573,9 @@ def main() -> None:
     args = ap.parse_args()
     if args.mesh_child:
         mesh_child(args.mesh_child.split(","), args.mesh_rank, Path(args.mesh_dir))
+        return
+    if args.simulator_child:
+        phase_simulator()
         return
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -3965,7 +4592,11 @@ def main() -> None:
 
     smi = timed("device", phase_device)
     ptxas = timed("build", phase_build, args.build_log)
+    simulator = start_simulator() if "simulator" in phases else None
     records = timed("kernels", phase_kernels, ptxas) if "kernels" in phases else []
+    if "kernels_positions" in phases:
+        records += timed("kernels_positions", phase_kernels_positions, ptxas)
+    pos_counts = None
     for arch, path in PATHS.items():   # in the order of PHASES
         n_requests = args.requests if arch == "llama3.2-3b" else PATH_REQUESTS
         if path["serve"] not in phases:
@@ -3978,9 +4609,19 @@ def main() -> None:
                       f"{arch} serve run")
         if path["parity"] in phases:
             timed(path["parity"], phase_parity, arch, cfg, params)
+        if arch == "qwen2-vl-7b" and "serve_positions" in phases:
+            pos_counts = timed("serve_positions", phase_serve_positions, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    if "serve_positions" in phases and pos_counts is None:   # qwen2-vl-7b not served
+        pos_counts = timed("serve_positions", phase_serve_positions)
+    for rec in records:
+        if rec["path"] == "serve_positions" and pos_counts is not None:
+            rec["launches"] = pos_counts[rec["name"]]
+            check(rec["launches"] > 0, f"{rec['name']} was not launched by serve_positions")
+    if "parity_positions" in phases:
+        timed("parity_positions", phase_parity_positions)
     for arch, train in TRAIN_PATHS.items():
         if train["phase"] in phases:
             counts = timed(train["phase"], phase_train, arch)
@@ -4002,8 +4643,10 @@ def main() -> None:
                       f"{rec['path']} run")
     if "dryrun" in phases:
         timed("dryrun", phase_dryrun)
-    if "simulator" in phases:
-        timed("simulator", phase_simulator)
+    if simulator is not None:
+        timed("simulator", finish_simulator, simulator)
+    if "examples" in phases:
+        timed("examples", phase_examples)
     emit("timing", seconds=seconds)
     complete = set(phases) == set(PHASES)
     if complete:

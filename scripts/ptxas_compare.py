@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""Registers and spill bytes of the decode kernels in two ``nvcc -Xptxas -v``
-logs: an earlier tree's decode source against this tree's build log.
+"""Registers and spill bytes of the serving kernels in two ``nvcc -Xptxas -v``
+logs: an earlier tree's source against this tree's build log.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
         -Xptxas -v -c OLD/decode_attention.cu -o /tmp/old.o > old_ptxas.log 2>&1
     python3 chip_smoke.py --phases device,build --build-log new_ptxas.log
     python3 scripts/ptxas_compare.py old_ptxas.log new_ptxas.log
+    python3 scripts/ptxas_compare.py --kernel flash old_flash.log new_ptxas.log
 
-The build log has a ``== <source>`` line before each source's output: the
-serving kernels are those of ``decode_attention.cu``, the slice kernels
-those of ``decode_attention_lse.cu`` (the same body, compiled again).  Prints
-how many serving kernels keep the earlier registers and spills, each that
-does not, and the slice kernels' range and spills.
+The build log has a ``== <source>`` line before each source's output.
+``--kernel decode`` (the default): the serving kernels are those of
+``decode_attention.cu``, the variant those of ``decode_attention_lse.cu``
+(the same body, compiled again).  ``--kernel flash``: the serving kernels
+are ``flash_kernel``, ``flash_mma_kernel`` and ``flash_mma_lse_kernel`` of
+``flash_attention.cu`` (an earlier ``flash_attention.cu`` needs
+``bf16_tiles.cuh`` beside it), the variant the position kernels of
+``flash_attention_pos.cu``.  Prints how many serving kernels keep the
+earlier registers and spills, each that does not, and the variant's range
+and spills.
 """
 
 import argparse
 from pathlib import Path
 import re
 
+# kernel: (serving kernels' names, serving source, the variant's source)
+KERNELS = {
+    "decode": (("decode_kernel",), "decode_attention.cu", "decode_attention_lse.cu"),
+    "flash": (("flash_kernel", "flash_mma_kernel", "flash_mma_lse_kernel",
+               "flash_pos_kernel", "flash_mma_pos_kernel"),
+              "flash_attention.cu", "flash_attention_pos.cu"),
+}
 
-def usage(log, source=None):
-    """{template arguments of decode_kernel: {registers, spill_stores,
-    spill_loads}} in ``log``, of ``source``'s section where given."""
+
+def usage(log, names, source=None):
+    """{kernel and template arguments: {registers, spill_stores,
+    spill_loads}} of the kernels ``names`` in ``log``, of ``source``'s
+    section where given."""
     out, name, cur = {}, None, None
+    pattern = re.compile(r"Compiling entry function '\w*?\d+(" + "|".join(names)
+                         + r")I(\w+?)E+v")
     for line in log.splitlines():
         m = re.match(r"== (\S+)", line)
         if m:
@@ -30,9 +47,9 @@ def usage(log, source=None):
             continue
         if source is not None and cur != source:
             continue
-        m = re.search(r"Compiling entry function '\w*?decode_kernelI(\w+?)EEv", line)
+        m = pattern.search(line)
         if m:
-            name = m.group(1)
+            name = f"{m.group(1)}<{m.group(2)}>"
             out[name] = {}
             continue
         if "Compiling entry function" in line:
@@ -48,24 +65,28 @@ def usage(log, source=None):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path, help="the earlier decode source's ptxas output")
+    ap.add_argument("old", type=Path, help="the earlier source's ptxas output")
     ap.add_argument("new", type=Path, help="this tree's build log (--build-log)")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="decode")
     args = ap.parse_args()
-    old = usage(args.old.read_text())
+    names, serving, variant = KERNELS[args.kernel]
+    old = usage(args.old.read_text(), names)
     text = args.new.read_text()
-    new = usage(text, "decode_attention.cu")
-    sliced = usage(text, "decode_attention_lse.cu")
+    new = usage(text, names, serving)
+    sliced = usage(text, names, variant)
     same = [k for k in old if new.get(k) == old[k]]
-    print(f"serving decode kernels: {len(old)} before, {len(new)} now, {len(same)} with the "
-          "same registers and spills")
+    print(f"serving {args.kernel} kernels: {len(old)} before, {len(new)} now, {len(same)} with "
+          "the same registers and spills")
     for k in old:
         if new.get(k) != old[k]:
             print(f"  differs: {k} {old[k]} -> {new.get(k)}")
     if sliced:
         regs = [v["registers"] for v in sliced.values()]
         spills = {k: v for k, v in sliced.items() if v.get("spill_stores")}
-        print(f"slice kernels: {len(sliced)}, registers {min(regs)}-{max(regs)}, "
+        print(f"{variant} kernels: {len(sliced)}, registers {min(regs)}-{max(regs)}, "
               f"with spills: {spills}")
+        for k, v in sorted(sliced.items()):
+            print(f"  {k} {v}")
 
 
 if __name__ == "__main__":

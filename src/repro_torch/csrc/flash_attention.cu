@@ -104,6 +104,32 @@
 // scores, a 4 x 4 patch a thread): exact fp32 accumulation, no TF32, which its
 // 2e-5 tolerance rules out.  Rows are staged with one pad word so that 16 lanes
 // reading 16 consecutive rows hit 16 banks.
+//
+// Explicit positions (the position variant, DCO_FLASH_POS: this body compiled
+// again by flash_attention_pos.cu into kernels of their own, flash_pos_kernel
+// (fp32) and flash_mma_pos_kernel (bf16, with and without the LSE), so that
+// the serving kernels keep their code and registers).  The JAX package masks by the
+// positions it is given: query row i at position pos[b][i] sees key row j at
+// position kpos where kpos <= qpos and, under a window, kpos > qpos - W; a
+// hidden score is the finite -1e30, so that a row that sees no key gets the
+// mean of all Sk value rows, as the reference's softmax gives it.  One table,
+// `pos` (B, Sq), and two modes:
+//  * forward (keys_at_rows 0; training and `forward`): key j sits at pos[b][j]
+//    (Sq == Sk).  Positions need not follow the rows, so a Q tile walks every
+//    KV tile, but every row sees itself, so a KV tile that the smallest and
+//    largest positions of the two tiles prove hidden from all of the Q tile's
+//    rows adds nothing and is skipped (positions.cuh; a pinned or streamed
+//    tile alike, so the bf16 result stays bit-identical across `pinned_rows`);
+//  * prefill (keys_at_rows 1; keys at their row index, as a cache's rows are):
+//    a Q tile walks from the window's first tile under its smallest position
+//    to min(Sk, its largest position + 1).  A Q tile that holds a row seeing
+//    no key (a negative position, or one whose window lies past Sk) walks
+//    every KV tile, so that row's uniform mean covers all of them.
+// The tile walk, the in-tile masks and the pinned staging (the whole prefix)
+// depend on the Q tile and the tables only, never on where a tile lives, so the
+// bf16 result stays bit-identical across `pinned_rows` and `tiles_per_chunk`.
+// The masks test every element (the index-based skips of 16-column blocks
+// are off); columns past Sk stay -inf, which no row counts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,6 +137,7 @@
 #include <stdint.h>
 
 #include "bf16_tiles.cuh"
+#include "positions.cuh"
 
 namespace {
 
@@ -151,6 +178,44 @@ __device__ __forceinline__ int first_kv_tile(int q_lo, int window) {
   return window > 0 ? max(0, q_lo - window + 1) / BK : 0;
 }
 
+// The position variant's KV walk of a Q tile, [t_lo * BK, kv_end), for its
+// rows [q_lo, q_lo + nq) at positions qp (this batch row's table) and keys at
+// positions kp (null: at their row index), and the tile's smallest and
+// largest position.  Every warp of the block calls it whole and gets the same
+// answer (each reduces all nq <= 64 rows itself).
+__device__ __forceinline__ void pos_walk(const int* __restrict__ qp, const int* __restrict__ kp,
+                                         int q_lo, int nq, int Sk, int window, int& t_lo,
+                                         int& kv_end, int& lo, int& hi) {
+  dco_positions::tile_min_max(qp, q_lo, nq, lo, hi);
+  t_lo = 0;
+  kv_end = Sk;
+  if (kp != nullptr) return;  // forward mode: every KV tile
+  // a row that sees no key: a negative position, or a window past Sk
+  if (lo < 0 || (window > 0 && hi - window + 1 >= Sk)) return;
+  t_lo = window > 0 ? max(0, lo - window + 1) / BK : 0;
+  kv_end = min(Sk, hi + 1);
+}
+
+// The KV tile at k_lo hidden from every row of a Q tile whose positions lie
+// in [q_mn, q_mx], in forward mode (keys at positions kp, the queries' table:
+// every row sees itself); in prefill mode (kp null) no tile is skipped: the
+// walk is bounded instead.  Uniform over the block.
+__device__ __forceinline__ bool pos_tile_hidden(const int* __restrict__ kp, int k_lo, int Sk,
+                                                int q_mn, int q_mx, int window) {
+  if (kp == nullptr) return false;
+  int k_mn, k_mx;
+  dco_positions::tile_min_max(kp, k_lo, min(BK, Sk - k_lo), k_mn, k_mx);
+  return dco_positions::tiles_hidden(q_mn, q_mx, k_mn, k_mx, window);
+}
+
+// Key `col` (below Sk) hidden from a query at position qp: causal and window
+// tests on the key's position (kp[col], or col where kp is null)
+__device__ __forceinline__ bool pos_hidden(const int* __restrict__ kp, int col, int qp,
+                                           int window) {
+  const int kpos = kp != nullptr ? kp[col] : col;
+  return kpos > qp || (window > 0 && kpos <= qp - window);
+}
+
 // Copy `nrows` rows of WPR words from device memory to padded shared rows.
 template <int WPR, int LD>
 __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
@@ -162,17 +227,18 @@ __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
   }
 }
 
-// grid = (Q-tile chunks, G, B).  Strides are in 32-bit words.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
-             const uint32_t* __restrict__ v, uint32_t* __restrict__ o,
-             float* __restrict__ lse, int Sq, int Sk, int H, int G, int tiles_per_chunk,
-             int pinned_rows, int causal, int window,
-             float scale, float softcap, long long q_sb, long long q_ss,
-             long long q_sh, long long k_sb, long long k_ss, long long k_sg,
-             long long v_sb, long long v_ss, long long v_sg, long long o_sb,
-             long long o_ss, long long o_sh) {
+// grid = (Q-tile chunks, G, B).  Strides are in 32-bit words.  POS: mask by
+// the position table pos (B, Sq), keys at the same positions or, with
+// keys_at_rows, at their row index.
+template <typename T, int D, bool POS>
+__device__ __forceinline__ void flash_body(
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
+    const uint32_t* __restrict__ v, uint32_t* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ pos, int keys_at_rows, int Sq, int Sk, int H,
+    int G, int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
+    float softcap, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sg, long long v_sb, long long v_ss, long long v_sg,
+    long long o_sb, long long o_ss, long long o_sh) {
   constexpr int EPW = Word<T>::EPW;
   constexpr int WPR = D / EPW;  // words of one row
   constexpr int LD = WPR + 1;   // padded row stride in shared memory
@@ -200,20 +266,27 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
 
   const uint32_t* kb = k + b * k_sb + g * k_sg;
   const uint32_t* vb = v + b * v_sb + g * v_sg;
+  // POS: this batch row's positions of the queries and (forward mode) the keys
+  const int* qpb = POS ? pos + (long long)b * Sq : nullptr;
+  const int* kpb = POS && !keys_at_rows ? qpb : nullptr;
 
   // the pinned prefix: staged once, as far as this block's Q rows can see it,
-  // from the first tile one of them sees (the block's Q tiles are in order)
-  const int kv_need = causal ? min(Sk, qt1 * BQ) : Sk;
+  // from the first tile one of them sees (the block's Q tiles are in order);
+  // POS: the whole prefix
+  const int kv_need = POS || !causal ? Sk : min(Sk, qt1 * BQ);
   const int pin = min(pinned_rows, kv_need);
-  const int pin_lo = min(pin, first_kv_tile(qt0 * BQ, window) * BK);
+  const int pin_lo = POS ? 0 : min(pin, first_kv_tile(qt0 * BQ, window) * BK);
   stage_rows<WPR, LD>(pinK + pin_lo * LD, kb + (long long)pin_lo * k_ss, k_ss, pin - pin_lo);
   stage_rows<WPR, LD>(pinV + pin_lo * LD, vb + (long long)pin_lo * v_ss, v_ss, pin - pin_lo);
 
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q_lo = qt * BQ;
-    const int kv_end = causal ? min(Sk, q_lo + BQ) : Sk;
+    int kv_end = causal ? min(Sk, q_lo + BQ) : Sk;
+    int t_lo = first_kv_tile(q_lo, window);
+    int q_mn = 0, q_mx = 0;  // POS: the tile's smallest and largest position
+    if constexpr (POS)
+      pos_walk(qpb, kpb, q_lo, min(BQ, Sq - q_lo), Sk, window, t_lo, kv_end, q_mn, q_mx);
     const int n_kv_tiles = (kv_end + BK - 1) / BK;
-    const int t_lo = first_kv_tile(q_lo, window);
     for (int hh = 0; hh < group; ++hh) {
       const int h = g * group + hh;
       __syncthreads();  // Qs free (and the pinned prefix staged)
@@ -237,6 +310,9 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
 
       for (int t = t_lo; t < n_kv_tiles; ++t) {
         const int k_lo = t * BK;
+        if constexpr (POS) {  // a tile no row sees: nothing to add (uniform over the block)
+          if (pos_tile_hidden(kpb, k_lo, Sk, q_mn, q_mx, window)) continue;
+        }
         const int ncols = min(BK, kv_end - k_lo);
         const uint32_t* Kt;
         const uint32_t* Vt;
@@ -276,6 +352,8 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = q_lo + ty * 4 + i;
+          // POS: this row's position (a row past Sq is never written)
+          const int qp = POS && row < Sq ? qpb[row] : 0;
           bool ok[4];
           float mx = NEG_INF;
 #pragma unroll
@@ -283,8 +361,15 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
             const int col = k_lo + tx + 16 * j;
             float x = s[i][j] * scale;
             if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-            ok[j] = col < kv_end && (!causal || col <= row) && (window == 0 || col > row - window);
-            s[i][j] = ok[j] ? x : NEG_INF;
+            if constexpr (POS) {
+              // a hidden key scores -1e30 and still counts (a row that sees
+              // none gets the uniform mean); a column past kv_end does not
+              ok[j] = col < kv_end;
+              s[i][j] = ok[j] && !pos_hidden(kpb, col, qp, window) ? x : NEG_INF;
+            } else {
+              ok[j] = col < kv_end && (!causal || col <= row) && (window == 0 || col > row - window);
+              s[i][j] = ok[j] ? x : NEG_INF;
+            }
             mx = fmaxf(mx, s[i][j]);
           }
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
@@ -349,17 +434,55 @@ flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
   }
 }
 
+#ifndef DCO_FLASH_POS
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-           int Sk, int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
-           float scale, float softcap, const long long* st, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS)
+flash_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
+             const uint32_t* __restrict__ v, uint32_t* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int G, int tiles_per_chunk,
+             int pinned_rows, int causal, int window,
+             float scale, float softcap, long long q_sb, long long q_ss,
+             long long q_sh, long long k_sb, long long k_ss, long long k_sg,
+             long long v_sb, long long v_ss, long long v_sg, long long o_sb,
+             long long o_ss, long long o_sh) {
+  flash_body<T, D, false>(q, k, v, o, lse, nullptr, 0, Sq, Sk, H, G, tiles_per_chunk,
+                          pinned_rows, causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb,
+                          k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+}
+#else
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_pos_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ k,
+                 const uint32_t* __restrict__ v, uint32_t* __restrict__ o,
+                 float* __restrict__ lse, const int* __restrict__ pos,
+                 int keys_at_rows, int Sq, int Sk, int H, int G,
+                 int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
+                 float softcap, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                 long long k_ss, long long k_sg, long long v_sb, long long v_ss, long long v_sg,
+                 long long o_sb, long long o_ss, long long o_sh) {
+  flash_body<T, D, true>(q, k, v, o, lse, pos, keys_at_rows, Sq, Sk, H, G, tiles_per_chunk,
+                         pinned_rows, causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb,
+                         k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+}
+#endif
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const int* pos,
+           int keys_at_rows, int B, int Sq, int Sk, int H, int G, int tiles_per_chunk,
+           int pinned_rows, int causal, int window, float scale, float softcap,
+           const long long* st, cudaStream_t stream) {
   constexpr int EPW = Word<T>::EPW;
   constexpr int LD = D / EPW + 1;
   const long long smem =
       4ll * (2ll * pinned_rows * LD + 3ll * BQ * LD) + 4ll * BQ * LDP;
   if (smem > SMEM_LIMIT) return -2;
+#ifndef DCO_FLASH_POS
+  const void* kernel = (const void*)flash_kernel<T, D>;
+#else
+  const void* kernel = (const void*)flash_pos_kernel<T, D>;
+#endif
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
   const int n_q_tiles = (Sq + BQ - 1) / BQ;
   const int n_chunks = (n_q_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
@@ -369,11 +492,19 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     w[i] = st[i] / EPW;
   }
   const dim3 grid(n_chunks, G, B);
+#ifndef DCO_FLASH_POS
   flash_kernel<T, D><<<grid, THREADS, (size_t)smem, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
       static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), lse, Sq, Sk, H, G,
       tiles_per_chunk, pinned_rows, causal, window, scale, softcap, w[0], w[1], w[2], w[3],
       w[4], w[5], w[6], w[7], w[8], w[9], w[10], w[11]);
+#else
+  flash_pos_kernel<T, D><<<grid, THREADS, (size_t)smem, stream>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
+      static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), lse, pos, keys_at_rows, Sq, Sk,
+      H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, w[0], w[1], w[2],
+      w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10], w[11]);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -406,11 +537,14 @@ __device__ __forceinline__ int tile_at(int p, int n) {
 // Strides are in elements.  LSE: also write each row's log-sum-exp to `lse`.
 // The body is shared by two kernels: the serving one (flash_mma_kernel, no
 // LSE, with the signature and code it had before the LSE existed) and
-// training's (flash_mma_lse_kernel).
-template <int D, bool LSE>
+// training's (flash_mma_lse_kernel); POS (the position variant's
+// flash_mma_pos_kernel): mask by pos (B, Sq), keys at the same positions or,
+// with keys_at_rows, at their row index.
+template <int D, bool LSE, bool POS>
 __device__ __forceinline__ void flash_mma_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int G, int wph,
+    bf16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ pos,
+    int keys_at_rows, int Sq, int Sk, int H, int G, int wph,
     int hp, int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
     float softcap, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sg, long long v_sb, long long v_ss, long long v_sg,
@@ -444,12 +578,15 @@ __device__ __forceinline__ void flash_mma_body(
 
   const bf16* kb = k + b * k_sb + g * k_sg;
   const bf16* vb = v + b * v_sb + g * v_sg;
+  // POS: this batch row's positions of the queries and (forward mode) the keys
+  const int* qpb = POS ? pos + (long long)b * Sq : nullptr;
+  const int* kpb = POS && !keys_at_rows ? qpb : nullptr;
 
   // the pinned prefix: staged once, whole tiles, from the first tile to the
   // last that this block's Q rows can see; its rows hold what a streamed tile
-  // would hold
-  int kv_need = 0, kv_first = Sk;
-  for (int p = p0; p < p1; ++p) {
+  // would hold.  POS: the whole prefix
+  int kv_need = POS ? Sk : 0, kv_first = POS ? 0 : Sk;
+  for (int p = p0; p < (POS ? p0 : p1); ++p) {
     const int qt = tile_at(p, n_q_tiles);
     kv_need = max(kv_need, causal ? min(Sk, (qt + 1) * bq) : Sk);
     kv_first = min(kv_first, first_kv_tile(qt * bq, window) * BK);
@@ -472,13 +609,28 @@ __device__ __forceinline__ void flash_mma_body(
 
   for (int p = p0; p < p1; ++p) {
     const int q_lo = tile_at(p, n_q_tiles) * bq;
-    const int kv_end = causal ? min(Sk, q_lo + bq) : Sk;
+    int kv_end = causal ? min(Sk, q_lo + bq) : Sk;
+    int t_lo = first_kv_tile(q_lo, window);
+    int q_mn = 0, q_mx = 0;  // POS: the tile's smallest and largest position
+    if constexpr (POS)
+      pos_walk(qpb, kpb, q_lo, min(bq, Sq - q_lo), Sk, window, t_lo, kv_end, q_mn, q_mx);
     const int n_kv = (kv_end + BK - 1) / BK;
     const int n_pinned = pinned_rows >= Sk ? n_kv : min(n_kv, pinned_rows / BK);
-    const int t_lo = first_kv_tile(q_lo, window);
-    const int t_stream = max(t_lo, n_pinned);  // the first streamed tile
+    // POS: the first tile at or after t that some row of this Q tile sees
+    // (forward mode; the next tile in prefill mode), so that a hidden tile is
+    // neither loaded nor computed.  Uniform over the block.
+    auto next_seen = [&](int t) {
+      if constexpr (POS) {
+        while (t < n_kv && pos_tile_hidden(kpb, t * BK, Sk, q_mn, q_mx, window)) ++t;
+      }
+      return t;
+    };
+    const int t_stream = next_seen(max(t_lo, n_pinned));  // the first streamed tile
     const int r0 = q_lo + 16 * slice;  // this warp's first query row
     const int ra = r0 + (lane >> 2);   // this thread's rows: ra and ra + 8
+    // POS: the positions of rows ra and ra + 8 (a row past Sq is never written)
+    const int qp0 = POS && ra < Sq ? qpb[ra] : 0;
+    const int qp1 = POS && ra + 8 < Sq ? qpb[ra + 8] : 0;
     for (int h0 = 0; h0 < group; h0 += hp) {
       const int nh = min(hp, group - h0);
       const int h = g * group + h0 + hh;
@@ -516,12 +668,13 @@ __device__ __forceinline__ void flash_mma_body(
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-      for (int t = t_lo; t < n_kv; ++t) {
+      for (int t = next_seen(t_lo), slot = 0; t < n_kv;) {
+        const int t_next = next_seen(t + 1);
         const bool streamed = t >= n_pinned;
         uint32_t kt, vt;
         if (streamed) {
-          const int st = (t - t_stream) & 1;
-          if (t + 1 < n_kv) load_kv(t + 1, st ^ 1);
+          const int st = POS ? slot : (t - t_stream) & 1;
+          if (t_next < n_kv) load_kv(t_next, st ^ 1);
           cp_async_commit();
           cp_async_wait<1>();  // tile t has landed
           __syncthreads();
@@ -533,11 +686,12 @@ __device__ __forceinline__ void flash_mma_body(
 
         const int k_lo = t * BK;
         // columns [0, dead) lie below the window of every row of this warp
-        const int dead = window > 0 ? min(BK, max(0, r0 - window + 1 - k_lo)) : 0;
+        // (POS: no column is skipped by its index)
+        const int dead = !POS && window > 0 ? min(BK, max(0, r0 - window + 1 - k_lo)) : 0;
         if (active && dead < BK) {
           // columns [lim, BK) lie above every row of this warp
-          const int lim = causal ? min(BK, r0 + 16 - k_lo) : BK;
-          const bool need_mask = k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1) ||
+          const int lim = !POS && causal ? min(BK, r0 + 16 - k_lo) : BK;
+          const bool need_mask = POS || k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1) ||
                                  (window > 0 && k_lo + window <= r0 + 15);
 
           // softmax steps of CB 16-column blocks: the whole tile, or (QS) two
@@ -592,8 +746,17 @@ __device__ __forceinline__ void flash_mma_body(
                 for (int e = 0; e < 4; ++e) {
                   const int col = k_lo + 16 * c0 + 8 * j + 2 * (lane & 3) + (e & 1);
                   const int row = ra + 8 * (e >> 1);
-                  if (col >= Sk || (causal && col > row) || (window > 0 && col <= row - window))
+                  if constexpr (POS) {
+                    // a hidden key scores the finite -1e30: a row that sees
+                    // none gets the uniform mean; past Sk nothing counts
+                    if (col >= Sk)
+                      s[j][e] = -INFINITY;
+                    else if (pos_hidden(kpb, col, (e >> 1) ? qp1 : qp0, window))
+                      s[j][e] = NEG_INF;
+                  } else if (col >= Sk || (causal && col > row) ||
+                             (window > 0 && col <= row - window)) {
                     s[j][e] = -INFINITY;
+                  }
                 }
             }
 
@@ -651,7 +814,11 @@ __device__ __forceinline__ void flash_mma_body(
             }
           }
         }
-        if (streamed) __syncthreads();  // this ring slot may be refilled
+        if (streamed) {
+          __syncthreads();  // this ring slot may be refilled
+          slot ^= 1;
+        }
+        t = t_next;
       }
 
       if (active) {
@@ -678,6 +845,7 @@ __device__ __forceinline__ void flash_mma_body(
   }
 }
 
+#ifndef DCO_FLASH_POS
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -687,9 +855,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long k_sb, long long k_ss, long long k_sg, long long v_sb,
                  long long v_ss, long long v_sg, long long o_sb, long long o_ss,
                  long long o_sh) {
-  flash_mma_body<D, false>(q, k, v, o, nullptr, Sq, Sk, H, G, wph, hp, tiles_per_chunk,
-                           pinned_rows, causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb,
-                           k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+  flash_mma_body<D, false, false>(q, k, v, o, nullptr, nullptr, 0, Sq, Sk, H, G, wph, hp,
+                                  tiles_per_chunk, pinned_rows, causal, window, scale, softcap,
+                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb,
+                                  o_ss, o_sh);
 }
 
 template <int D>
@@ -701,15 +870,35 @@ flash_mma_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                      long long k_ss, long long k_sg, long long v_sb, long long v_ss,
                      long long v_sg, long long o_sb, long long o_ss, long long o_sh) {
-  flash_mma_body<D, true>(q, k, v, o, lse, Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows,
-                          causal, window, scale, softcap, q_sb, q_ss, q_sh, k_sb, k_ss, k_sg,
-                          v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+  flash_mma_body<D, true, false>(q, k, v, o, lse, nullptr, 0, Sq, Sk, H, G, wph, hp,
+                                 tiles_per_chunk, pinned_rows, causal, window, scale, softcap,
+                                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss,
+                                 o_sh);
 }
+#else
+// The position variant, with (LSE, as flash_mma_lse_kernel) or without the
+// per-row log-sum-exp.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+flash_mma_pos_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     const int* __restrict__ pos, int keys_at_rows, int Sq,
+                     int Sk, int H, int G, int wph, int hp, int tiles_per_chunk,
+                     int pinned_rows, int causal, int window, float scale, float softcap,
+                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                     long long k_ss, long long k_sg, long long v_sb, long long v_ss,
+                     long long v_sg, long long o_sb, long long o_ss, long long o_sh) {
+  flash_mma_body<D, LSE, true>(q, k, v, o, lse, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
+                               tiles_per_chunk, pinned_rows, causal, window, scale, softcap, q_sb,
+                               q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+}
+#endif
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-               int Sk, int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
-               float scale, float softcap, const long long* st, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+               const int* pos, int keys_at_rows, int B, int Sq, int Sk, int H, int G,
+               int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
+               float softcap, const long long* st, cudaStream_t stream) {
   // heads a pass, then warps a head (16 query rows each), within the block's warps
   const int max_warps = D > Q_REG_DIM ? MAX_WARPS_Q_SMEM : MAX_WARPS;
   const int group = H / G;
@@ -724,9 +913,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   for (int i = 0; i < 12; ++i)
     if (st[i] % 8 != 0) return -1;  // 16-byte rows for the 16-byte copies
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0) return -1;
-  cudaError_t err = cudaFuncSetAttribute(
-      lse != nullptr ? (const void*)flash_mma_lse_kernel<D> : (const void*)flash_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+#ifndef DCO_FLASH_POS
+  const void* kernel =
+      lse != nullptr ? (const void*)flash_mma_lse_kernel<D> : (const void*)flash_mma_kernel<D>;
+#else
+  const void* kernel = lse != nullptr ? (const void*)flash_mma_pos_kernel<D, true>
+                                      : (const void*)flash_mma_pos_kernel<D, false>;
+#endif
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
   const int bq = 16 * wph;
   const int n_q_tiles = (Sq + bq - 1) / bq;
@@ -735,6 +930,19 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
+#ifdef DCO_FLASH_POS
+  if (lse != nullptr)
+    flash_mma_pos_kernel<D, true><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
+        qb, kb, vb, static_cast<bf16*>(o), lse, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
+        tiles_per_chunk, pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  else
+    flash_mma_pos_kernel<D, false><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
+        qb, kb, vb, static_cast<bf16*>(o), nullptr, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
+        tiles_per_chunk, pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  return (int)cudaGetLastError();
+#else
   if (lse != nullptr)
     flash_mma_lse_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
         qb, kb, vb, static_cast<bf16*>(o), lse, Sq, Sk, H, G, wph, hp, tiles_per_chunk,
@@ -746,6 +954,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
         causal, window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
         st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
+#endif
 }
 
 }  // namespace
@@ -756,36 +965,81 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
 // `lse` (B, H, Sq) fp32, or null: the natural log-sum-exp of each row's scaled,
 // capped and masked scores, for the backward (csrc/flash_attention_bwd.cu).
 // `softcap` 0 means none.  `window` > 0 lets row r see columns (r - window, r]
-// (causal only); 0 means none.  `pinned_rows` is Sk or a multiple of 64.  Returns 0,
-// a cudaError_t, -1 for arguments the kernel does not take, or -2 when
-// `pinned_rows` does not fit the shared memory a block may take.
-extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int dtype, int B, int Sq, int Sk, int H, int G, int D,
-                                   int tiles_per_chunk, int pinned_rows, int causal,
-                                   int window, float scale, float softcap,
-                                   const long long* strides, void* stream) {
+// (causal only); 0 means none.  `pinned_rows` is Sk or a multiple of 64.
+// `pos` (B, Sq), contiguous int32 in (-2^30, 2^30), or null: the queries'
+// positions, which the causal mask and the window test instead of the row
+// indices (causal only), with the keys at the same positions (`keys_at_rows`
+// 0; Sq == Sk) or at their row index (1; Sq may differ from Sk); the
+// position variant (flash_attention_pos.cu) computes them.  Returns 0, a cudaError_t,
+// -1 for arguments the kernel does not take, or -2 when `pinned_rows` does not
+// fit the shared memory a block may take.
+namespace {
+
+int flash_entry(const void* q, const void* k, const void* v, void* o, float* lse,
+                const int* pos, int keys_at_rows, int dtype, int B, int Sq, int Sk, int H,
+                int G, int D, int tiles_per_chunk, int pinned_rows, int causal, int window,
+                float scale, float softcap, const long long* strides, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || G <= 0 || H % G != 0) return -1;
   if (B > 65535 || G > 65535 || tiles_per_chunk <= 0) return -1;
   if (pinned_rows < 0 || pinned_rows > Sk) return -1;
   if (pinned_rows != Sk && pinned_rows % BK != 0) return -1;
-  if (causal && Sq != Sk) return -1;
+  if (causal && Sq != Sk && (pos == nullptr || !keys_at_rows)) return -1;
   if (window < 0 || (window > 0 && !causal)) return -1;
+  if (pos != nullptr && !causal) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 256)
-    return launch_mma<256>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<256>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 128)
-    return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<128>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 112)
-    return launch_mma<112>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<112>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 0 && D == 64)
-    return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch_mma<64>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 256)
-    return launch<float, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 256>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 128>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 112)
-    return launch<float, 112>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 112>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   if (dtype == 1 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
+    return launch<float, 64>(q, k, v, o, lse, pos, keys_at_rows, B, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides, s);
   return -1;
 }
+
+}  // namespace
+
+#ifdef DCO_FLASH_POS
+extern "C" int dco_flash_attention_pos(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, const int* pos, int keys_at_rows,
+                                       int dtype, int B, int Sq, int Sk, int H, int G, int D,
+                                       int tiles_per_chunk, int pinned_rows, int causal,
+                                       int window, float scale, float softcap,
+                                       const long long* strides, void* stream) {
+  if (pos == nullptr) return -1;
+  return flash_entry(q, k, v, o, lse, pos, keys_at_rows, dtype, B, Sq, Sk, H, G, D,
+                     tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides,
+                     stream);
+}
+#else
+extern "C" int dco_flash_attention_pos(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, const int* pos, int keys_at_rows,
+                                       int dtype, int B, int Sq, int Sk, int H, int G, int D,
+                                       int tiles_per_chunk, int pinned_rows, int causal,
+                                       int window, float scale, float softcap,
+                                       const long long* strides, void* stream);
+
+extern "C" int dco_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, const int* pos, int keys_at_rows, int dtype,
+                                   int B, int Sq, int Sk, int H, int G, int D,
+                                   int tiles_per_chunk, int pinned_rows, int causal,
+                                   int window, float scale, float softcap,
+                                   const long long* strides, void* stream) {
+  if (pos != nullptr)  // the position variant (flash_attention_pos.cu)
+    return dco_flash_attention_pos(q, k, v, o, lse, pos, keys_at_rows, dtype, B, Sq, Sk, H, G, D,
+                                   tiles_per_chunk, pinned_rows, causal, window, scale,
+                                   softcap, strides, stream);
+  return flash_entry(q, k, v, o, lse, pos, keys_at_rows, dtype, B, Sq, Sk, H, G, D,
+                     tiles_per_chunk, pinned_rows, causal, window, scale, softcap, strides,
+                     stream);
+}
+#endif

@@ -65,6 +65,21 @@
 // above the diagonal, and every element is masked by kv > q - W beside the
 // causal test.
 //
+// Explicit positions (the JAX package's `forward` with a (B, S) positions
+// table, which its autodiff differentiates through `gqa_attention`): the
+// position variant, flash_attention_bwd_pos.cu, compiles the `_ext_` kernels
+// again with DCO_FLASH_POS defined, taking `pos` (B, S) int32, the positions
+// of both the query and the key rows (training passes one table for both);
+// a translation unit of its own, so that the kernels here keep their code and
+// registers, and dco_flash_attention_bwd hands a call with a table to it.  Row q sees row kv where pos[kv] <= pos[q] and, under a
+// window, pos[kv] > pos[q] - W.  Positions need not follow the rows, so a KV
+// tile's block walks every Q tile and a Q tile's block every KV tile, skipping
+// a pair of tiles whose smallest and largest positions prove that no row of
+// one sees a row of the other (positions.cuh), and the skips of 32-row blocks
+// by index are off.  Every row sees itself under such a table, so its lse is
+// finite and no row needs the forward's rule for a row that sees no key; a
+// hidden pair's P and dS are 0.
+//
 // head_dim 112 (zamba2-7b's shared attention block) takes the same code as 64
 // and 128: every loop over the head dimension steps one 16-column block at a
 // time (7 of them; no step takes two blocks at once), so D / 16 being odd
@@ -93,10 +108,33 @@
 #include <stdint.h>
 
 #include "bf16_tiles.cuh"
+#include "positions.cuh"
 
 namespace {
 
 using namespace dco_tiles;
+
+// the position variant's translation unit: the _ext_ bodies read `pos`
+#ifdef DCO_FLASH_POS
+constexpr bool POS_TABLE = true;
+#define DCO_POS_PARAM , const int* __restrict__ pos
+#define DCO_POS_ARG pos
+#else
+constexpr bool POS_TABLE = false;
+#define DCO_POS_PARAM
+#define DCO_POS_ARG nullptr
+#endif
+
+// (EXT, pos) the pair of TB-row tiles at q_lo and k_lo hidden from each other,
+// k_mn and k_mx the KV tile's smallest and largest position: skipped whole.
+// Uniform over the block (every warp reduces the Q tile itself).
+template <int TB>
+__device__ __forceinline__ bool pair_hidden(const int* __restrict__ pos, int q_lo, int S,
+                                            int k_mn, int k_mx, int window) {
+  int q_mn, q_mx;
+  dco_positions::tile_min_max(pos, q_lo, min(TB, S - q_lo), q_mn, q_mx);
+  return dco_positions::tiles_hidden(q_mn, q_mx, k_mn, k_mx, window);
+}
 
 constexpr int BT = 64;        // rows of a Q or KV tile (bf16; fp32 up to D 128)
 constexpr int THREADS = 256;  // fp32 path: 16 x 16, thread (ty, tx) owns rows ty*R + i and columns tx + 16*j
@@ -118,9 +156,16 @@ __host__ __device__ constexpr int dkdv_splits() {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
-// Q row q sees KV row kv: causal, and (EXT, window > 0) kv > q - window
+// Q row q sees KV row kv: causal, and (EXT, window > 0) kv > q - window; (EXT,
+// pos) the same tests on their positions, kv below S
 template <bool EXT>
-__device__ __forceinline__ bool visible(int q, int kv, int window) {
+__device__ __forceinline__ bool visible(int q, int kv, int window, const int* pos = nullptr,
+                                        int S = 0) {
+  if (EXT && POS_TABLE) {
+    if (kv >= S) return false;
+    const int pq = pos[q], pk = pos[kv];
+    return pk <= pq && (window == 0 || pk > pq - window);
+  }
   return kv <= q && (!EXT || window == 0 || kv > q - window);
 }
 
@@ -170,7 +215,7 @@ __device__ __forceinline__ void tile_grads(const float* Qs, const float* dOs, co
                                            const float* Vs, const float* lse_s,
                                            const float* delta_s, float* Ps, float* dSs,
                                            int q_lo, int k_lo, int S, float scale, int window,
-                                           float softcap) {
+                                           float softcap, const int* __restrict__ pos) {
   constexpr int LD = D + 1;
   constexpr int LDP = TB + 1;
   constexpr int R = TB / 16;  // rows and columns of a thread's patch
@@ -210,7 +255,8 @@ __device__ __forceinline__ void tile_grads(const float* Qs, const float* dOs, co
     for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j;
       const int col = k_lo + c;
-      const bool ok = row < S && visible<EXT>(row, col, window);  // col < S follows
+      // col < S follows from causality without positions
+      const bool ok = row < S && visible<EXT>(row, col, window, pos, S);
       float x = s[i][j] * scale;
       float dcap = 1.f;
       if (EXT && softcap > 0.f) {  // as the fp32 forward caps
@@ -258,7 +304,8 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ q, const flo
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta, float* __restrict__ dk,
                                           float* __restrict__ dv, int S, int H, int G,
-                                          float scale, int window, float softcap) {
+                                          float scale, int window, float softcap,
+                                          const int* __restrict__ pos) {
   constexpr int TB = fp32_tile<D>();
   constexpr int R = TB / 16;    // KV rows a thread owns
   constexpr int LD = D + 1;
@@ -282,7 +329,11 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ q, const flo
   const int ty = threadIdx.x >> 4;
   const int k_lo = kt * TB;
   const int n_tiles = (S + TB - 1) / TB;
-  const int qt_end = q_tile_end<EXT, TB>(k_lo, n_tiles, window);
+  const bool by_pos = EXT && POS_TABLE;  // every Q tile not hidden from this one
+  const int* pb = by_pos ? pos + (long long)b * S : nullptr;
+  const int qt_end = by_pos ? n_tiles : q_tile_end<EXT, TB>(k_lo, n_tiles, window);
+  int k_mn = 0, k_mx = 0;
+  if (by_pos) dco_positions::tile_min_max(pb, k_lo, min(TB, S - k_lo), k_mn, k_mx);
   const long long qstride = (long long)H * D;  // elements between rows of q, o, dout
   const long long kstride = (long long)G * D;
 
@@ -298,8 +349,9 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ q, const flo
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = g * group + hh;
-    for (int qt = kt; qt < qt_end; ++qt) {  // causal: rows at or past k_lo
+    for (int qt = by_pos ? 0 : kt; qt < qt_end; ++qt) {  // causal: rows at or past k_lo
       const int q_lo = qt * TB;
+      if (by_pos && pair_hidden<TB>(pb, q_lo, S, k_mn, k_mx, window)) continue;
       __syncthreads();  // the previous pair's tiles are free
       const long long q_off = ((long long)b * S + q_lo) * qstride + (long long)h * D;
       stage<D, TB>(Qs, q + q_off, qstride, S - q_lo);
@@ -308,7 +360,7 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ q, const flo
       stage_rows_stats<TB>(lse_s, delta_s, lse + st_off, delta + st_off, q_lo, S);
       __syncthreads();
       tile_grads<D, TB, true, EXT>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q_lo, k_lo, S,
-                                   scale, window, softcap);
+                                   scale, window, softcap, pb);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q for this thread's KV rows and columns
       const int r_end = min(TB, S - q_lo);
@@ -356,7 +408,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int S, int H, int G, float scale) {
-  dkdv_body<D, false>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, 0, 0.f);
+  dkdv_body<D, false>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, 0, 0.f, nullptr);
 }
 
 template <int D>
@@ -365,8 +417,9 @@ dkdv_ext_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dk, float* __restrict__ dv, int S, int H, int G, float scale,
-                int window, float softcap) {
-  dkdv_body<D, true>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap);
+                int window, float softcap DCO_POS_PARAM) {
+  dkdv_body<D, true>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap,
+                     DCO_POS_ARG);
 }
 
 // grid = (Q tiles, H, B); layouts as dkdv_body, dq (B, S, H, D).
@@ -377,7 +430,7 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta, float* __restrict__ dq,
                                         int S, int H, int G, float scale, int window,
-                                        float softcap) {
+                                        float softcap, const int* __restrict__ pos) {
   constexpr int TB = fp32_tile<D>();
   constexpr int R = TB / 16;    // Q rows a thread owns
   constexpr int LD = D + 1;
@@ -414,16 +467,25 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
 
-  // causal: KV tiles up to the diagonal (EXT: from the window's first)
-  for (int kt = kv_tile_begin<EXT, TB>(q_lo, window); kt <= qt; ++kt) {
+  // causal: KV tiles up to the diagonal (EXT: from the window's first; EXT
+  // and pos: every KV tile)
+  const bool by_pos = EXT && POS_TABLE;
+  const int* pb = by_pos ? pos + (long long)b * S : nullptr;
+  const int kt_last = by_pos ? (S - 1) / TB : qt;
+  for (int kt = by_pos ? 0 : kv_tile_begin<EXT, TB>(q_lo, window); kt <= kt_last; ++kt) {
     const int k_lo = kt * TB;
+    if (by_pos) {  // a KV tile hidden from this Q tile: skipped
+      int k_mn, k_mx;
+      dco_positions::tile_min_max(pb, k_lo, min(TB, S - k_lo), k_mn, k_mx);
+      if (pair_hidden<TB>(pb, q_lo, S, k_mn, k_mx, window)) continue;
+    }
     __syncthreads();  // the previous KV tiles are free (and Q, dO staged)
     const long long kv_off = ((long long)b * S + k_lo) * kstride + (long long)g * D;
     stage<D, TB>(Ks, k + kv_off, kstride, S - k_lo);
     stage<D, TB>(Vs, v + kv_off, kstride, S - k_lo);
     __syncthreads();
     tile_grads<D, TB, false, EXT>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr, dSs, q_lo, k_lo, S,
-                                  scale, window, softcap);
+                                  scale, window, softcap, pb);
     __syncthreads();
     // dQ += dS K for this thread's Q rows and columns
     const int c_end = min(TB, S - k_lo);
@@ -457,7 +519,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, int S, int H, int G, float scale) {
-  dq_body<D, false>(q, k, v, dout, lse, delta, dq, S, H, G, scale, 0, 0.f);
+  dq_body<D, false>(q, k, v, dout, lse, delta, dq, S, H, G, scale, 0, 0.f, nullptr);
 }
 
 template <int D>
@@ -466,8 +528,8 @@ dq_ext_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int S, int H, int G, float scale, int window,
-              float softcap) {
-  dq_body<D, true>(q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap);
+              float softcap DCO_POS_PARAM) {
+  dq_body<D, true>(q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap, DCO_POS_ARG);
 }
 
 // ---------------------------------------------------------------------------
@@ -574,7 +636,7 @@ __device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
                                               const float* __restrict__ delta,
                                               bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
                                               int H, int G, float scale, int window,
-                                              float softcap) {
+                                              float softcap, const int* __restrict__ pos) {
   constexpr int TILEB = BT * row_bytes<D>();
   constexpr int SPLITS = dkdv_splits<D>();
   constexpr int DC = D / SPLITS;  // output columns of a block
@@ -597,7 +659,11 @@ __device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
   const int k_lo = kt * BT;
   const int kv_a = k_lo + r0 + (lane >> 2);  // this thread's KV rows: kv_a and kv_a + 8
   const int n_tiles = (S + BT - 1) / BT;
-  const int qt_end = q_tile_end<EXT, BT>(k_lo, n_tiles, window);
+  const bool by_pos = EXT && POS_TABLE;  // every Q tile not hidden, no skip by index
+  const int* pb = by_pos ? pos + (long long)b * S : nullptr;
+  const int qt_end = by_pos ? n_tiles : q_tile_end<EXT, BT>(k_lo, n_tiles, window);
+  int k_mn = 0, k_mx = 0;
+  if (by_pos) dco_positions::tile_min_max(pb, k_lo, min(BT, S - k_lo), k_mn, k_mx);
   const long long qstride = (long long)H * D;
   const long long kstride = (long long)G * D;
 
@@ -614,8 +680,9 @@ __device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = g * group + hh;
-    for (int qt = kt; qt < qt_end; ++qt) {  // causal: Q rows at or past k_lo
+    for (int qt = by_pos ? 0 : kt; qt < qt_end; ++qt) {  // causal: Q rows at or past k_lo
       const int q_lo = qt * BT;
+      if (by_pos && pair_hidden<BT>(pb, q_lo, S, k_mn, k_mx, window)) continue;
       __syncthreads();  // the previous Q and dO tiles are free
       const long long q_off = ((long long)b * S + q_lo) * qstride + (long long)h * D;
       stage_tile<D>(Qs, q + q_off, qstride, BT, min(BT, S - q_lo));
@@ -628,9 +695,9 @@ __device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
 #pragma unroll
       for (int c0 = 0; c0 < BT; c0 += 32) {
         // Q rows [q_lo + c0, +32): all past S, or all above this warp's KV rows
-        if (q_lo + c0 >= S || q_lo + c0 + 31 < k_lo + r0) continue;
+        if (q_lo + c0 >= S || (!by_pos && q_lo + c0 + 31 < k_lo + r0)) continue;
         // (EXT) or all past the window of every KV row of this warp
-        if (EXT && window > 0 && q_lo + c0 >= k_lo + r0 + 15 + window) continue;
+        if (EXT && !by_pos && window > 0 && q_lo + c0 >= k_lo + r0 + 15 + window) continue;
         float s[4][4], dp[4][4];
         mma_pair<D>(s, dp, Ks, Vs, Qs, dOs, r0, c0, lane);
         uint32_t pa[2][4], da[2][4];
@@ -641,7 +708,7 @@ __device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int c = c0 + 8 * j + 2 * (lane & 3) + (e & 1);  // Q row in the tile
             const int kv = kv_a + 8 * (e >> 1);
-            const bool ok = q_lo + c < S && visible<EXT>(q_lo + c, kv, window);
+            const bool ok = q_lo + c < S && visible<EXT>(q_lo + c, kv, window, pb, S);
             float dcap = 1.f;  // read only where p is 0 when the pair is hidden
             p[e] = ok ? prob_mma<EXT>(s[j][e], scale, lse_s[c], softcap, dcap) : 0.f;
             ds[e] = p[e] * (dp[j][e] - delta_s[c]);
@@ -668,7 +735,7 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int G, float scale) {
-  dkdv_mma_body<D, false>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, 0, 0.f);
+  dkdv_mma_body<D, false>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, 0, 0.f, nullptr);
 }
 
 template <int D>
@@ -677,8 +744,9 @@ dkdv_mma_ext_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int G,
-                    float scale, int window, float softcap) {
-  dkdv_mma_body<D, true>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap);
+                    float scale, int window, float softcap DCO_POS_PARAM) {
+  dkdv_mma_body<D, true>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap,
+                         DCO_POS_ARG);
 }
 
 // grid = (Q tiles, H, B), MMA_WARPS warps; layouts as dkdv_body.  Warp w
@@ -691,7 +759,8 @@ __device__ __forceinline__ void dq_mma_body(const bf16* __restrict__ q,
                                             const float* __restrict__ lse,
                                             const float* __restrict__ delta,
                                             bf16* __restrict__ dq, int S, int H, int G,
-                                            float scale, int window, float softcap) {
+                                            float scale, int window, float softcap,
+                                            const int* __restrict__ pos) {
   constexpr int TILEB = BT * row_bytes<D>();
   constexpr int NO = D / 8;
   extern __shared__ __align__(128) unsigned char smem_b[];
@@ -725,9 +794,18 @@ __device__ __forceinline__ void dq_mma_body(const bf16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  // causal: KV tiles up to the diagonal (EXT: from the window's first)
-  for (int kt = kv_tile_begin<EXT, BT>(q_lo, window); kt <= qt; ++kt) {
+  // causal: KV tiles up to the diagonal (EXT: from the window's first; EXT
+  // and pos: every KV tile, no skip by index)
+  const bool by_pos = EXT && POS_TABLE;
+  const int* pb = by_pos ? pos + (long long)b * S : nullptr;
+  const int kt_last = by_pos ? (S - 1) / BT : qt;
+  for (int kt = by_pos ? 0 : kv_tile_begin<EXT, BT>(q_lo, window); kt <= kt_last; ++kt) {
     const int k_lo = kt * BT;
+    if (by_pos) {  // a KV tile hidden from this Q tile: skipped
+      int k_mn, k_mx;
+      dco_positions::tile_min_max(pb, k_lo, min(BT, S - k_lo), k_mn, k_mx);
+      if (pair_hidden<BT>(pb, q_lo, S, k_mn, k_mx, window)) continue;
+    }
     __syncthreads();  // the previous K and V tiles are free
     const long long kv_off = ((long long)b * S + k_lo) * kstride + (long long)g * D;
     stage_tile<D>(Ks, k + kv_off, kstride, BT, min(BT, S - k_lo));
@@ -737,10 +815,10 @@ __device__ __forceinline__ void dq_mma_body(const bf16* __restrict__ q,
     __syncthreads();
 #pragma unroll
     for (int c0 = 0; c0 < BT; c0 += 32) {
-      // KV rows [k_lo + c0, +32) all above this warp's Q rows
-      if (k_lo + c0 > q_lo + r0 + 15) continue;
+      // KV rows [k_lo + c0, +32) all above this warp's Q rows (by_pos: all past S)
+      if (by_pos ? k_lo + c0 >= S : k_lo + c0 > q_lo + r0 + 15) continue;
       // (EXT) or all older than the window of every Q row of this warp
-      if (EXT && window > 0 && k_lo + c0 + 31 <= q_lo + r0 - window) continue;
+      if (EXT && !by_pos && window > 0 && k_lo + c0 + 31 <= q_lo + r0 - window) continue;
       float s[4][4], dp[4][4];
       mma_pair<D>(s, dp, Qs, dOs, Ks, Vs, r0, c0, lane);
       uint32_t da[2][4];
@@ -751,7 +829,7 @@ __device__ __forceinline__ void dq_mma_body(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int r = r0 + (lane >> 2) + 8 * (e >> 1);  // Q row in the tile
           const int kv = k_lo + c0 + 8 * j + 2 * (lane & 3) + (e & 1);
-          const bool ok = q_lo + r < S && visible<EXT>(q_lo + r, kv, window);
+          const bool ok = q_lo + r < S && visible<EXT>(q_lo + r, kv, window, pb, S);
           float dcap = 1.f;
           const float p = ok ? prob_mma<EXT>(s[j][e], scale, lse_s[r], softcap, dcap) : 0.f;
           ds[e] = p * (dp[j][e] - delta_s[r]);
@@ -773,7 +851,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int S, int H, int G, float scale) {
-  dq_mma_body<D, false>(q, k, v, dout, lse, delta, dq, S, H, G, scale, 0, 0.f);
+  dq_mma_body<D, false>(q, k, v, dout, lse, delta, dq, S, H, G, scale, 0, 0.f, nullptr);
 }
 
 template <int D>
@@ -782,8 +860,9 @@ dq_mma_ext_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dq, int S, int H, int G, float scale, int window,
-                  float softcap) {
-  dq_mma_body<D, true>(q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap);
+                  float softcap DCO_POS_PARAM) {
+  dq_mma_body<D, true>(q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap,
+                       DCO_POS_ARG);
 }
 
 // delta = rowsum(dO * O), the first of the three launches
@@ -798,16 +877,21 @@ int launch_delta(const T* o, const T* dout, float* delta, int B, int S, int H,
 }
 
 // The bf16 path's three launches; the _ext_ kernels where a window or a
-// softcap is given.
+// softcap is given (the position variant: they alone, with `pos`).
 template <int D>
 int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                    const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
-                   bf16* dv, int B, int S, int H, int G, float scale, int window,
+                   bf16* dv, const int* pos, int B, int S, int H, int G, float scale, int window,
                    float softcap, cudaStream_t stream) {
-  const bool ext = window > 0 || softcap > 0.f;
   const int smem = 4 * BT * row_bytes<D>() + 2 * BT * (int)sizeof(float);
+#ifdef DCO_FLASH_POS
+  const void* dkdv = (const void*)dkdv_mma_ext_kernel<D>;
+  const void* dqk = (const void*)dq_mma_ext_kernel<D>;
+#else
+  const bool ext = window > 0 || softcap > 0.f;
   const void* dkdv = ext ? (const void*)dkdv_mma_ext_kernel<D> : (const void*)dkdv_mma_kernel<D>;
   const void* dqk = ext ? (const void*)dq_mma_ext_kernel<D> : (const void*)dq_mma_kernel<D>;
+#endif
   cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -816,6 +900,15 @@ int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   if (rc != 0) return rc;
   const int n_tiles = (S + BT - 1) / BT;
   const dim3 grid_kv(n_tiles, G * dkdv_splits<D>(), B), grid_q(n_tiles, H, B);
+#ifdef DCO_FLASH_POS
+  dkdv_mma_ext_kernel<D><<<grid_kv, MMA_WARPS * 32, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap, pos);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dq_mma_ext_kernel<D><<<grid_q, MMA_WARPS * 32, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap, pos);
+  return (int)cudaGetLastError();
+#else
   if (ext)
     dkdv_mma_ext_kernel<D><<<grid_kv, MMA_WARPS * 32, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap);
@@ -831,23 +924,29 @@ int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     dq_mma_kernel<D><<<grid_q, MMA_WARPS * 32, smem, stream>>>(q, k, v, dout, lse, delta, dq, S,
                                                                H, G, scale);
   return (int)cudaGetLastError();
+#endif
 }
 
 // The fp32 path's three launches, as the bf16 path's.
 template <int D>
 int launch_bwd_fp32(const float* q, const float* k, const float* v, const float* o,
                     const float* dout, const float* lse, float* delta, float* dq, float* dk,
-                    float* dv, int B, int S, int H, int G, float scale, int window,
+                    float* dv, const int* pos, int B, int S, int H, int G, float scale, int window,
                     float softcap, cudaStream_t stream) {
   constexpr int TB = fp32_tile<D>();
   constexpr int LD = D + 1;
   constexpr int LDP = TB + 1;
-  const bool ext = window > 0 || softcap > 0.f;
   const size_t smem_dkdv = sizeof(float) * (4 * TB * LD + 2 * TB * LDP + 2 * TB);
   const size_t smem_dq = sizeof(float) * (4 * TB * LD + TB * LDP + 2 * TB);
   if (smem_dkdv > (size_t)SMEM_LIMIT) return -2;
+#ifdef DCO_FLASH_POS
+  const void* dkdv = (const void*)dkdv_ext_kernel<D>;
+  const void* dqk = (const void*)dq_ext_kernel<D>;
+#else
+  const bool ext = window > 0 || softcap > 0.f;
   const void* dkdv = ext ? (const void*)dkdv_ext_kernel<D> : (const void*)dkdv_kernel<D>;
   const void* dqk = ext ? (const void*)dq_ext_kernel<D> : (const void*)dq_kernel<D>;
+#endif
   cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
@@ -856,6 +955,15 @@ int launch_bwd_fp32(const float* q, const float* k, const float* v, const float*
   int rc = launch_delta<float, D>(o, dout, delta, B, S, H, stream);
   if (rc != 0) return rc;
   const int n_tiles = (S + TB - 1) / TB;
+#ifdef DCO_FLASH_POS
+  dkdv_ext_kernel<D><<<dim3(n_tiles, G, B), THREADS, smem_dkdv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap, pos);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dq_ext_kernel<D><<<dim3(n_tiles, H, B), THREADS, smem_dq, stream>>>(
+      q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap, pos);
+  return (int)cudaGetLastError();
+#else
   if (ext)
     dkdv_ext_kernel<D><<<dim3(n_tiles, G, B), THREADS, smem_dkdv, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap);
@@ -871,24 +979,25 @@ int launch_bwd_fp32(const float* q, const float* k, const float* v, const float*
     dq_kernel<D><<<dim3(n_tiles, H, B), THREADS, smem_dq, stream>>>(q, k, v, dout, lse, delta,
                                                                     dq, S, H, G, scale);
   return (int)cudaGetLastError();
+#endif
 }
 
 template <int D>
 int launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
-               int B, int S, int H, int G, float scale, int window, float softcap,
+               const int* pos, int B, int S, int H, int G, float scale, int window, float softcap,
                cudaStream_t s) {
   if (dtype == 0)
     return launch_bwd_mma<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                              static_cast<const bf16*>(v), static_cast<const bf16*>(o),
                              static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
-                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, H, G, scale,
+                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), pos, B, S, H, G, scale,
                              window, softcap, s);
   return launch_bwd_fp32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
                             static_cast<const float*>(v), static_cast<const float*>(o),
                             static_cast<const float*>(dout), lse, delta,
                             static_cast<float*>(dq), static_cast<float*>(dk),
-                            static_cast<float*>(dv), B, S, H, G, scale, window, softcap, s);
+                            static_cast<float*>(dv), pos, B, S, H, G, scale, window, softcap, s);
 }
 
 }  // namespace
@@ -897,16 +1006,20 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v, const voi
 // dout and dq are (B, S, H, D), k, v, dk and dv (B, S, G, D), all contiguous;
 // lse (B, H, S) fp32 as the forward (dco_flash_attention) wrote it, with the
 // same window and softcap; delta (B, H, S) fp32 scratch.  `window` > 0 lets
-// row r see columns (r - window, r] (0: none); `softcap` 0 means none.
+// row r see columns (r - window, r] (0: none); `softcap` 0 means none.  `pos`
+// (B, S) contiguous int32, or null: the positions of both the query and the
+// key rows that the forward masked by (its q_pos and kv_pos, one table),
+// which the position variant (flash_attention_bwd_pos.cu) takes.
 // Three launches on `stream`.  Returns 0, a cudaError_t, -1 for arguments the
 // kernel does not take (D other than 64, 112, 128 and 256, H not a multiple
 // of G, a negative window or softcap, empty or oversized grids), or -2 when
 // the shared memory a block needs is more than a block may take.
-extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                       const void* o, const void* dout, const float* lse,
-                                       float* delta, void* dq, void* dk, void* dv, int dtype,
-                                       int B, int S, int H, int G, int D, int window,
-                                       float scale, float softcap, void* stream) {
+namespace {
+
+int bwd_entry(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, float* delta, void* dq, void* dk, void* dv, const int* pos,
+              int dtype, int B, int S, int H, int G, int D, int window, float scale,
+              float softcap, void* stream) {
   if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || window < 0 || !(softcap >= 0.f)) return -1;
   if (B > 65535 || H > 65535 || 2 * G > 65535) return -1;
   if (dtype != 0 && dtype != 1) return -1;
@@ -915,16 +1028,51 @@ extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void*
     return -1;  // the 16-byte copies and the paired stores
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_bwd<64>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, G, scale,
-                          window, softcap, s);
+    return launch_bwd<64>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, pos, B, S, H, G,
+                          scale, window, softcap, s);
   if (D == 112)
-    return launch_bwd<112>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, G, scale,
-                           window, softcap, s);
+    return launch_bwd<112>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, pos, B, S, H, G,
+                           scale, window, softcap, s);
   if (D == 128)
-    return launch_bwd<128>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, G, scale,
-                           window, softcap, s);
+    return launch_bwd<128>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, pos, B, S, H, G,
+                           scale, window, softcap, s);
   if (D == 256)
-    return launch_bwd<256>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, G, scale,
-                           window, softcap, s);
+    return launch_bwd<256>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, pos, B, S, H, G,
+                           scale, window, softcap, s);
   return -1;
 }
+
+}  // namespace
+
+#ifdef DCO_FLASH_POS
+extern "C" int dco_flash_attention_bwd_pos(const void* q, const void* k, const void* v,
+                                           const void* o, const void* dout, const float* lse,
+                                           float* delta, void* dq, void* dk, void* dv,
+                                           const int* pos, int dtype, int B, int S, int H,
+                                           int G, int D, int window, float scale,
+                                           float softcap, void* stream) {
+  if (pos == nullptr) return -1;
+  return bwd_entry(q, k, v, o, dout, lse, delta, dq, dk, dv, pos, dtype, B, S, H, G, D, window,
+                   scale, softcap, stream);
+}
+#else
+extern "C" int dco_flash_attention_bwd_pos(const void* q, const void* k, const void* v,
+                                           const void* o, const void* dout, const float* lse,
+                                           float* delta, void* dq, void* dk, void* dv,
+                                           const int* pos, int dtype, int B, int S, int H,
+                                           int G, int D, int window, float scale,
+                                           float softcap, void* stream);
+
+extern "C" int dco_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const float* lse,
+                                       float* delta, void* dq, void* dk, void* dv,
+                                       const int* pos, int dtype,
+                                       int B, int S, int H, int G, int D, int window,
+                                       float scale, float softcap, void* stream) {
+  if (pos != nullptr)  // the position variant (flash_attention_bwd_pos.cu)
+    return dco_flash_attention_bwd_pos(q, k, v, o, dout, lse, delta, dq, dk, dv, pos, dtype, B,
+                                       S, H, G, D, window, scale, softcap, stream);
+  return bwd_entry(q, k, v, o, dout, lse, delta, dq, dk, dv, pos, dtype, B, S, H, G, D, window,
+                   scale, softcap, stream);
+}
+#endif

@@ -43,11 +43,14 @@ __all__ = ["decode_attention", "decode_attention_lse", "decode_attention_lse_ref
            "reset_launch_counts", "ssd_bwd_ref", "ssd_ref", "ssd_scan", "ssd_scan_bwd"]
 
 # each wrapper's counter: the flash and SSD modules count their forward
-# launches and their backward launches apart
+# launches and their backward launches apart, the flash module its position
+# variant's forward launches apart too
 _COUNTERS = {"decode_attention": _decode_ops.LAUNCHES,
              "decode_attention_lse": _decode_ops.LSE_LAUNCHES,
              "flash_attention": _flash_ops.LAUNCHES,
+             "flash_attention_pos": _flash_ops.POS_LAUNCHES,
              "flash_attention_bwd": _flash_ops.BWD_LAUNCHES,
+             "flash_attention_bwd_pos": _flash_ops.BWD_POS_LAUNCHES,
              "ssd_scan": _ssd_ops.LAUNCHES,
              "ssd_scan_bwd": _ssd_ops.BWD_LAUNCHES}
 

@@ -4,7 +4,10 @@ The kernels have a plain C interface (no PyTorch headers), so a build takes
 seconds.  Each source is compiled to an object by its own nvcc process, all
 started together, and the objects are linked into one shared library.  The
 library's name carries a hash of the sources: an edited kernel is rebuilt,
-an unchanged one is loaded from ``build/``.  Nothing here runs at import
+an unchanged one is loaded from ``build/``.  A verbose build (``-Xptxas -v``)
+keeps ptxas's report beside the library (``.log``), and asking for one where
+the library has no report builds it again, so that the registers and spills
+of the kernels loaded are always known to a caller that asks.  Nothing here runs at import
 time, and a failed build raises: there is no quiet switch to the plain
 versions.
 
@@ -67,14 +70,19 @@ def _digest(srcs: List[Path], csrc: Path) -> str:
 
 def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     """Compile and link the kernels of ``csrc`` if the library for these
-    sources is not in the build directory yet; returns the library's path."""
+    sources is not in the build directory yet (or, ``verbose``, has no ptxas
+    report beside it); returns the library's path.  ``verbose``:
+    ``build_info["log"]`` holds each source's ptxas report."""
     srcs = sources(csrc)
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {csrc}")
     out_dir = build_dir()
     lib_path = out_dir / f"libdco_kernels_{_digest(srcs, csrc)}.so"
-    if lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and (not verbose or log_path.exists()):
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
+        if verbose:
+            build_info["log"] = log_path.read_text()
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -96,6 +104,9 @@ def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
                            + "\n".join(log))
+    if verbose:
+        (out_dir / f"{tag}.log").write_text("\n".join(log))
+        os.replace(out_dir / f"{tag}.log", log_path)
     tmp = out_dir / f"{tag}.so"
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],

@@ -2,8 +2,9 @@
 (csrc/flash_attention.cu) and, for training, its backward
 (csrc/flash_attention_bwd.cu), tied together by ``FlashAttentionFn``.  Both
 take causal attention at head_dim 64, 112, 128 and 256 with a sliding
-window and a softcap; the forward also takes non-causal attention, which has
-no backward kernel."""
+window, a softcap and explicit position tables (the position variants are
+csrc/flash_attention_pos.cu and csrc/flash_attention_bwd_pos.cu); the
+forward also takes non-causal attention, which has no backward kernel."""
 
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from .ref import attention_bwd_ref
 from .ref import attention_ref
 
 LAUNCHES = [0]                 # forward kernel launches made by this module
+POS_LAUNCHES = [0]             # launches of the forward's position variant
 BWD_LAUNCHES = [0]             # backward kernel launches made by this module
+BWD_POS_LAUNCHES = [0]         # launches of the backward's position variant
 BWD_KERNELS = 3                # kernels a dco_flash_attention_bwd call launches: delta, dK/dV, dQ
 MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
 MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
@@ -31,13 +34,14 @@ HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
 BWD_HEAD_DIMS = (64, 112, 128, 256)   # head sizes the backward kernel is compiled for
 BWD_FP32_TILE_256 = 32         # rows of the fp32 backward's tiles at head_dim 256 (fp32_tile in csrc)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# the C interface dco_flash_attention: q, k, v, out, lse; dtype, B, Sq, Sk, H, G,
-# D, tiles_per_chunk, pinned_rows, causal, window; scale, softcap; strides, stream
-ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+# the C interface dco_flash_attention: q, k, v, out, lse, pos; keys_at_rows, dtype,
+# B, Sq, Sk, H, G, D, tiles_per_chunk, pinned_rows, causal, window; scale,
+# softcap; strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-# dco_flash_attention_bwd: q, k, v, o, dout, lse, delta, dq, dk, dv; dtype, B, S,
-# H, G, D, window; scale, softcap; stream
-BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+# dco_flash_attention_bwd: q, k, v, o, dout, lse, delta, dq, dk, dv, pos; dtype,
+# B, S, H, G, D, window; scale, softcap; stream
+BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                 + [ctypes.c_void_p])
 _fns = {}
 
@@ -92,13 +96,45 @@ def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int,
     return -(-n_q_tiles // chunks)
 
 
+def tiles_hidden(q_pos, k_pos, window: Optional[int] = None) -> bool:
+    """Whether no query at positions ``q_pos`` sees a key at ``k_pos`` (two
+    tiles' positions): every key after every query, or every key older than
+    every query's ``window``, as ``tiles_hidden`` in csrc/positions.cuh."""
+    q_mn, q_mx, k_mn, k_mx = min(q_pos), max(q_pos), min(k_pos), max(k_pos)
+    return k_mn > q_mx or bool(window) and k_mx <= q_mn - window
+
+
+def _rows(pos, lo: int, tile: int):
+    return [int(p) for p in pos[lo:lo + tile]]
+
+
 def kv_tiles(q_lo: int, q_rows: int, sk: int, *, causal: bool = True,
-             window: Optional[int] = None) -> range:
+             window: Optional[int] = None, positions=None, keys_at_rows: bool = False):
     """The KV tiles (of ``FLASH_TILE_ROWS`` rows) that the kernel walks for
     the Q tile of rows ``[q_lo, q_lo + q_rows)``, in its order: up to the
     causal end, and from the first tile the tile's first row can see under a
     ``window`` (row r sees columns (r - window, r]), as ``first_kv_tile`` in
-    csrc/flash_attention.cu."""
+    csrc/flash_attention.cu.
+
+    The position variant (``pos_walk`` and ``pos_tile_hidden`` there), given
+    ``positions``, the query positions of the tile's batch row (a sequence
+    over all its rows): with the keys at the same positions (``forward``'s
+    mode; every row then sees itself) every tile but those whose positions
+    ``tiles_hidden`` proves hidden from the Q tile; with ``keys_at_rows``
+    (``prefill``'s mode) from the window's first tile under the tile's
+    smallest position to min(``sk``, its largest + 1), or every tile where a
+    row of the tile sees no key (a negative position, or one whose window
+    lies past ``sk``)."""
+    n = -(-sk // FLASH_TILE_ROWS)
+    if positions is not None:
+        pos = _rows(positions, q_lo, q_rows)
+        if not keys_at_rows:
+            return [t for t in range(n) if not tiles_hidden(
+                pos, _rows(positions, t * FLASH_TILE_ROWS, FLASH_TILE_ROWS), window)]
+        if min(pos) < 0 or bool(window) and max(pos) - window + 1 >= sk:
+            return range(0, n)
+        lo = max(0, min(pos) - window + 1) // FLASH_TILE_ROWS if window else 0
+        return range(lo, -(-min(sk, max(pos) + 1) // FLASH_TILE_ROWS))
     end = min(sk, q_lo + q_rows) if causal else sk
     lo = max(0, q_lo - window + 1) // FLASH_TILE_ROWS if window else 0
     return range(lo, -(-end // FLASH_TILE_ROWS))
@@ -112,21 +148,34 @@ def bwd_tile_rows(head_dim: int, itemsize: int) -> int:
 
 
 def bwd_q_tiles(kt: int, s: int, *, window: Optional[int] = None,
-                tile: int = FLASH_TILE_ROWS) -> range:
+                tile: int = FLASH_TILE_ROWS, positions=None):
     """The Q tiles that the backward's dK/dV block of KV tile ``kt`` walks
     (tiles of ``tile`` rows, length ``s``): from its own, the first at or
     below the causal diagonal, to the last that the ``window`` of the tile's
-    last row reaches, as ``q_tile_end`` in csrc/flash_attention_bwd.cu."""
+    last row reaches, as ``q_tile_end`` in csrc/flash_attention_bwd.cu;
+    with ``positions`` (one table for queries and keys, a sequence over the
+    batch row), whose order need not be the rows', every Q tile not hidden
+    from this one (``tiles_hidden``)."""
     n = -(-s // tile)
+    if positions is not None:
+        k_pos = _rows(positions, kt * tile, tile)
+        return [qt for qt in range(n)
+                if not tiles_hidden(_rows(positions, qt * tile, tile), k_pos, window)]
     end = min(n, (kt * tile + tile - 1 + window - 1) // tile + 1) if window else n
     return range(kt, end)
 
 
 def bwd_kv_tiles(qt: int, *, window: Optional[int] = None,
-                 tile: int = FLASH_TILE_ROWS) -> range:
+                 tile: int = FLASH_TILE_ROWS, positions=None):
     """The KV tiles that the backward's dQ block of Q tile ``qt`` walks: up
     to the diagonal, from the first that the tile's first row can see under
-    a ``window``, as ``kv_tile_begin`` in csrc/flash_attention_bwd.cu."""
+    a ``window``, as ``kv_tile_begin`` in csrc/flash_attention_bwd.cu; with
+    ``positions`` (as ``bwd_q_tiles``) every KV tile of the row not hidden
+    from this one."""
+    if positions is not None:
+        q_pos = _rows(positions, qt * tile, tile)
+        return [kt for kt in range(-(-len(positions) // tile))
+                if not tiles_hidden(q_pos, _rows(positions, kt * tile, tile), window)]
     lo = max(0, qt * tile - window + 1) // tile if window else 0
     return range(lo, qt + 1)
 
@@ -170,22 +219,52 @@ def check_rows_aligned(name: str, t: torch.Tensor) -> None:
 
 
 def check_backward(d: int, causal: bool, window: Optional[int],
-                   softcap: Optional[float]) -> None:
+                   softcap: Optional[float], keys_at_rows: bool = False) -> None:
     """Raise for attention whose gradient the backward kernel does not
-    compute: ``NotImplementedError`` for non-causal attention (no training
-    path runs it); ``ValueError`` for a head size outside ``BWD_HEAD_DIMS``,
-    a window that is not a positive int or a softcap that is not positive.
-    Causal attention with or without gemma2's window and softcap, at every
-    head size of the forward, gemma-7b's 256 among them, goes through."""
+    compute: ``NotImplementedError`` for non-causal attention and for
+    positions with the keys at their row index (``keys_at_rows``, the
+    prefill mode): no training path runs either; ``ValueError`` for a head
+    size outside ``BWD_HEAD_DIMS``, a window that is not a positive int or a
+    softcap that is not positive.  Causal attention with or without gemma2's
+    window and softcap, and with positions for queries and keys alike
+    (``forward``'s), at every head size of the forward, gemma-7b's 256 among
+    them, goes through."""
     if not causal:
         raise NotImplementedError(
             "the flash-attention backward kernel does not compute the gradient of "
             "non-causal attention")
+    if keys_at_rows:
+        raise NotImplementedError(
+            "the flash-attention backward kernel takes keys at the queries' positions "
+            "(forward's mode); it does not compute the gradient of query positions "
+            "against keys at their row index")
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the backward kernel takes head_dim in {BWD_HEAD_DIMS}, got {d}")
     check_window(window, causal)
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
+
+
+def check_positions(positions: Optional[torch.Tensor], keys_at_rows: bool, q: torch.Tensor,
+                    causal: bool) -> None:
+    """Raise unless ``positions`` is a table the kernels take: None (and no
+    ``keys_at_rows``), or (B, Sq) int32, contiguous, on ``q``'s device, with
+    causal masking (the positions are what it tests)."""
+    if positions is None:
+        if keys_at_rows:
+            raise ValueError("keys_at_rows needs positions")
+        return
+    if not causal:
+        raise ValueError("positions need causal masking")
+    b, sq = q.shape[:2]
+    if tuple(positions.shape) != (b, sq):
+        raise ValueError(f"positions must be (B, Sq) = {(b, sq)}, got {tuple(positions.shape)}")
+    if positions.dtype != torch.int32:
+        raise TypeError(f"positions must be int32, got {positions.dtype}")
+    if positions.device != q.device:
+        raise ValueError(f"positions must lie on q's device {q.device}, not {positions.device}")
+    if not positions.is_contiguous():
+        raise ValueError("positions must be contiguous")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -194,7 +273,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None,
                     pinned_rows: int = 0,
-                    tiles_per_chunk: Optional[int] = None) -> torch.Tensor:
+                    tiles_per_chunk: Optional[int] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    keys_at_rows: bool = False) -> torch.Tensor:
     """FlashAttention-2 forward with the DCO KV split.
 
     q (B, Sq, H, D); k/v (B, Sk, G, D), any lengths, read through their
@@ -204,13 +285,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     across a block's Q tiles and query heads; the rest stream per Q tile.
     It changes the schedule, not the result.
 
+    ``positions`` (B, Sq), int32 (causal only): the queries' positions,
+    which the causal mask and the window test, as the JAX package's
+    ``gqa_attention`` masks (``check_positions`` says what is taken).  The
+    keys sit at the same positions (``forward``; Sq == Sk), or with
+    ``keys_at_rows`` at their row index (a prefill against its cache; Sq may
+    differ from Sk).  A hidden score is -1e30, so that a row that
+    sees no key gets the mean of all Sk value rows, as the reference's.
+    Positions lie in (-2^30, 2^30).
+
     On a CPU tensor this computes the plain version, which autograd
     differentiates.  On a CUDA tensor it launches the kernel or raises; when
     autograd records the call (grad enabled and q, k or v requiring grad) it
     goes through ``FlashAttentionFn``, whose backward is the backward kernel
-    with the same scale, window and softcap, and raises
-    ``NotImplementedError`` before any launch for non-causal attention, which
-    that kernel does not compute (``check_backward``)."""
+    with the same scale, window, softcap and positions, and raises
+    ``NotImplementedError`` before any launch for non-causal attention and
+    for ``keys_at_rows``, which that kernel does not compute
+    (``check_backward``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, Sq, H, D) and k/v (B, Sk, G, D)")
     b, sq, h, d = q.shape
@@ -219,14 +310,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q and k/v disagree on batch or head_dim")
     if h % g:
         raise ValueError("n_heads must be divisible by n_kv_heads")
-    if causal and sq != sk:
+    if causal and sq != sk and not keys_at_rows:
         raise ValueError("causal masking assumes aligned q/k sequences; "
                          "use decode_attention for cached decoding")
     check_window(window, causal)
     check_pinned_rows(pinned_rows, sk, d, q.element_size())
+    check_positions(positions, keys_at_rows, q, causal)
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, scale=scale, softcap=softcap,
-                             window=window)
+                             window=window, q_positions=positions,
+                             kv_positions=None if keys_at_rows else positions)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or fp32, one type for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -240,18 +333,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         check_rows_aligned(name, t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if needs_grad(q, k, v):
-        check_backward(d, causal, window, softcap)
+        check_backward(d, causal, window, softcap, positions is not None and keys_at_rows)
         return FlashAttentionFn.apply(q, k, v, scale, softcap, window, pinned_rows,
-                                      tiles_per_chunk)
+                                      tiles_per_chunk, positions)
     return _forward(q, k, v, None, causal=causal, scale=scale, softcap=softcap,
-                    window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
+                    window=window, pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk,
+                    positions=positions, keys_at_rows=keys_at_rows)
 
 
 def _forward(q, k, v, lse: Optional[torch.Tensor], *, causal: bool, scale: float,
              softcap: Optional[float], window: Optional[int], pinned_rows: int,
-             tiles_per_chunk: Optional[int]) -> torch.Tensor:
-    """One launch of the forward kernel on checked inputs; it also writes
-    ``lse`` (B, H, Sq) fp32 where one is given."""
+             tiles_per_chunk: Optional[int], positions: Optional[torch.Tensor] = None,
+             keys_at_rows: bool = False) -> torch.Tensor:
+    """One launch of the forward kernel on checked inputs (the position
+    variant's where ``positions`` are given); it also writes ``lse`` (B, H,
+    Sq) fp32 where one is given."""
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
     if tiles_per_chunk is None:
@@ -267,12 +363,13 @@ def _forward(q, k, v, lse: Optional[torch.Tensor], *, causal: bool, scale: float
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        None if lse is None else lse.data_ptr(),
-                       _DTYPES[q.dtype], b, sq, sk, h, g, d, tiles_per_chunk,
+                       None if positions is None else positions.data_ptr(),
+                       int(keys_at_rows), _DTYPES[q.dtype], b, sq, sk, h, g, d, tiles_per_chunk,
                        pinned_rows, int(causal), int(window or 0), float(scale),
                        float(softcap or 0.0), strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
-    LAUNCHES[0] += 1
+    (LAUNCHES if positions is None else POS_LAUNCHES)[0] += 1
     return out
 
 
@@ -280,41 +377,46 @@ class FlashAttentionFn(torch.autograd.Function):
     """Causal flash attention with its gradient on the card: the forward
     kernel, also writing the per-row log-sum-exp of the scaled, capped and
     windowed scores, and the backward kernel from it with the same scale,
-    softcap and window.  Built by ``flash_attention`` on checked inputs
-    only."""
+    softcap, window and ``positions`` (the queries' and the keys', or None).  Built by ``flash_attention`` on checked inputs only."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, softcap: Optional[float],
-                window: Optional[int], pinned_rows: int, tiles_per_chunk: Optional[int]):
+                window: Optional[int], pinned_rows: int, tiles_per_chunk: Optional[int],
+                positions: Optional[torch.Tensor] = None):
         b, sq, h, _ = q.shape
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, lse, causal=True, scale=scale, softcap=softcap, window=window,
-                       pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk)
-        ctx.save_for_backward(q, k, v, out, lse)
+                       pinned_rows=pinned_rows, tiles_per_chunk=tiles_per_chunk,
+                       positions=positions)
+        ctx.save_for_backward(q, k, v, out, lse, positions)
         ctx.scale, ctx.softcap, ctx.window = scale, softcap, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, positions = ctx.saved_tensors
         # autograd hands dO over with any strides; the kernel reads it contiguous
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), scale=ctx.scale,
-                                         softcap=ctx.softcap, window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None
+                                         softcap=ctx.softcap, window=ctx.window,
+                                         positions=positions)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                         scale: Optional[float] = None,
                         softcap: Optional[float] = None,
-                        window: Optional[int] = None
+                        window: Optional[int] = None,
+                        positions: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of causal attention, with the ``softcap`` and sliding
-    ``window`` of its forward, from the forward's output ``o`` and
+    """(dq, dk, dv) of causal attention, with the ``softcap``, sliding
+    ``window`` and ``positions`` (B, S) int32 (the forward's query and key
+    positions, one table) of its forward, from the forward's output ``o`` and
     log-sum-exp ``lse`` (B, H, S) and the output's gradient ``do``.
 
     On a CUDA tensor this calls the backward kernel (``BWD_KERNELS``
-    launches, each counted in ``BWD_LAUNCHES``) or raises; on a CPU tensor
+    launches, each counted in ``BWD_LAUNCHES``, or with ``positions`` in
+    ``BWD_POS_LAUNCHES``) or raises; on a CPU tensor
     it computes the plain version ``attention_bwd_ref``.  Inputs are made
     contiguous (a no-op for those that are)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or o.shape != q.shape \
@@ -328,9 +430,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse must be (B, H, S) = {(b, h, sq)}")
     check_window(window, True)
+    check_positions(positions, False, q, True)
     if not q.is_cuda:
         return attention_bwd_ref(q, k, v, o, lse, do, scale=scale, softcap=softcap,
-                                 window=window)
+                                 window=window, q_positions=positions,
+                                 kv_positions=positions)
     check_backward(d, True, window, softcap)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError("the backward kernel takes bf16 or fp32, one type for q, k, v, "
@@ -348,9 +452,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _kernel("dco_flash_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], b, sq, h, g, d, int(window or 0), float(scale),
-            float(softcap or 0.0), stream)
+            None if positions is None else positions.data_ptr(), _DTYPES[q.dtype], b, sq, h,
+            g, d, int(window or 0), float(scale), float(softcap or 0.0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed (code {rc})")
-    BWD_LAUNCHES[0] += BWD_KERNELS
+    (BWD_LAUNCHES if positions is None else BWD_POS_LAUNCHES)[0] += BWD_KERNELS
     return dq, dk, dv

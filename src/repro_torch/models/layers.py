@@ -42,13 +42,24 @@ from ..sharding.api import current_mesh
 from ..sharding.api import model_size
 from ..sharding.api import seq_sharded
 
-# why ``attention_block``, ``forward`` and ``prefill`` refuse explicit
-# positions: text-only positions (the default) are the rows' own indices
-POSITIONS_REFUSED = (
-    "explicit positions are refused: both attention kernels mask by row index "
-    "(causal over the sequence's rows, a decode step's keys below cache_len), not "
-    "by position ids, and the JAX package's forward and prefill fail on M-RoPE's "
-    "3-plane (3, B, S) positions, so no reference holds such a run")
+# why ``attention_block``, ``forward`` and ``prefill`` refuse M-RoPE's 3-plane
+# positions: (B, S) positions are taken
+THREE_PLANES_REFUSED = (
+    "3-plane (3, B, S) positions are refused: the JAX package's forward and prefill "
+    "cannot run them (its attention masks by (B, S) query positions and raises "
+    "ValueError on three planes), so no reference defines what they mask; pass "
+    "(B, S) positions")
+
+
+def position_table(positions: torch.Tensor, b: int, s: int, device) -> torch.Tensor:
+    """``positions`` as the flash kernel takes them: (B, S) int32, contiguous,
+    on ``device``.  ``ValueError`` for 3-plane (3, B, S) positions
+    (``THREE_PLANES_REFUSED``) and any other shape."""
+    if positions.dim() == 3:
+        raise ValueError(THREE_PLANES_REFUSED)
+    if tuple(positions.shape) != (b, s):
+        raise ValueError(f"positions must be (B, S) = {(b, s)}, got {tuple(positions.shape)}")
+    return positions.to(device=device, dtype=torch.int32).contiguous()
 
 
 def init_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
@@ -319,7 +330,8 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     * no ``kv_cache``: causal flash attention over the sequence;
     * ``kv_cache=(k, v)`` (B, S_max, G, D), ``cache_pos == 0`` and more than
       one token (prefill): K/V are written to rows ``[0, s)`` of the cache
-      and flash attention runs over those rows;
+      and flash attention runs over those rows (with ``positions``: over all
+      S_max rows, as the reference attends its whole cache);
     * ``kv_cache`` and one token (decode): K/V are written at ``cache_pos``
       and decode attention runs over the cache with ``cache_len`` valid
       rows per sequence (default ``cache_pos + 1`` for every row).
@@ -343,14 +355,19 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     across the axes (``comm.merge_attention``); this rank keeps its own
     query heads for the row-parallel ``wo``.
 
+    ``positions`` (B, S) (``position_table``; 3-plane ones raise
+    ``ValueError``), as the reference takes them: the rotary tables come
+    from them, and the flash kernel masks by them, as the reference's
+    ``gqa_attention``: without a cache queries and keys at ``positions``;
+    in a prefill the queries at ``positions`` against the cache's keys at
+    their row index.  A decode step takes none (its query sits at
+    ``cache_pos``).
+
     A local layer (``layer_is_local`` with ``cfg.window``, gemma2's
     alternation) attends over the last ``cfg.window`` positions only, in both
     kernels; ``cfg.attn_softcap`` caps the scores in both.  What the two
-    kernels do not compute raises ``NotImplementedError``: explicit
-    ``positions`` (``POSITIONS_REFUSED`` says why) and chunked prefill.
+    kernels do not compute raises ``NotImplementedError``: chunked prefill.
     """
-    if positions is not None:
-        raise NotImplementedError(POSITIONS_REFUSED)
     window = cfg.window if layer_is_local and cfg.window is not None else None
     n_h, n_g, g0 = tp_heads(cfg)
     hd = cfg.head_dim
@@ -367,8 +384,9 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     # the reference's constrain(q/k/v, ("dp", None, "tp", None)): this rank's
     # heads are what the column-parallel products made
 
+    pos = None if positions is None else position_table(positions, b, s, x.device)
     if rope is None:
-        rope = block_rope_tables(cfg, b, s, cache_pos, x.device)
+        rope = block_rope_tables(cfg, b, s, cache_pos, x.device, pos)
     q = apply_rope(q, None, cfg.rope_theta, tables=rope)
     k = apply_rope(k, None, cfg.rope_theta, tables=rope)
 
@@ -380,7 +398,7 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=True, scale=scale,
                               softcap=cfg.attn_softcap, window=window,
-                              pinned_rows=pinned_rows)
+                              pinned_rows=pinned_rows, positions=pos)
         new_cache = None
     else:
         ck, cv = kv_cache
@@ -409,9 +427,14 @@ def attention_block(params, x, cfg, *, layer_is_local=None, positions=None,
                     "ported: the flash kernel's causal mask needs Sq == Sk")
             ck[:, :s] = k.to(ck.dtype)
             cv[:, :s] = v.to(cv.dtype)
-            out = flash_attention(q, _as(ck[:, :s], q.dtype), _as(cv[:, :s], q.dtype),
+            # with positions the reference's queries see every cache row up to
+            # their position: the whole cache, keys at their row index
+            rows = s if pos is None else ck.shape[1]
+            out = flash_attention(q, _as(ck[:, :rows], q.dtype), _as(cv[:, :rows], q.dtype),
                                   causal=True, scale=scale, softcap=cfg.attn_softcap,
-                                  window=window, pinned_rows=pinned_rows)
+                                  window=window,
+                                  pinned_rows=pinned_rows if rows == s else 0,
+                                  positions=pos, keys_at_rows=pos is not None)
         new_cache = (ck, cv)
 
     wo = params["wo"].reshape(n_h * hd, dm)
@@ -449,10 +472,13 @@ def _decode_slice(q, k, v, ck, cv, cfg, kv_slice, cache_pos: int, cache_rows, ca
     return o[:, r * n_h:(r + 1) * n_h][:, None]
 
 
-def block_rope_tables(cfg, b: int, s: int, cache_pos: Optional[int], device):
-    """``rope_tables`` for ``s`` tokens a sequence starting at ``cache_pos``
-    (0 without a cache), as ``attention_block`` positions them."""
-    pos = (torch.arange(s, device=device) + (cache_pos or 0)).expand(b, s)
+def block_rope_tables(cfg, b: int, s: int, cache_pos: Optional[int], device,
+                      positions: Optional[torch.Tensor] = None):
+    """``rope_tables`` for ``s`` tokens a sequence at ``positions`` (B, S), or
+    starting at ``cache_pos`` (0 without a cache), as ``attention_block``
+    positions them."""
+    pos = positions if positions is not None else (
+        torch.arange(s, device=device) + (cache_pos or 0)).expand(b, s)
     return rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
 
 

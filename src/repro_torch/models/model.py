@@ -92,13 +92,13 @@ from ..sharding.api import use_mesh
 from ..sharding.api import use_stream
 from ..sharding.state import rank_part
 from ..sharding.state import shard_tree
-from .layers import POSITIONS_REFUSED
 from .layers import all_kv_heads
 from .layers import attention_block
 from .layers import block_rope_tables
 from .layers import init_normal
 from .layers import init_stacked
 from .layers import mlp_block
+from .layers import position_table
 from .layers import resid_norm
 from .layers import tp_heads
 from .layers import tp_input
@@ -306,16 +306,30 @@ def forward(params, tokens, cfg: ArchConfig, *,
     """Logits (B, S, vocab) of a full sequence.  ``remat``: each layer (each
     group of a hybrid) keeps only its input for the backward pass and runs
     again there (``_maybe_remat``); without grad it changes nothing.
-    Explicit ``positions`` are refused (``POSITIONS_REFUSED``)."""
+    ``positions`` (B, S), as the reference's: every attention layer (a
+    hybrid's shared block) rotates and masks its queries and keys by them;
+    the SSM family ignores them, as the reference does.  3-plane (3, B, S)
+    positions raise ``ValueError`` before any launch (``position_table``).
+    Under a mesh ``positions`` are the rows of ``tokens``, this rank's."""
     _require_ported(cfg)
-    if positions is not None:
-        raise NotImplementedError(POSITIONS_REFUSED)
     b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
+    pos = _positions(positions, cfg, b, s)
     with use_stream(Stream(_whole_batch(b), s)):
-        return _forward(params, tokens, cfg, input_embeds, remat)
+        return _forward(params, tokens, cfg, input_embeds, remat, pos)
 
 
-def _forward(params, tokens, cfg: ArchConfig, input_embeds, remat: bool):
+def _positions(positions: Optional[torch.Tensor], cfg: ArchConfig, b: int, s: int
+               ) -> Optional[torch.Tensor]:
+    """``positions`` as the attention layers take them (``position_table``:
+    (B, S) int32 on their device), or None where the family attends nowhere
+    and ignores them, as the reference's SSM branch does."""
+    if positions is None or cfg.family == SSM:
+        return None
+    return position_table(positions, b, s, positions.device)
+
+
+def _forward(params, tokens, cfg: ArchConfig, input_embeds, remat: bool,
+             positions: Optional[torch.Tensor] = None):
     x = embed_tokens(params, tokens, cfg, input_embeds)
     if cfg.family == SSM:
         mamba = _maybe_remat(_mamba_layer, remat)
@@ -324,12 +338,13 @@ def _forward(params, tokens, cfg: ArchConfig, input_embeds, remat: bool):
         return lm_logits(params, x, cfg)
     # the blocks attend over the whole sequence, gathered under ACT_SEQ
     b, s = (input_embeds if input_embeds is not None else tokens).shape[:2]
-    rope = block_rope_tables(cfg, b, s, None, x.device)
+    pos = None if positions is None else positions.to(x.device)
+    attn = dict(rope=block_rope_tables(cfg, b, s, None, x.device, pos), positions=pos)
     if cfg.family == HYBRID:
-        return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, rope=rope), cfg)
+        return lm_logits(params, _hybrid_stack(params, x, cfg, remat=remat, **attn), cfg)
     block = _maybe_remat(_attn_mlp, remat)
-    for attn, ffn, fp, fl in _attn_layers(params, cfg):
-        x = block(attn, fp, x, cfg, ffn=ffn, layer_is_local=fl, rope=rope)
+    for la, ffn, fp, fl in _attn_layers(params, cfg):
+        x = block(la, fp, x, cfg, ffn=ffn, layer_is_local=fl, **attn)
     return lm_logits(params, x, cfg)
 
 
@@ -861,20 +876,27 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     the prompt (all ``d_conv - 1`` for a 1-token prompt, which takes the
     decode branch).
 
-    Under a bound mesh ``tokens`` are the global batch, the logits are
-    whole on every rank and the cache is this rank's shard (``init_cache``'s
+    ``positions`` (B, S), as ``forward`` takes them: every attention layer
+    rotates its queries and keys by them and masks its queries at them
+    against the cache's keys at their row index, as the reference's prefill
+    (``attention_block`` at ``cache_pos`` 0); a query whose position lies
+    past a row sees it, and one that sees no key gets the mean of all S
+    value rows.  The SSM family ignores them.  3-plane positions raise
+    ``ValueError`` before any launch.
+
+    Under a bound mesh ``tokens`` and ``positions`` are the global batch,
+    split over the data axes, the logits are whole on every rank and the cache is this rank's shard (``init_cache``'s
     layouts, K/V in ``layout``, ``kv_layout``'s choice for the batch by
     default).  In the ``kvseq`` layout the layers write K/V by heads, as in
     the other, and the prefill then gathers them over the model axis and
     keeps this rank's slice of the rows: for that moment a rank holds every
     KV head of every prompt row, the model axis' times its heads' share."""
     _require_ported(cfg)
-    if positions is not None:
-        raise NotImplementedError(POSITIONS_REFUSED)
     b, s = tokens.shape
+    pos = _positions(positions, cfg, b, s)
     with use_stream(Stream(b, s)):
         tokens, input_embeds = _data_rows(tokens), _data_rows(input_embeds)
-        x, cache = _prefill(params, tokens, cfg, input_embeds, pinned_rows)
+        x, cache = _prefill(params, tokens, cfg, input_embeds, pinned_rows, _data_rows(pos))
         if cache.k is not None and _sliced(cfg, b, layout):
             s0, rows, _ = kv_slice(cfg, b, s)
             cache = _mark_kvseq(cache._replace(**{
@@ -889,8 +911,8 @@ def prefill(params, tokens, cfg: ArchConfig, *,
     return logits, cache._replace(pos=s)
 
 
-def _prefill(params, tokens, cfg: ArchConfig, input_embeds, pinned_rows: int
-             ) -> Tuple[torch.Tensor, Cache]:
+def _prefill(params, tokens, cfg: ArchConfig, input_embeds, pinned_rows: int,
+             positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
     """``prefill`` of this rank's rows: the residual stream after the last
     layer, and the cache it filled."""
     b, s = tokens.shape
@@ -901,8 +923,9 @@ def _prefill(params, tokens, cfg: ArchConfig, input_embeds, pinned_rows: int
         for i in range(cfg.n_layers):
             x = x + _mamba_layer(_layer(params["layers"], i), x, cfg, cache, i)
         return x, cache
-    attn = dict(cache_pos=0, pinned_rows=pinned_rows,
-                rope=block_rope_tables(cfg, b, s, 0, x.device))
+    pos = None if positions is None else positions.to(x.device)
+    attn = dict(cache_pos=0, pinned_rows=pinned_rows, positions=pos,
+                rope=block_rope_tables(cfg, b, s, 0, x.device, pos))
     if cfg.family == HYBRID:
         return _hybrid_stack(params, x, cfg, cache, **attn), cache
     for i, (la, ffn, fp, fl) in enumerate(_attn_layers(params, cfg)):

@@ -88,6 +88,8 @@ def run_case(case, job, mesh):
                 return _engine(case, cfg, params, whole)
             if "own" in case["what"]:
                 return _own_serve(case, job, cfg, params, whole)
+            if "positions" in case["what"]:
+                return _positions_prefill(case, job, cfg, params, whole)
             local = local_batch(tokens)
             if "step" in case["what"]:
                 # as the train step: the batch's whole shape bound, the
@@ -294,6 +296,30 @@ def _own_serve(case, job, cfg, params, whole):
     return out
 
 
+def _positions_prefill(case, job, cfg, params, whole):
+    """A prefill of the case's rows of S tokens with explicit (B, S)
+    positions (even rows shifted by 5, odd rows starting at -4, whose first
+    four rows see no key) under the bound mesh, which splits them with the
+    batch: the logits and the cache gathered whole, whether every rank got
+    the same logits, and (rank 0) the same prefill in one process."""
+    from repro_torch import models as tm
+    from repro_torch.models.model import gather_cache
+    from repro_torch.sharding import use_mesh
+    tok = torch.from_numpy(np.asarray(job["serve_tokens"])[:case["batch"], :S]).long()
+    b = tok.shape[0]
+    row = torch.arange(S)
+    pos = torch.stack([row + 5 if i % 2 == 0 else row - 4 for i in range(b)])
+    with torch.no_grad():
+        logits, cache = tm.prefill(params, tok, cfg, positions=pos)
+        out = dict(logits=logits.float().numpy(), cache=_cache_np(gather_cache(cache, cfg, b)),
+                   same_on_every_rank=[_same_on_every_rank(logits)])
+        if dist.get_rank() == 0:
+            with use_mesh(None):
+                logits, cache = tm.prefill(whole, tok, cfg, positions=pos)
+                out["one_logits"], out["one_cache"] = logits.float().numpy(), _cache_np(cache)
+    return out
+
+
 ENGINE_PROMPTS = (5, 17, 32, 9, 24, 12)      # 6 requests; the last two reuse slots
 ENGINE_NEW = (6, 3, 8, 4, 5, 7)              # ragged, so slots retire at other steps
 ENGINE_SLOTS = 4
@@ -380,7 +406,7 @@ def run_world(shape, cases, job_path, tmp):
 # Both packages on the same cases, and the comparisons
 # ---------------------------------------------------------------------------
 CACHE_FIELDS = ("k", "v", "conv_x", "conv_bc", "ssm")
-PORT_ONLY = {("engine",), ("own",)}     # cases the JAX package does not run
+PORT_ONLY = {("engine",), ("own",), ("positions",)}     # cases the JAX package does not run
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 4, 32            # the global batch: 4 sequences of 32 tokens
 # serving: a prompt of S tokens (a multiple of the reduced SSM chunk of 32),
@@ -408,6 +434,14 @@ def serve_case(arch, mesh, act_seq=False, dtype="fp32", batch=B, **extra):
     from the JAX package's prefilled cache, on both sides."""
     return dict(arch=arch, mesh=tuple(mesh), act_seq=act_seq, dtype=dtype, what=("serve",),
                 batch=batch, steps=SERVE_STEPS, **extra)
+
+
+def positions_case(arch, mesh, batch=B):
+    """A prefill with explicit (B, S) positions under the mesh against one
+    process (``_positions_prefill``), fp32: the port alone (one process holds
+    positions against the JAX package: tests/test_torch_positions.py)."""
+    return dict(arch=arch, mesh=tuple(mesh), act_seq=False, dtype="fp32",
+                what=("positions",), batch=batch)
 
 
 # kvseq cases: a prompt of KV_PROMPT tokens (within the reduced SSM chunk)
@@ -442,6 +476,8 @@ def case_id(c) -> str:
         parts.append(f"mb{c['microbatches']}")
     if c.get("layouts"):
         parts.append("kvseq")
+    if c["what"] == ("positions",):
+        parts.append("positions")
     if not c.get("kv_head_shard", True):
         parts.append("noheadshard")
     parts.append(c["dtype"])
@@ -634,6 +670,13 @@ def check_kvseq_layouts(port):
         for i, (got, want) in enumerate(zip(port["decode_logits"],
                                             port[f"{what}_decode_logits"])):
             held(got, want, f"decode step {i} logits, kvseq vs {what}")
+
+
+def check_positions_one_process(port):
+    """A positions case: logits and every gathered cache tensor within TOL
+    of their scale of the one-process prefill's."""
+    held(port["logits"], port["one_logits"], "prefill logits with positions")
+    check_cache(port["cache"], port["one_cache"], "prefill cache with positions")
 
 
 def check_prefill_one_process(port):

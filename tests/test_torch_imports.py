@@ -10,14 +10,21 @@ import sys
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+    REPO / p for p in ("scripts/conformance_torch.py", "scripts/spec_lint_torch.py",
+                       "scripts/trace_dump_torch.py", "examples/quickstart_torch.py",
+                       "examples/train_tiny_lm_torch.py", "examples/serve_batched_torch.py",
+                       "examples/dco_cache_study_torch.py")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "repro")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
     return subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}, timeout=300)
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             # one thread: beside the suite's other workers the examples' CPU
+             # training would otherwise oversubscribe the cores
+             "OMP_NUM_THREADS": "1"}, timeout=300)
 
 
 @pytest.mark.parametrize("module", [
@@ -74,6 +81,37 @@ def test_running_the_simulator_stack_leaves_jax_and_repro_out():
     assert res.stdout.strip().endswith("clean")
 
 
+# the port's command lines and examples, each run in-process on arguments that
+# exercise it (the examples on the CPU, the trainer for 2 steps)
+PORT_RUNS = {
+    "scripts/conformance_torch.py": ["--scenario", "matmul", "--policy", "lru"],
+    "scripts/spec_lint_torch.py": ["matmul", "--cross-check"],
+    "scripts/trace_dump_torch.py": ["matmul", "--head", "3"],
+    "examples/quickstart_torch.py": ["--device", "cpu"],
+    "examples/train_tiny_lm_torch.py": ["--fast", "--device", "cpu", "--steps", "2",
+                                        "--ckpt-dir", "{tmp}"],
+}
+
+
+@pytest.mark.parametrize("script", sorted(PORT_RUNS))
+def test_running_the_port_scripts_and_examples_leaves_jax_and_repro_out(script, tmp_path):
+    args = [a.replace("{tmp}", str(tmp_path)) for a in PORT_RUNS[script]]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{script!r}] + {args!r}\n"
+        "try:\n"
+        f"    runpy.run_path({script!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("clean")
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -116,5 +154,6 @@ def test_cuda_sources_are_in_the_tree():
     from repro_torch.kernels import build
     names = [p.name for p in build.sources()]
     assert names == ["decode_attention.cu", "decode_attention_lse.cu", "flash_attention.cu",
-                     "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu"]
+                     "flash_attention_bwd.cu", "flash_attention_bwd_pos.cu",
+                     "flash_attention_pos.cu", "ssd_scan.cu", "ssd_scan_bwd.cu"]
     assert not build.kernels_built()          # nothing is built at import time

@@ -321,8 +321,9 @@ def test_cpu_calls_launch_no_kernel():
     flash_attention(q, q, q)
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
     assert launch_counts() == {"decode_attention": 0, "decode_attention_lse": 0,
-                               "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-                               "ssd_scan_bwd": 0}
+                               "flash_attention": 0, "flash_attention_bwd": 0,
+                               "flash_attention_pos": 0, "flash_attention_bwd_pos": 0,
+                               "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert not kernels_built()
 
 

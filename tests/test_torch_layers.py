@@ -252,18 +252,21 @@ def test_attention_block_decode():
 @pytest.mark.parametrize("case", ["positions", "chunked_prefill"])
 def test_attention_block_raises_outside_the_kernels(case):
     """What the two kernels do not compute raises; nothing routes to the
-    plain oracle."""
+    plain oracle: chunked prefill (``NotImplementedError``) and M-RoPE's
+    3-plane positions, which the reference cannot run either
+    (``ValueError``); (B, S) positions are computed
+    (tests/test_torch_positions.py)."""
     rng = np.random.default_rng(9)
     cfg = CFG
     s = 4
     cache = (torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim, dtype=torch.bfloat16),) * 2
     if case == "positions":
-        kw = dict(positions=torch.zeros(1, 4, dtype=torch.long))
+        kw, error = dict(positions=torch.zeros(3, 1, 4, dtype=torch.long)), ValueError
     else:
-        kw = dict(kv_cache=cache, cache_pos=2)
+        kw, error = dict(kv_cache=cache, cache_pos=2), NotImplementedError
     _, tp = attn_params(rng, cfg)
     _, tx = both(rng, (1, s, cfg.d_model), "bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         tl.attention_block(tp, tx, cfg, **kw)
 
 

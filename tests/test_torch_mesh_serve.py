@@ -30,6 +30,12 @@ model cannot equal the reference's elementwise.  It is held four ways:
 * bf16 prefill and decode (K/V in bf16 buffers) against JAX by the port's
   share rules.
 
+A prefill with explicit (B, S) positions on (2, 1), a batch of 2 split
+over the data axis with its positions (a row shifted by 5, a row starting
+at -4), is held against the port's one-process prefill (fp32, 1e-5 of the
+scale): tests/test_torch_positions.py holds that one against the JAX
+package.
+
 Every rank must get the same logits, bit for bit.
 
 The ``kvseq`` cases (``_torch_mesh_world.kvseq_case``) take the
@@ -49,9 +55,11 @@ from _torch_mesh_world import check_cache
 from _torch_mesh_world import check_decode
 from _torch_mesh_world import check_kvseq_layouts
 from _torch_mesh_world import check_prefill_logits
+from _torch_mesh_world import check_positions_one_process
 from _torch_mesh_world import check_prefill_one_process
 from _torch_mesh_world import held_by_share
 from _torch_mesh_world import kvseq_case
+from _torch_mesh_world import positions_case
 from _torch_mesh_world import run_both
 from _torch_mesh_world import serve_case
 import pytest
@@ -65,7 +73,9 @@ FP32 = [serve_case(ARCH, m, a, batch=b) for m, a, b in [
     ((1, 2), False, 4), ((1, 2), True, 4), ((2, 2), False, 4), ((1, 4), False, 4),
     ((2, 2), False, 2), ((2, 1), False, 1)]] + KVSEQ
 BF16 = [serve_case(ARCH, m, a, dtype="bf16") for m, a in [((1, 2), False), ((1, 2), True)]]
-CASES = FP32 + BF16
+# explicit (B, S) positions split with a batch of 2 over (2, 1)'s data axis
+POSITIONS = [positions_case(ARCH, (2, 1), batch=2)]
+CASES = FP32 + BF16 + POSITIONS
 KVSEQ_AT = [i for i, c in enumerate(CASES) if c.get("layouts")]
 
 
@@ -89,7 +99,8 @@ def test_fp32_prefill_logits_match_the_jax_forward(results, i):
     check_prefill_logits(*results[i])
 
 
-@pytest.mark.parametrize("i", range(len(FP32), len(CASES)), ids=[case_id(c) for c in BF16])
+@pytest.mark.parametrize("i", range(len(FP32), len(FP32) + len(BF16)),
+                         ids=[case_id(c) for c in BF16])
 def test_bf16_prefill_and_decode_match_jax_by_share(results, i):
     port, ref = results[i]
     held_by_share(port["prefill_logits"], ref["prefill_logits"], "prefill logits")
@@ -105,3 +116,9 @@ def test_every_rank_gets_the_same_logits(results, i):
 @pytest.mark.parametrize("i", KVSEQ_AT, ids=[case_id(CASES[i]) for i in KVSEQ_AT])
 def test_kvseq_decode_matches_the_heads_layout_and_one_process(results, i):
     check_kvseq_layouts(results[i][0])
+
+
+@pytest.mark.parametrize("i", range(len(FP32) + len(BF16), len(CASES)),
+                         ids=[case_id(c) for c in POSITIONS])
+def test_prefill_with_positions_matches_one_process(results, i):
+    check_positions_one_process(results[i][0])

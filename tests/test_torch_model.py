@@ -29,6 +29,7 @@ from repro_torch import convert
 from repro_torch import models as tm
 from repro_torch.configs import get_arch
 from repro_torch.configs import reduce_for_smoke
+from repro_torch.models import layers as tl
 from repro_torch.models import model as tmodel
 
 TOL = 3e-2
@@ -231,21 +232,22 @@ def qwen2vl():
     return jcfg, cfg, jparams, convert.params_from_numpy(to_numpy(jparams), "cpu")
 
 
-POSITIONS = {"three_plane": (3, B, S), "one_plane": (B, S)}
+POSITIONS = {"three_plane": (3, B, S)}
 
 
 @pytest.mark.parametrize("planes", sorted(POSITIONS))
 @pytest.mark.parametrize("entry", ["forward", "prefill"])
 def test_explicit_positions_are_refused_with_the_reason(qwen2vl, entry, planes):
-    """qwen2-vl-7b's M-RoPE positions, 3-plane or (B, S), are refused by
-    ``forward`` and ``prefill`` before any layer runs, with why: the kernels
-    mask by row index, and the JAX package cannot run 3-plane positions."""
+    """qwen2-vl-7b's M-RoPE 3-plane positions raise ``ValueError`` in
+    ``forward`` and ``prefill`` before any layer runs, as the reference's
+    do, saying that the JAX package cannot run them.  (B, S) positions are
+    taken: tests/test_torch_positions.py holds them against the reference."""
     _, cfg, _, params = qwen2vl
     pos = torch.arange(S).expand(POSITIONS[planes])
     tokens = torch.zeros((B, S), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="mask by row index") as err:
+    with pytest.raises(ValueError, match="JAX package") as err:
         getattr(tm, entry)(params, tokens, cfg, positions=pos)
-    assert str(err.value) == tmodel.POSITIONS_REFUSED
+    assert str(err.value) == tl.THREE_PLANES_REFUSED
 
 
 @pytest.mark.parametrize("entry", ["forward", "prefill"])
