@@ -163,22 +163,31 @@ class CacheOrchestrator:
 # ---------------------------------------------------------------------------
 H100_SMEM_PER_BLOCK = 232448      # bytes of dynamic shared memory a block may take
 FLASH_TILE_ROWS = 64              # KV-tile rows of the flash kernel (and the fp32 Q tile)
-FLASH_STAGES = 2                  # bf16: streamed K/V tiles in the kernel's ring
-FLASH_ROW_ALIGN = 128             # bf16: bytes a staged row is rounded up to (row_bytes)
-FLASH_Q_REG_DIM = 128             # bf16: the largest head_dim whose Q stays in registers
-FLASH_Q_BUFFER_ROWS = 64          # bf16 above it: rows of Q's own buffer (4 warps x 16)
+FLASH_STAGES = 2                  # bf16: K/V tiles in the kernel's ring
+FLASH_CONSUMERS = 2               # bf16: consumer warpgroups, each with its own 64-row Q tile
+FLASH_WIDE_DIM = 128              # bf16: above this head_dim a block has one consumer
+FLASH_BOX_BYTES = 128             # bf16: bytes of a row in one TMA box (64 columns, the swizzle)
+FLASH_BAR_BYTES = 256             # bf16: the block's mbarriers (4 a stage, Q's 2, 1 a pinned tile)
+FLASH_SMEM_ALIGN = 1024           # bf16: slack that aligns the tiles on the swizzle's period
 
 
 def flash_smem_row_words(head_dim: int, itemsize: int) -> int:
     """32-bit words one staged Q/K/V row takes in the flash kernel's shared
-    memory.  bf16: the row's data rounded up to ``FLASH_ROW_ALIGN`` bytes
-    (16-byte chunks XOR-swizzled by row inside it; no pad at head_dim 64,
-    128 and 256, 224 bytes staged at 256 at head_dim 112).  fp32: the data plus one
-    pad word (odd stride: no bank conflicts when 16 lanes read 16
-    consecutive rows)."""
+    memory.  bf16: one ``FLASH_BOX_BYTES`` piece for each 64 columns of the
+    row (TMA boxes of 64 columns in the 128-byte swizzle; no pad at head_dim
+    64, 128 and 256; at 112 the second box's last 16 columns are zeros, 256
+    bytes a row).  fp32: the data plus one pad word (odd stride: no bank
+    conflicts when 16 lanes read 16 consecutive rows)."""
     if itemsize == 2:
-        return -(-2 * head_dim // FLASH_ROW_ALIGN) * FLASH_ROW_ALIGN // 4
+        return -(-head_dim // 64) * FLASH_BOX_BYTES // 4
     return head_dim * itemsize // 4 + 1
+
+
+def flash_consumers(head_dim: int) -> int:
+    """Consumer warpgroups of a bf16 flash block: ``FLASH_CONSUMERS``, or one
+    above ``FLASH_WIDE_DIM``, where two consumers' Q and the ring would leave
+    no 64-row tile of K and V to pin."""
+    return 1 if head_dim > FLASH_WIDE_DIM else FLASH_CONSUMERS
 
 
 def flash_kv_row_bytes(head_dim: int, itemsize: int) -> int:
@@ -190,20 +199,20 @@ def flash_kv_row_bytes(head_dim: int, itemsize: int) -> int:
 
 def flash_smem_work_bytes(head_dim: int, itemsize: int) -> int:
     """Shared memory the flash kernel needs whatever ``pinned_rows`` is.
-    bf16: a ring of ``FLASH_STAGES`` streamed K and V tiles, through which Q
-    is staged as well up to head_dim ``FLASH_Q_REG_DIM``; above it (head_dim
-    256: 160 KB) Q has a buffer of ``FLASH_Q_BUFFER_ROWS`` rows of its own.
-    fp32: one Q tile, one streamed K and one streamed V tile, and the fp32
-    probability tile (214,016 bytes at head_dim 256)."""
+    bf16: each consumer's 64-row Q tile (``flash_consumers``), a ring of
+    ``FLASH_STAGES`` K and V tiles, the mbarriers and the alignment slack
+    (99,584 bytes at head_dim 128, 165,120 at 256).  fp32: one Q tile, one
+    streamed K and one streamed V tile, and the fp32 probability tile
+    (214,016 bytes at head_dim 256)."""
     row = 4 * flash_smem_row_words(head_dim, itemsize)
     if itemsize == 2:
-        q_buffer = FLASH_Q_BUFFER_ROWS * row if head_dim > FLASH_Q_REG_DIM else 0
-        return FLASH_STAGES * 2 * FLASH_TILE_ROWS * row + q_buffer
+        return ((flash_consumers(head_dim) + 2 * FLASH_STAGES) * FLASH_TILE_ROWS * row
+                + FLASH_BAR_BYTES + FLASH_SMEM_ALIGN)
     return 3 * FLASH_TILE_ROWS * row + 4 * FLASH_TILE_ROWS * (FLASH_TILE_ROWS + 1)
 
 
 def flash_smem_bytes(pinned_rows: int, head_dim: int, itemsize: int) -> int:
-    """Total dynamic shared memory of one flash-kernel block.  bf16 stages
+    """Total dynamic shared memory of one flash-kernel block.  bf16 loads
     the pinned prefix in whole KV tiles, so a prefix of any length takes
     whole tiles."""
     row = 4 * flash_smem_row_words(head_dim, itemsize)
@@ -215,10 +224,14 @@ def flash_smem_bytes(pinned_rows: int, head_dim: int, itemsize: int) -> int:
 def hopper_pin_budget_bytes(head_dim: int, itemsize: int) -> int:
     """Bytes of an H100 block's shared memory that the flash kernel keeps
     for the pinned KV prefix: what is left of the 227 KB a block may take
-    after the kernel's working tiles.  Hand it to
+    after the kernel's working tiles, in bf16 cut to whole KV tiles, which
+    is how the kernel loads a prefix.  Hand it to
     ``CacheOrchestrator(vmem_budget_bytes=...)`` with ``bytes_per_row =
-    flash_kv_row_bytes(head_dim, itemsize)``: a prefix that is the whole KV
-    length (at most 285 rows at head_dim 112 and 128, 682 at 64, 58 at 256,
-    in bf16) still fits once rounded up to whole tiles, and every split the
-    planner returns fits the kernel."""
-    return H100_SMEM_PER_BLOCK - flash_smem_work_bytes(head_dim, itemsize)
+    flash_kv_row_bytes(head_dim, itemsize)``: every split the planner returns
+    fits the kernel.  bf16 keeps four tiles at head_dim 112 and 128, 11 at
+    64 and one at 256."""
+    left = H100_SMEM_PER_BLOCK - flash_smem_work_bytes(head_dim, itemsize)
+    if itemsize == 2:
+        tile = FLASH_TILE_ROWS * flash_kv_row_bytes(head_dim, itemsize)
+        return left // tile * tile
+    return left

@@ -1,7 +1,8 @@
 // bf16 tile helpers for mma.sync kernels on sm_80 and later: asynchronous
 // 16-byte copies into XOR-swizzled shared rows, ldmatrix, and the
-// m16n8k16 bf16 product with fp32 sums.  Shared by the flash-attention
-// forward (flash_attention.cu) and backward (flash_attention_bwd.cu).
+// m16n8k16 bf16 product with fp32 sums.  The flash-attention backward
+// (flash_attention_bwd.cu) is built on them; the forward (flash_attention.cu,
+// TMA and wgmma) takes only smem_addr and pack_bf16.
 //
 // Fragment recipes (a lane's registers, as the kernels use them), for tiles
 // kept as rows of 16-byte chunks at smem_addr + swz<ROWB>(row, chunk):

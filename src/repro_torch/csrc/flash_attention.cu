@@ -35,70 +35,74 @@
 //    not depend on where a tile lives, so the bf16 result stays bit-identical
 //    across `pinned_rows` and `tiles_per_chunk` with a window too.
 //
-// The bf16 path (flash_mma_kernel), the one the serving path runs:
-//  * Tensor cores.  S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
-//    with fp32 sums.  A warp owns 16 query rows of one head; its Q fragments are
-//    loaded once per Q tile with ldmatrix and stay in registers.  K comes in by
-//    ldmatrix, V by ldmatrix.trans.  The online softmax runs in registers (fp32
-//    max, sum and rescale; exp2 with log2(e) folded into the scale; softcap
-//    before the mask), and P, rounded to bf16 in registers, is the A operand of
-//    P V: it never passes through shared memory.
-//  * One K/V fetch serves the whole GQA group.  A block holds the Q tile of
-//    every query head of its KV head, one (head, 16-row slice) a warp, at most
-//    MAX_WARPS warps: 16 * warps_per_head query rows a tile (64 rows for groups
-//    1 and 2, 32 for 3 and 4, 16 for 5 to 8); larger groups go in passes of
-//    heads.  Each K/V tile reaches shared memory once per Q tile and pass, not
-//    once per head.
-//  * Asynchronous copies.  cp.async moves 16 bytes a lane into rows kept with
-//    an XOR swizzle of their 16-byte chunks (chunk ^ row % 8), so that
-//    ldmatrix reads 8 rows of one chunk from 8 distinct bank groups.  A row
-//    takes 2 * D bytes rounded up to 128 (row_bytes): no pad at D 64, 128, 256;
-//    at D 112 (zamba2-7b) its 14 chunks sit in 16 slots, the swizzle stays
-//    inside the row, and the two spare slots are never copied or read (7
-//    QK^T steps and 14 output column blocks, nothing computed on padding).
-//    Streamed tiles go through a ring of STAGES tiles: tile t + 1 loads while
-//    tile t computes.  Up to Q_REG_DIM, Q is staged through the ring before
-//    the KV loop and needs no buffer of its own.  The pinned prefix is staged once, with the
-//    same copies and in the same layout, so one inner loop reads a pinned or a
-//    streamed tile and only the address differs.  KV rows past Sk are zeros in
-//    both, so the result is bit-identical whatever `pinned_rows` and
-//    `tiles_per_chunk` are: the tile order and the arithmetic never depend on
-//    where a tile lives.
-//  * Causal balance.  In the diagonal tile a warp skips the 16-column blocks
-//    above its own rows and masks the rest.  Q tiles are dealt to the chunks in
-//    the order n-1, 0, n-2, 1, ...: a chunk of two tiles pairs the heaviest
-//    left with the lightest, so every block of llama's 1024-token prefill
-//    walks the same number of KV tiles (16 chunks of two 32-row tiles per KV
-//    head, one block per SM); with one tile a chunk, block 0 takes the
-//    heaviest.  This was taken over ordering blocks by work because
-//    `tiles_per_chunk` keeps its meaning (the Q tiles that share one staging
-//    of the prefix) and the wrapper's chunking needs no model of the work.
-//    The 32-row tile of groups 3 and 4 doubles the blocks a 64-row tile gives:
-//    64 at 256 tokens for llama's 8 KV heads, where 64-row tiles gave 32.  A
-//    12-warp block with 64-row tiles for group 3 was tried and lost: capped at
-//    168 registers it spills.
-//  * Head size 256 (gemma-7b).  A warp's 16 x 256 output is 128 fp32 sums a
-//    thread, and Q's fragments held for the whole KV walk would be 64 more:
-//    with the scores that is past the 255 registers a thread may hold.  So
-//    above Q_REG_DIM the output stays in registers and Q's fragments do not
-//    (FlashAttention-2's plan at this size): Q is staged once a tile and pass
-//    into a buffer of its own (MAX_WARPS_Q_SMEM warps' 16 rows) and each
-//    16-deep step of Q K^T reads its fragment back with ldmatrix.  That alone
-//    still spilled at 255 registers, so the online softmax also takes a
-//    64-row KV tile in two steps of 32 columns (scores and P fragments in half
-//    the registers; FlashAttention-2's 64 x 32 tile at this size), skips a
-//    step whose columns the causal mask or the window hide from every row of
-//    the warp, and unrolls half of the Q K^T loop: no spill, 242 registers.
-//    One 64-column step was about 10% faster but spilled at every unroll.  A block has MAX_WARPS_Q_SMEM warps at most, so Q's buffer
-//    is 32 KB whatever the group, and a row is 512 bytes (row_bytes), so the
-//    swizzle stays in it.  The tile walk and the masks are those of the
-//    smaller heads, and the arithmetic does not depend on where a tile
-//    lives: the result is bit-identical across `pinned_rows` and
-//    `tiles_per_chunk` there too.  The ring (128 KB) and Q's buffer leave one
-//    64-row tile of pinned K and V in a block's 227 KB.
-//  * Left for later: wgmma fed by TMA with a producer warp and a consumer
-//    warpgroup per 64 rows, once this version's numbers say whether MMA issue
-//    rate or latency is what remains.
+// The bf16 path (flash_mma_kernel), the one the serving path runs, is built
+// from Hopper's own instructions (sm_90a): TMA copies, mbarriers and wgmma,
+// in inline PTX.
+//  * Warp specialisation.  A block is a producer warpgroup and CONSUMERS
+//    consumer warpgroups (one above WIDE_DIM, below).  One warp of the
+//    producer issues every load as a TMA copy (cp.async.bulk.tensor) from
+//    one elected lane, and with two consumers its registers are cut to
+//    PRODUCER_REGS (setmaxnreg) so that each consumer can hold
+//    CONSUMER_REGS.  The tensor maps cover Q, K and V in their
+//    (B, S, heads, D) layout through the strides the caller passes: no
+//    transposed copies.  K and V stream through a ring of STAGES tiles with
+//    a full and an empty mbarrier for K and for V of each stage, so that K of
+//    a tile can load as soon as the last one's scores are taken; no block
+//    barrier remains once the roles split.  TMA fills a box's elements past
+//    the tensor's ends with zeros: KV rows past Sk are zeros, and at D 112 a
+//    row's second 64-column box holds zeros past column 112.
+//  * Tensor cores.  S = Q K^T is wgmma m64n64k16 with Q and K from shared
+//    memory, K-major in the 128-byte swizzle TMA writes (a 64-row tile is
+//    ceil(D / 64) boxes of 64 rows x 128 bytes); the online softmax runs in
+//    registers on the accumulator's fragments (a thread holds rows lane / 4
+//    and + 8 of its warp's 16, column pairs 8j + 2 (lane % 4): mma.sync's C
+//    layout, so the masks are those of the Ampere kernel); P, rounded to
+//    bf16 in registers, is the register A operand of O += P V, one m64n64k16
+//    product for each 64-column box of V (MN-major, transposed by the
+//    instruction).  At D 112 the second box's 16 zero columns are computed
+//    and never written.
+//  * Overlap within a consumer (FlashAttention-3's): the next tile's
+//    S = Q K^T and this tile's O += P V are issued together, and the next
+//    tile's softmax runs while the tensor cores add this tile's P V.  ptxas
+//    serialises every wgmma of a kernel (a wait after each) as soon as one
+//    register a wgmma reads or writes is touched by another instruction
+//    while a product is pending, or a wgmma sits in a branch it cannot prove
+//    uniform over the warpgroup; that made the first pipelined version
+//    slower than none.  So a consumer computes its own contiguous range of
+//    the walk (a prologue, a steady loop, a drain: one static pipeline, no
+//    per-tile branch around a wgmma), the consumer index and the position
+//    walk are broadcast from lane 0, barrier arrivals are predicated, each
+//    product's descriptor is its tile's plus a constant, the softmax reads S
+//    and writes P in fp32 registers of its own, and P is packed into the A
+//    fragments only after the wait for the pending P V.  `hold` pins operand
+//    and accumulator registers on either side of each fence and wait.
+//  * One K/V fetch serves the whole GQA group (FlashAttention-3's PackGQA).
+//    A consumer's 64 rows are `rows_s` = 64 / group query rows of every head
+//    of the group, packed row r being query row r / group of head r % group
+//    (one TMA box of group heads x rows_s rows); a Q tile is the two
+//    consumers' rows, 2 * rows_s query rows, and each K/V tile reaches shared
+//    memory once per Q tile.  Where the group does not divide 64 a
+//    consumer's last 64 % group rows are never loaded or written.
+//  * The pinned prefix has a region of its own, in the layout of a ring
+//    slot, loaded once a block by TMA for every Q tile of the chunk and every
+//    head of the group, after the block's first Q tile and with an mbarrier
+//    a tile, so that the first products wait for their own tile only; one
+//    inner loop reads a pinned or a streamed tile and only the address (and
+//    the barrier it waits on) differs.  The tile order
+//    and the arithmetic never depend on where a tile lives, so the result is
+//    bit-identical whatever `pinned_rows` and `tiles_per_chunk` are.
+//  * Causal balance.  A consumer skips a tile whose keys lie above all its
+//    rows or below all its rows' windows and masks the rest.  Q tiles are
+//    dealt to the chunks in the order n-1, 0, n-2, 1, ...: a chunk of two
+//    tiles pairs the heaviest left with the lightest, which keeps
+//    `tiles_per_chunk`'s meaning (the Q tiles that share one load of the
+//    prefix) without a model of the work.
+//  * Shared memory: each consumer's Q (2 x 16 KB at D 128), the ring
+//    (STAGES x 32 KB at D 128) and the pinned tiles.  At D 256 (gemma-7b) a
+//    consumer's 64 x 256 fp32 output is 128 registers a thread and a 64-row
+//    tile of K and V is 64 KB: two consumers' Q and the ring would take 192
+//    KB and leave no tile to pin, so a block there has one consumer (255
+//    registers, no setmaxnreg), whose Q and the ring leave one 64 KB tile.
 //
 // The fp32 path (flash_kernel) keeps fp32 FMA on shared-memory tiles (64 x 64
 // scores, a 4 x 4 patch a thread): exact fp32 accumulation, no TF32, which its
@@ -131,8 +135,10 @@
 // The masks test every element (the index-based skips of 16-column blocks
 // are off); columns past Sk stay -inf, which no row counts.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -147,10 +153,16 @@ constexpr int BK = 64;        // KV rows of a tile, both paths
 constexpr int THREADS = 256;  // fp32 path: 16 x 16, thread (ty, tx) owns rows ty*4.., cols tx+16*j
 constexpr int LDP = BK + 1;
 constexpr int SMEM_LIMIT = 232448;
-constexpr int STAGES = 2;     // bf16 path: streamed K/V tiles in the ring
-constexpr int MAX_WARPS = 8;  // bf16 path: warps of a block, one (head, 16 rows) each
-constexpr int Q_REG_DIM = 128;        // bf16 path: the largest D whose Q fragments stay in registers
-constexpr int MAX_WARPS_Q_SMEM = 4;   // bf16 path above Q_REG_DIM: warps of a block
+constexpr int STAGES = 2;          // bf16 path: streamed K/V tiles in the ring
+constexpr int CONSUMERS = 2;       // bf16 path: consumer warpgroups of a block
+constexpr int WIDE_DIM = 128;      // bf16 path: above this head size, one consumer
+constexpr int MMA_ROWS = 64;       // bf16 path: packed Q rows of a consumer (wgmma's M)
+constexpr int BOX_COLS = 64;       // bf16 path: head-dim columns of a TMA box (128 bytes)
+constexpr int BOX_BYTES = 8192;    // bf16 path: a box of 64 rows x 128 bytes
+constexpr int BAR_BYTES = 256;     // bf16 path: the block's mbarriers (4 a stage, 2 for Q, 1 a pinned tile)
+constexpr int SMEM_ALIGN = 1024;   // bf16 path: the 128-byte swizzle's period
+constexpr int PRODUCER_REGS = 40;  // bf16 path: registers of a producer thread (setmaxnreg)
+constexpr int CONSUMER_REGS = 232; // bf16 path: registers of a consumer thread
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -509,10 +521,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path
+// bf16 path: TMA, mbarriers and wgmma (sm_90a)
 
 using namespace dco_tiles;
-static_assert(STAGES == 2, "the ring loads one tile ahead");
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -520,11 +531,33 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Bytes of Q's own buffer: none where Q's fragments stay in registers (Q is
-// staged through the ring), else the 16 rows of each of MAX_WARPS_Q_SMEM warps.
+// Boxes of 64 head-dim columns (128 bytes, the swizzle's span) a row holds.
 template <int D>
-__host__ __device__ constexpr int q_buffer_bytes() {
-  return D > Q_REG_DIM ? MAX_WARPS_Q_SMEM * 16 * row_bytes<D>() : 0;
+__host__ __device__ constexpr int col_blocks() {
+  return (D + BOX_COLS - 1) / BOX_COLS;
+}
+
+// Bytes of a staged 64-row tile of K or V, or of a consumer's Q: col_blocks
+// boxes of 64 rows x 128 bytes, one after the other.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return col_blocks<D>() * BOX_BYTES;
+}
+
+// Consumer warpgroups of a block: CONSUMERS, or one above WIDE_DIM, where
+// two consumers' Q and the ring would leave no 64 KB tile of K and V to pin.
+template <int D>
+__host__ __device__ constexpr int consumers() {
+  return D > WIDE_DIM ? 1 : CONSUMERS;
+}
+
+// Dynamic shared memory of a block: each consumer's Q, the ring of K and V
+// tiles, the pinned tiles, the mbarriers and the slack that puts the first
+// tile on the swizzle's 1024-byte period.
+template <int D>
+__host__ __device__ constexpr long long mma_smem_bytes(int pin_tiles) {
+  return (long long)(consumers<D>() + 2 * STAGES + 2 * pin_tiles) * tile_bytes<D>() +
+         BAR_BYTES + SMEM_ALIGN;
 }
 
 // The Q tile at place p of the order n-1, 0, n-2, 1, ...
@@ -532,57 +565,223 @@ __device__ __forceinline__ int tile_at(int p, int n) {
   return (p & 1) ? p >> 1 : n - 1 - (p >> 1);
 }
 
-// grid = (Q-tile chunks, G, B); block = 32 * hp * wph threads: warp w owns
-// query rows [16 * (w % wph), +16) of the tile for head w / wph of the pass.
-// Strides are in elements.  LSE: also write each row's log-sum-exp to `lse`.
-// The body is shared by two kernels: the serving one (flash_mma_kernel, no
-// LSE, with the signature and code it had before the LSE existed) and
-// training's (flash_mma_lse_kernel); POS (the position variant's
-// flash_mma_pos_kernel): mask by pos (B, Sq), keys at the same positions or,
-// with keys_at_rows, at their row index.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Arrive on the barrier where `arrive` holds, as a predicate rather than a
+// branch: no divergent path between a warpgroup's wgmma instructions.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool arrive) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)arrive)
+      : "memory");
+}
+
+// x from lane 0: a value the compiler then knows to be the same on every
+// lane of the warp (wgmma in a branch it cannot prove uniform is serialised).
+__device__ __forceinline__ int warp_uniform(int x) {
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-d tensor map at coordinates (column, head, row, batch) into
+// shared memory, counted on `bar`; elements past the tensor's ends are zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a 128-byte-swizzled box whose 8-row
+// groups lie 1024 bytes apart, both offsets 1024 bytes: Q and K for
+// S = Q K^T (K-major: the leading offset is unused) and V for O += P V
+// (MN-major: the 16 rows of a step are two 8-row groups along the reduction,
+// and no product spans two 64-column boxes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that a wgmma reads or writes to this point of the program:
+// an accumulator after its wait (no read moves above it), operands before
+// wgmma_fence (no write moves below it, which would make ptxas insert a
+// warpgroup.arrive and serialise the products).
+__device__ __forceinline__ void hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// d (+)= A B for a 64 x 16 A and a 16 x 64 B, both from shared memory
+// (K-major), fp32 sums; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B for a 64 x 16 bf16 A in registers (mma.sync's A fragment on each
+// warp's 16 rows) and a 16 x 64 B from shared memory with its 64 columns
+// contiguous (MN-major: V's rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The KV tiles a block's Q tile walks: [t_lo, n_kv), the first n_pinned of
+// them resident, and (POS) the tile's smallest and largest position.  Every
+// warp of the block computes it alike.
+struct Walk {
+  int t_lo, n_kv, n_pinned, q_mn, q_mx;
+};
+
+template <bool POS>
+__device__ __forceinline__ Walk kv_walk(const int* __restrict__ qpb, const int* __restrict__ kpb,
+                                        int q_lo, int bq, int Sq, int Sk, int causal, int window,
+                                        int pinned_rows) {
+  Walk w;
+  int kv_end = causal ? min(Sk, q_lo + bq) : Sk;
+  w.t_lo = first_kv_tile(q_lo, window);
+  w.q_mn = w.q_mx = 0;
+  if constexpr (POS) {
+    pos_walk(qpb, kpb, q_lo, min(bq, Sq - q_lo), Sk, window, w.t_lo, kv_end, w.q_mn, w.q_mx);
+    w.t_lo = warp_uniform(w.t_lo);
+    kv_end = warp_uniform(kv_end);
+  }
+  w.n_kv = (kv_end + BK - 1) / BK;
+  w.n_pinned = pinned_rows >= Sk ? w.n_kv : min(w.n_kv, pinned_rows / BK);
+  return w;
+}
+
+// POS: the first tile at or after t that some row of the Q tile sees
+// (forward mode; the next tile in prefill mode), so that a hidden tile is
+// neither loaded nor computed.  Uniform over the block.
+template <bool POS>
+__device__ __forceinline__ int next_seen(const Walk& w, const int* __restrict__ kpb, int t, int Sk,
+                                         int window) {
+  if constexpr (POS) {
+    while (t < w.n_kv && pos_tile_hidden(kpb, t * BK, Sk, w.q_mn, w.q_mx, window)) ++t;
+    t = warp_uniform(t);
+  }
+  return t;
+}
+
+// grid = (Q-tile chunks, G, B); block = 1 + NC warpgroups (NC =
+// consumers<D>()).  A consumer's 64 packed rows are `rows_s` query rows
+// (64 / group) of every head of the group, row r = query row r / group of
+// head r % group; a Q tile is NC of them, consecutive.  Q, K and V come
+// through the tensor maps, O's strides are in elements.  LSE: also write each row's
+// log-sum-exp to `lse`.  POS: mask by pos (B, Sq), keys at the same
+// positions or, with keys_at_rows, at their row index.
 template <int D, bool LSE, bool POS>
 __device__ __forceinline__ void flash_mma_body(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ pos,
-    int keys_at_rows, int Sq, int Sk, int H, int G, int wph,
-    int hp, int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
-    float softcap, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sg, long long v_sb, long long v_ss, long long v_sg,
-    long long o_sb, long long o_ss, long long o_sh) {
-  constexpr int ROWB = row_bytes<D>();  // bytes of a staged row
-  constexpr int TILEB = BK * ROWB;  // bytes of a staged K or V tile
-  constexpr int KS = D / 16;        // 16-deep steps of Q K^T
-  constexpr int NO = D / 8;         // 8-wide column blocks of O
-  constexpr bool QS = D > Q_REG_DIM;  // Q's fragments read back from its buffer each step
-  constexpr int CB = QS ? 2 : 4;      // 16-column blocks of a KV tile a softmax step takes
-  static_assert(D % 16 == 0 && ROWB % 128 == 0 && ROWB >= 2 * D, "row layout");
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    bf16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ pos, int keys_at_rows,
+    int Sq, int Sk, int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+    float scale, float softcap, long long o_sb, long long o_ss, long long o_sh) {
+  constexpr int NCB = col_blocks<D>();
+  constexpr int TB = tile_bytes<D>();
+  constexpr int KS = D / 16;  // 16-deep steps of Q K^T
+  constexpr int NC = consumers<D>();
+  static_assert(D % 16 == 0 && D <= NCB * BOX_COLS, "head size");
 
-  extern __shared__ __align__(128) unsigned char smem_mma[];
-  const int pin_alloc = (pinned_rows + BK - 1) / BK * BK;
-  const uint32_t pinK = smem_addr(smem_mma);
-  const uint32_t pinV = pinK + pin_alloc * ROWB;
-  const uint32_t ring = pinV + pin_alloc * ROWB;  // STAGES x (K tile, V tile)
-  const uint32_t qbuf = ring + STAGES * 2 * TILEB;  // QS: Q of the pass's heads
+  extern __shared__ unsigned char smem_mma[];
+  const uint32_t qbuf = (smem_addr(smem_mma) + SMEM_ALIGN - 1) & ~(uint32_t)(SMEM_ALIGN - 1);
+  const int pin_tiles = (pinned_rows + BK - 1) / BK;
+  const uint32_t ring = qbuf + NC * TB;               // STAGES x (K tile, V tile)
+  const uint32_t pin = ring + STAGES * 2 * TB;        // pin_tiles x (K tile, V tile)
+  const uint32_t bars = pin + pin_tiles * 2 * TB;
+  // per stage: K landed, V landed, K free, V free; then Q landed, Q free, and
+  // each pinned tile's K and V landed
+  const uint32_t q_full = bars + 32 * STAGES, q_empty = q_full + 8;
+  auto pin_full = [&](int t) { return q_empty + 8 + 8 * t; };
+  auto k_full = [&](int st) { return bars + 32 * st; };
+  auto v_full = [&](int st) { return bars + 32 * st + 8; };
+  auto k_empty = [&](int st) { return bars + 32 * st + 16; };
+  auto v_empty = [&](int st) { return bars + 32 * st + 24; };
 
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int group = H / G;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int hh = warp / wph;
-  const int slice = warp % wph;
-  const int bq = 16 * wph;
+  const int rows_s = MMA_ROWS / group;  // query rows of a consumer's tile
+  const int bq = NC * rows_s;           // query rows of a block's Q tile
   const int n_q_tiles = (Sq + bq - 1) / bq;
   const int p0 = blockIdx.x * tiles_per_chunk;
   const int p1 = min(n_q_tiles, p0 + tiles_per_chunk);
-
-  const bf16* kb = k + b * k_sb + g * k_sg;
-  const bf16* vb = v + b * v_sb + g * v_sg;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   // POS: this batch row's positions of the queries and (forward mode) the keys
   const int* qpb = POS ? pos + (long long)b * Sq : nullptr;
   const int* kpb = POS && !keys_at_rows ? qpb : nullptr;
 
-  // the pinned prefix: staged once, whole tiles, from the first tile to the
+  // the pinned prefix: loaded once, whole tiles, from the first tile to the
   // last that this block's Q rows can see; its rows hold what a streamed tile
   // would hold.  POS: the whole prefix
   int kv_need = POS ? Sk : 0, kv_first = POS ? 0 : Sk;
@@ -591,255 +790,334 @@ __device__ __forceinline__ void flash_mma_body(
     kv_need = max(kv_need, causal ? min(Sk, (qt + 1) * bq) : Sk);
     kv_first = min(kv_first, first_kv_tile(qt * bq, window) * BK);
   }
-  const int n_pin = min(pin_alloc, (min(pinned_rows, kv_need) + BK - 1) / BK * BK);
+  const int n_pin = min(pin_tiles * BK, (min(pinned_rows, kv_need) + BK - 1) / BK * BK);
   const int pin_lo = min(n_pin, kv_first);
-  stage_tile<D>(pinK + pin_lo * ROWB, kb + (long long)pin_lo * k_ss, k_ss, n_pin - pin_lo,
-                min(n_pin, Sk) - pin_lo);
-  stage_tile<D>(pinV + pin_lo * ROWB, vb + (long long)pin_lo * v_ss, v_ss, n_pin - pin_lo,
-                min(n_pin, Sk) - pin_lo);
-  cp_async_commit();
 
-  auto load_kv = [&](int t, int st) {
-    const int k_lo = t * BK;
-    const int nv = min(BK, Sk - k_lo);
-    const uint32_t dst = ring + st * 2 * TILEB;
-    stage_tile<D>(dst, kb + (long long)k_lo * k_ss, k_ss, BK, nv);
-    stage_tile<D>(dst + TILEB, vb + (long long)k_lo * v_ss, v_ss, BK, nv);
-  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), NC * 4);  // one arrival a consumer warp
+      mbar_init(v_empty(st), NC * 4);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC * 4);
+    for (int t = 0; t < pin_tiles; ++t) mbar_init(pin_full(t), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
+  if (warp < 4) {
+    // the producer: one warp, whose first lane issues every copy; with two
+    // consumers its registers go to them (one consumer has 255 anyway)
+    if constexpr (NC > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp != 0) return;
+    auto load_tile = [&](uint32_t dst, const CUtensorMap& map, uint32_t bar, int t) {
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+        tma_load(dst + cb * BOX_BYTES, map, bar, cb * BOX_COLS, g, t * BK, b);
+    };
+    int n = 0;  // streamed tiles issued
+    for (int p = p0; p < p1; ++p) {
+      const int q_lo = tile_at(p, n_q_tiles) * bq;
+      const Walk w = kv_walk<POS>(qpb, kpb, q_lo, bq, Sq, Sk, causal, window, pinned_rows);
+      if (p > p0) mbar_wait(q_empty, (p - p0 - 1) & 1);
+      if (lane == 0) {
+        // a box is 64 columns of group x rows_s packed rows: 64 % group rows short of 64
+        mbar_expect_tx(q_full, NC * NCB * BOX_COLS * 2 * group * rows_s);
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb)
+            tma_load(qbuf + c * TB + cb * BOX_BYTES, tm_q, q_full, cb * BOX_COLS, g * group,
+                     q_lo + c * rows_s, b);
+        if (p == p0)  // the pinned prefix behind the first Q tile, a barrier a tile
+          for (int t = pin_lo / BK; t < n_pin / BK; ++t) {
+            mbar_expect_tx(pin_full(t), 2 * TB);
+            load_tile(pin + t * 2 * TB, tm_k, pin_full(t), t);
+            load_tile(pin + t * 2 * TB + TB, tm_v, pin_full(t), t);
+          }
+      }
+      for (int t = next_seen<POS>(w, kpb, max(w.t_lo, w.n_pinned), Sk, window); t < w.n_kv;
+           t = next_seen<POS>(w, kpb, t + 1, Sk, window), ++n) {
+        const int st = n % STAGES;
+        const int lap = n / STAGES;
+        const uint32_t dst = ring + st * 2 * TB;
+        if (lap > 0) mbar_wait(k_empty(st), (lap - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(k_full(st), TB);
+          load_tile(dst, tm_k, k_full(st), t);
+        }
+        if (lap > 0) mbar_wait(v_empty(st), (lap - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(v_full(st), TB);
+          load_tile(dst + TB, tm_v, v_full(st), t);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 packed rows of each Q tile
+  if constexpr (NC > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = warp_uniform(warp / 4 - 1);
+  const uint32_t qs = qbuf + c * TB;
+  // this thread's two packed rows, r and r + 8 of its warp's 16: their query
+  // row within the consumer's tile and their head
+  int sl[2], hd[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    sl[i] = r / group;
+    hd[i] = g * group + r % group;
+    live[i] = r < rows_s * group;
+  }
+
+  int n = 0;  // streamed tiles consumed
   for (int p = p0; p < p1; ++p) {
     const int q_lo = tile_at(p, n_q_tiles) * bq;
-    int kv_end = causal ? min(Sk, q_lo + bq) : Sk;
-    int t_lo = first_kv_tile(q_lo, window);
-    int q_mn = 0, q_mx = 0;  // POS: the tile's smallest and largest position
-    if constexpr (POS)
-      pos_walk(qpb, kpb, q_lo, min(bq, Sq - q_lo), Sk, window, t_lo, kv_end, q_mn, q_mx);
-    const int n_kv = (kv_end + BK - 1) / BK;
-    const int n_pinned = pinned_rows >= Sk ? n_kv : min(n_kv, pinned_rows / BK);
-    // POS: the first tile at or after t that some row of this Q tile sees
-    // (forward mode; the next tile in prefill mode), so that a hidden tile is
-    // neither loaded nor computed.  Uniform over the block.
-    auto next_seen = [&](int t) {
-      if constexpr (POS) {
-        while (t < n_kv && pos_tile_hidden(kpb, t * BK, Sk, q_mn, q_mx, window)) ++t;
-      }
-      return t;
+    const Walk w = kv_walk<POS>(qpb, kpb, q_lo, bq, Sq, Sk, causal, window, pinned_rows);
+    const int s0 = q_lo + c * rows_s;           // this consumer's first query row
+    const int s1 = min(Sq, s0 + rows_s) - 1;    // its last (below s0: none)
+    int sr[2], qp[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sr[i] = s0 + sl[i];
+      // POS: the row's position (a row past Sq is never written)
+      qp[i] = POS ? qpb[min(sr[i], Sq - 1)] : 0;
+    }
+    mbar_wait(q_full, (p - p0) & 1);
+
+    float acc[NCB][32];
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[cb][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+    // The tiles this consumer computes: the walk's, less (by index) those
+    // above all its rows or below all their windows, a contiguous range
+    // [c_lo, c_hi) (POS: the whole walk, holes and all).  It still takes and
+    // frees each streamed tile outside the range.
+    const int c_lo = POS ? w.t_lo : max(w.t_lo, first_kv_tile(s0, window));
+    const int c_hi = s1 < s0 ? c_lo : POS || !causal ? w.n_kv : min(w.n_kv, s1 / BK + 1);
+    auto pass = [&](int t) {  // a streamed tile this consumer does not compute
+      if (t < w.n_pinned) return;
+      const int st = n % STAGES, lap = n / STAGES;
+      mbar_wait(k_full(st), lap & 1);
+      mbar_arrive(k_empty(st), lane == 0);
+      mbar_wait(v_full(st), lap & 1);
+      mbar_arrive(v_empty(st), lane == 0);
+      ++n;
     };
-    const int t_stream = next_seen(max(t_lo, n_pinned));  // the first streamed tile
-    const int r0 = q_lo + 16 * slice;  // this warp's first query row
-    const int ra = r0 + (lane >> 2);   // this thread's rows: ra and ra + 8
-    // POS: the positions of rows ra and ra + 8 (a row past Sq is never written)
-    const int qp0 = POS && ra < Sq ? qpb[ra] : 0;
-    const int qp1 = POS && ra + 8 < Sq ? qpb[ra + 8] : 0;
-    for (int h0 = 0; h0 < group; h0 += hp) {
-      const int nh = min(hp, group - h0);
-      const int h = g * group + h0 + hh;
-      const bool active = hh < nh && r0 < Sq;
 
-      // Q of the pass's heads through the ring, into registers; or (QS) into
-      // its own buffer, read back at each step of Q K^T
-      __syncthreads();  // the ring (and Q's buffer) is free
-      const uint32_t qdst = QS ? qbuf : ring;
-      for (int j = 0; j < nh; ++j)
-        stage_tile<D>(qdst + j * bq * ROWB,
-                      q + b * q_sb + (long long)(g * group + h0 + j) * q_sh +
-                          (long long)q_lo * q_ss,
-                      q_ss, bq, min(bq, Sq - q_lo));
-      cp_async_commit();
-      cp_async_wait<0>();  // Q (and the pinned prefix) staged
-      __syncthreads();
-      const int q_row = hh * bq + 16 * slice + (lane & 15);  // this lane's ldmatrix row of Q
-      uint32_t qf[QS ? 1 : KS][4];
-      if constexpr (!QS) {
-        if (active) {
+    // the descriptors of Q and of the K and V tiles the next products read,
+    // set before wgmma_fence; each step's descriptor is its tile's plus a
+    // constant (kept whole for every step, D 256's position kernels spilled)
+    uint64_t dq = smem_desc(qs), dk = 0, dv = 0;
+    auto prep = [&](uint32_t kt, uint32_t vt) {
+      dk = smem_desc(kt);
+      dv = smem_desc(vt);
+      asm volatile("" : "+l"(dk), "+l"(dv), "+l"(dq)::"memory");
+    };
+    // S = Q K^T of prep's K tile into s, issued (committed, not waited for)
+    auto issue_s = [&](float (&s)[32]) {
 #pragma unroll
-          for (int s = 0; s < KS; ++s) ldsm_x4(ring + swz<ROWB>(q_row, 2 * s + (lane >> 4)), qf[s]);
-        }
-        __syncthreads();  // the ring takes K/V now
+      for (int ks = 0; ks < KS; ++ks) {
+        const int off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
+        wgmma_ss(s, dq + (off >> 4), dk + (off >> 4), ks);
       }
-      if (t_stream < n_kv) load_kv(t_stream, 0);
-      cp_async_commit();
-
-      float acc[NO][4];
+      wgmma_commit();
+    };
+    // O += P V for P in pf and prep's V tile, issued
+    uint32_t pf[4][4];  // P of the tile whose P V is pending: bf16 A fragments of four steps
+    auto issue_pv = [&]() {
 #pragma unroll
-      for (int j = 0; j < NO; ++j)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      float m[2] = {-INFINITY, -INFINITY};
-      float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-      for (int t = next_seen(t_lo), slot = 0; t < n_kv;) {
-        const int t_next = next_seen(t + 1);
-        const bool streamed = t >= n_pinned;
-        uint32_t kt, vt;
-        if (streamed) {
-          const int st = POS ? slot : (t - t_stream) & 1;
-          if (t_next < n_kv) load_kv(t_next, st ^ 1);
-          cp_async_commit();
-          cp_async_wait<1>();  // tile t has landed
-          __syncthreads();
-          kt = ring + st * 2 * TILEB;
-        } else {
-          kt = pinK + t * TILEB;
-        }
-        vt = streamed ? kt + TILEB : pinV + t * TILEB;
-
-        const int k_lo = t * BK;
-        // columns [0, dead) lie below the window of every row of this warp
-        // (POS: no column is skipped by its index)
-        const int dead = !POS && window > 0 ? min(BK, max(0, r0 - window + 1 - k_lo)) : 0;
-        if (active && dead < BK) {
-          // columns [lim, BK) lie above every row of this warp
-          const int lim = !POS && causal ? min(BK, r0 + 16 - k_lo) : BK;
-          const bool need_mask = POS || k_lo + BK > Sk || (causal && k_lo + BK > r0 + 1) ||
-                                 (window > 0 && k_lo + window <= r0 + 15);
-
-          // softmax steps of CB 16-column blocks: the whole tile, or (QS) two
-          // halves, whose scores and P fragments take half the registers
+        for (int cb = 0; cb < NCB; ++cb)
+          wgmma_rs(acc[cb], pf[kk], dv + ((cb * BOX_BYTES + kk * 16 * 128) >> 4));
+      wgmma_commit();
+    };
+    // scale (in log2 units), softcap and mask the scores of the tile at
+    // k_lo, and take them into the online softmax: P (fp32) into s, the
+    // factor that rescales O into alpha.  The accumulator s_in is read, not
+    // rewritten: it is also the next S = Q K^T's, and no register a wgmma
+    // reads may be written while a product is pending (P reaches the A
+    // fragments only after the wait for the pending P V)
+    auto softmax = [&](const float (&s_in)[32], int k_lo, float (&s)[32], float (&alpha)[2]) {
+      const bool need_mask = POS || k_lo + BK > Sk || (causal && k_lo + BK - 1 > s0) ||
+                             (window > 0 && k_lo <= s1 - window);
+      if (softcap > 0.f) {
 #pragma unroll
-          for (int c0 = 0; c0 < 4; c0 += CB) {
-            // a step whose columns all lie above or below the warp's rows is
-            // masked whole: skipping it changes nothing
-            if (QS && (16 * c0 >= lim || 16 * (c0 + CB) <= dead)) continue;
-
-            // S = Q K^T: 16 x 16 CB, 2 CB 8-column blocks
-            float s[2 * CB][4];
+        for (int e = 0; e < 32; ++e) s[e] = tanhf(s_in[e] * (scale / softcap)) * (softcap * LOG2E);
+      } else {
 #pragma unroll
-            for (int j = 0; j < 2 * CB; ++j)
+        for (int e = 0; e < 32; ++e) s[e] = s_in[e] * (scale * LOG2E);
+      }
+      if (need_mask) {
 #pragma unroll
-              for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-            // (QS: half unrolled; unrolled whole, it spilled 4 bytes)
-#pragma unroll (QS ? 8 : KS)
-            for (int ks = 0; ks < KS; ++ks) {
-              if constexpr (QS) ldsm_x4(qbuf + swz<ROWB>(q_row, 2 * ks + (lane >> 4)), qf[0]);
-#pragma unroll
-              for (int j = 0; j < CB; ++j) {
-                const int jb = c0 + j;  // 16-column block of the tile
-                if (16 * jb < lim && 16 * jb + 16 > dead) {
-                  uint32_t kf[4];
-                  ldsm_x4(kt + swz<ROWB>(16 * jb + ((lane >> 4) << 3) + (lane & 7),
-                                         2 * ks + ((lane >> 3) & 1)),
-                          kf);
-                  mma_bf16(s[2 * j], qf[QS ? 0 : ks], kf[0], kf[1]);
-                  mma_bf16(s[2 * j + 1], qf[QS ? 0 : ks], kf[2], kf[3]);
-                }
-              }
-            }
-
-            // scale (in log2 units), softcap, mask
-            if (softcap > 0.f) {
-#pragma unroll
-              for (int j = 0; j < 2 * CB; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  s[j][e] = tanhf(s[j][e] * (scale / softcap)) * (softcap * LOG2E);
-            } else {
-#pragma unroll
-              for (int j = 0; j < 2 * CB; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[j][e] *= scale * LOG2E;
-            }
-            if (need_mask) {
-#pragma unroll
-              for (int j = 0; j < 2 * CB; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int col = k_lo + 16 * c0 + 8 * j + 2 * (lane & 3) + (e & 1);
-                  const int row = ra + 8 * (e >> 1);
-                  if constexpr (POS) {
-                    // a hidden key scores the finite -1e30: a row that sees
-                    // none gets the uniform mean; past Sk nothing counts
-                    if (col >= Sk)
-                      s[j][e] = -INFINITY;
-                    else if (pos_hidden(kpb, col, (e >> 1) ? qp1 : qp0, window))
-                      s[j][e] = NEG_INF;
-                  } else if (col >= Sk || (causal && col > row) ||
-                             (window > 0 && col <= row - window)) {
-                    s[j][e] = -INFINITY;
-                  }
-                }
-            }
-
-            // online softmax; P as bf16 A fragments of CB 16-deep steps
-            float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-            for (int j = 0; j < 2 * CB; ++j) {
-              mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-              mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-            }
-            float mu[2], alpha[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-              mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-              const float m_new = fmaxf(m[i], mx[i]);
-              mu[i] = m_new == -INFINITY ? 0.f : m_new;
-              alpha[i] = fast_exp2(m[i] - mu[i]);
-              m[i] = m_new;
-              l[i] *= alpha[i];
-            }
-            uint32_t pf[CB][4];
-#pragma unroll
-            for (int j = 0; j < 2 * CB; ++j) {
-              const float e0 = fast_exp2(s[j][0] - mu[0]);
-              const float e1 = fast_exp2(s[j][1] - mu[0]);
-              const float e2 = fast_exp2(s[j][2] - mu[1]);
-              const float e3 = fast_exp2(s[j][3] - mu[1]);
-              l[0] += e0 + e1;
-              l[1] += e2 + e3;
-              pf[j >> 1][2 * (j & 1)] = pack_bf16(e0, e1);
-              pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(e2, e3);
-            }
-#pragma unroll
-            for (int j = 0; j < NO; ++j) {
-              acc[j][0] *= alpha[0];
-              acc[j][1] *= alpha[0];
-              acc[j][2] *= alpha[1];
-              acc[j][3] *= alpha[1];
-            }
-
-            // O += P V
-#pragma unroll
-            for (int s2 = 0; s2 < CB; ++s2) {
-              const int jb = c0 + s2;
-              if (16 * jb < lim && 16 * jb + 16 > dead) {
-#pragma unroll
-                for (int j = 0; j < NO / 2; ++j) {
-                  uint32_t vf[4];
-                  ldsm_x4_trans(vt + swz<ROWB>(16 * jb + (lane & 15), 2 * j + (lane >> 4)), vf);
-                  mma_bf16(acc[2 * j], pf[s2], vf[0], vf[1]);
-                  mma_bf16(acc[2 * j + 1], pf[s2], vf[2], vf[3]);
-                }
-              }
-            }
+        for (int e = 0; e < 32; ++e) {
+          const int col = k_lo + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+          const int i = (e >> 1) & 1;
+          if constexpr (POS) {
+            // a hidden key scores the finite -1e30: a row that sees none gets
+            // the uniform mean; past Sk nothing counts.  The key's position
+            // is read whether or not the column is past Sk (no branch)
+            const int kpos = kpb != nullptr ? kpb[min(col, Sk - 1)] : col;
+            const bool hidden = kpos > qp[i] || (window > 0 && kpos <= qp[i] - window);
+            s[e] = col >= Sk ? -INFINITY : hidden ? NEG_INF : s[e];
+          } else if (col >= Sk || (causal && col > sr[i]) ||
+                     (window > 0 && col <= sr[i] - window)) {
+            s[e] = -INFINITY;
           }
         }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      float mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = fast_exp2(m[i] - mu[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j] = fast_exp2(s[4 * j] - mu[0]);
+        s[4 * j + 1] = fast_exp2(s[4 * j + 1] - mu[0]);
+        s[4 * j + 2] = fast_exp2(s[4 * j + 2] - mu[1]);
+        s[4 * j + 3] = fast_exp2(s[4 * j + 3] - mu[1]);
+        l[0] += s[4 * j] + s[4 * j + 1];
+        l[1] += s[4 * j + 2] + s[4 * j + 3];
+      }
+    };
+    // P as bf16 A fragments of four 16-deep steps
+    auto pack_p = [&](const float (&x)[32]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pf[j >> 1][2 * (j & 1)] = pack_bf16(x[4 * j], x[4 * j + 1]);
+        pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+      }
+    };
+
+    int t = next_seen<POS>(w, kpb, w.t_lo, Sk, window);
+    for (; t < c_lo; t = next_seen<POS>(w, kpb, t + 1, Sk, window)) pass(t);
+    // Q is free once this consumer's last S = Q K^T is done: then the
+    // producer loads the next Q tile's while this one's last P V and its
+    // output are still under way
+    if (t >= c_hi) mbar_arrive(q_empty, lane == 0);
+    if (t < c_hi) {
+      // the first tile: its scores, then its P, whose P V the next step issues
+      bool streamed = t >= w.n_pinned;
+      int st = n % STAGES, lap = n / STAGES;
+      uint32_t kt = streamed ? ring + st * 2 * TB : pin + t * 2 * TB;
+      float s[32], x[32];
+      float alpha[2];
+      // a pinned tile's K and V land once, on the tile's own barrier
+      mbar_wait(streamed ? k_full(st) : pin_full(t), streamed ? lap & 1 : 0);
+      prep(kt, kt + TB);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_wait<0>();
+      hold(s);
+      if (streamed) mbar_arrive(k_empty(st), lane == 0);
+      int t_next = next_seen<POS>(w, kpb, t + 1, Sk, window);
+      if (t_next >= c_hi) mbar_arrive(q_empty, lane == 0);
+      softmax(s, t * BK, x, alpha);  // O is zero: nothing to rescale
+      pack_p(x);
+      // The previous tile's O += P V is issued right after this tile's
+      // S = Q K^T, and this tile's softmax runs while the tensor cores add it
+      // (FlashAttention-3's overlap within a warpgroup); O is rescaled once
+      // that product is done, so each row's arithmetic is the unpipelined
+      // order's: rescale, then add.
+      while (t_next < c_hi) {
+        const bool streamed_next = t_next >= w.n_pinned;
+        const int st_next = (n + streamed) % STAGES, lap_next = (n + streamed) / STAGES;
+        const uint32_t kt_next =
+            streamed_next ? ring + st_next * 2 * TB : pin + t_next * 2 * TB;
+        mbar_wait(streamed_next ? k_full(st_next) : pin_full(t_next),
+                  streamed_next ? lap_next & 1 : 0);
+        if (streamed) mbar_wait(v_full(st), lap & 1);
+        prep(kt_next, kt + TB);  // S of the next tile, P V of this one
+        hold(pf);
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+        wgmma_fence();
+        issue_s(s);
+        issue_pv();
+        // the tile after (POS: a walk over positions) while the products run
+        const int t_after = next_seen<POS>(w, kpb, t_next + 1, Sk, window);
+        wgmma_wait<1>();  // S of the next tile
+        hold(s);
+        if (streamed_next) mbar_arrive(k_empty(st_next), lane == 0);
+        if (t_after >= c_hi) mbar_arrive(q_empty, lane == 0);
+        softmax(s, t_next * BK, x, alpha);
+        wgmma_wait<0>();  // P V of this tile
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+        hold(x);
         if (streamed) {
-          __syncthreads();  // this ring slot may be refilled
-          slot ^= 1;
+          mbar_arrive(v_empty(st), lane == 0);
+          ++n;
         }
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[cb][e] *= alpha[(e >> 1) & 1];
+        pack_p(x);
         t = t_next;
+        t_next = t_after;
+        streamed = streamed_next;
+        st = st_next;
+        lap = lap_next;
+        kt = kt_next;
       }
+      // the last tile's P V
+      if (streamed) mbar_wait(v_full(st), lap & 1);
+      prep(kt, kt + TB);
+      hold(pf);
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+      wgmma_fence();
+      issue_pv();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+      if (streamed) {
+        mbar_arrive(v_empty(st), lane == 0);
+        ++n;
+      }
+      t = next_seen<POS>(w, kpb, t + 1, Sk, window);
+    }
+    for (; t < w.n_kv; t = next_seen<POS>(w, kpb, t + 1, Sk, window)) pass(t);
 
-      if (active) {
-        bf16* ob = o + b * o_sb + (long long)h * o_sh + 2 * (lane & 3);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-          const int row = ra + 8 * i;
-          if (row < Sq) {
-            const float inv = 1.f / fmaxf(l[i], 1e-30f);
-            // natural log-sum-exp of the row's scores from the log2-domain max and sum
-            if (LSE && (lane & 3) == 0)
-              lse[((long long)b * H + h) * Sq + row] = m[i] * LN2 + logf(l[i]);
-            bf16* orow = ob + (long long)row * o_ss;
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (live[i] && sr[i] < Sq) {
+        const float inv = 1.f / fmaxf(l[i], 1e-30f);
+        // natural log-sum-exp of the row's scores from the log2-domain max and sum
+        if (LSE && (lane & 3) == 0)
+          lse[((long long)b * H + hd[i]) * Sq + sr[i]] = m[i] * LN2 + logf(l[i]);
+        bf16* orow = o + b * o_sb + (long long)sr[i] * o_ss + (long long)hd[i] * o_sh +
+                     2 * (lane & 3);
 #pragma unroll
-            for (int j = 0; j < NO; ++j)
-              *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-                  pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
-          }
-        }
+        for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (cb * BOX_COLS + 8 * j < D)
+              *reinterpret_cast<uint32_t*>(orow + cb * BOX_COLS + 8 * j) =
+                  pack_bf16(acc[cb][4 * j + 2 * i] * inv, acc[cb][4 * j + 2 * i + 1] * inv);
       }
     }
   }
@@ -847,72 +1125,101 @@ __device__ __forceinline__ void flash_mma_body(
 
 #ifndef DCO_FLASH_POS
 template <int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
-                 int G, int wph, int hp, int tiles_per_chunk, int pinned_rows, int causal,
-                 int window, float scale, float softcap, long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sg, long long v_sb,
-                 long long v_ss, long long v_sg, long long o_sb, long long o_ss,
-                 long long o_sh) {
-  flash_mma_body<D, false, false>(q, k, v, o, nullptr, nullptr, 0, Sq, Sk, H, G, wph, hp,
+__global__ void __launch_bounds__((1 + consumers<D>()) * 128, 1)
+flash_mma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int Sq, int Sk,
+                 int H, int G, int tiles_per_chunk, int pinned_rows, int causal, int window,
+                 float scale, float softcap, long long o_sb, long long o_ss, long long o_sh) {
+  flash_mma_body<D, false, false>(tm_q, tm_k, tm_v, o, nullptr, nullptr, 0, Sq, Sk, H, G,
                                   tiles_per_chunk, pinned_rows, causal, window, scale, softcap,
-                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb,
-                                  o_ss, o_sh);
+                                  o_sb, o_ss, o_sh);
 }
 
 template <int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-flash_mma_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     int Sq, int Sk, int H, int G, int wph, int hp, int tiles_per_chunk,
+__global__ void __launch_bounds__((1 + consumers<D>()) * 128, 1)
+flash_mma_lse_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int G, int tiles_per_chunk,
                      int pinned_rows, int causal, int window, float scale, float softcap,
-                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                     long long k_ss, long long k_sg, long long v_sb, long long v_ss,
-                     long long v_sg, long long o_sb, long long o_ss, long long o_sh) {
-  flash_mma_body<D, true, false>(q, k, v, o, lse, nullptr, 0, Sq, Sk, H, G, wph, hp,
+                     long long o_sb, long long o_ss, long long o_sh) {
+  flash_mma_body<D, true, false>(tm_q, tm_k, tm_v, o, lse, nullptr, 0, Sq, Sk, H, G,
                                  tiles_per_chunk, pinned_rows, causal, window, scale, softcap,
-                                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss,
-                                 o_sh);
+                                 o_sb, o_ss, o_sh);
 }
 #else
 // The position variant, with (LSE, as flash_mma_lse_kernel) or without the
 // per-row log-sum-exp.
 template <int D, bool LSE>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-flash_mma_pos_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     const int* __restrict__ pos, int keys_at_rows, int Sq,
-                     int Sk, int H, int G, int wph, int hp, int tiles_per_chunk,
-                     int pinned_rows, int causal, int window, float scale, float softcap,
-                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                     long long k_ss, long long k_sg, long long v_sb, long long v_ss,
-                     long long v_sg, long long o_sb, long long o_ss, long long o_sh) {
-  flash_mma_body<D, LSE, true>(q, k, v, o, lse, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
-                               tiles_per_chunk, pinned_rows, causal, window, scale, softcap, q_sb,
-                               q_ss, q_sh, k_sb, k_ss, k_sg, v_sb, v_ss, v_sg, o_sb, o_ss, o_sh);
+__global__ void __launch_bounds__((1 + consumers<D>()) * 128, 1)
+flash_mma_pos_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                     float* __restrict__ lse, const int* __restrict__ pos, int keys_at_rows,
+                     int Sq, int Sk, int H, int G, int tiles_per_chunk, int pinned_rows,
+                     int causal, int window, float scale, float softcap, long long o_sb,
+                     long long o_ss, long long o_sh) {
+  flash_mma_body<D, LSE, true>(tm_q, tm_k, tm_v, o, lse, pos, keys_at_rows, Sq, Sk, H, G,
+                               tiles_per_chunk, pinned_rows, causal, window, scale, softcap, o_sb,
+                               o_ss, o_sh);
 }
 #endif
+
+// cuTensorMapEncodeTiled, a driver function, from the driver the process has
+// loaded (the library links only the CUDA runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (B, rows, heads, D) tensor read through its
+// strides (in elements), as 4-d (D, heads, rows, B) with the 128-byte
+// swizzle; a box is 64 columns of `box_heads` heads of `box_rows` rows.
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int B,
+                long long head_stride, long long row_stride, long long batch_stride,
+                int box_heads, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * head_stride, 2ull * row_stride, 2ull * batch_stride};
+  const cuuint32_t box[4] = {BOX_COLS, (cuuint32_t)box_heads, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                const int* pos, int keys_at_rows, int B, int Sq, int Sk, int H, int G,
                int tiles_per_chunk, int pinned_rows, int causal, int window, float scale,
                float softcap, const long long* st, cudaStream_t stream) {
-  // heads a pass, then warps a head (16 query rows each), within the block's warps
-  const int max_warps = D > Q_REG_DIM ? MAX_WARPS_Q_SMEM : MAX_WARPS;
   const int group = H / G;
-  const int passes = (group + max_warps - 1) / max_warps;
-  const int hp = (group + passes - 1) / passes;
-  int wph = 4;
-  while (wph > 1 && hp * wph > max_warps) wph >>= 1;
-  const long long pin_alloc = (pinned_rows + BK - 1) / BK * BK;
-  const long long smem =
-      (2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>() + q_buffer_bytes<D>();
+  if (group > MMA_ROWS) return -1;  // a consumer's rows hold one query row of every head
+  const long long smem = mma_smem_bytes<D>((pinned_rows + BK - 1) / BK);
   if (smem > SMEM_LIMIT) return -2;
+  static_assert(32 * STAGES + 16 + 8 * (SMEM_LIMIT / (2 * tile_bytes<64>())) <= BAR_BYTES,
+                "a barrier for every pinned tile that fits");
   for (int i = 0; i < 12; ++i)
-    if (st[i] % 8 != 0) return -1;  // 16-byte rows for the 16-byte copies
+    if (st[i] % 8 != 0) return -1;  // TMA: 16-byte strides
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0) return -1;
+  const int rows_s = MMA_ROWS / group;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(&tm_q, q, D, H, Sq, B, st[2], st[1], st[0], group, rows_s) ||
+      !tensor_map(&tm_k, k, D, G, Sk, B, st[5], st[4], st[3], 1, BK) ||
+      !tensor_map(&tm_v, v, D, G, Sk, B, st[8], st[7], st[6], 1, BK))
+    return -1;
 #ifndef DCO_FLASH_POS
   const void* kernel =
       lse != nullptr ? (const void*)flash_mma_lse_kernel<D> : (const void*)flash_mma_kernel<D>;
@@ -923,45 +1230,40 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
-  const int bq = 16 * wph;
+  const int bq = consumers<D>() * rows_s;
   const int n_q_tiles = (Sq + bq - 1) / bq;
   const int n_chunks = (n_q_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
   const dim3 grid(n_chunks, G, B);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
+  const int threads = (1 + consumers<D>()) * 128;
+  bf16* ob = static_cast<bf16*>(o);
 #ifdef DCO_FLASH_POS
   if (lse != nullptr)
-    flash_mma_pos_kernel<D, true><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(o), lse, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
-        tiles_per_chunk, pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3],
-        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+    flash_mma_pos_kernel<D, true><<<grid, threads, (size_t)smem, stream>>>(
+        tm_q, tm_k, tm_v, ob, lse, pos, keys_at_rows, Sq, Sk, H, G, tiles_per_chunk,
+        pinned_rows, causal, window, scale, softcap, st[9], st[10], st[11]);
   else
-    flash_mma_pos_kernel<D, false><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(o), nullptr, pos, keys_at_rows, Sq, Sk, H, G, wph, hp,
-        tiles_per_chunk, pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3],
-        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
-  return (int)cudaGetLastError();
+    flash_mma_pos_kernel<D, false><<<grid, threads, (size_t)smem, stream>>>(
+        tm_q, tm_k, tm_v, ob, nullptr, pos, keys_at_rows, Sq, Sk, H, G, tiles_per_chunk,
+        pinned_rows, causal, window, scale, softcap, st[9], st[10], st[11]);
 #else
   if (lse != nullptr)
-    flash_mma_lse_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(o), lse, Sq, Sk, H, G, wph, hp, tiles_per_chunk,
-        pinned_rows, causal, window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11]);
+    flash_mma_lse_kernel<D><<<grid, threads, (size_t)smem, stream>>>(
+        tm_q, tm_k, tm_v, ob, lse, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window,
+        scale, softcap, st[9], st[10], st[11]);
   else
-    flash_mma_kernel<D><<<grid, 32 * hp * wph, (size_t)smem, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(o), Sq, Sk, H, G, wph, hp, tiles_per_chunk, pinned_rows,
-        causal, window, scale, softcap, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-        st[8], st[9], st[10], st[11]);
-  return (int)cudaGetLastError();
+    flash_mma_kernel<D><<<grid, threads, (size_t)smem, stream>>>(
+        tm_q, tm_k, tm_v, ob, Sq, Sk, H, G, tiles_per_chunk, pinned_rows, causal, window, scale,
+        softcap, st[9], st[10], st[11]);
 #endif
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  `strides` (in elements): batch, row and head strides
 // of q, then k, v and o; the last dimension of each has stride 1.  bf16 rows
-// must be 16-byte aligned: pointers on 16 bytes, strides multiples of 8.
+// must be 16-byte aligned: pointers on 16 bytes, strides multiples of 8 (the
+// TMA copies' rule); bf16 takes at most 64 query heads a KV head.
 // `lse` (B, H, Sq) fp32, or null: the natural log-sum-exp of each row's scaled,
 // capped and masked scores, for the backward (csrc/flash_attention_bwd.cu).
 // `softcap` 0 means none.  `window` > 0 lets row r see columns (r - window, r]

@@ -15,9 +15,9 @@ from typing import Tuple
 
 import torch
 
-from ...core.orchestrator import FLASH_Q_REG_DIM
 from ...core.orchestrator import FLASH_TILE_ROWS
 from ...core.orchestrator import H100_SMEM_PER_BLOCK
+from ...core.orchestrator import flash_consumers
 from ...core.orchestrator import flash_smem_bytes
 from ..build import load
 from .ref import attention_bwd_ref
@@ -28,8 +28,7 @@ POS_LAUNCHES = [0]             # launches of the forward's position variant
 BWD_LAUNCHES = [0]             # backward kernel launches made by this module
 BWD_POS_LAUNCHES = [0]         # launches of the backward's position variant
 BWD_KERNELS = 3                # kernels a dco_flash_attention_bwd call launches: delta, dK/dV, dQ
-MAX_WARPS = 8                  # warps of a bf16 block (csrc/flash_attention.cu)
-MAX_WARPS_Q_SMEM = 4           # warps of a bf16 block above FLASH_Q_REG_DIM (csrc)
+MMA_ROWS = 64                  # packed Q rows of a bf16 consumer warpgroup (csrc: wgmma's M)
 HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
 BWD_HEAD_DIMS = (64, 112, 128, 256)   # head sizes the backward kernel is compiled for
 BWD_FP32_TILE_256 = 32         # rows of the fp32 backward's tiles at head_dim 256 (fp32_tile in csrc)
@@ -61,28 +60,24 @@ def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
                                            for t in tensors)
 
 
-def max_warps(head_dim: int) -> int:
-    """Warps of a bf16 block at most: ``MAX_WARPS``, or ``MAX_WARPS_Q_SMEM``
-    above ``FLASH_Q_REG_DIM``, where Q's fragments are read from a buffer of
-    that many warps' rows instead of held in registers."""
-    return MAX_WARPS_Q_SMEM if head_dim > FLASH_Q_REG_DIM else MAX_WARPS
-
-
 def q_tile_rows(group: int, itemsize: int, head_dim: int) -> int:
-    """Query rows of the kernel's Q tile.  fp32: 64.  bf16: 16 a warp for
-    each of the warps a head gets (4, 2 or 1) when every head of a pass
-    (``group`` heads, in passes of at most ``max_warps(head_dim)``) has a
-    warp of its own, as ``launch_mma`` in csrc/flash_attention.cu chooses
-    them."""
+    """Query rows of the kernel's Q tile.  fp32: 64.  bf16: the block's
+    consumer warpgroups (``flash_consumers``: two, one above head_dim 128)
+    of ``64 // group`` query rows of every head of the group each (``rows_s``
+    in csrc/flash_attention.cu), so that a consumer's 64 packed rows hold
+    whole query rows."""
     if itemsize != 2:
         return FLASH_TILE_ROWS
-    most = max_warps(head_dim)
-    passes = -(-group // most)
-    heads = -(-group // passes)
-    warps = 4
-    while warps > 1 and heads * warps > most:
-        warps //= 2
-    return 16 * warps
+    check_group(group)
+    return flash_consumers(head_dim) * (MMA_ROWS // group)
+
+
+def check_group(group: int) -> None:
+    """Raise unless a bf16 consumer's 64 rows hold a query row of each of
+    ``group`` heads."""
+    if group > MMA_ROWS:
+        raise ValueError(f"the bf16 kernel packs at most {MMA_ROWS} query heads a KV head "
+                         f"into a consumer's rows, got {group}")
 
 
 def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int,
@@ -90,9 +85,16 @@ def tiles_per_chunk_for(b: int, g: int, sq: int, sm_count: int,
     """Q tiles of ``tile_rows`` rows one block walks.  More tiles a block
     reuse the pinned prefix more often; fewer give more blocks.  Chosen so
     that about one block per SM exists when the shape allows it; the bf16
-    kernel pairs each chunk's heavy causal tiles with light ones."""
+    kernel pairs each chunk's heavy causal tiles with light ones.  Where
+    (batch, KV head) pairs alone outnumber the SMs (training's 8 x 512
+    batches), a block takes two tiles, a heavy and a light one, rather than
+    a pair's whole Q range: the blocks running at once then share fewer
+    pairs' K/V (``scripts/kernel_compare.py --kernel flash`` times each
+    shape at other chunkings too; PERF.md §6)."""
     n_q_tiles = -(-sq // tile_rows)
     chunks = max(1, min(n_q_tiles, sm_count // (b * g)))
+    if chunks == 1:
+        return min(2, n_q_tiles)
     return -(-n_q_tiles // chunks)
 
 
@@ -331,6 +333,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("softcap must be positive")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows_aligned(name, t)
+    if q.dtype == torch.bfloat16:
+        check_group(h // g)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if needs_grad(q, k, v):
         check_backward(d, causal, window, softcap, positions is not None and keys_at_rows)

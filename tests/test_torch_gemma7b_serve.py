@@ -157,15 +157,16 @@ def test_engine_matches_jax_engine(setup, reference, monkeypatch):
 
 
 def test_planner_pins_what_the_kernel_holds_at_head_dim_256(setup, reference, monkeypatch):
-    """The engine's planner, at head_dim 256 in bf16, pins a prompt of 40 or
-    58 rows whole and streams one of 70: a 64-row tile of K and V is 64 KB
-    there, more than the budget after the planner's reserve.  Every split it
+    """The engine's planner, at head_dim 256 in bf16, pins a prompt of 40
+    rows whole and streams those of 58 and 70: the budget is the one 64-row
+    tile of K and V (64 KB) that the kernel's one consumer leaves, and the
+    planner's reserve lets a whole prompt take 56 rows of it.  Every split it
     grants fits the kernel's shared memory, one flash call a layer."""
     _, params, prompts = setup
     jreqs, _, _ = reference
     _, _, _, pins, _ = run_port(params, prompts, monkeypatch,
                                 follow={r.uid: r.tokens_out for r in jreqs})
-    assert pins == [(n, 256, p) for n, p in ((70, 0), (40, 40), (58, 58))
+    assert pins == [(n, 256, p) for n, p in ((70, 0), (40, 40), (58, 0))
                     for _ in range(CFG.n_layers)]
     for n, d, p in pins:
         assert flash_smem_bytes(p, d, 2) <= H100_SMEM_PER_BLOCK

@@ -8,6 +8,7 @@ kernels themselves are held to the plain versions on the card by
 ``chip_smoke.py``."""
 
 import ctypes
+import importlib.util
 import re
 
 import jax.numpy as jnp
@@ -41,6 +42,8 @@ from repro_torch.models import init_params
 from repro_torch.models import layers as port_layers
 from repro_torch.serve import Request
 from repro_torch.serve import ServeEngine
+
+BOX_COLS = 64   # head-dim columns of a bf16 TMA box (csrc/flash_attention.cu)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -250,8 +253,12 @@ def test_pinned_rows_is_validated_on_every_device():
     for bad in (-1, 100, 301, 320):
         with pytest.raises(ValueError):
             flash_attention(q, k, k, pinned_rows=bad)
-    for good in (0, 64, 256, 300):
+    for good in (0, 64, 256):
         assert flash_attention(q, k, k, pinned_rows=good).shape == q.shape
+    # the whole prefix of 300 rows takes five tiles: one more than the consumers'
+    # Q and the ring leave at head_dim 128
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(q, k, k, pinned_rows=300)
     big = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
         flash_attention(torch.zeros(1, 1024, 4, 128, dtype=torch.bfloat16), big, big,
@@ -290,11 +297,11 @@ def test_planned_splits_fit_the_kernels_shared_memory(head_dim, itemsize):
     """Whatever the prompt length, the pinned prefix the engine's planner
     grants (budget ``hopper_pin_budget_bytes``, rows of
     ``flash_kv_row_bytes``) fits the 227 KB a block may take, so the launch
-    never returns -2.  At head_dim 112 in bf16 this needs the padded pitch:
-    rows counted at their 224 data bytes would grant a whole prefix of
-    321-326 rows, which needs more.  At head_dim 256 the budget holds a
-    whole prompt of up to 58 rows in bf16 and no 64-row tile of a longer one
-    (Q's own buffer takes 32 KB), and up to 7 rows in fp32."""
+    never returns -2.  In bf16 the budget is whole KV tiles, which is how the
+    kernel loads a prefix: a whole prompt is pinned up to the budget's rows
+    less the planner's reserve (616 at head_dim 64, 224 at 112 and 128, with D 112's
+    rows at their 256-byte pitch; 56 at 256, where one tile is left), a
+    longer one in whole tiles; fp32 keeps its padded rows (7 at 256)."""
     orch = CacheOrchestrator(vmem_budget_bytes=hopper_pin_budget_bytes(head_dim, itemsize))
     row = port_orch.flash_kv_row_bytes(head_dim, itemsize)
     for seq in range(1, 2049):
@@ -304,12 +311,17 @@ def test_planned_splits_fit_the_kernels_shared_memory(head_dim, itemsize):
         assert (port_orch.flash_smem_bytes(pinned, head_dim, itemsize)
                 <= port_orch.H100_SMEM_PER_BLOCK), (seq, pinned)
         flash_ops.check_pinned_rows(pinned, seq, head_dim, itemsize)
+    if itemsize == 2:
+        tile = FLASH_TILE_ROWS * row
+        assert hopper_pin_budget_bytes(head_dim, 2) % tile == 0
+        whole = {64: 616, 112: 224, 128: 224, 256: 56}[head_dim]
+        if whole < 2049:
+            assert orch.plan_kv_split(whole, FLASH_TILE_ROWS, row) == (whole, 0)
+            assert orch.plan_kv_split(whole + 1, FLASH_TILE_ROWS, row)[0] % FLASH_TILE_ROWS == 0
     if head_dim == 112 and itemsize == 2:
-        unpadded, _ = orch.plan_kv_split(321, FLASH_TILE_ROWS, 2 * head_dim * itemsize)
-        assert unpadded == 321
-        assert port_orch.flash_smem_bytes(321, 112, 2) > port_orch.H100_SMEM_PER_BLOCK
+        assert row == 2 * 256                      # two 128-byte boxes a row, not 224 bytes
     if head_dim == 256:
-        whole = {2: 58, 4: 7}[itemsize]
+        whole = {2: 56, 4: 7}[itemsize]
         assert orch.plan_kv_split(whole, FLASH_TILE_ROWS, row) == (whole, 0)
         assert orch.plan_kv_split(whole + 1, FLASH_TILE_ROWS, row) == (0, whole + 1)
         assert orch.plan_kv_split(2048, FLASH_TILE_ROWS, row) == (0, 2048)
@@ -336,79 +348,89 @@ def _flash_source_constants():
 @pytest.mark.parametrize("head_dim", [64, 112, 128, 256])
 def test_flash_layout_constants_match_the_source(head_dim):
     """The planner's budget describes the kernel's shared memory: the KV tile,
-    the ring of streamed bf16 tiles (rows of 2 * D bytes rounded up to 128:
-    no pad at 64, 128 and 256, 224 bytes staged at 256 at 112), Q's own
-    buffer above Q_REG_DIM (four warps' 16 rows at head_dim 256), and a bf16
-    block's warps."""
+    the ring of bf16 K/V tiles, each consumer's 64-row Q tile (two
+    consumers, one above WIDE_DIM), rows of one 128-byte TMA box for each 64
+    columns (no pad at 64, 128 and 256, 256 bytes at 112), the mbarriers and
+    the alignment slack; and the two consumers' registers with the
+    producer's fit an SM's 65,536."""
     c = _flash_source_constants()
-    assert c["BK"] == c["BQ"] == FLASH_TILE_ROWS
+    assert c["BK"] == c["BQ"] == c["MMA_ROWS"] == flash_ops.MMA_ROWS == FLASH_TILE_ROWS
     assert c["STAGES"] == port_orch.FLASH_STAGES
-    assert c["MAX_WARPS"] == flash_ops.MAX_WARPS
-    assert c["MAX_WARPS_Q_SMEM"] == flash_ops.MAX_WARPS_Q_SMEM
-    assert c["Q_REG_DIM"] == port_orch.FLASH_Q_REG_DIM
-    assert 16 * c["MAX_WARPS_Q_SMEM"] == port_orch.FLASH_Q_BUFFER_ROWS
+    assert c["CONSUMERS"] == port_orch.FLASH_CONSUMERS
+    assert c["WIDE_DIM"] == port_orch.FLASH_WIDE_DIM
+    assert c["BOX_COLS"] == BOX_COLS
+    assert c["BOX_BYTES"] == c["MMA_ROWS"] * port_orch.FLASH_BOX_BYTES == 64 * 2 * c["BOX_COLS"]
+    assert c["BAR_BYTES"] == port_orch.FLASH_BAR_BYTES
+    assert c["SMEM_ALIGN"] == port_orch.FLASH_SMEM_ALIGN
     assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
-    # the row layout's helpers live in the header the forward includes
-    text = (CSRC / "flash_attention.cu").read_text() + (CSRC / "bf16_tiles.cuh").read_text()
-    align = port_orch.FLASH_ROW_ALIGN
-    assert f"return (2 * D + {align - 1}) / {align} * {align};" in text
-    assert "constexpr int ROWB = row_bytes<D>();" in text
-    assert ("(2ll * pin_alloc + STAGES * 2ll * BK) * row_bytes<D>() + q_buffer_bytes<D>()"
-            in text)
-    assert "return D > Q_REG_DIM ? MAX_WARPS_Q_SMEM * 16 * row_bytes<D>() : 0;" in text
+    assert 128 * (c["PRODUCER_REGS"] + c["CONSUMERS"] * c["CONSUMER_REGS"]) <= 65536
+    text = " ".join((CSRC / "flash_attention.cu").read_text().split())
+    assert "return (D + BOX_COLS - 1) / BOX_COLS;" in text
+    assert "return col_blocks<D>() * BOX_BYTES;" in text
+    assert "return D > WIDE_DIM ? 1 : CONSUMERS;" in text
+    assert ("return (long long)(consumers<D>() + 2 * STAGES + 2 * pin_tiles) * tile_bytes<D>() "
+            "+ BAR_BYTES + SMEM_ALIGN;") in text
+    assert "const long long smem = mma_smem_bytes<D>((pinned_rows + BK - 1) / BK);" in text
     row = {64: 128, 112: 256, 128: 256, 256: 512}[head_dim]   # bf16 bytes a staged row
-    q_buffer = 16 * c["MAX_WARPS_Q_SMEM"] * row if head_dim > c["Q_REG_DIM"] else 0
+    consumers = 1 if head_dim > c["WIDE_DIM"] else c["CONSUMERS"]
+    assert port_orch.flash_consumers(head_dim) == consumers
     assert port_orch.flash_smem_row_words(head_dim, 2) * 4 == row
     assert port_orch.flash_kv_row_bytes(head_dim, 2) == 2 * row
-    assert (port_orch.flash_smem_work_bytes(head_dim, 2)
-            == c["STAGES"] * 2 * c["BK"] * row + q_buffer)
+    work = ((consumers + 2 * c["STAGES"]) * c["BK"] * row + c["BAR_BYTES"]
+            + c["SMEM_ALIGN"])
+    assert port_orch.flash_smem_work_bytes(head_dim, 2) == work
     for pinned in (0, 17, 64, 300):
         whole_tiles = -(-pinned // c["BK"]) * c["BK"]
-        assert (port_orch.flash_smem_bytes(pinned, head_dim, 2)
-                == 2 * whole_tiles * row + c["STAGES"] * 2 * c["BK"] * row + q_buffer)
+        assert port_orch.flash_smem_bytes(pinned, head_dim, 2) == 2 * whole_tiles * row + work
     # fp32 keeps one pad word a row and the probability tile
     words = head_dim + 1
     assert port_orch.flash_smem_bytes(64, head_dim, 4) == (
         4 * (2 * 64 * words + 3 * c["BQ"] * words) + 4 * c["BQ"] * (c["BK"] + 1))
 
 
-@pytest.mark.parametrize("group,rows", [(1, 64), (2, 64), (3, 32), (4, 32), (5, 16),
-                                        (8, 16), (12, 16)])
+@pytest.mark.parametrize("group,rows", [(1, 128), (2, 64), (3, 42), (4, 32), (5, 24),
+                                        (8, 16), (12, 10)])
 def test_q_tile_rows_fill_a_block_with_whole_heads(group, rows):
-    """A bf16 block holds every head of a pass, one warp per 16 query rows of
-    each, within MAX_WARPS; fp32 keeps its 64-row tile."""
+    """A bf16 block's two consumers each take 64 // group query rows of
+    every head of the group: 64 packed rows, less the 64 % group that no
+    head fills; fp32 keeps its 64-row tile."""
     assert flash_ops.q_tile_rows(group, 2, 128) == rows
-    passes = -(-group // flash_ops.MAX_WARPS)
-    assert -(-group // passes) * rows // 16 <= flash_ops.MAX_WARPS
+    per_consumer = rows // port_orch.FLASH_CONSUMERS
+    assert 64 - group < per_consumer * group <= 64
+    assert sum(r is not None for r in _consumer_rows(group)) == per_consumer * group
     assert flash_ops.q_tile_rows(group, 4, 128) == FLASH_TILE_ROWS
 
 
-@pytest.mark.parametrize("group,rows", [(1, 64), (2, 32), (3, 16), (4, 16), (8, 16),
-                                        (16, 16)])
+@pytest.mark.parametrize("group,rows", [(1, 64), (2, 32), (3, 21), (4, 16), (8, 8),
+                                        (16, 4)])
 def test_q_tile_rows_at_head_dim_256_fill_a_block_of_four_warps(group, rows):
-    """At head_dim 256 a bf16 block has four warps at most (Q's buffer holds
-    their 64 rows), so heads go in passes of four; fp32 keeps its 64-row
-    tile.  gemma-7b (MHA, 16 heads): 64-row tiles, two a chunk at 1024
-    tokens, 128 blocks, as deepseek-moe-16b at head_dim 128."""
-    assert flash_ops.max_warps(256) == flash_ops.MAX_WARPS_Q_SMEM == 4
-    assert flash_ops.max_warps(128) == flash_ops.MAX_WARPS
+    """At head_dim 256 a bf16 block has one consumer warpgroup (four warps),
+    so that its Q and the ring leave a 64-row tile of K and V to pin; fp32
+    keeps its 64-row tile.  gemma-7b (MHA, 16 heads): 64-row tiles, two a
+    chunk at 1024 tokens, 128 blocks, as deepseek-moe-16b's 128-row tiles
+    one a chunk."""
+    assert port_orch.flash_consumers(256) == 1
+    assert port_orch.flash_consumers(128) == port_orch.FLASH_CONSUMERS == 2
     assert flash_ops.q_tile_rows(group, 2, 256) == rows
-    passes = -(-group // 4)
-    assert -(-group // passes) * rows // 16 <= 4
+    assert 64 - group < rows * group <= 64
     assert flash_ops.q_tile_rows(group, 4, 256) == FLASH_TILE_ROWS
     if group == 1:
         assert flash_ops.tiles_per_chunk_for(1, 16, 1024, 132, rows) == 2
         assert 16 * -(-1024 // (2 * rows)) == 128
+        assert flash_ops.tiles_per_chunk_for(1, 16, 1024, 132,
+                                             flash_ops.q_tile_rows(1, 2, 128)) == 1
 
 
 def test_serving_shape_chunks_pair_the_causal_tiles():
-    """llama3.2-3b (8 KV heads, group 3) on 132 SMs: 1024 tokens give 16 chunks
-    of two 32-row tiles a KV head (a heavy one with a light one), 256 tokens
-    64 blocks of one tile."""
+    """llama3.2-3b (8 KV heads, group 3) on 132 SMs: Q tiles of 2 x 21 query
+    rows; 1024 tokens give 25 tiles a KV head, in 13 chunks of two (a heavy
+    one with a light one), 104 blocks; 256 tokens 56 blocks of one tile."""
     rows = flash_ops.q_tile_rows(3, 2, 128)
+    assert rows == 42
     assert flash_ops.tiles_per_chunk_for(1, 8, 1024, 132, rows) == 2
+    assert 8 * -(-(-(-1024 // rows)) // 2) == 104
     assert flash_ops.tiles_per_chunk_for(1, 8, 256, 132, rows) == 1
-    assert 8 * -(-256 // rows) == 64
+    assert 8 * -(-256 // rows) == 56
 
 
 def test_bf16_rows_must_sit_on_16_bytes():
@@ -429,6 +451,222 @@ def test_bf16_rows_must_sit_on_16_bytes():
     q = odd[:, :, :, :128]
     out = flash_attention(q, q, q, causal=True)
     assert torch.equal(out, attention_ref(q, q, q, causal=True))
+
+
+def _position_table(pattern, s):
+    """One batch row of chip_smoke.position_tables' patterns: ``shifted``
+    (keys at the queries' positions, index + 5), ``packed`` (three packed
+    sequences), ``negative`` (keys at their row index; queries from -7)."""
+    r = np.arange(s)
+    if pattern == "shifted":
+        return r + 5, False
+    if pattern == "packed":
+        cut = [s // 3, s // 3, s - 2 * (s // 3)]
+        return np.concatenate([np.arange(n) for n in cut]), False
+    return r - 7, True
+
+
+# Mirrors of the bf16 kernel's schedule and tensor maps (csrc/flash_attention.cu),
+# which the tests below hold to what the kernel must compute.
+def _consumer_rows(group):
+    """A bf16 consumer's 64 packed rows: (query row within its tile, head
+    within the group) of each, None for the 64 % group rows that no head
+    fills (never loaded or written), as the kernel's packed row r = query
+    row r // group of head r % group."""
+    rows_s = flash_ops.MMA_ROWS // group
+    return [(r // group, r % group) if r < rows_s * group else None
+            for r in range(flash_ops.MMA_ROWS)]
+
+
+def _block_walks(sq, sk, group, head_dim, *, tiles_per_chunk, pinned_rows=0, causal=True,
+                 window=None, positions=None, keys_at_rows=False):
+    """What the bf16 kernel's blocks of one (KV head, batch row) compute, in
+    their order: for each block (chunk of Q tiles, ``tile_at``'s order n-1,
+    0, n-2, 1, ...), each Q tile, each consumer and each of its packed rows
+    (``_consumer_rows``), the KV tiles the row's scores are computed on, each
+    with "pinned" or "streamed" for where it is read.  A consumer walks the
+    block's ``kv_tiles`` and, without ``positions``, skips a tile above all
+    its rows or below all their windows.  Returns a list of (block, the
+    consumer's first query row, q_row, head, [(tile, where), ...]) for the
+    rows a head fills and below ``sq``."""
+    rows_s = flash_ops.MMA_ROWS // group
+    consumers = port_orch.flash_consumers(head_dim)
+    bq = consumers * rows_s
+    n = -(-sq // bq)
+    out = []
+    for blk, p0 in enumerate(range(0, n, tiles_per_chunk)):
+        for p in range(p0, min(n, p0 + tiles_per_chunk)):
+            q_lo = (p >> 1 if p & 1 else n - 1 - (p >> 1)) * bq
+            walk = list(flash_ops.kv_tiles(q_lo, min(bq, sq - q_lo), sk, causal=causal,
+                                           window=window, positions=positions,
+                                           keys_at_rows=keys_at_rows))
+            n_pinned = sk if pinned_rows >= sk else pinned_rows // FLASH_TILE_ROWS
+            for c in range(consumers):
+                s0 = q_lo + c * rows_s
+                s1 = min(sq, s0 + rows_s) - 1
+                tiles = [t for t in walk if s1 >= s0 and (positions is not None or not (
+                    causal and t * FLASH_TILE_ROWS > s1
+                    or window and (t + 1) * FLASH_TILE_ROWS - 1 <= s0 - window))]
+                seen = [(t, "pinned" if t < n_pinned else "streamed") for t in tiles]
+                for row in _consumer_rows(group):
+                    if row is not None and s0 + row[0] < sq:
+                        out.append((blk, s0, s0 + row[0], row[1], seen))
+    return out
+
+
+def _tensor_maps(q, k, v):
+    """The bf16 kernel's TMA tensor maps (``tensor_map`` in
+    csrc/flash_attention.cu) of q (B, Sq, H, D) and k/v (B, Sk, G, D): for
+    each, its dims (D, heads, rows, B), byte strides of the last three and
+    box (64 columns, heads, rows, 1): Q's box holds the ``64 // group`` query
+    rows of every head of a group that one consumer takes, K's and V's a
+    64-row tile of one head.  Raises where the wrapper refuses the call: rows
+    that are not 16-byte pieces (TMA's rule) or a group above 64."""
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
+    flash_ops.check_group(h // g)
+    maps = {}
+    for name, t, heads, rows, box in (
+            ("q", q, h, sq, (h // g, flash_ops.MMA_ROWS // (h // g))),
+            ("k", k, g, sk, (1, FLASH_TILE_ROWS)),
+            ("v", v, g, sk, (1, FLASH_TILE_ROWS))):
+        flash_ops.check_rows_aligned(name, t)
+        size = t.element_size()
+        maps[name] = {"dims": (d, heads, rows, b),
+                      "strides": (t.stride(2) * size, t.stride(1) * size, t.stride(0) * size),
+                      "box": (BOX_COLS,) + box + (1,)}
+    return maps
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "shifted", "packed", "negative"])
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("group", [1, 3, 4, 7, 16])
+def test_block_walks_count_every_pair_once_whatever_the_split(group, head_dim, case):
+    """The mirror of the bf16 kernel's schedule (``_block_walks``: consumers'
+    packed rows, Q tiles in the heavy/light order, each consumer's KV walk):
+    every query row of every head of the group is some consumer's row once,
+    and its tiles hold each key its scores count exactly once (the visible
+    ones; every key for a row that sees none, whose softmax is uniform), in
+    increasing order, the same tiles whatever ``pinned_rows`` and
+    ``tiles_per_chunk`` are: where a tile lives changes nothing.  Without
+    positions a consumer walks no tile that none of its rows sees."""
+    window = 37 if case == "window" else None
+    sq = 300
+    positions, at_rows = (None, False) if case in ("causal", "window") else \
+        _position_table(case, sq)
+    sk = sq
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(sk)[None, :]
+    qpos = rows if positions is None else positions[:, None]
+    kpos = cols if positions is None or at_rows else positions[None, :]
+    seen = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+    counted = np.where(seen.any(1, keepdims=True), seen, True)
+    walks = {}
+    for pinned in (0, 64, 128, sk):
+        for tiles in (1, 2, 3):
+            got = _block_walks(sq, sk, group, head_dim, tiles_per_chunk=tiles,
+                                        pinned_rows=pinned, window=window,
+                                        positions=positions, keys_at_rows=at_rows)
+            order, consumer = {}, {}
+            for _, s0, row, head, walk in got:
+                assert (row, head) not in order
+                order[row, head] = [tile for tile, _ in walk]
+                need = {col // FLASH_TILE_ROWS for col in np.nonzero(counted[row])[0]}
+                seen_by, walked = consumer.setdefault(s0, (set(), set()))
+                seen_by.update(need)
+                walked.update(order[row, head])
+                assert all(where == ("pinned" if pinned >= sk or tile < pinned // 64
+                                     else "streamed") for tile, where in walk)
+            assert set(order) == {(r, h) for r in range(sq) for h in range(group)}
+            for (row, head), walk in order.items():
+                assert walk == sorted(set(walk))
+                need = {c // FLASH_TILE_ROWS for c in np.nonzero(counted[row])[0]}
+                assert need <= set(walk)
+            if positions is None:
+                assert all(need == walked for need, walked in consumer.values())
+            walks[pinned, tiles] = order
+    first = next(iter(walks.values()))
+    assert all(w == first for w in walks.values())
+
+
+def test_consumer_rows_pack_whole_query_rows():
+    """A consumer's 64 rows: row r is query row r // group of head r % group,
+    the last 64 % group rows empty."""
+    assert _consumer_rows(1) == [(r, 0) for r in range(64)]
+    rows = _consumer_rows(7)
+    assert rows[:14] == [(r // 7, r % 7) for r in range(14)]
+    assert rows[62] == (8, 6) and rows[63] is None
+    assert _consumer_rows(3)[63] is None and _consumer_rows(3)[62] == (20, 2)
+    with pytest.raises(ValueError, match="at most 64"):
+        flash_ops.q_tile_rows(65, 2, 128)
+
+
+def test_tensor_maps_describe_the_views_and_refuse_misaligned_ones():
+    """The bf16 kernel's TMA tensor maps, on CPU tensors: (D, heads, rows, B)
+    with the views' byte strides; Q's box a consumer's rows (64 // group
+    query rows of the group's heads), K's and V's a 64-row tile of one head;
+    a cache slice keeps its pool's strides; a view whose rows are not
+    16-byte pieces, or a group past 64, is refused."""
+    q = torch.zeros(2, 100, 24, 128, dtype=torch.bfloat16)
+    k = torch.zeros(2, 100, 8, 128, dtype=torch.bfloat16)
+    maps = _tensor_maps(q, k, k)
+    assert maps["q"] == {"dims": (128, 24, 100, 2), "strides": (256, 24 * 256, 100 * 24 * 256),
+                         "box": (64, 3, 21, 1)}
+    assert maps["k"] == maps["v"] == {"dims": (128, 8, 100, 2),
+                                      "strides": (256, 8 * 256, 100 * 8 * 256),
+                                      "box": (64, 1, 64, 1)}
+    pool = torch.zeros(1, 512, 32, 112, dtype=torch.bfloat16)
+    qz = torch.zeros(1, 200, 32, 112, dtype=torch.bfloat16)
+    sliced = _tensor_maps(qz, pool[:, :200], pool[:, :200])
+    assert sliced["k"]["dims"] == (112, 32, 200, 1)
+    assert sliced["k"]["strides"] == (224, 32 * 224, 512 * 32 * 224)
+    assert sliced["q"]["box"] == (64, 1, 64, 1)
+    wide = torch.zeros(1, 10, 2, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        _tensor_maps(q[:1, :10, :6, :128], wide[..., 4:132], wide[..., 4:132])
+    with pytest.raises(ValueError, match="at most 64"):
+        _tensor_maps(torch.zeros(1, 8, 65, 64, dtype=torch.bfloat16),
+                              torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16),
+                              torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16))
+
+
+def _mangled(kernel):
+    """A kernel's name as nvcc mangles a template of csrc's anonymous
+    namespace, e.g. flash_mma_pos_kernel<Li64ELb1>."""
+    name, args = kernel[:-1].split("<")
+    return (f"_ZN51_GLOBAL__N__8146eb38_18_flash_attention_cu_ac0aa057{len(name)}{name}"
+            f"I{args}EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16")
+
+
+def test_the_chip_check_of_the_flash_kernels_instructions():
+    """``chip_smoke.py``'s check of the built library's SASS: it names every
+    bf16 flash forward kernel (serving, LSE, both position kernels, at each
+    head size) and passes a listing where each holds HGMMA and UTMALDG and
+    no HMMA; a kernel with an mma.sync, one without TMA loads and one
+    missing from the listing are each a fault."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", CSRC.parents[2] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    names = smoke.FLASH_WGMMA_KERNELS
+    assert len(names) == 16 and "flash_mma_pos_kernel<Li112ELb1>" in names
+
+    def listing(body):
+        return "".join(f"\n\tFunction : {_mangled(n)}\n{body(n)}\n" for n in names)
+
+    good = listing(lambda n: "\t/*0100*/ UTMALDG.4D [UR8], [UR4] ;\n"
+                             "\t/*0200*/ HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], RZ ;")
+    counts = smoke.sass_counts(good, names)
+    assert set(counts) == set(names)
+    assert all(c == {"HGMMA": 1, "UTMALDG": 1, "HMMA": 0} for c in counts.values())
+    assert smoke.sass_faults(counts, names) == []
+    bad = good.replace(f"{_mangled(names[5])}\n\t/*0100*/ UTMALDG.4D",
+                       f"{_mangled(names[5])}\n\t/*0100*/ HMMA.16816.F32.BF16")
+    bad = bad.replace(f"{_mangled(names[0])}\n", f"{_mangled(names[0])}\n\tHMMA.16816 ;\n")
+    faults = smoke.sass_faults(smoke.sass_counts(bad, names), names)
+    assert len(faults) == 2 and names[0] in faults[0] + faults[1]
+    missing = smoke.sass_counts(good.split("\tFunction : ", 2)[0] + "\tFunction : "
+                                + good.split("\tFunction : ", 2)[2], names)
+    assert smoke.sass_faults(missing, names) == [f"{names[0]}: not in the library"]
 
 
 def test_main_path_tensors_meet_the_alignment_rule(monkeypatch):

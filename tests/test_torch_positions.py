@@ -554,8 +554,8 @@ def test_the_sources_walk_as_the_wrappers_mirror():
     pos_tu = (CSRC / "flash_attention_pos.cu").read_text()
     assert "#define DCO_FLASH_POS" in pos_tu and '#include "flash_attention.cu"' in pos_tu
     assert "if (pos_tile_hidden(kpb, k_lo, Sk, q_mn, q_mx, window)) continue;" in text
-    assert "while (t < n_kv && pos_tile_hidden(kpb, t * BK, Sk, q_mn, q_mx, window)) ++t;" \
-        in text
+    assert ("while (t < w.n_kv && pos_tile_hidden(kpb, t * BK, Sk, w.q_mn, w.q_mx, window)) ++t;"
+            in text)
     # forward mode: the keys' positions are the queries' table; prefill mode: none
     assert text.count("const int* kpb = POS && !keys_at_rows ? qpb : nullptr;") == 2
     assert "if (kp == nullptr) return false;" in text
