@@ -9,7 +9,11 @@ run with a non-zero exit code:
 
 1. device   needs ``torch.cuda.is_available()``; prints the card's name and
             power limit as nvidia-smi gives them.
-2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``.
+2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``; the
+            library's ``cuobjdump -sass`` listing must show every bf16 flash
+            kernel, the forward's and the backward's, issuing wgmma fed by
+            TMA (HGMMA and UTMALDG) and no mma.sync (HMMA): the
+            ``flash_sass`` line, read after the kernels phases.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
             card, over dtypes, head sizes, ragged and mostly-zero lengths,
             lengths at the edges of a work unit, the poisoned dead region and
@@ -31,7 +35,8 @@ run with a non-zero exit code:
             refused under grad; the backward timed at the training shapes of
             llama3.2-3b, zamba2-7b (head_dim 112), deepseek-moe-16b,
             gemma2-27b (window and softcap) and gemma-7b (head_dim 256), and
-            at gemma2's 5120-token row, where its window binds.
+            at gemma2's 5120-token row, where its window binds, each shape's
+            gradients bit-identical over two calls (no atomics).
             The backward is held elementwise on each gradient row's and
             64-row tile's scale (``grad_err``), which planted faults must
             fail.  The SSD backward (training) against its plain version
@@ -519,6 +524,12 @@ FLASH_WGMMA_KERNELS = tuple(
     f"{name}<Li{d}{tail}>" for d in (64, 112, 128, 256)
     for name, tail in (("flash_mma_kernel", ""), ("flash_mma_lse_kernel", ""),
                        ("flash_mma_pos_kernel", "ELb0"), ("flash_mma_pos_kernel", "ELb1")))
+# the bf16 flash backward kernels (dK/dV and dQ; without and with a window or
+# softcap, and the position variant's), likewise
+FLASH_BWD_WGMMA_KERNELS = tuple(
+    f"{name}<Li{d}>" for d in (64, 112, 128, 256)
+    for name in ("dkdv_wgmma_kernel", "dkdv_wgmma_ext_kernel", "dkdv_wgmma_pos_kernel",
+                 "dq_wgmma_kernel", "dq_wgmma_ext_kernel", "dq_wgmma_pos_kernel"))
 
 
 def cuobjdump():
@@ -578,18 +589,23 @@ def start_flash_sass(library):
 
 
 def finish_flash_sass(started):
-    """``start_flash_sass``'s listing: every bf16 flash forward kernel issues
+    """``start_flash_sass``'s listing: every bf16 flash kernel, forward
+    (FLASH_WGMMA_KERNELS) and backward (FLASH_BWD_WGMMA_KERNELS), issues
     wgmma fed by TMA (HGMMA and UTMALDG) and no mma.sync (HMMA)."""
     proc, path = started
     _, err = proc.communicate()
     check(proc.returncode == 0, f"cuobjdump failed (exit {proc.returncode}): {err[-2000:]}")
-    counts = sass_counts(path.read_text(), FLASH_WGMMA_KERNELS)
-    faults = sass_faults(counts, FLASH_WGMMA_KERNELS)
-    check(not faults, "the bf16 flash forward kernels are not wgmma fed by TMA: "
-          + "; ".join(faults))
-    emit("flash_sass", kernels=len(counts), **{op: sum(c[op] for c in counts.values())
-                                               for op in ("HGMMA", "UTMALDG", "HMMA")})
-    return counts
+    dump = path.read_text()
+    out = {}
+    for what, names in (("forward", FLASH_WGMMA_KERNELS), ("backward", FLASH_BWD_WGMMA_KERNELS)):
+        counts = sass_counts(dump, names)
+        faults = sass_faults(counts, names)
+        check(not faults, f"the bf16 flash {what} kernels are not wgmma fed by TMA: "
+              + "; ".join(faults))
+        out[what] = dict(kernels=len(counts), **{op: sum(c[op] for c in counts.values())
+                                                 for op in ("HGMMA", "UTMALDG", "HMMA")})
+    emit("flash_sass", **out)
+    return out
 
 
 def phase_build(build_log):
@@ -1470,7 +1486,7 @@ def close_scaled(out, ref, tol, what):
     return err
 
 
-BWD_TILE = 64   # rows of the backward kernel's Q and KV tiles
+BWD_TILE = 64   # rows of the backward kernel's Q and KV tiles (a bf16 consumer's KV rows)
 BWD_GROUPS = ((4, 4), (4, 2), (6, 2), (8, 2), (16, 2))   # (H, G) of the backward's cases
 
 
@@ -1890,7 +1906,8 @@ def flash_bwd_record(gen, flush, key, ptxas=None):
     of the bytes moved once (q, k, v, o, dO and lse read, dq, dk, dv written)
     over the card's memory rate and the operations over its bf16 peak, five
     products (S again, dP, dV, dK, dQ) of 2 * D FLOP for each visible (row,
-    column) pair of each query head.  Also the forward's time with and
+    column) pair of each query head; two calls on the same inputs must give
+    bit-identical gradients.  Also the forward's time with and
     without the LSE at this shape, beside its plain version (with the LSE),
     the library's call and its bound (two products a visible pair; q, k, v
     read, o and the LSE written).  With the build's ``ptxas`` map
@@ -1913,11 +1930,14 @@ def flash_bwd_record(gen, flush, key, ptxas=None):
     do = randn(gen, (b, s, h, d), bf)
     o, lse = flash_lse(q, k, v, **kw)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash bwd at the training shape {key}: two calls on the same inputs differ")
     want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     # (worst ratio, max abs err, the row scale where it is) of dq, dk, dv
     held = {n: close_grad(a, r, TOL[bf], f"flash bwd at the training shape {key}, {n}")
             for n, a, r in zip(("dq", "dk", "dv"), got, want)}
-    del got, want
+    del got, again, want
     ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     binds = bool(window) and window < s
     lib_kw = dict(scale=kw.get("scale"), enable_gqa=True)
@@ -1960,7 +1980,9 @@ def flash_bwd_record(gen, flush, key, ptxas=None):
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "causal": True, "visible_pairs": n_seen, **kw},
         **kernel_usage(ptxas, (f"delta_kernel<13__nv_bfloat16Li{d}>",
-                               f"dkdv_mma{ext}_kernel<Li{d}>", f"dq_mma{ext}_kernel<Li{d}>")),
+                               f"dkdv_wgmma{ext}_kernel<Li{d}>",
+                               f"dq_wgmma{ext}_kernel<Li{d}>")),
+        "bit_identical_over_two_calls": True,
         "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
         "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "
                     f"element's row and of its {BWD_TILE}-row tile of its head (grad_err)",
@@ -2568,9 +2590,9 @@ def flash_bwd_pos_record(gen, flush, ptxas=None):
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "positions": f"even rows at their index + {POS_SHIFT}, one table",
                   "visible_pairs": n_seen},
-        # the _ext_ kernels compiled again in flash_attention_bwd_pos.cu
-        **kernel_usage(ptxas, tuple(f"flash_attention_bwd_pos.cu:{n}_ext_kernel<Li{d}>"
-                                    for n in ("dkdv_mma", "dq_mma"))),
+        # the _ext_ bodies compiled again in flash_attention_bwd_pos.cu
+        **kernel_usage(ptxas, (f"dkdv_wgmma_pos_kernel<Li{d}>", f"dq_wgmma_pos_kernel<Li{d}>",
+                               f"flash_attention_bwd_pos.cu:delta_kernel<13__nv_bfloat16Li{d}>")),
         "max_abs_err": max(e for _, e, _ in held.values()), "tol": TOL[bf],
         "held": {n: {"worst_ratio": r, "max_abs_err": e} for n, (r, e, _) in held.items()},
         "ms": ms, "tflops": n_flops / ms * 1e-9,

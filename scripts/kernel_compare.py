@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the decode, SSD and flash forward kernels against an earlier tree's, in one run.
+"""Time the decode, SSD and flash kernels against an earlier tree's, in one run.
 
     git show <rev>:src/repro_torch/csrc/decode_attention.cu > reports/base/decode_attention.cu
     git show <rev>:src/repro_torch/csrc/ssd_scan.cu > reports/base/ssd_scan.cu
@@ -8,6 +8,15 @@
     for f in flash_attention.cu flash_attention_pos.cu bf16_tiles.cuh positions.cuh; do
         git show <rev>:src/repro_torch/csrc/$f > reports/base/$f; done
     python3 scripts/kernel_compare.py --kernel flash --baseline reports/base
+    # (a tree from commit c50a149 on, whose forward takes this tree's Q tiles:
+    #  --baseline-chunks this_tree times both at this tree's chunking)
+
+    for f in flash_attention_bwd.cu flash_attention_bwd_pos.cu bf16_tiles.cuh positions.cuh; do
+        git show <rev>:src/repro_torch/csrc/$f > reports/base_bwd/$f; done
+    python3 scripts/kernel_compare.py --kernel flash_bwd --baseline reports/base_bwd
+
+(``bf16_tiles.cuh`` for a tree before the Hopper backward, whose kernels were
+built on it; a later tree's sources need ``hopper.cuh`` instead.)
 
 The earlier sources go in a directory of their own (never under ``csrc/``:
 ``kernels/build.py`` links every ``csrc/*.cu`` into one library, and two copies
@@ -16,7 +25,8 @@ their own and called through their own C interfaces, which ``Baseline`` knows
 for the earlier trees' two-launch decode kernel (with ``n_splits``), SSD
 kernel (with no ring-depth argument) and flash forward (the interface of
 today's, with the tiles a chunk that the mma.sync kernel of commit ba0963a
-chose).
+chose) and flash backward (today's ``dco_flash_attention_bwd`` interface, the
+same for the mma.sync kernel of commit c50a149).
 
 One JSON line per shape, on the inputs and with the timing of ``chip_smoke.py``
 (``decode_record`` / ``ssd_record`` / ``flash_record``: CUDA-graph replay, L2
@@ -33,7 +43,15 @@ prompts of 1024 and 256 tokens; the flash forward (both kernels at the
 gemma2-27b's 5120-token prefills as a local and a global layer, also without
 the softcap, the forward with the LSE at four training shapes
 (``BWD_SHAPES``) and the position variant at qwen2-vl-7b's 1024 tokens in
-both modes.  Needs one CUDA device and nvcc.
+both modes.  The flash backward (``--kernel flash_bwd``): both kernels
+against the plain version at every training shape of ``chip_smoke.BWD_SHAPES``
+and with a positions table at llama3.2-3b's (``flash_bwd_compare``), timed in
+turns with CUDA events as ``chip_smoke.flash_bwd_record`` times them, with
+the library's ``autograd.grad`` through ``scaled_dot_product_attention`` (its
+time as timed, and its kernels' device time by the profiler beside this
+tree's, in all and by kernel: ``library_device_ms``, ``device_ms``,
+``*kernels_ms``), the bound, two calls checked bit-identical, the host
+microseconds a call and both builds' registers and spills.  Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -66,19 +84,22 @@ class Baseline:
     """The decode and SSD kernels of an earlier tree, built from ``csrc`` into
     a library of their own."""
 
-    def __init__(self, csrc):
+    def __init__(self, csrc, verbose=False, chunks="mma_sync"):
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops
-        self.lib = ctypes.CDLL(str(build.build(csrc=Path(csrc).resolve())))
+        self.path = build.build(verbose=verbose, csrc=Path(csrc).resolve())
+        self.lib = ctypes.CDLL(str(self.path))
         for name, types in (
                 ("dco_decode_attention", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
                 ("dco_ssd_scan", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p] * 2),
-                ("dco_flash_attention", ops.ARGTYPES)):
+                ("dco_flash_attention", ops.ARGTYPES),
+                ("dco_flash_attention_bwd", ops.BWD_ARGTYPES)):
             if hasattr(self.lib, name):
                 getattr(self.lib, name).argtypes = types
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.chunks = chunks
 
     def decode(self, q, k, v, cl):
         """The two-launch decode interface: the valid range cut into n_splits
@@ -136,14 +157,43 @@ class Baseline:
     def flash(self, q, k, v, **kw):
         """The bf16 flash forward through the interface of today's
         ``dco_flash_attention``, causal, with the tiles a chunk that the
-        earlier wrapper chose (about one block an SM)."""
-        b, sq, h, _ = q.shape
+        earlier wrapper chose (about one block an SM), or with
+        ``chunks == "this_tree"`` the ones this tree's wrapper chooses (for
+        an earlier tree whose kernel takes this tree's Q tiles)."""
+        from repro_torch.kernels.flash_attention import ops
+        b, sq, h, d = q.shape
         g = k.shape[2]
+        if self.chunks == "this_tree":
+            tiles = ops.tiles_per_chunk_for(b, g, sq, self.sms, ops.q_tile_rows(h // g, 2, d))
+            call, out = self.flash_entry(self.lib.dco_flash_attention, q, k, v, tiles=tiles, **kw)
+            call()
+            return out
         n_q_tiles = -(-sq // self.mma_sync_tile_rows(h // g, q.shape[3]))
         tiles = -(-n_q_tiles // max(1, min(n_q_tiles, self.sms // (b * g))))
         call, out = self.flash_entry(self.lib.dco_flash_attention, q, k, v, tiles=tiles, **kw)
         call()
         return out
+
+    @staticmethod
+    def flash_bwd_entry(fn, q, k, v, o, lse, do, positions=None, window=None, softcap=None,
+                        scale=None):
+        """``fn`` (a library's ``dco_flash_attention_bwd``) bound to its
+        arguments, bf16: a call of it is the C entry alone (three launches).
+        Returns (the call, (dq, dk, dv))."""
+        b, s, h, d = q.shape
+        g = k.shape[2]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if positions is None else positions.data_ptr(), 0, b, s, h, g, d,
+                int(window or 0), float(scale or d ** -0.5), float(softcap or 0.0),
+                torch.cuda.current_stream().cuda_stream)
+
+        def call():
+            rc = fn(*args)
+            cs.check(rc == 0, f"flash backward entry failed ({rc})")
+        return call, (dq, dk, dv)
 
     def ssd(self, x, dt, A, B, C):
         """The SSD interface (fp32 dt and A, no initial state)."""
@@ -314,11 +364,148 @@ def flash_compare(base, gen, flush):
         del q, k, v, seen
 
 
+def device_ms(fn, calls=5):
+    """Device milliseconds of one ``fn()`` by ``torch.profiler``, the kernels
+    and memsets of ``calls`` calls over ``calls`` (no host time between them:
+    a call whose host time exceeds its device time is timed on the host by
+    ``chip_smoke.time_ms_events``): (the sum, {kernel name: ms})."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:   # a kernel's name without its template and arguments
+            name = ev.key.split("<")[0].split("::")[-1].split("(")[0][:60] or ev.key[:60]
+            per[name] = per.get(name, 0.0) + ev.device_time_total / 1000 / calls
+    return sum(per.values()), per
+
+
+def flash_bwd_cases():
+    """(name, shape, positions pattern) of each timed backward call: every
+    training shape of ``chip_smoke.BWD_SHAPES``, and llama3.2-3b's with the
+    shifted table of ``chip_smoke.flash_bwd_pos_record``."""
+    return [(key, shape, None) for key, shape in cs.BWD_SHAPES.items()] + [
+        ("train with positions", cs.TRAIN_SHAPE, "shifted")]
+
+
+def flash_bwd_compare(base, gen, flush):
+    """One line a case of ``flash_bwd_cases``: both backwards against the
+    plain version on the forward kernel's O and LSE (``chip_smoke.grad_err``),
+    this tree's checked bit-identical over two calls, each one's time in
+    turns (old, new, new, old; ``chip_smoke.time_ms_events``), the library's
+    ``autograd.grad`` through ``scaled_dot_product_attention`` (without the
+    softcap where the shape has one; a window that binds, or the table, as
+    its boolean mask), the bound (``chip_smoke.flash_bwd_record``'s: five
+    products of 2 D FLOP a visible pair and query head against the bytes
+    moved once), TFLOP/s of those five products, and the host microseconds a
+    call: the wrapper ``flash_attention_bwd`` whole, and each library's C
+    entry alone in turns."""
+    from repro_torch.kernels import attention_bwd_ref
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import _mask
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    for name, shape, pattern in flash_bwd_cases():
+        b, s, h, g, d = (shape[x] for x in ("b", "s", "h", "g", "d"))
+        kw = {x: shape[x] for x in ("scale", "softcap", "window") if x in shape}
+        q = cs.randn(gen, (b, s, h, d), bf)
+        k = cs.randn(gen, (b, s, g, d), bf)
+        v = cs.randn(gen, (b, s, g, d), bf)
+        do = cs.randn(gen, (b, s, h, d), bf)
+        pos = cs.position_tables(pattern, b, s)[0] if pattern else None
+        o, lse = cs.flash_lse(q, k, v, positions=pos, **kw)
+
+        def new():
+            return flash_attention_bwd(q, k, v, o, lse, do, positions=pos, **kw)
+
+        old_call, old_out = base.flash_bwd_entry(base.lib.dco_flash_attention_bwd, q, k, v, o,
+                                                 lse, do, pos, **kw)
+
+        def old():
+            old_call()
+            return old_out
+
+        want = attention_bwd_ref(q, k, v, o, lse, do, q_positions=pos, kv_positions=pos, **kw)
+        got = new()
+        again = flash_attention_bwd(q, k, v, o, lse, do, positions=pos, **kw)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, c) for a, c in zip(got, again))
+        cs.check(identical, f"flash bwd {name}: two calls differ")
+        held = {n: cs.close_grad(a, r, cs.TOL[bf], f"flash bwd {name} {n}")[0]
+                for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+        base_held = {n: cs.close_grad(a, r, cs.TOL[bf], f"baseline flash bwd {name} {n}")[0]
+                     for n, a, r in zip(("dq", "dk", "dv"), old(), want)}
+        del got, again, want
+        window = kw.get("window")
+        if pattern:   # the pairs of every batch row
+            seen = cs.visible_by_tables(pos, False, s)
+            n_seen = int(seen.sum())
+            lib_kw = dict(attn_mask=seen[:, None])
+        else:
+            n_seen = cs.visible_pairs(s, window) * b
+            lib_kw = (dict(attn_mask=_mask(s, s, True, window, q.device))
+                      if window and window < s else dict(is_causal=True))
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=kw.get("scale"),
+                                                 enable_gqa=True, **lib_kw)
+        dol = do.transpose(1, 2)
+        n_flops = 10 * d * n_seen * h
+        n_bytes = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+                   + 2 * (q.numel() + 2 * k.numel()) + (4 * pos.numel() if pattern else 0))
+        t_bytes, t_ops = n_bytes / cs.PEAK_BYTES * 1e3, n_flops / cs.PEAK_FLOPS[bf] * 1e3
+        turns = [cs.time_ms_events(fn, flush) for fn in (old, new, new, old)]
+        ms, base_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        entry_new = base.flash_bwd_entry(ops._kernel("dco_flash_attention_bwd"), q, k, v, o,
+                                         lse, do, pos, **kw)[0]
+        entry, baseline_entry = host_in_turns(entry_new, old_call)
+        rec = {"shape_name": name, "B": b, "S": s, "H": h, "G": g, "D": d,
+               "options": kw, "positions": pattern, "visible_pairs": n_seen,
+               "worst_ratio": held, "baseline_worst_ratio": base_held,
+               "bit_identical_over_two_calls": identical,
+               "ms_in_turns": ms, "baseline_ms": base_ms, "turns_ms": turns,
+               "speedup": base_ms / ms,
+               "library_ms": cs.time_ms_events(lambda: torch.autograd.grad(
+                   lib_out, (ql, kl, vl), dol, retain_graph=True), flush),
+               "library_note": "without the softcap" if kw.get("softcap") else None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "tflops": n_flops / ms * 1e-9, "baseline_tflops": n_flops / base_ms * 1e-9,
+               "host_us": {"wrapper": host_us(new), "entry": entry,
+                           "baseline_entry": baseline_entry}}
+        rec["device_ms"], rec["kernels_ms"] = device_ms(new)
+        rec["library_device_ms"], rec["library_kernels_ms"] = device_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True))
+        rec["vs_library"] = ms / rec["library_ms"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, do, o, lse, ql, kl, vl, lib_out
+
+
+def bwd_ptxas(base):
+    """Registers and spills of both builds' backward kernels (``-Xptxas -v``):
+    {"new": {kernel: usage}, "baseline": {...}}."""
+    from repro_torch.kernels import build
+    logs = {"new": Path(build.build(verbose=True)).with_suffix(".log"),
+            "baseline": Path(base.path).with_suffix(".log")}
+    return {which: {n: u for n, u in cs.ptxas_usage(path.read_text()).items()
+                    if "dkdv" in n or "dq_" in n or "delta_kernel" in n}
+            for which, path in logs.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR", required=True,
                     help="directory holding the earlier kernels' sources")
-    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "flash"), default="both")
+    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "flash", "flash_bwd"),
+                    default="both")
+    ap.add_argument("--baseline-chunks", choices=("mma_sync", "this_tree"), default="mma_sync",
+                    help="flash: the Q tiles a chunk of the earlier kernel, as the mma.sync "
+                         "kernel of commit ba0963a chose them, or as this tree's wrapper "
+                         "does (an earlier tree on TMA and wgmma)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_compare: needs a CUDA device")
@@ -326,11 +513,12 @@ def main() -> None:
     from repro_torch.kernels import decode_attention_ref
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py's device phase
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    base = Baseline(args.baseline)
+    base = Baseline(args.baseline, verbose=args.kernel == "flash_bwd", chunks=args.baseline_chunks)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -361,6 +549,9 @@ def main() -> None:
             print(json.dumps(rec), flush=True)
     if args.kernel == "flash":
         flash_compare(base, gen, flush)
+    if args.kernel == "flash_bwd":
+        print(json.dumps({"ptxas": bwd_ptxas(base)}), flush=True)
+        flash_bwd_compare(base, gen, flush)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ logs: an earlier tree's source against this tree's build log.
     python3 chip_smoke.py --phases device,build --build-log new_ptxas.log
     python3 scripts/ptxas_compare.py old_ptxas.log new_ptxas.log
     python3 scripts/ptxas_compare.py --kernel flash old_flash.log new_ptxas.log
+    python3 scripts/ptxas_compare.py --kernel flash_bwd old_bwd.log new_ptxas.log
 
 The build log has a ``== <source>`` line before each source's output.
 ``--kernel decode`` (the default): the serving kernels are those of
@@ -15,9 +16,16 @@ The build log has a ``== <source>`` line before each source's output.
 are ``flash_kernel``, ``flash_mma_kernel`` and ``flash_mma_lse_kernel`` of
 ``flash_attention.cu`` (an earlier ``flash_attention.cu`` needs
 ``bf16_tiles.cuh`` beside it), the variant the position kernels of
-``flash_attention_pos.cu``.  Prints how many serving kernels keep the
-earlier registers and spills, each that does not, and the variant's range
-and spills.
+``flash_attention_pos.cu``.  ``--kernel flash_bwd``: the backward's
+kernels of ``flash_attention_bwd.cu`` (the delta kernel, the fp32 ones and
+the bf16 ones, whose names changed with the Hopper kernels: the earlier
+``dkdv_mma*`` / ``dq_mma*`` are listed beside today's ``dkdv_wgmma*`` /
+``dq_wgmma*``), the variant those of ``flash_attention_bwd_pos.cu``; an
+earlier ``flash_attention_bwd.cu`` needs its headers beside it, and
+``scripts/kernel_compare.py --kernel flash_bwd`` prints both builds' maps.
+Prints how many kernels of both logs keep the earlier registers and spills,
+each that does not, the kernels of one log only, and the variant's range and
+spills.
 """
 
 import argparse
@@ -30,6 +38,11 @@ KERNELS = {
     "flash": (("flash_kernel", "flash_mma_kernel", "flash_mma_lse_kernel",
                "flash_pos_kernel", "flash_mma_pos_kernel"),
               "flash_attention.cu", "flash_attention_pos.cu"),
+    "flash_bwd": (("delta_kernel", "dkdv_kernel", "dkdv_ext_kernel", "dq_kernel", "dq_ext_kernel",
+                   "dkdv_mma_kernel", "dkdv_mma_ext_kernel", "dq_mma_kernel", "dq_mma_ext_kernel",
+                   "dkdv_wgmma_kernel", "dkdv_wgmma_ext_kernel", "dkdv_wgmma_pos_kernel",
+                   "dq_wgmma_kernel", "dq_wgmma_ext_kernel", "dq_wgmma_pos_kernel"),
+                  "flash_attention_bwd.cu", "flash_attention_bwd_pos.cu"),
 }
 
 
@@ -74,12 +87,21 @@ def main() -> None:
     text = args.new.read_text()
     new = usage(text, names, serving)
     sliced = usage(text, names, variant)
-    same = [k for k in old if new.get(k) == old[k]]
+    if args.kernel == "flash_bwd":   # the earlier log: its serving source's kernels only
+        old = usage(args.old.read_text(), names, serving) or old
+    both = [k for k in old if k in new]
+    same = [k for k in both if new[k] == old[k]]
     print(f"serving {args.kernel} kernels: {len(old)} before, {len(new)} now, {len(same)} with "
           "the same registers and spills")
+    for k in both:
+        if new[k] != old[k]:
+            print(f"  differs: {k} {old[k]} -> {new[k]}")
     for k in old:
-        if new.get(k) != old[k]:
-            print(f"  differs: {k} {old[k]} -> {new.get(k)}")
+        if k not in new:
+            print(f"  before only: {k} {old[k]}")
+    for k in new:
+        if k not in old:
+            print(f"  now only: {k} {new[k]}")
     if sliced:
         regs = [v["registers"] for v in sliced.values()]
         spills = {k: v for k, v in sliced.items() if v.get("spill_stores")}

@@ -1,4 +1,4 @@
-// FlashAttention-2 backward for Hopper (sm_90a): the gradient of causal GQA
+// FlashAttention backward for Hopper (sm_90a): the gradient of causal GQA
 // attention with respect to Q, K and V.
 //
 // Replaces what the JAX package gets from autodiff: its training forward
@@ -18,101 +18,134 @@
 //
 // Three launches, deterministic, no atomics:
 //  (a) delta_kernel: delta = rowsum(dO * O) for each (batch, head, row), fp32.
-//  (b) dK and dV: one block per (batch, KV head, 64-row KV tile).  It keeps
-//      its K and V tiles in shared memory and walks, for every query head of
-//      its GQA group, the Q tiles at or below the causal diagonal, so that dK
-//      and dV (summed over the group) stay in registers and are written once.
-//  (c) dQ: one block per (batch, query head, 64-row Q tile).  It keeps its Q
-//      and dO tiles and walks the KV tiles up to the diagonal; dQ stays in
-//      registers and is written once.
-// Both (b) and (c) recompute S and dP for each pair of tiles (FlashAttention-
-// 2's choice: recomputing is cheaper than storing P or dS).
+//  (b) dK and dV: a block keeps its KV rows' K and V in shared memory and
+//      walks, for every query head of its GQA group, the Q tiles at or below
+//      the causal diagonal, so that dK and dV (summed over the group) stay in
+//      registers and are written once.
+//  (c) dQ: a block keeps its Q rows' Q and dO and walks the KV tiles up to
+//      the diagonal; dQ stays in registers and is written once.
+// Both (b) and (c) recompute S and dP for each pair of tiles, so the kernels
+// run 7 products of a visible pair where the bound counts 5: the price of
+// writing each gradient once from one block in a fixed order.  FlashAttention-3
+// computes S and dP once and adds dQ from the dK/dV kernel with fp32 atomics,
+// whose order changes from run to run; here two calls on the same inputs give
+// bit-identical gradients, and autograd through the port stays reproducible.
 //
-// bf16, the training path (dkdv_mma_kernel, dq_mma_kernel): mma.sync
-// m16n8k16 products with fp32 sums on tiles that cp.async stages into
-// swizzled rows, as the forward's bf16 path (the helpers of bf16_tiles.cuh).
-// P and dS are rounded to bf16 in registers and feed the next products
-// directly, as FlashAttention-2 does; the gradients are summed in fp32 and
-// written in bf16.  Left for later: wgmma fed by TMA, and a ring that loads
-// the next tile while one computes.
+// bf16, the training path (dkdv_wgmma*_kernel, dq_wgmma*_kernel): Hopper's
+// own instructions (hopper.cuh), laid out as the forward's bf16 path.
+//  * Warp specialisation.  A block is a producer warpgroup and consumer
+//    warpgroups.  One warp of the producer issues every load as a TMA copy
+//    from one elected lane, and its registers go to the consumers
+//    (setmaxnreg: PRODUCER_REGS, CONSUMER_REGS).  Streamed tiles pass
+//    through a ring of ring_stages<D>() slots (STAGES; two at head_dim 256,
+//    where a third would pass the block's shared memory; on an H100 three
+//    slots were faster than two at every other training shape) with a full
+//    and an empty mbarrier each; once the roles split no block barrier
+//    remains.  TMA fills a box's elements past the tensor's ends with zeros,
+//    so rows past S are zeros.  Each consumer waits for its block's resident
+//    tiles before its first product and for each slot before reading it: the
+//    shared memory otherwise still holds the previous block's tiles.
+//  * dK/dV (FlashAttention-3's layout).  A block holds CONSUMERS 64-row KV
+//    tiles, one a consumer, loaded once; the producer streams, for every
+//    query head of the group and every Q tile the walk reaches, the Q and dO
+//    tiles and the tile's 64 lse and delta values (1-d tensor maps: a box of
+//    STATS_BOX values from the 16-byte boundary at or below the tile's
+//    first, since a box that starts off one faults).  With the KV rows in
+//    M, S^T = K Q^T and dP^T = V dO^T are wgmma from shared memory, both
+//    sides K-major; P^T = exp(S^T scale - lse[col])
+//    and dS^T = P^T (dP^T - delta[col]) are computed in fp32 on the
+//    accumulator fragments, rounded to bf16 in registers and used as the
+//    register A operand of dV += P^T dO and dK += dS^T Q, dO and Q the
+//    MN-major B from the same swizzled tiles: P and dS never pass through
+//    shared memory.  dV's product is issued as soon as P^T is packed, and
+//    dS^T is computed while the tensor cores add it.  (Issuing the next
+//    item's S^T and dP^T behind this item's dV and dK as well made ptxas
+//    serialise every wgmma of the kernel for want of registers, C7512, and
+//    was slower.)  Blocks are launched heaviest first: KV block 0 walks every
+//    Q tile.
+//  * dQ.  A block is one Q tile of each KV head: a consumer's 64 packed rows
+//    are 64 / group query rows of every head of the group, as the forward
+//    packs them (PackGQA), so each K/V tile reaches shared memory once per
+//    group.  The producer loads Q and dO once (packed boxes), and K and V
+//    stream through the ring.  S = Q K^T and dP = dO V^T from shared memory;
+//    dS is the register A operand of dQ += dS K, K the MN-major B.  As in the
+//    forward, the next tile's S and dP are issued with this tile's dS K, and
+//    the next dS is computed while the tensor cores add it.  Each thread
+//    reads the lse and delta of its two rows once.  Blocks are launched
+//    heaviest first: the last Q tile walks the most KV tiles.
+//  * head_dim 112 is two 64-column boxes a row, the second zero past column
+//    112 (its products computed, its columns never written); 64, 128 and 256
+//    are one, two and four boxes.
+//  * head_dim 256 (gemma-7b).  A warpgroup cannot hold 64 x 256 fp32 sums of
+//    both dK and dV (256 registers a thread).  So a dK/dV block's two
+//    consumers share one KV tile and each sums half of the columns of dK and
+//    dV: both compute S^T and dP^T of every pair (9 products of a visible
+//    pair where 7 would do), while the ring's Q and dO tiles are loaded once
+//    for both.  (Two roles instead, one consumer making S^T, P^T and dV and
+//    handing P^T to the other through shared memory for dP^T, dS^T and dK,
+//    gained little at gemma-7b's training shape on an H100: not worth its
+//    second code path.)  The dQ kernel has one consumer there, whose 64 x 256 sum is
+//    128 registers (the forward's choice: two consumers' Q, dO and the ring
+//    pass the block's shared memory).
 //
 // fp32 (dkdv_kernel, dq_kernel): FMA on tiles widened into shared memory, a
 // 4 x 4 patch of scores a thread (16 x 16 threads on 64 x 64 tiles), exact
 // fp32 sums (no TF32, which the fp32 tolerance rules out).  Rows are staged
 // with one pad word so that 16 lanes reading 16 consecutive rows hit 16
-// banks.
+// banks.  Four staged 64-row tiles of 257 words (263 KB) pass the 227 KB a
+// block may take at head_dim 256, so the fp32 kernels take 32-row tiles
+// there (2 x 2 scores a thread; fp32_tile), 140 KB.
 //
 // Computed here: causal masking with Sq == Sk (training's shape), any length,
-// head_dim 64, 112, 128 and 256, GQA groups of any size, bf16 and fp32, with
-// or without a sliding window and a softcap.  Not computed (the wrapper
-// refuses it before any launch): non-causal attention.
+// head_dim 64, 112, 128 and 256, GQA groups of any size (bf16: at most 64
+// query heads a KV head, a dQ consumer's rows), bf16 and fp32, with or
+// without a sliding window and a softcap.  Not computed (the wrapper refuses
+// it before any launch): non-causal attention.
 //
 // Sliding window and softcap (gemma2-27b: window 4096 on its local layers,
 // softcap 50).  They are taken by kernels of their own (the `_ext_` ones,
 // the same bodies with EXT set), so that the kernels without them keep their
 // code and registers.  With s = S * scale and the cap c, the forward's
 // scores are s_c = c tanh(s / c), and its lse is the natural log-sum-exp of
-// the capped, masked scores.  So P = exp(s_c - lse) is recomputed in natural
-// units (the bf16 forward caps in log2 units, but writes a natural lse), the
-// cap's argument formed as each forward path forms it, and
-// dS = P (dP - delta) (1 - (s_c / c)^2): the cap's derivative enters dS
-// before it is rounded to bf16, so dK and dQ take it and dV does not.  Row r
-// sees columns (r - W, r].  A KV tile's block walks the Q tiles from its own
-// to the last that its last row's window reaches, (k_lo + BT - 1 + W - 1) /
-// BT; a Q tile's block walks the KV tiles from the forward's
-// `first_kv_tile`, (q_lo - W + 1) / BT; the bf16 kernels skip the 32-row
-// blocks wholly outside the window of a warp's rows, as they skip those
-// above the diagonal, and every element is masked by kv > q - W beside the
-// causal test.
+// the capped, masked scores.  So P = exp(s_c - lse) is recomputed (the bf16
+// kernels in log2 units from the natural lse), the cap's argument formed as
+// each forward path forms it, and dS = P (dP - delta) (1 - (s_c / c)^2): the
+// cap's derivative enters dS before it is rounded to bf16, so dK and dQ take
+// it and dV does not.  Row r sees columns (r - W, r].  A KV tile's walk runs
+// over the Q tiles from its own to the last that its last row's window
+// reaches, (k_lo + BT - 1 + W - 1) / BT; a Q tile's over the KV tiles from
+// the forward's `first_kv_tile`, (q_lo - W + 1) / BT; every element is
+// masked by kv > q - W beside the causal test.
 //
 // Explicit positions (the JAX package's `forward` with a (B, S) positions
 // table, which its autodiff differentiates through `gqa_attention`): the
-// position variant, flash_attention_bwd_pos.cu, compiles the `_ext_` kernels
+// position variant, flash_attention_bwd_pos.cu, compiles the `_ext_` bodies
 // again with DCO_FLASH_POS defined, taking `pos` (B, S) int32, the positions
 // of both the query and the key rows (training passes one table for both);
 // a translation unit of its own, so that the kernels here keep their code and
-// registers, and dco_flash_attention_bwd hands a call with a table to it.  Row q sees row kv where pos[kv] <= pos[q] and, under a
-// window, pos[kv] > pos[q] - W.  Positions need not follow the rows, so a KV
-// tile's block walks every Q tile and a Q tile's block every KV tile, skipping
-// a pair of tiles whose smallest and largest positions prove that no row of
-// one sees a row of the other (positions.cuh), and the skips of 32-row blocks
-// by index are off.  Every row sees itself under such a table, so its lse is
-// finite and no row needs the forward's rule for a row that sees no key; a
-// hidden pair's P and dS are 0.
-//
-// head_dim 112 (zamba2-7b's shared attention block) takes the same code as 64
-// and 128: every loop over the head dimension steps one 16-column block at a
-// time (7 of them; no step takes two blocks at once), so D / 16 being odd
-// changes nothing.  A bf16 row of 112 values (14 sixteen-byte chunks) is
-// staged at the forward's 256-byte pitch (row_bytes<112>): the swizzle maps
-// chunks 0..13 onto 14 of a row's 16 slots, and the 2 left over are never
-// copied, read or summed.  The dK/dV sums are 2 x 56 fp32 registers a
-// thread (2 x 64 at D 128).  fp32 keeps D + 1 words a staged row.
-//
-// head_dim 256 (gemma-7b).  bf16: a thread's dK and dV sums over all 256
-// columns would be 2 x 128 fp32 registers, past the 255 a thread may hold.
-// So the dK/dV kernel splits the output columns over two blocks (grid y = 2
-// G): each recomputes S and dP over all of D for its KV tile and sums dK and
-// dV for its 128 columns (2 x 64 registers, as at D 128).  That costs S and
-// dP twice (9 products of a visible pair where 7 would do) and keeps the
-// launch count at three; splitting into a dV and a dK kernel would save one
-// product and cost a launch.  The dQ kernel holds its 16 x 256 sum (128
-// registers) whole: it holds no Q fragments across steps, as the forward
-// did, so the scores fit beside it.  fp32: four staged 64-row tiles of 257
-// words (263 KB) pass the 227 KB a block may take, so the fp32 kernels take
-// 32-row tiles at D 256 (2 x 2 scores a thread; fp32_tile), 140 KB.
+// registers, and dco_flash_attention_bwd hands a call with a table to it (its
+// bf16 kernels are dkdv_wgmma_pos_kernel and dq_wgmma_pos_kernel).  Row q
+// sees row kv where pos[kv] <= pos[q] and, under a window, pos[kv] > pos[q] -
+// W.  Positions need not follow the rows, so a KV block walks every Q tile
+// and a Q tile's block every KV tile, skipping a pair of tiles whose smallest
+// and largest positions prove that no row of one sees a row of the other
+// (positions.cuh); every element is masked on the table.  Every row sees
+// itself under such a table, so its lse is finite and no row needs the
+// forward's rule for a row that sees no key; a hidden pair's P and dS are 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_tiles.cuh"
+#include "hopper.cuh"
 #include "positions.cuh"
 
 namespace {
 
-using namespace dco_tiles;
+using namespace dco_hopper;
 
 // the position variant's translation unit: the _ext_ bodies read `pos`
 #ifdef DCO_FLASH_POS
@@ -138,8 +171,17 @@ __device__ __forceinline__ bool pair_hidden(const int* __restrict__ pos, int q_l
 
 constexpr int BT = 64;        // rows of a Q or KV tile (bf16; fp32 up to D 128)
 constexpr int THREADS = 256;  // fp32 path: 16 x 16, thread (ty, tx) owns rows ty*R + i and columns tx + 16*j
-constexpr int MMA_WARPS = 4;  // bf16 path: warps of a block, 16 rows each of a 64-row tile
 constexpr int SMEM_LIMIT = 232448;
+constexpr int CONSUMERS = 2;        // bf16 path: consumer warpgroups of a dK/dV block (dQ: above WIDE_DIM one)
+constexpr int WIDE_DIM = 128;       // bf16 path: above this head size, the column split and one dQ consumer
+constexpr int MMA_ROWS = 64;        // bf16 path: rows of a consumer's products (wgmma's M)
+constexpr int STAGES = 3;           // bf16 path: streamed items in the ring (2 above WIDE_DIM)
+constexpr int STATS_BOX = 68;      // bf16 path: lse (or delta) values a TMA box brings for a Q tile
+constexpr int STATS_BYTES = 384;    // bf16 path: the shared memory of one such box
+constexpr int BAR_BYTES = 64;       // bf16 path: the block's mbarriers
+constexpr int PRODUCER_REGS = 24;   // bf16 path: registers of a producer thread (setmaxnreg)
+constexpr int CONSUMER_REGS = 240;  // bf16 path: registers of a consumer thread
+constexpr float LOG2E = 1.4426950408889634f;
 
 // fp32 path: rows of a tile at head_dim D (32 at 256, where 64 do not fit)
 template <int D>
@@ -147,10 +189,47 @@ __host__ __device__ constexpr int fp32_tile() {
   return D > 128 ? 32 : BT;
 }
 
-// bf16 dK/dV kernel: blocks that share a KV tile's output columns (2 at 256)
+// bf16 dK/dV kernel: consumers that share one KV tile, each summing its share
+// of the columns (two above WIDE_DIM, where one warpgroup cannot hold the
+// 64 x D fp32 sums of both dK and dV), and so the KV tiles of a block
 template <int D>
-__host__ __device__ constexpr int dkdv_splits() {
-  return D > 128 ? 2 : 1;
+__host__ __device__ constexpr int dkdv_col_split() {
+  return D > WIDE_DIM ? 2 : 1;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkdv_kv_tiles() {
+  return CONSUMERS / dkdv_col_split<D>();
+}
+
+// bf16 dQ kernel: consumers of a block (one above WIDE_DIM, where two
+// consumers' Q and dO and the ring would pass a block's shared memory)
+template <int D>
+__host__ __device__ constexpr int dq_consumers() {
+  return D > WIDE_DIM ? 1 : CONSUMERS;
+}
+
+// bf16 path: the ring's slots at head_dim D (two above WIDE_DIM, where three
+// 64-row tiles of Q and dO, or of K and V, would pass a block's shared memory)
+template <int D>
+__host__ __device__ constexpr int ring_stages() {
+  return D > WIDE_DIM ? 2 : STAGES;
+}
+
+// bf16 dynamic shared memory: the dK/dV kernel's K and V tiles, the ring of
+// Q and dO tiles with their lse and delta values, the mbarriers and the slack
+// that puts the first tile on the swizzle's 1024-byte period
+template <int D>
+__host__ __device__ constexpr long long dkdv_smem_bytes() {
+  return (long long)(2 * dkdv_kv_tiles<D>() + 2 * ring_stages<D>()) * tile_bytes<D>() +
+         2 * ring_stages<D>() * STATS_BYTES + BAR_BYTES + SMEM_ALIGN;
+}
+
+// the dQ kernel's: each consumer's Q and dO tiles, the ring of K and V tiles
+template <int D>
+__host__ __device__ constexpr long long dq_smem_bytes() {
+  return (long long)(2 * dq_consumers<D>() + 2 * ring_stages<D>()) * tile_bytes<D>() +
+         BAR_BYTES + SMEM_ALIGN;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -533,337 +612,711 @@ dq_ext_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: mma.sync.m16n8k16 products with fp32 sums (bf16_tiles.cuh),
-// tiles staged by cp.async into swizzled rows as the forward stages them.
-// Four warps a block, each owning 16 rows of the block's 64-row tile; S and
-// dP are taken 32 columns at a time (16 fp32 sums each a thread), so that
-// the two 16 x D gradient sums of the dK/dV kernel (64 + 64 at D 128) and
-// the scores fit the registers without a spill.  P and dS are rounded to
-// bf16 in registers and are the A operands of the next products, as the
-// forward's P is: they never pass through shared memory.
+// bf16 path: TMA, mbarriers and wgmma (hopper.cuh).  Accumulators are
+// m64n64 fragments: a thread of warp w of its warpgroup holds rows
+// 16 w + lane / 4 and + 8, columns 8 j + 2 (lane % 4) + {0, 1} (element
+// 4 j + 2 i + e: row + 8 i, column + e).
 
-// The 16 x 32 blocks S = A_s B_s^T and dP = A_p B_p^T of this warp's rows
-// `ra` (A_s, A_p: rows ra.. of two tiles) against rows c0.. of two other
-// tiles (B_s, B_p), over the head dimension.
-template <int D>
-__device__ __forceinline__ void mma_pair(float (&s)[4][4], float (&dp)[4][4], uint32_t As,
-                                         uint32_t Ap, uint32_t Bs, uint32_t Bp, int ra,
-                                         int c0, int lane) {
-  constexpr int ROWB = row_bytes<D>();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t af[4], pf[4];
-    ldsm_x4(As + swz<ROWB>(ra + (lane & 15), 2 * ks + (lane >> 4)), af);
-    ldsm_x4(Ap + swz<ROWB>(ra + (lane & 15), 2 * ks + (lane >> 4)), pf);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = c0 + 16 * j + ((lane >> 4) << 3) + (lane & 7);
-      uint32_t bs[4], bp[4];
-      ldsm_x4(Bs + swz<ROWB>(n, 2 * ks + ((lane >> 3) & 1)), bs);
-      ldsm_x4(Bp + swz<ROWB>(n, 2 * ks + ((lane >> 3) & 1)), bp);
-      mma_bf16(s[2 * j], af, bs[0], bs[1]);
-      mma_bf16(s[2 * j + 1], af, bs[2], bs[3]);
-      mma_bf16(dp[2 * j], pf, bp[0], bp[1]);
-      mma_bf16(dp[2 * j + 1], pf, bp[2], bp[3]);
-    }
-  }
-}
-
-// acc (16 x DC) += A (16 x 32, two 16-deep steps of bf16 fragments) times
-// rows c0.. and columns [col0, col0 + DC) of a [k][n] tile read transposed.
-template <int D, int DC>
-__device__ __forceinline__ void mma_acc(float (&acc)[DC / 8][4], const uint32_t (&a)[2][4],
-                                        uint32_t Bt, int c0, int col0, int lane) {
-  constexpr int ROWB = row_bytes<D>();
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) {
-      uint32_t bf[4];
-      ldsm_x4_trans(Bt + swz<ROWB>(c0 + 16 * kk + (lane & 15), col0 / 8 + 2 * j + (lane >> 4)),
-                    bf);
-      mma_bf16(acc[2 * j], a[kk], bf[0], bf[1]);
-      mma_bf16(acc[2 * j + 1], a[kk], bf[2], bf[3]);
-    }
-}
-
-// Rows of a 16 x DC fp32 sum (C fragments) times `mul`, as bf16, to rows
-// `row`, `row` + 8 (those below S) of a tensor `stride` elements a row.
-template <int DC>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DC / 8][4], int row,
-                                           int S, long long stride, float mul, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row + 8 * i >= S) continue;
-    bf16* o = out + (long long)(row + 8 * i) * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          pack_bf16(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
-  }
-}
-
-// P (and the cap's derivative) of a raw score s = (Q K^T) of a visible
-// pair: exp(s * scale - lse), or (EXT, softcap > 0) with the score capped as
-// the bf16 forward caps it, in natural units.
+// P of a raw score s (a row of Q times a row of K) of a visible pair:
+// exp(s * scale - lse) in log2 units (sl2 = scale * LOG2E, lse2 = lse *
+// LOG2E), or (EXT, softcap > 0) with the score capped as the bf16 forward
+// caps it; `dcap` the cap's derivative (1 without a cap).
 template <bool EXT>
-__device__ __forceinline__ float prob_mma(float s, float scale, float lse, float softcap,
-                                          float& dcap) {
+__device__ __forceinline__ float prob(float s, float sl2, float lse2, float scale, float softcap,
+                                      float& dcap) {
   if (EXT && softcap > 0.f) {
     const float t = tanhf(s * (scale / softcap));
     dcap = 1.f - t * t;
-    return __expf(softcap * t - lse);
+    return fast_exp2(t * (softcap * LOG2E) - lse2);
   }
   dcap = 1.f;
-  return __expf(s * scale - lse);
+  return fast_exp2(s * sl2 - lse2);
 }
 
-// grid = (KV tiles, G * dkdv_splits<D>(), B), MMA_WARPS warps; layouts as
-// dkdv_body.  Warp w owns KV rows [16 w, +16) of the tile, and the block
-// output columns [c_lo, c_lo + DC); S^T = K Q^T and dP^T = V dO^T put its KV
-// rows in the rows of the products, so that P^T and dS^T are A fragments of
-// dV += P^T dO and dK += dS^T Q.
-template <int D, bool EXT>
-__device__ __forceinline__ void dkdv_mma_body(const bf16* __restrict__ q,
-                                              const bf16* __restrict__ k,
-                                              const bf16* __restrict__ v,
-                                              const bf16* __restrict__ dout,
-                                              const float* __restrict__ lse,
-                                              const float* __restrict__ delta,
-                                              bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                                              int H, int G, float scale, int window,
-                                              float softcap, const int* __restrict__ pos) {
-  constexpr int TILEB = BT * row_bytes<D>();
-  constexpr int SPLITS = dkdv_splits<D>();
-  constexpr int DC = D / SPLITS;  // output columns of a block
-  constexpr int NO = DC / 8;
-  extern __shared__ __align__(128) unsigned char smem_b[];
-  const uint32_t Ks = smem_addr(smem_b);
-  const uint32_t Vs = Ks + TILEB;
-  const uint32_t Qs = Vs + TILEB;
-  const uint32_t dOs = Qs + TILEB;
-  float* lse_s = reinterpret_cast<float*>(smem_b + 4 * TILEB);
-  float* delta_s = lse_s + BT;
+// Two fp32 accumulators as the bf16 A fragments of four 16-deep steps
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j >> 1][2 * (j & 1)] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[j >> 1][2 * (j & 1) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
 
-  const int kt = blockIdx.x;
-  const int g = blockIdx.y / SPLITS;
-  const int c_lo = blockIdx.y % SPLITS * DC;  // this block's first output column
-  const int b = blockIdx.z;
+// The dK/dV kernel.  grid = KV blocks x B x G, heaviest first: block x takes
+// KV block x / (B G) (its dkdv_kv_tiles<D>() 64-row tiles; block 0 walks
+// every Q tile), batch x / G % B and KV head x % G.  Q, dO (B, S, H, D), K, V
+// (B, S, G, D) through tensor maps of 64-row boxes of one head; lse and delta
+// (B, H, S) through 1-d maps; dk, dv (B, S, G, D) contiguous.  Consumer c
+// takes KV tile c / split of the block, whose rows are the rows of its
+// products, and output boxes [(c % split) NO, + NO).  POS (EXT only): mask by
+// pos (B, S), the positions of the queries and of the keys.
+template <int D, bool EXT>
+__device__ __forceinline__ void dkdv_wgmma_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_do, const CUtensorMap& tm_lse, const CUtensorMap& tm_delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int H, int G, float scale,
+    int window, float softcap, const int* __restrict__ pos) {
+  constexpr int NCB = col_blocks<D>();
+  constexpr int TB = tile_bytes<D>();
+  constexpr int KS = D / 16;  // 16-deep steps of K Q^T
+  constexpr int SPLIT = dkdv_col_split<D>();
+  constexpr int KVT = dkdv_kv_tiles<D>();
+  constexpr int NO = NCB / SPLIT;       // output boxes of a consumer
+  constexpr int NS = ring_stages<D>();  // slots of the ring
+  static_assert(D % 16 == 0 && NCB % SPLIT == 0, "head size");
+
+  extern __shared__ unsigned char smem_bwd[];
+  const uint32_t base = smem_addr(smem_bwd);
+  const uint32_t kvbuf = (base + SMEM_ALIGN - 1) & ~(uint32_t)(SMEM_ALIGN - 1);
+  const uint32_t ring = kvbuf + KVT * 2 * TB;  // NS x (Q tile, dO tile)
+  const uint32_t stats = ring + NS * 2 * TB;   // NS x (lse values, delta values)
+  const uint32_t bars = stats + NS * 2 * STATS_BYTES;
+  // K and V landed; per stage: Q, dO, lse and delta landed, and the slot free
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8 + 16 * st; };
+  auto empty = [&](int st) { return bars + 16 + 16 * st; };
+
+  const int bg = blockIdx.x % (B * G);
+  const int kb = blockIdx.x / (B * G);
+  const int b = bg / G;
+  const int g = bg % G;
   const int group = H / G;
-  const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5);  // this warp's first KV row in the tile
-  const int k_lo = kt * BT;
-  const int kv_a = k_lo + r0 + (lane >> 2);  // this thread's KV rows: kv_a and kv_a + 8
   const int n_tiles = (S + BT - 1) / BT;
+  const int kt0 = kb * KVT;                     // the block's first KV tile
+  const int kv_live = min(KVT, n_tiles - kt0);  // its KV tiles below S
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const bool by_pos = EXT && POS_TABLE;  // every Q tile not hidden, no skip by index
   const int* pb = by_pos ? pos + (long long)b * S : nullptr;
-  const int qt_end = by_pos ? n_tiles : q_tile_end<EXT, BT>(k_lo, n_tiles, window);
+  // each head's walk: the Q tiles from the block's first KV tile's own to
+  // the last that its last KV tile's window reaches (by_pos: every Q tile
+  // not hidden from the block's KV rows)
+  const int w_lo = by_pos ? 0 : kt0;
+  const int w_hi =
+      by_pos ? n_tiles : q_tile_end<EXT, BT>((kt0 + kv_live - 1) * BT, n_tiles, window);
   int k_mn = 0, k_mx = 0;
-  if (by_pos) dco_positions::tile_min_max(pb, k_lo, min(BT, S - k_lo), k_mn, k_mx);
-  const long long qstride = (long long)H * D;
-  const long long kstride = (long long)G * D;
+  if (by_pos) dco_positions::tile_min_max(pb, kt0 * BT, min(KVT * BT, S - kt0 * BT), k_mn, k_mx);
+  // the walk's next Q tile at or after qt (uniform over the block)
+  auto next_q = [&](int qt) {
+    if (by_pos) {
+      while (qt < w_hi && pair_hidden<BT>(pb, qt * BT, S, k_mn, k_mx, window)) ++qt;
+      qt = warp_uniform(qt);
+    }
+    return qt;
+  };
 
-  const long long kv_off = ((long long)b * S + k_lo) * kstride + (long long)g * D;
-  stage_tile<D>(Ks, k + kv_off, kstride, BT, min(BT, S - k_lo));
-  stage_tile<D>(Vs, v + kv_off, kstride, BT, min(BT, S - k_lo));
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS * 4);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float acc_k[NO][4], acc_v[NO][4];
+  if (warp < 4) {
+    // the producer: one warp, whose first lane issues every copy
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp != 0) return;
+    auto load_tile = [&](uint32_t dst, const CUtensorMap& map, uint32_t bar, int head, int t) {
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+      for (int cb = 0; cb < NCB; ++cb)
+        tma_load(dst + cb * BOX_BYTES, map, bar, cb * BOX_COLS, head, t * BT, b);
+    };
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, kv_live * 2 * TB);
+      for (int i = 0; i < kv_live; ++i) {
+        load_tile(kvbuf + i * 2 * TB, tm_k, kv_full, g, kt0 + i);
+        load_tile(kvbuf + i * 2 * TB + TB, tm_v, kv_full, g, kt0 + i);
+      }
+    }
+    int n = 0;  // items issued
+    for (int hh = 0; hh < group; ++hh) {
+      const int h = g * group + hh;
+      const int row0 = (b * H + h) * S;  // the head's first lse and delta value
+      for (int qt = next_q(w_lo); qt < w_hi; qt = next_q(qt + 1), ++n) {
+        const int st = n % NS;
+        const int lap = n / NS;
+        if (lap > 0) mbar_wait(empty(st), (lap - 1) & 1);
+        if (lane == 0) {
+          const uint32_t dst = ring + st * 2 * TB;
+          const uint32_t row_stats = stats + st * 2 * STATS_BYTES;
+          // the tile's values from the 16-byte boundary at or below them (a
+          // box that starts off one faults)
+          const int at = (row0 + qt * BT) & ~3;
+          mbar_expect_tx(full(st), 2 * TB + 2 * 4 * STATS_BOX);
+          load_tile(dst, tm_q, full(st), h, qt);
+          load_tile(dst + TB, tm_do, full(st), h, qt);
+          tma_load_1d(row_stats, tm_lse, full(st), at);
+          tma_load_1d(row_stats + STATS_BYTES, tm_delta, full(st), at);
+        }
+      }
+    }
+    return;
+  }
 
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = g * group + hh;
-    for (int qt = by_pos ? 0 : kt; qt < qt_end; ++qt) {  // causal: Q rows at or past k_lo
-      const int q_lo = qt * BT;
-      if (by_pos && pair_hidden<BT>(pb, q_lo, S, k_mn, k_mx, window)) continue;
-      __syncthreads();  // the previous Q and dO tiles are free
-      const long long q_off = ((long long)b * S + q_lo) * qstride + (long long)h * D;
-      stage_tile<D>(Qs, q + q_off, qstride, BT, min(BT, S - q_lo));
-      stage_tile<D>(dOs, dout + q_off, qstride, BT, min(BT, S - q_lo));
-      cp_async_commit();
-      const long long st_off = ((long long)b * H + h) * S;
-      stage_rows_stats(lse_s, delta_s, lse + st_off, delta + st_off, q_lo, S);
-      cp_async_wait<0>();
-      __syncthreads();
+  // a consumer warpgroup: the 64 KV rows of one tile and its share of the
+  // output columns
+  reg_alloc<CONSUMER_REGS>();
+  const int c = warp_uniform(warp / 4 - 1);
+  const int kt = kt0 + c / SPLIT;  // this consumer's KV tile
+  const int k_lo = kt * BT;
+  const int ob0 = c % SPLIT * NO;  // its first output box
+  const uint32_t kbuf = kvbuf + c / SPLIT * 2 * TB;
+  const uint64_t kdesc0 = smem_desc(kbuf), vdesc0 = smem_desc(kbuf + TB);
+  unsigned char* const stats_p = smem_bwd + (stats - base);
+  // the Q tiles of each head's walk this consumer computes: from its own
+  // (the first at or below the diagonal) to the last its window reaches
+  // (by_pos: the whole walk); none where its KV rows lie past S.  It takes
+  // and frees every other one.
+  const int c_lo = by_pos ? w_lo : kt;
+  const int c_hi = kt >= n_tiles ? c_lo : by_pos ? w_hi : q_tile_end<EXT, BT>(k_lo, n_tiles, window);
+  // this thread's two KV rows and (by_pos) their positions
+  int kr[2], kp[2];
 #pragma unroll
-      for (int c0 = 0; c0 < BT; c0 += 32) {
-        // Q rows [q_lo + c0, +32): all past S, or all above this warp's KV rows
-        if (q_lo + c0 >= S || (!by_pos && q_lo + c0 + 31 < k_lo + r0)) continue;
-        // (EXT) or all past the window of every KV row of this warp
-        if (EXT && !by_pos && window > 0 && q_lo + c0 >= k_lo + r0 + 15 + window) continue;
-        float s[4][4], dp[4][4];
-        mma_pair<D>(s, dp, Ks, Vs, Qs, dOs, r0, c0, lane);
-        uint32_t pa[2][4], da[2][4];
+  for (int i = 0; i < 2; ++i) {
+    kr[i] = k_lo + 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    kp[i] = by_pos ? pb[min(kr[i], S - 1)] : 0;
+  }
+  const float sl2 = scale * LOG2E;
+
+  int n = 0;  // items taken
+  auto pass = [&]() {
+    const int st = n % NS, lap = n / NS;
+    mbar_wait(full(st), lap & 1);
+    mbar_arrive(empty(st), lane == 0);
+    ++n;
+  };
+  // the descriptors of the item in slot st, kept whole (each step's is its
+  // tile's plus a constant; hoisted for every step they spilled)
+  uint64_t qdesc = 0, odesc = 0, kdesc = 0, vdesc = 0;
+  auto prep = [&](int st) {
+    const uint32_t qs = ring + st * 2 * TB;
+    qdesc = smem_desc(qs);
+    odesc = smem_desc(qs + TB);
+    kdesc = kdesc0;
+    vdesc = vdesc0;
+    asm volatile("" : "+l"(qdesc), "+l"(odesc), "+l"(kdesc), "+l"(vdesc)::"memory");
+  };
+  // d = A B^T over the head dimension for A, B the K-major tiles of
+  // descriptors a, b (S^T = K Q^T, dP^T = V dO^T), issued as one group
+  auto issue_scores = [&](float(&d)[32], uint64_t a, uint64_t b) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float p[4], ds[4];
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = ((ks >> 2) * BOX_BYTES + (ks & 3) * 32) >> 4;
+      wgmma_ss(d, a + off, b + off, ks);
+    }
+    wgmma_commit();
+  };
+  // acc[ob] += A B for the bf16 A fragments a and the MN-major B tile of
+  // descriptor bd (dO or Q: its rows the reduction), this consumer's boxes,
+  // issued as one group
+  auto issue_grad = [&](float(&acc)[NO][32], const uint32_t(&a)[4][4], uint64_t bd) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = c0 + 8 * j + 2 * (lane & 3) + (e & 1);  // Q row in the tile
-            const int kv = kv_a + 8 * (e >> 1);
-            const bool ok = q_lo + c < S && visible<EXT>(q_lo + c, kv, window, pb, S);
-            float dcap = 1.f;  // read only where p is 0 when the pair is hidden
-            p[e] = ok ? prob_mma<EXT>(s[j][e], scale, lse_s[c], softcap, dcap) : 0.f;
-            ds[e] = p[e] * (dp[j][e] - delta_s[c]);
-            if (EXT) ds[e] *= dcap;
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ob = 0; ob < NO; ++ob)
+        wgmma_rs(acc[ob], a[kk], bd + (((ob0 + ob) * BOX_BYTES + kk * 16 * 128) >> 4));
+    wgmma_commit();
+  };
+  // the lse (or delta) values of the item in slot st, Q tile at q_lo of the
+  // head at row0: (row0 + q_lo) % 4 into their box
+  auto stat_values = [&](int st, int which, int row0, int q_lo) {
+    return reinterpret_cast<const float*>(stats_p + (st * 2 + which) * STATS_BYTES) +
+           ((row0 + q_lo) & 3);
+  };
+  // P^T of the scores in s (columns: the tile's Q rows at q_lo) into pf; s
+  // keeps P^T times the cap's derivative, for dS^T
+  float s[32], dp[32];
+  uint32_t pf[4][4], df[4][4];  // P^T and dS^T as bf16 A fragments
+  auto probs = [&](const float* lse_s, int q_lo) {
+    // a pair of the tile that the mask, the window or S may hide
+    const bool need_mask = by_pos || q_lo + BT > S || q_lo < k_lo + BT - 1 ||
+                           (EXT && window > 0 && k_lo <= q_lo + BT - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + 2 * (lane & 3);
+      const float l2[2] = {lse_s[cl], lse_s[cl + 1]};
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q_lo + cl + (e & 1);
+        const int kv = kr[e >> 1];
+        float dcap;
+        p[e] = prob<EXT>(s[4 * j + e], sl2, l2[e & 1] * LOG2E, scale, softcap, dcap);
+        bool hidden = false;
+        if (need_mask) {
+          if (by_pos) {
+            const int pq = pb[min(q, S - 1)];
+            hidden = q >= S || kv >= S || kp[e >> 1] > pq ||
+                     (window > 0 && kp[e >> 1] <= pq - window);
+          } else {
+            hidden = q >= S || q < kv || (EXT && window > 0 && kv <= q - window);
           }
-          pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
-          pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
-          da[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
-          da[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
         }
-        mma_acc<D, DC>(acc_v, pa, dOs, c0, c_lo, lane);
-        mma_acc<D, DC>(acc_k, da, Qs, c0, c_lo, lane);
+        s[4 * j + e] = hidden ? 0.f : EXT ? p[e] * dcap : p[e];
+        p[e] = hidden ? 0.f : p[e];
+      }
+      pf[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+      pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+  };
+  // dS^T = P^T (dP^T - delta) into df, P^T (times the cap's derivative) in
+  // s, dP^T in dp
+  auto dscores = [&](const float* delta_s) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + 2 * (lane & 3);
+      const float d2[2] = {delta_s[cl], delta_s[cl + 1]};
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e] = s[4 * j + e] * (dp[4 * j + e] - d2[e & 1]);
+      df[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+      df[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+  };
+  // this thread's sums to rows kr, this consumer's columns, of a tensor
+  // (B, S, G, D), times mul
+  auto store = [&](bf16* out, const float(&acc)[NO][32], float mul) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kt < n_tiles && kr[i] < S) {
+        bf16* row = out + ((long long)(b * S + kr[i]) * G + g) * D + 2 * (lane & 3);
+#pragma unroll
+        for (int ob = 0; ob < NO; ++ob)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = (ob0 + ob) * BOX_COLS + 8 * j;
+            if (col < D)
+              *reinterpret_cast<uint32_t*>(row + col) =
+                  pack_bf16(acc[ob][4 * j + 2 * i] * mul, acc[ob][4 * j + 2 * i + 1] * mul);
+          }
       }
     }
+  };
+
+  float acck[NO][32], accv[NO][32];
+#pragma unroll
+  for (int ob = 0; ob < NO; ++ob)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acck[ob][e] = accv[ob][e] = 0.f;
+  mbar_wait(kv_full, 0);  // this block's K and V
+  for (int hh = 0; hh < group; ++hh) {
+    const int row0 = (b * H + g * group + hh) * S;  // the head's first lse and delta value
+    int qt = next_q(w_lo);
+    for (; qt < c_lo; qt = next_q(qt + 1)) pass();
+    for (; qt < c_hi; qt = next_q(qt + 1)) {
+      const int st = n % NS, lap = n / NS;
+      prep(st);
+      mbar_wait(full(st), lap & 1);
+      // S^T = K Q^T, then dP^T = V dO^T, each its own group
+      wgmma_fence();
+      issue_scores(s, kdesc, qdesc);
+      issue_scores(dp, vdesc, odesc);
+      wgmma_wait<1>();  // S^T; dP^T still runs
+      hold(s);
+      probs(stat_values(st, 0, row0, qt * BT), qt * BT);
+      wgmma_wait<0>();  // dP^T
+      hold(dp);
+      hold(pf);
+#pragma unroll
+      for (int ob = 0; ob < NO; ++ob) hold(accv[ob]);
+      wgmma_fence();
+      issue_grad(accv, pf, odesc);  // dV += P^T dO, dO's rows the reduction
+      // dS^T into df while the tensor cores add dV
+      dscores(stat_values(st, 1, row0, qt * BT));
+      hold(df);
+#pragma unroll
+      for (int ob = 0; ob < NO; ++ob) hold(acck[ob]);
+      wgmma_fence();
+      issue_grad(acck, df, qdesc);  // dK += dS^T Q
+      wgmma_wait<0>();
+#pragma unroll
+      for (int ob = 0; ob < NO; ++ob) {
+        hold(accv[ob]);
+        hold(acck[ob]);
+      }
+      mbar_arrive(empty(st), lane == 0);
+      ++n;
+    }
+    for (; qt < w_hi; qt = next_q(qt + 1)) pass();
   }
-  const long long out_off = (long long)b * S * kstride + (long long)g * D + c_lo;
-  store_rows<DC>(dk + out_off, acc_k, kv_a, S, kstride, scale, lane);
-  store_rows<DC>(dv + out_off, acc_v, kv_a, S, kstride, 1.f, lane);
+  store(dk, acck, scale);
+  store(dv, accv, 1.f);
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int G, float scale) {
-  dkdv_mma_body<D, false>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, 0, 0.f, nullptr);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-dkdv_mma_ext_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int G,
-                    float scale, int window, float softcap DCO_POS_PARAM) {
-  dkdv_mma_body<D, true>(q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap,
-                         DCO_POS_ARG);
-}
-
-// grid = (Q tiles, H, B), MMA_WARPS warps; layouts as dkdv_body.  Warp w
-// owns Q rows [16 w, +16) of the tile.
+// The dQ kernel.  grid = Q tiles x B x G, heaviest first: block x takes Q
+// tile n - 1 - x / (B G) (the last walks the most KV tiles), batch x / G % B
+// and KV head x % G.  A consumer's 64 packed rows are rows_s = 64 / group
+// query rows of every head of the group, packed row r being query row
+// r / group of head r % group (the forward's packing; where the group does
+// not divide 64 a consumer's last 64 % group rows are never loaded or
+// written); a Q tile is the consumers' rows.  Q and dO through tensor maps of
+// those packed boxes, K and V as the dK/dV kernel's; lse and delta (B, H, S)
+// and dq (B, S, H, D) contiguous.  POS as dkdv_wgmma_body.
 template <int D, bool EXT>
-__device__ __forceinline__ void dq_mma_body(const bf16* __restrict__ q,
-                                            const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v,
-                                            const bf16* __restrict__ dout,
-                                            const float* __restrict__ lse,
-                                            const float* __restrict__ delta,
-                                            bf16* __restrict__ dq, int S, int H, int G,
-                                            float scale, int window, float softcap,
-                                            const int* __restrict__ pos) {
-  constexpr int TILEB = BT * row_bytes<D>();
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_b[];
-  const uint32_t Qs = smem_addr(smem_b);
-  const uint32_t dOs = Qs + TILEB;
-  const uint32_t Ks = dOs + TILEB;
-  const uint32_t Vs = Ks + TILEB;
-  float* lse_s = reinterpret_cast<float*>(smem_b + 4 * TILEB);
-  float* delta_s = lse_s + BT;
+__device__ __forceinline__ void dq_wgmma_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_do, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int B, int S, int H, int G, float scale, int window, float softcap,
+    const int* __restrict__ pos) {
+  constexpr int NCB = col_blocks<D>();
+  constexpr int TB = tile_bytes<D>();
+  constexpr int KS = D / 16;  // 16-deep steps of Q K^T
+  constexpr int NC = dq_consumers<D>();
+  constexpr int NS = ring_stages<D>();  // slots of the ring
+  static_assert(D % 16 == 0, "head size");
 
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (H / G);
+  extern __shared__ unsigned char smem_bwd[];
+  const uint32_t qbuf =
+      (smem_addr(smem_bwd) + SMEM_ALIGN - 1) & ~(uint32_t)(SMEM_ALIGN - 1);  // NC x (Q, dO)
+  const uint32_t ring = qbuf + NC * 2 * TB;  // NS x (K tile, V tile)
+  const uint32_t bars = ring + NS * 2 * TB;
+  // Q and dO landed; per stage: K and V landed, and the slot free
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 + 16 * st; };
+  auto empty = [&](int st) { return bars + 16 + 16 * st; };
+
+  const int group = H / G;
+  const int rows_s = MMA_ROWS / group;  // query rows of a consumer's tile
+  const int bq = NC * rows_s;           // query rows of a block's Q tile
+  const int n_q = (S + bq - 1) / bq;
+  const int bg = blockIdx.x % (B * G);
+  const int qt = n_q - 1 - (int)(blockIdx.x / (B * G));
+  const int b = bg / G;
+  const int g = bg % G;
+  const int q_lo = qt * bq;
+  const int n_tiles = (S + BT - 1) / BT;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5);  // this warp's first Q row in the tile
-  const int q_lo = qt * BT;
-  const long long qstride = (long long)H * D;
-  const long long kstride = (long long)G * D;
-
-  const long long q_off = ((long long)b * S + q_lo) * qstride + (long long)h * D;
-  stage_tile<D>(Qs, q + q_off, qstride, BT, min(BT, S - q_lo));
-  stage_tile<D>(dOs, dout + q_off, qstride, BT, min(BT, S - q_lo));
-  cp_async_commit();
-  const long long st_off = ((long long)b * H + h) * S;
-  stage_rows_stats(lse_s, delta_s, lse + st_off, delta + st_off, q_lo, S);
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  // causal: KV tiles up to the diagonal (EXT: from the window's first; EXT
-  // and pos: every KV tile, no skip by index)
-  const bool by_pos = EXT && POS_TABLE;
+  const bool by_pos = EXT && POS_TABLE;  // every KV tile not hidden, no skip by index
   const int* pb = by_pos ? pos + (long long)b * S : nullptr;
-  const int kt_last = by_pos ? (S - 1) / BT : qt;
-  for (int kt = by_pos ? 0 : kv_tile_begin<EXT, BT>(q_lo, window); kt <= kt_last; ++kt) {
-    const int k_lo = kt * BT;
-    if (by_pos) {  // a KV tile hidden from this Q tile: skipped
-      int k_mn, k_mx;
-      dco_positions::tile_min_max(pb, k_lo, min(BT, S - k_lo), k_mn, k_mx);
-      if (pair_hidden<BT>(pb, q_lo, S, k_mn, k_mx, window)) continue;
-    }
-    __syncthreads();  // the previous K and V tiles are free
-    const long long kv_off = ((long long)b * S + k_lo) * kstride + (long long)g * D;
-    stage_tile<D>(Ks, k + kv_off, kstride, BT, min(BT, S - k_lo));
-    stage_tile<D>(Vs, v + kv_off, kstride, BT, min(BT, S - k_lo));
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int c0 = 0; c0 < BT; c0 += 32) {
-      // KV rows [k_lo + c0, +32) all above this warp's Q rows (by_pos: all past S)
-      if (by_pos ? k_lo + c0 >= S : k_lo + c0 > q_lo + r0 + 15) continue;
-      // (EXT) or all older than the window of every Q row of this warp
-      if (EXT && !by_pos && window > 0 && k_lo + c0 + 31 <= q_lo + r0 - window) continue;
-      float s[4][4], dp[4][4];
-      mma_pair<D>(s, dp, Qs, dOs, Ks, Vs, r0, c0, lane);
-      uint32_t da[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + (lane >> 2) + 8 * (e >> 1);  // Q row in the tile
-          const int kv = k_lo + c0 + 8 * j + 2 * (lane & 3) + (e & 1);
-          const bool ok = q_lo + r < S && visible<EXT>(q_lo + r, kv, window, pb, S);
-          float dcap = 1.f;
-          const float p = ok ? prob_mma<EXT>(s[j][e], scale, lse_s[r], softcap, dcap) : 0.f;
-          ds[e] = p * (dp[j][e] - delta_s[r]);
-          if (EXT) ds[e] *= dcap;
-        }
-        da[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
-        da[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+  // the walk: the KV tiles from the first the window of the tile's first
+  // row reaches to the diagonal (by_pos: every KV tile not hidden from the
+  // tile's rows)
+  const int t_lo = by_pos ? 0 : kv_tile_begin<EXT, BT>(q_lo, window);
+  const int t_hi = by_pos ? n_tiles : (min(S, q_lo + bq) + BT - 1) / BT;
+  int q_mn = 0, q_mx = 0;
+  if (by_pos) dco_positions::tile_min_max(pb, q_lo, min(bq, S - q_lo), q_mn, q_mx);
+  // the walk's next KV tile at or after t (uniform over the block)
+  auto next_kv = [&](int t) {
+    if (by_pos) {
+      for (; t < t_hi; ++t) {
+        int k_mn, k_mx;
+        dco_positions::tile_min_max(pb, t * BT, min(BT, S - t * BT), k_mn, k_mx);
+        if (!dco_positions::tiles_hidden(q_mn, q_mx, k_mn, k_mx, window)) break;
       }
-      mma_acc<D, D>(acc, da, Ks, c0, 0, lane);
+      t = warp_uniform(t);
+    }
+    return t;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), NC * 4);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // the producer: one warp, whose first lane issues every copy; with two
+    // consumers its registers go to them (one consumer has 255 anyway)
+    if constexpr (NC > 1) reg_dealloc<PRODUCER_REGS>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      // a box is 64 columns of group x rows_s packed rows: 64 % group rows short of 64
+      mbar_expect_tx(q_full, NC * 2 * NCB * BOX_COLS * 2 * group * rows_s);
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb) {
+          const uint32_t dst = qbuf + c * 2 * TB + cb * BOX_BYTES;
+          tma_load(dst, tm_q, q_full, cb * BOX_COLS, g * group, q_lo + c * rows_s, b);
+          tma_load(dst + TB, tm_do, q_full, cb * BOX_COLS, g * group, q_lo + c * rows_s, b);
+        }
+    }
+    int n = 0;  // tiles issued
+    for (int t = next_kv(t_lo); t < t_hi; t = next_kv(t + 1), ++n) {
+      const int st = n % NS;
+      const int lap = n / NS;
+      if (lap > 0) mbar_wait(empty(st), (lap - 1) & 1);
+      if (lane == 0) {
+        const uint32_t dst = ring + st * 2 * TB;
+        mbar_expect_tx(full(st), 2 * TB);
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb) {
+          tma_load(dst + cb * BOX_BYTES, tm_k, full(st), cb * BOX_COLS, g, t * BT, b);
+          tma_load(dst + TB + cb * BOX_BYTES, tm_v, full(st), cb * BOX_COLS, g, t * BT, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 packed rows of the Q tile
+  if constexpr (NC > 1) reg_alloc<CONSUMER_REGS>();
+  const int c = warp_uniform(warp / 4 - 1);
+  const uint32_t qs = qbuf + c * 2 * TB;
+  const int s0 = q_lo + c * rows_s;         // this consumer's first query row
+  const int s1 = min(S, s0 + rows_s) - 1;   // its last (below s0: none)
+  // this thread's two packed rows, r and r + 8 of its warp's 16: their query
+  // row and head, the row's lse (log2 units) and delta, and (by_pos) position
+  int sr[2], hd[2], qp[2];
+  bool live[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    sr[i] = s0 + r / group;
+    hd[i] = g * group + r % group;
+    live[i] = r < rows_s * group && sr[i] < S;
+    const long long at = ((long long)b * H + hd[i]) * S + min(sr[i], S - 1);
+    lse2[i] = lse[at] * LOG2E;
+    dl[i] = delta[at];
+    qp[i] = by_pos ? pb[min(sr[i], S - 1)] : 0;
+  }
+  const float sl2 = scale * LOG2E;
+  // this consumer's KV tiles: the walk's, less (by index) those above all
+  // its rows or below all their windows, a contiguous range [c_lo, c_hi)
+  // (by_pos: the whole walk).  It takes and frees every other one.
+  const int c_lo = by_pos ? t_lo : max(t_lo, kv_tile_begin<EXT, BT>(s0, window));
+  const int c_hi = s1 < s0 ? c_lo : by_pos ? t_hi : min(t_hi, s1 / BT + 1);
+
+  float acc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[cb][e] = 0.f;
+  mbar_wait(q_full, 0);  // this block's Q and dO
+  int n = 0;  // tiles taken
+  auto pass = [&]() {
+    const int st = n % NS, lap = n / NS;
+    mbar_wait(full(st), lap & 1);
+    mbar_arrive(empty(st), lane == 0);
+    ++n;
+  };
+
+  float s[32], dp[32];
+  uint32_t df[4][4];  // dS of the tile whose dS K is pending, as bf16 A fragments
+  // the descriptors of Q, dO and the K and V tiles the next products read,
+  // set before wgmma_fence and kept whole: each step's descriptor is its
+  // tile's plus a constant (hoisted for every step, they spilled at D 256)
+  uint64_t qdesc = 0, odesc = 0, kdesc = 0, vdesc = 0;
+  auto prep = [&](uint32_t kt) {
+    qdesc = smem_desc(qs);
+    odesc = smem_desc(qs + TB);
+    kdesc = smem_desc(kt);
+    vdesc = smem_desc(kt + TB);
+    asm volatile("" : "+l"(qdesc), "+l"(odesc), "+l"(kdesc), "+l"(vdesc)::"memory");
+  };
+  // S = Q K^T and dP = dO V^T of prep's tile, issued as one group
+  auto issue_sdp = [&]() {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = ((ks >> 2) * BOX_BYTES + (ks & 3) * 32) >> 4;
+      wgmma_ss(s, qdesc + off, kdesc + off, ks);
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = ((ks >> 2) * BOX_BYTES + (ks & 3) * 32) >> 4;
+      wgmma_ss(dp, odesc + off, vdesc + off, ks);
+    }
+    wgmma_commit();
+  };
+  // dQ += dS K for dS in df and the K tile of descriptor kd (its rows the
+  // reduction: MN-major), issued
+  auto issue_dq = [&](uint64_t kd) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+        wgmma_rs(acc[cb], df[kk], kd + ((cb * BOX_BYTES + kk * 16 * 128) >> 4));
+    wgmma_commit();
+  };
+  // dS = P (dP - delta) (times the cap's derivative) of the tile at k_lo,
+  // in place in s (fp32), from its scores s and dp
+  auto grads = [&](int k_lo) {
+    const bool need_mask = by_pos || k_lo + BT - 1 > s0 ||
+                           (EXT && window > 0 && k_lo <= s1 - window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int col = k_lo + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+      float dcap;
+      const float p = prob<EXT>(s[e], sl2, lse2[i], scale, softcap, dcap);
+      bool hidden = false;
+      if (need_mask) {
+        if (by_pos) {
+          const int kpos = pb[min(col, S - 1)];
+          hidden = col >= S || kpos > qp[i] || (window > 0 && kpos <= qp[i] - window);
+        } else {
+          hidden = col > sr[i] || (EXT && window > 0 && col <= sr[i] - window);
+        }
+      }
+      const float ds = p * (dp[e] - dl[i]);
+      s[e] = hidden ? 0.f : EXT ? ds * dcap : ds;
+    }
+  };
+
+  int t = next_kv(t_lo);
+  for (; t < c_lo; t = next_kv(t + 1)) pass();
+  if (t < c_hi) {
+    // the first tile: its S and dP, then its dS, whose dS K the next step issues
+    int st = n % NS, lap = n / NS;
+    uint32_t kt = ring + st * 2 * TB;
+    mbar_wait(full(st), lap & 1);
+    prep(kt);
+    wgmma_fence();
+    issue_sdp();
+    wgmma_wait<0>();
+    hold(s);
+    hold(dp);
+    grads(t * BT);
+    pack_a(df, s);
+    int t_next = next_kv(t + 1);
+    // The next tile's S and dP are issued with this tile's dS K, and the next
+    // dS is computed while the tensor cores add it; dS is packed into df only
+    // after the wait for the pending dS K.
+    while (t_next < c_hi) {
+      const int st_next = (n + 1) % NS, lap_next = (n + 1) / NS;
+      const uint32_t kt_next = ring + st_next * 2 * TB;
+      mbar_wait(full(st_next), lap_next & 1);
+      uint64_t kd = smem_desc(kt);
+      asm volatile("" : "+l"(kd)::"memory");
+      prep(kt_next);
+      hold(df);
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+      wgmma_fence();
+      issue_sdp();
+      issue_dq(kd);
+      const int t_after = next_kv(t_next + 1);
+      wgmma_wait<1>();  // S and dP of the next tile
+      hold(s);
+      hold(dp);
+      grads(t_next * BT);
+      wgmma_wait<0>();  // dS K of this tile
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+      hold(s);
+      mbar_arrive(empty(st), lane == 0);
+      ++n;
+      pack_a(df, s);
+      t = t_next;
+      t_next = t_after;
+      st = st_next;
+      kt = kt_next;
+    }
+    // the last tile's dS K
+    uint64_t kd = smem_desc(kt);
+    asm volatile("" : "+l"(kd)::"memory");
+    hold(df);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+    wgmma_fence();
+    issue_dq(kd);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) hold(acc[cb]);
+    mbar_arrive(empty(st), lane == 0);
+    ++n;
+    t = next_kv(t + 1);
+  }
+  for (; t < t_hi; t = next_kv(t + 1)) pass();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (live[i]) {
+      bf16* row = dq + ((long long)(b * S + sr[i]) * H + hd[i]) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (cb * BOX_COLS + 8 * j < D)
+            *reinterpret_cast<uint32_t*>(row + cb * BOX_COLS + 8 * j) =
+                pack_bf16(acc[cb][4 * j + 2 * i] * scale, acc[cb][4 * j + 2 * i + 1] * scale);
     }
   }
-  store_rows<D>(dq + (long long)b * S * qstride + (long long)h * D, acc,
-                q_lo + r0 + (lane >> 2), S, qstride, scale, lane);
+}
+
+#ifndef DCO_FLASH_POS
+template <int D>
+__global__ void __launch_bounds__((1 + CONSUMERS) * 128, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_lse,
+                  const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int B, int S, int H, int G, float scale) {
+  dkdv_wgmma_body<D, false>(tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale,
+                            0, 0.f, nullptr);
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int S, int H, int G, float scale) {
-  dq_mma_body<D, false>(q, k, v, dout, lse, delta, dq, S, H, G, scale, 0, 0.f, nullptr);
+__global__ void __launch_bounds__((1 + CONSUMERS) * 128, 1)
+dkdv_wgmma_ext_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_lse,
+                      const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int B, int S, int H, int G, float scale, int window,
+                      float softcap) {
+  dkdv_wgmma_body<D, true>(tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale,
+                           window, softcap, nullptr);
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-dq_mma_ext_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dq, int S, int H, int G, float scale, int window,
-                  float softcap DCO_POS_PARAM) {
-  dq_mma_body<D, true>(q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap,
-                       DCO_POS_ARG);
+__global__ void __launch_bounds__((1 + dq_consumers<D>()) * 128, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int B, int S, int H, int G, float scale) {
+  dq_wgmma_body<D, false>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, B, S, H, G, scale, 0, 0.f,
+                          nullptr);
 }
+
+template <int D>
+__global__ void __launch_bounds__((1 + dq_consumers<D>()) * 128, 1)
+dq_wgmma_ext_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int B, int S, int H,
+                    int G, float scale, int window, float softcap) {
+  dq_wgmma_body<D, true>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, B, S, H, G, scale, window,
+                         softcap, nullptr);
+}
+#else
+// The position variant's bf16 kernels: the _ext_ bodies with the table.
+template <int D>
+__global__ void __launch_bounds__((1 + CONSUMERS) * 128, 1)
+dkdv_wgmma_pos_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_lse,
+                      const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int B, int S, int H, int G, float scale, int window,
+                      float softcap, const int* __restrict__ pos) {
+  dkdv_wgmma_body<D, true>(tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale,
+                           window, softcap, pos);
+}
+
+template <int D>
+__global__ void __launch_bounds__((1 + dq_consumers<D>()) * 128, 1)
+dq_wgmma_pos_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int B, int S, int H,
+                    int G, float scale, int window, float softcap, const int* __restrict__ pos) {
+  dq_wgmma_body<D, true>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, B, S, H, G, scale, window,
+                         softcap, pos);
+}
+#endif
 
 // delta = rowsum(dO * O), the first of the three launches
 template <typename T, int D>
@@ -877,52 +1330,82 @@ int launch_delta(const T* o, const T* dout, float* delta, int B, int S, int H,
 }
 
 // The bf16 path's three launches; the _ext_ kernels where a window or a
-// softcap is given (the position variant: they alone, with `pos`).
+// softcap is given (the position variant: its _pos_ kernels, with `pos`).
 template <int D>
-int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
-                   bf16* dv, const int* pos, int B, int S, int H, int G, float scale, int window,
-                   float softcap, cudaStream_t stream) {
-  const int smem = 4 * BT * row_bytes<D>() + 2 * BT * (int)sizeof(float);
+int launch_bwd_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                     const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
+                     bf16* dv, const int* pos, int B, int S, int H, int G, float scale, int window,
+                     float softcap, cudaStream_t stream) {
+  static_assert(dkdv_smem_bytes<D>() <= SMEM_LIMIT && dq_smem_bytes<D>() <= SMEM_LIMIT,
+                "a block's shared memory");
+  static_assert(8 * (1 + 2 * STAGES) <= BAR_BYTES, "the barriers");
+  static_assert(STATS_BOX >= BT + 3 && 4 * STATS_BOX % 16 == 0 && 4 * STATS_BOX <= STATS_BYTES,
+                "a Q tile's lse values from a 16-byte boundary");
+  const int group = H / G;
+  if (group > MMA_ROWS) return -1;  // a dQ consumer's rows hold one query row of every head
+  // lse and delta are read at int coordinates through 1-d maps (TMA: 16-byte pointers)
+  if ((long long)B * H * S > INT_MAX - STATS_BOX) return -1;
+  if (((uintptr_t)lse | (uintptr_t)delta) % 16 != 0) return -1;
+  const int rows_s = MMA_ROWS / group;
+  const long long qrow = (long long)H * D, qbatch = (long long)S * H * D;
+  const long long krow = (long long)G * D, kbatch = (long long)S * G * D;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta, tm_qp, tm_dop;
+  if (!tensor_map(&tm_q, q, D, H, S, B, D, qrow, qbatch, 1, BT) ||
+      !tensor_map(&tm_do, dout, D, H, S, B, D, qrow, qbatch, 1, BT) ||
+      !tensor_map(&tm_k, k, D, G, S, B, D, krow, kbatch, 1, BT) ||
+      !tensor_map(&tm_v, v, D, G, S, B, D, krow, kbatch, 1, BT) ||
+      !tensor_map_1d(&tm_lse, lse, (long long)B * H * S, STATS_BOX) ||
+      !tensor_map_1d(&tm_delta, delta, (long long)B * H * S, STATS_BOX) ||
+      !tensor_map(&tm_qp, q, D, H, S, B, D, qrow, qbatch, group, rows_s) ||
+      !tensor_map(&tm_dop, dout, D, H, S, B, D, qrow, qbatch, group, rows_s))
+    return -1;
 #ifdef DCO_FLASH_POS
-  const void* dkdv = (const void*)dkdv_mma_ext_kernel<D>;
-  const void* dqk = (const void*)dq_mma_ext_kernel<D>;
+  const void* dkdv_k = (const void*)dkdv_wgmma_pos_kernel<D>;
+  const void* dq_k = (const void*)dq_wgmma_pos_kernel<D>;
 #else
   const bool ext = window > 0 || softcap > 0.f;
-  const void* dkdv = ext ? (const void*)dkdv_mma_ext_kernel<D> : (const void*)dkdv_mma_kernel<D>;
-  const void* dqk = ext ? (const void*)dq_mma_ext_kernel<D> : (const void*)dq_mma_kernel<D>;
+  const void* dkdv_k =
+      ext ? (const void*)dkdv_wgmma_ext_kernel<D> : (const void*)dkdv_wgmma_kernel<D>;
+  const void* dq_k = ext ? (const void*)dq_wgmma_ext_kernel<D> : (const void*)dq_wgmma_kernel<D>;
 #endif
-  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem_kv = (int)dkdv_smem_bytes<D>(), smem_q = (int)dq_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(dkdv_k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return (int)err;
   int rc = launch_delta<bf16, D>(o, dout, delta, B, S, H, stream);
   if (rc != 0) return rc;
   const int n_tiles = (S + BT - 1) / BT;
-  const dim3 grid_kv(n_tiles, G * dkdv_splits<D>(), B), grid_q(n_tiles, H, B);
+  const long long blocks_kv = (long long)(n_tiles + dkdv_kv_tiles<D>() - 1) /
+                              dkdv_kv_tiles<D>() * B * G;
+  const int bq = dq_consumers<D>() * rows_s;
+  const long long blocks_q = (long long)(S + bq - 1) / bq * B * G;
+  if (blocks_kv > INT_MAX || blocks_q > INT_MAX) return -1;
+  const int threads_kv = (1 + CONSUMERS) * 128, threads_q = (1 + dq_consumers<D>()) * 128;
 #ifdef DCO_FLASH_POS
-  dkdv_mma_ext_kernel<D><<<grid_kv, MMA_WARPS * 32, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap, pos);
+  dkdv_wgmma_pos_kernel<D><<<(unsigned)blocks_kv, threads_kv, smem_kv, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale, window, softcap, pos);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_mma_ext_kernel<D><<<grid_q, MMA_WARPS * 32, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap, pos);
+  dq_wgmma_pos_kernel<D><<<(unsigned)blocks_q, threads_q, smem_q, stream>>>(
+      tm_qp, tm_k, tm_v, tm_dop, lse, delta, dq, B, S, H, G, scale, window, softcap, pos);
   return (int)cudaGetLastError();
 #else
   if (ext)
-    dkdv_mma_ext_kernel<D><<<grid_kv, MMA_WARPS * 32, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, S, H, G, scale, window, softcap);
+    dkdv_wgmma_ext_kernel<D><<<(unsigned)blocks_kv, threads_kv, smem_kv, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale, window, softcap);
   else
-    dkdv_mma_kernel<D><<<grid_kv, MMA_WARPS * 32, smem, stream>>>(q, k, v, dout, lse, delta, dk,
-                                                                  dv, S, H, G, scale);
+    dkdv_wgmma_kernel<D><<<(unsigned)blocks_kv, threads_kv, smem_kv, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, dk, dv, B, S, H, G, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (ext)
-    dq_mma_ext_kernel<D><<<grid_q, MMA_WARPS * 32, smem, stream>>>(
-        q, k, v, dout, lse, delta, dq, S, H, G, scale, window, softcap);
+    dq_wgmma_ext_kernel<D><<<(unsigned)blocks_q, threads_q, smem_q, stream>>>(
+        tm_qp, tm_k, tm_v, tm_dop, lse, delta, dq, B, S, H, G, scale, window, softcap);
   else
-    dq_mma_kernel<D><<<grid_q, MMA_WARPS * 32, smem, stream>>>(q, k, v, dout, lse, delta, dq, S,
-                                                               H, G, scale);
+    dq_wgmma_kernel<D><<<(unsigned)blocks_q, threads_q, smem_q, stream>>>(
+        tm_qp, tm_k, tm_v, tm_dop, lse, delta, dq, B, S, H, G, scale);
   return (int)cudaGetLastError();
 #endif
 }
@@ -988,7 +1471,7 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v, const voi
                const int* pos, int B, int S, int H, int G, float scale, int window, float softcap,
                cudaStream_t s) {
   if (dtype == 0)
-    return launch_bwd_mma<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+    return launch_bwd_wgmma<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                              static_cast<const bf16*>(v), static_cast<const bf16*>(o),
                              static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
                              static_cast<bf16*>(dk), static_cast<bf16*>(dv), pos, B, S, H, G, scale,
@@ -1021,7 +1504,7 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* o, const 
               int dtype, int B, int S, int H, int G, int D, int window, float scale,
               float softcap, void* stream) {
   if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || window < 0 || !(softcap >= 0.f)) return -1;
-  if (B > 65535 || H > 65535 || 2 * G > 65535) return -1;
+  if (B > 65535 || H > 65535) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   if (dtype == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
                      (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16 != 0)

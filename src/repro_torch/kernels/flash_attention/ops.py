@@ -143,24 +143,31 @@ def kv_tiles(q_lo: int, q_rows: int, sk: int, *, causal: bool = True,
 
 
 def bwd_tile_rows(head_dim: int, itemsize: int) -> int:
-    """Rows of the backward kernel's Q and KV tiles: ``FLASH_TILE_ROWS``, or
-    ``BWD_FP32_TILE_256`` in fp32 at head_dim 256, where four staged 64-row
-    fp32 tiles pass a block's shared memory."""
+    """Rows of the backward kernel's Q and KV tiles: ``FLASH_TILE_ROWS`` (in
+    bf16 a consumer warpgroup's 64 KV rows in the dK/dV kernel, the 64-row
+    tiles both kernels stream), or ``BWD_FP32_TILE_256`` in fp32 at head_dim
+    256, where four staged 64-row fp32 tiles pass a block's shared memory."""
     return BWD_FP32_TILE_256 if itemsize == 4 and head_dim > 128 else FLASH_TILE_ROWS
 
 
 def bwd_q_tiles(kt: int, s: int, *, window: Optional[int] = None,
-                tile: int = FLASH_TILE_ROWS, positions=None):
-    """The Q tiles that the backward's dK/dV block of KV tile ``kt`` walks
+                tile: int = FLASH_TILE_ROWS, positions=None, block: int = 1):
+    """The Q tiles that the backward's dK/dV walk of KV tile ``kt`` takes
     (tiles of ``tile`` rows, length ``s``): from its own, the first at or
     below the causal diagonal, to the last that the ``window`` of the tile's
-    last row reaches, as ``q_tile_end`` in csrc/flash_attention_bwd.cu;
-    with ``positions`` (one table for queries and keys, a sequence over the
-    batch row), whose order need not be the rows', every Q tile not hidden
-    from this one (``tiles_hidden``)."""
+    last row reaches, as ``q_tile_end`` in csrc/flash_attention_bwd.cu (a
+    bf16 consumer warpgroup computes exactly these for its KV tile and takes
+    the others of its block's walk unread).  With ``positions`` (one table
+    for queries and keys, a sequence over the batch row), whose order need
+    not be the rows', every Q tile not hidden (``tiles_hidden``) from the
+    ``block`` KV tiles of the block that holds ``kt`` (``kt // block``; the
+    bf16 kernel's consumers compute the whole walk of their block, 2 tiles
+    of 64 rows at head_dim 64 to 128, 1 at 256; the fp32 kernel's block is
+    its one tile)."""
     n = -(-s // tile)
     if positions is not None:
-        k_pos = _rows(positions, kt * tile, tile)
+        lo = kt // block * block * tile
+        k_pos = _rows(positions, lo, block * tile)
         return [qt for qt in range(n)
                 if not tiles_hidden(_rows(positions, qt * tile, tile), k_pos, window)]
     end = min(n, (kt * tile + tile - 1 + window - 1) // tile + 1) if window else n
@@ -168,18 +175,26 @@ def bwd_q_tiles(kt: int, s: int, *, window: Optional[int] = None,
 
 
 def bwd_kv_tiles(qt: int, *, window: Optional[int] = None,
-                 tile: int = FLASH_TILE_ROWS, positions=None):
-    """The KV tiles that the backward's dQ block of Q tile ``qt`` walks: up
-    to the diagonal, from the first that the tile's first row can see under
-    a ``window``, as ``kv_tile_begin`` in csrc/flash_attention_bwd.cu; with
-    ``positions`` (as ``bwd_q_tiles``) every KV tile of the row not hidden
-    from this one."""
+                 tile: int = FLASH_TILE_ROWS, positions=None,
+                 q_rows: Optional[int] = None, s: Optional[int] = None):
+    """The KV tiles (of ``tile`` rows) that the backward's dQ block of Q
+    tile ``qt`` walks, the tile's rows being [qt q_rows, (qt + 1) q_rows)
+    (``q_rows``: ``tile`` by default, the fp32 kernel's tile; the bf16
+    kernel's Q tile is its consumers' packed rows, 64 // group query rows
+    each), cut at length ``s`` where given: up to the diagonal, from the
+    first that the tile's first row can see under a ``window``, as
+    ``kv_tile_begin`` in csrc/flash_attention_bwd.cu; with ``positions``
+    (as ``bwd_q_tiles``) every KV tile of the row not hidden from this
+    one."""
+    q_rows = q_rows or tile
+    q_lo = qt * q_rows
     if positions is not None:
-        q_pos = _rows(positions, qt * tile, tile)
+        q_pos = _rows(positions, q_lo, q_rows)
         return [kt for kt in range(-(-len(positions) // tile))
                 if not tiles_hidden(q_pos, _rows(positions, kt * tile, tile), window)]
-    lo = max(0, qt * tile - window + 1) // tile if window else 0
-    return range(lo, qt + 1)
+    lo = max(0, q_lo - window + 1) // tile if window else 0
+    last = q_lo + q_rows - 1 if s is None else min(s, q_lo + q_rows) - 1
+    return range(lo, last // tile + 1)
 
 
 def check_window(window: Optional[int], causal: bool) -> None:
@@ -443,6 +458,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError("the backward kernel takes bf16 or fp32, one type for q, k, v, "
                         "o and do")
+    if q.dtype == torch.bfloat16:
+        check_group(h // g)   # the dQ kernel packs the group's heads as the forward
     if lse.dtype != torch.float32:
         raise TypeError("lse must be fp32")
     if any(t.device != q.device for t in (k, v, o, lse, do)):

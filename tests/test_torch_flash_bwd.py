@@ -384,3 +384,402 @@ def test_card_gradient_scale_is_the_larger_rms_of_row_and_tile(smoke):
     for lo, hi in ((0, 64), (64, 128), (128, 150)):
         tile = ref[:, lo:hi].square().mean(dim=(1, 3)).sqrt()[:, None]   # (B, 1, H)
         torch.testing.assert_close(scale[:, lo:hi, :, 0], torch.maximum(row[:, lo:hi], tile))
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the bf16 backward's schedule (csrc/flash_attention_bwd.cu: the
+# dK/dV and dQ kernels on TMA and wgmma), held to what the kernels must
+# compute: the launch order, each block's walk, each consumer's rows and
+# tiles, the masks, and the shared-memory layout.
+
+BT = 64   # rows of the bf16 kernels' Q and KV tiles
+
+
+def _bwd_source_constants():
+    """The backward's constants, with those of hopper.cuh it includes."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text() + (CSRC / "hopper.cuh").read_text()
+    return {name: int(val) for name, val in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def _bwd_layout(d):
+    """The bf16 kernels' shapes at head_dim ``d``: dK/dV consumers sharing a
+    KV tile (each its share of the output columns), the KV tiles of a dK/dV
+    block, the consumers of a dQ block and the slots of both rings
+    (``ring_stages``)."""
+    c = _bwd_source_constants()
+    wide = d > c["WIDE_DIM"]
+    split = 2 if wide else 1
+    return dict(split=split, kv_tiles=c["CONSUMERS"] // split, consumers=c["CONSUMERS"],
+                dq_consumers=1 if wide else c["CONSUMERS"], stages=2 if wide else c["STAGES"])
+
+
+def _q_tile_end(k_lo, n, window):
+    """``q_tile_end`` at 64-row tiles: past the last Q tile the window of the
+    KV tile's last row reaches."""
+    return min(n, (k_lo + BT - 1 + window - 1) // BT + 1) if window else n
+
+
+def _kv_tile_begin(q_lo, window):
+    return max(0, q_lo - window + 1) // BT if window else 0
+
+
+def _hidden_tiles(pos, lo_a, n_a, lo_b, n_b, window):
+    """``tiles_hidden`` of the keys at rows [lo_b, +n_b) from the queries at
+    [lo_a, +n_a), both cut at the row's length."""
+    return flash_ops.tiles_hidden([int(p) for p in pos[lo_a:lo_a + n_a]],
+                                  [int(p) for p in pos[lo_b:lo_b + n_b]], window)
+
+
+def _dkdv_blocks(b, s, g, group, d, window=None, positions=None):
+    """The dK/dV kernel's blocks in launch order (block x: KV block x // (B G),
+    batch x // G % B, KV head x % G), each with its consumers: (x, batch, KV
+    head, [(KV tile, first output column, output columns, [(head in the
+    group, Q tile) computed], items taken unread)]).  A block's walk is, for
+    each head of the group, the Q tiles from its first KV tile's own to the
+    last its last live KV tile's window reaches (with ``positions``: every
+    Q tile not hidden from the block's KV rows); a consumer computes those
+    from its own KV tile's to the last its window reaches (with positions:
+    all), none where its tile lies past S."""
+    lay = _bwd_layout(d)
+    n = -(-s // BT)
+    kvt = lay["kv_tiles"]
+    out = []
+    for x in range(-(-n // kvt) * b * g):
+        kb, bg = divmod(x, b * g)
+        bi, gi = divmod(bg, g)
+        kt0 = kb * kvt
+        live = min(kvt, n - kt0)
+        pos = None if positions is None else positions[bi]
+        if pos is not None:   # the Q tiles not hidden from the block's KV rows
+            walk = flash_ops.bwd_q_tiles(kt0, s, window=window, positions=pos, block=kvt)
+        else:
+            walk = list(range(kt0, _q_tile_end((kt0 + live - 1) * BT, n, window)))
+        cons = []
+        for c in range(lay["consumers"]):
+            kt = kt0 + c // lay["split"]
+            cols = d // lay["split"]
+            if kt >= n:
+                mine = []
+            elif pos is not None:
+                mine = walk
+            else:
+                mine = [qt for qt in walk if kt <= qt < _q_tile_end(kt * BT, n, window)]
+            items = [(hh, qt) for hh in range(group) for qt in mine]
+            cons.append((kt, c % lay["split"] * cols, cols, items,
+                         group * len(walk) - len(items)))
+        out.append((x, bi, gi, cons))
+    return out
+
+
+def _dq_rows(group, d):
+    """A dQ consumer's 64 packed rows: (query row within its tile, head in
+    the group), None for the 64 % group rows no head fills."""
+    rows_s = 64 // group
+    return [(r // group, r % group) if r < rows_s * group else None for r in range(64)]
+
+
+def _dq_blocks(b, s, g, group, d, window=None, positions=None):
+    """The dQ kernel's blocks in launch order (block x: Q tile n - 1 - x //
+    (B G), batch x // G % B, KV head x % G; a Q tile is the consumers' 64 //
+    group query rows each), each with its consumers: (x, batch, KV head,
+    [(first query row, [KV tiles computed])]).  The walk: the KV tiles from
+    the first the window of the tile's first row reaches to the diagonal
+    (with ``positions``: every one not hidden from the tile's rows); a
+    consumer computes those from the first its first row's window reaches to
+    the one holding its last row (with positions: all)."""
+    lay = _bwd_layout(d)
+    rows_s = 64 // group
+    bq = lay["dq_consumers"] * rows_s
+    n_q = -(-s // bq)
+    n = -(-s // BT)
+    out = []
+    for x in range(n_q * b * g):
+        p, bg = divmod(x, b * g)
+        bi, gi = divmod(bg, g)
+        q_lo = (n_q - 1 - p) * bq
+        pos = None if positions is None else positions[bi]
+        if pos is not None:
+            walk = [t for t in range(n) if not _hidden_tiles(
+                pos, q_lo, min(bq, s - q_lo), t * BT, BT, window)]
+        else:
+            walk = list(range(_kv_tile_begin(q_lo, window), -(-min(s, q_lo + bq) // BT)))
+        cons = []
+        for c in range(lay["dq_consumers"]):
+            s0 = q_lo + c * rows_s
+            s1 = min(s, s0 + rows_s) - 1
+            if pos is not None:
+                mine = walk if s1 >= s0 else []
+            else:
+                lo = max(walk[0] if walk else 0, _kv_tile_begin(s0, window))
+                mine = [t for t in walk if s1 >= s0 and lo <= t <= s1 // BT]
+            cons.append((s0, mine))
+        out.append((x, bi, gi, cons))
+    return out
+
+
+def _emulate_bwd(q, k, v, o, lse, do, *, window=None, softcap=None, positions=None):
+    """(dq, dk, dv) as the bf16 kernels' schedule computes them (in fp32 on
+    the CPU): each dK/dV consumer's products over the items it computes, each
+    dQ consumer's over its packed rows and KV tiles, every pair masked as
+    the kernels mask it; every output row written by exactly one consumer."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    group = h // g
+    scale = d ** -0.5
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    delta = (do * o).sum(-1).permute(0, 2, 1)                      # (B, H, S)
+    rows = torch.arange(s)
+
+    def seen(bi, qr, kr):
+        """(len(qr), len(kr)) bool: query rows qr see key rows kr."""
+        if positions is None:
+            pq, pk = qr[:, None], kr[None, :]
+        else:
+            pq, pk = positions[bi][qr][:, None], positions[bi][kr][None, :]
+        vis = pk <= pq
+        return vis & (pk > pq - window) if window else vis
+
+    def grads(bi, hd, gi, qr, kr):
+        """P and dS of query rows qr of head hd against key rows kr."""
+        sc = q[bi, qr, hd] @ k[bi, kr, gi].T * scale
+        dcap = torch.ones_like(sc)
+        if softcap:
+            t = torch.tanh(sc / softcap)
+            sc, dcap = t * softcap, 1 - t * t
+        vis = seen(bi, qr, kr)
+        p = torch.where(vis, torch.exp(sc - lse[bi, hd, qr][:, None]), torch.zeros(()))
+        dp = do[bi, qr, hd] @ v[bi, kr, gi].T
+        return p, p * (dp - delta[bi, hd, qr][:, None]) * dcap
+
+    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    written = torch.zeros(b, s, g, d, dtype=torch.int64)
+    for _, bi, gi, cons in _dkdv_blocks(b, s, g, group, d, window, positions):
+        for kt, c0, cols, items, _ in cons:
+            kr = rows[kt * BT:(kt + 1) * BT]
+            if not len(kr):
+                continue
+            for hh, qt in items:
+                qr = rows[qt * BT:(qt + 1) * BT]
+                p, ds = grads(bi, gi * group + hh, gi, qr, kr)
+                dv[bi, kr, gi, c0:c0 + cols] += p.T @ do[bi, qr, gi * group + hh, c0:c0 + cols]
+                dk[bi, kr, gi, c0:c0 + cols] += ds.T @ q[bi, qr, gi * group + hh, c0:c0 + cols]
+            written[bi, kr, gi, c0:c0 + cols] += 1
+    dq_written = torch.zeros(b, s, h, dtype=torch.int64)
+    for _, bi, gi, cons in _dq_blocks(b, s, g, group, d, window, positions):
+        for s0, tiles in cons:
+            for r in _dq_rows(group, d):
+                if r is None or s0 + r[0] >= s:
+                    continue
+                qr, hd = rows[s0 + r[0]:s0 + r[0] + 1], gi * group + r[1]
+                for t in tiles:
+                    kr = rows[t * BT:(t + 1) * BT]
+                    dq[bi, qr, hd] += grads(bi, hd, gi, qr, kr)[1] @ k[bi, kr, gi]
+                dq_written[bi, qr, hd] += 1
+    assert bool((written == 1).all()) and bool((dq_written == 1).all())
+    return dq * scale, dk * scale, dv
+
+
+BWD_MIRROR_CASES = [(1, 200, 4, 4, 64, {}, None), (2, 130, 6, 2, 128, {}, None),
+                    (1, 300, 3, 1, 112, {}, None), (1, 150, 7, 1, 128, {}, None),
+                    (1, 200, 8, 1, 64, dict(window=37), None),
+                    (1, 300, 4, 2, 128, dict(window=64, softcap=2.0), None),
+                    (2, 140, 4, 2, 256, {}, None), (1, 200, 2, 2, 256, dict(window=63), None),
+                    (2, 200, 4, 4, 64, {}, "shifted"), (2, 200, 6, 2, 128, dict(window=50), "packed"),
+                    (2, 130, 4, 2, 256, {}, "packed")]
+
+
+def _tables(pattern, b, s):
+    """chip_smoke.position_tables' patterns on the CPU: even rows shifted by 5
+    (``shifted``) or three packed sequences (``packed``), odd rows at their
+    index or a permutation."""
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(b):
+        r = np.arange(s)
+        if pattern == "shifted" or i % 2:
+            out.append(r + 5 if pattern == "shifted" and i % 2 == 0 else
+                       r if pattern == "shifted" else rng.permutation(s))
+        else:
+            cut = [s // 3, s // 3, s - 2 * (s // 3)]
+            out.append(np.concatenate([np.arange(n) for n in cut]))
+    return torch.tensor(np.stack(out), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", BWD_MIRROR_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}G{c[3]}D{c[4]}"
+                         + "".join(f"-{k}{v:g}" for k, v in c[5].items()) + f"-{c[6]}")
+def test_bf16_schedule_computes_the_gradient(case):
+    """The bf16 kernels' schedule, walked as the mirrors say (launch order,
+    block walks, consumers' tiles and packed rows, masks), computes the
+    gradient of the plain version: every pair each gradient needs is
+    computed once, at GQA groups 1 to 8, head_dim 64, 112, 128 and 256
+    (whose dK/dV consumers split the columns), with a window, a softcap and
+    both tables of the training forward."""
+    b, s, h, g, d, kw, pattern = case
+    _, (q, k, v, do) = inputs(b, s, h, g, torch.float32, seed=12, d=d)
+    pos = _tables(pattern, b, s) if pattern else None
+    o, lse = attention_ref(q, k, v, return_lse=True, q_positions=pos, kv_positions=pos, **kw)
+    got = _emulate_bwd(q, k, v, o, lse, do, positions=pos, **kw)
+    want = attention_bwd_ref(q, k, v, o, lse, do, q_positions=pos, kv_positions=pos, **kw)
+    for name, a, r in zip("qkv", got, want):
+        held(f32(a), f32(r), TOL[torch.float32], f"d{name} {case}")
+
+
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
+@pytest.mark.parametrize("s,window", [(17, None), (512, None), (1000, None), (1000, 100),
+                                      (5120, 4096)])
+def test_dkdv_blocks_launch_every_kv_tile_once_heaviest_first(d, s, window):
+    """The dK/dV kernel's launch order takes every (batch, KV head, KV tile)
+    once, one consumer a tile (two at head_dim 256, each half of the
+    columns), and launches the blocks heaviest first: the items a block
+    computes never grow along the order.  The dQ kernel's likewise: every
+    (batch, KV head, Q tile) once, its KV tiles never growing.  The source
+    decodes the block index so."""
+    b, g, group = 2, 3, 2
+    n = -(-s // BT)
+    blocks = _dkdv_blocks(b, s, g, group, d, window)
+    seen = [(bi, gi, kt, c0) for _, bi, gi, cons in blocks for kt, c0, _, _, _ in cons
+            if kt < n]
+    split = _bwd_layout(d)["split"]
+    assert sorted(seen) == sorted({(bi, gi, kt, c * d // split) for bi in range(b)
+                                   for gi in range(g) for kt in range(n)
+                                   for c in range(split)})
+    work = [sum(len(items) for _, _, _, items, _ in cons) for _, _, _, cons in blocks]
+    assert all(a >= c for a, c in zip(work, work[1:]))
+    dq = _dq_blocks(b, s, g, group, d, window)
+    rows = [(bi, gi, s0 + r[0], r[1]) for _, bi, gi, cons in dq for s0, _ in cons
+            for r in _dq_rows(group, d) if r is not None and s0 + r[0] < s]
+    assert sorted(rows) == sorted({(bi, gi, r, hh) for bi in range(b) for gi in range(g)
+                                   for r in range(s) for hh in range(group)})
+    work = [sum(len(tiles) for _, tiles in cons) for _, _, _, cons in dq]
+    assert all(a >= c for a, c in zip(work, work[1:]))
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    for line in ("const int kb = blockIdx.x / (B * G);", "const int bg = blockIdx.x % (B * G);",
+                 "const int qt = n_q - 1 - (int)(blockIdx.x / (B * G));",
+                 "const int b = bg / G;", "const int g = bg % G;"):
+        assert line in text, line
+
+
+@pytest.mark.parametrize("s,window,group", [(100, 1, 1), (130, 17, 3), (1000, 64, 4),
+                                            (1000, 100, 7), (1024, 63, 8), (512, 4096, 3),
+                                            (5120, 4096, 2), (300, None, 8)])
+def test_bf16_bwd_walks_are_the_tiles_the_mask_needs(s, window, group):
+    """At the bf16 kernels' tiles: the Q tiles each dK/dV consumer computes
+    are exactly those its 64 KV rows need (``bwd_q_tiles``), its block's walk
+    their union; the KV tiles each dQ block walks are exactly those its
+    packed Q tile's query rows need (``bwd_kv_tiles`` at the tile's rows),
+    and each consumer's those of its own rows."""
+    n = -(-s // BT)
+    mask = torch.zeros(n * BT, n * BT, dtype=torch.bool)
+    mask[:s, :s] = _mask(s, s, True, window, "cpu")
+    for d in (128, 256):
+        for _, _, _, cons in _dkdv_blocks(1, s, 1, 1, d, window):
+            union = set()
+            for kt, _, _, items, _ in cons:
+                need = mask[:, kt * BT:(kt + 1) * BT].any(1).reshape(n, BT).any(1)
+                mine = [qt for _, qt in items]
+                assert mine == need.nonzero().flatten().tolist()
+                if kt < n:
+                    assert mine == list(flash_ops.bwd_q_tiles(kt, s, window=window))
+                union |= set(mine)
+        rows_s = 64 // group
+        bq = _bwd_layout(d)["dq_consumers"] * rows_s
+        n_q = -(-s // bq)
+        for x, _, _, cons in _dq_blocks(1, s, 1, group, d, window):
+            qt = n_q - 1 - x
+            walk = list(flash_ops.bwd_kv_tiles(qt, window=window, q_rows=bq, s=s))
+            need = mask[qt * bq:min(s, (qt + 1) * bq)].any(0).reshape(n, BT).any(1)
+            assert walk == need.nonzero().flatten().tolist()
+            for s0, tiles in cons:
+                need = mask[s0:min(s, s0 + rows_s)].any(0).reshape(n, BT).any(1)
+                assert tiles == need.nonzero().flatten().tolist()
+
+
+@pytest.mark.parametrize("group", [1, 3, 4, 7, 8])
+def test_dq_packed_rows_hold_whole_query_rows(group):
+    """A dQ consumer's 64 packed rows: row r is query row r // group of head
+    r % group of the group, the 64 % group left over never loaded or
+    written; its Q and dO boxes are 64 // group rows of the group's heads,
+    and the block's Q tile is its consumers' rows (one consumer above
+    head_dim 128)."""
+    rows = _dq_rows(group, 128)
+    rows_s = 64 // group
+    assert [r for r in rows if r is not None] == [(i, hh) for i in range(rows_s)
+                                                  for hh in range(group)]
+    assert rows.count(None) == 64 % group
+    for d in (64, 112, 128, 256):
+        assert _bwd_layout(d)["dq_consumers"] == (1 if d > 128 else 2)
+    text = " ".join((CSRC / "flash_attention_bwd.cu").read_text().split())
+    assert "const int rows_s = MMA_ROWS / group;" in text
+    assert "sr[i] = s0 + r / group;" in text and "hd[i] = g * group + r % group;" in text
+    assert "live[i] = r < rows_s * group && sr[i] < S;" in text
+    assert "!tensor_map(&tm_qp, q, D, H, S, B, D, qrow, qbatch, group, rows_s)" in text
+
+
+@pytest.mark.parametrize("ext", [False, True], ids=["plain", "ext"])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
+def test_bwd_kernels_shared_memory_fits_a_block(d, ext):
+    """Each bf16 backward kernel's shared memory fits the 232,448 bytes a
+    block may take: dK/dV its KV tiles, the ring of Q and dO tiles with their
+    lse and delta values, the barriers and the alignment slack; dQ its
+    consumers' Q and dO, the ring of K and V tiles, the barriers and the
+    slack; the same layout with and without the window and softcap (the
+    ``_ext_`` kernels share the bodies), and the registers of a producer and
+    two consumers fit an SM's 65,536."""
+    c = _bwd_source_constants()
+    lay = _bwd_layout(d)
+    tile = -(-d // c["BOX_COLS"]) * c["BOX_BYTES"]
+    ns = lay["stages"]
+    dkdv = ((2 * lay["kv_tiles"] + 2 * ns) * tile + 2 * ns * c["STATS_BYTES"]
+            + c["BAR_BYTES"] + c["SMEM_ALIGN"])
+    dq = (2 * lay["dq_consumers"] + 2 * ns) * tile + c["BAR_BYTES"] + c["SMEM_ALIGN"]
+    assert max(dkdv, dq) <= c["SMEM_LIMIT"] == 232448
+    # a third slot would pass the block's shared memory at head_dim 256
+    assert d <= 128 or (2 * lay["kv_tiles"] + 2 * (ns + 1)) * tile > c["SMEM_LIMIT"]
+    assert 8 * (1 + 2 * c["STAGES"]) <= c["BAR_BYTES"]
+    # a Q tile's 64 lse (or delta) values from the 16-byte boundary below them
+    assert c["STATS_BOX"] >= BT + 3 and 4 * c["STATS_BOX"] % 16 == 0
+    assert 4 * c["STATS_BOX"] <= c["STATS_BYTES"]
+    assert 128 * (c["PRODUCER_REGS"] + c["CONSUMERS"] * c["CONSUMER_REGS"]) <= 65536
+    text = " ".join((CSRC / "flash_attention_bwd.cu").read_text().split())
+    assert ("return (long long)(2 * dkdv_kv_tiles<D>() + 2 * ring_stages<D>()) * tile_bytes<D>() + "
+            "2 * ring_stages<D>() * STATS_BYTES + BAR_BYTES + SMEM_ALIGN;") in text
+    assert ("return (long long)(2 * dq_consumers<D>() + 2 * ring_stages<D>()) * tile_bytes<D>() + "
+            "BAR_BYTES + SMEM_ALIGN;") in text
+    assert "return D > WIDE_DIM ? 2 : STAGES;" in text
+    body = "dkdv_wgmma_body<D, true>" if ext else "dkdv_wgmma_body<D, false>"
+    assert body in text and ("dq_wgmma_body<D, true>" if ext else "dq_wgmma_body<D, false>") in text
+    assert text.count("const int smem_kv = (int)dkdv_smem_bytes<D>(), "
+                      "smem_q = (int)dq_smem_bytes<D>();") == 1
+
+
+def test_the_chip_check_names_every_bf16_backward_kernel(smoke):
+    """``chip_smoke.py``'s SASS check covers the bf16 backward kernels: the
+    dK/dV and dQ kernels without and with a window or softcap and the
+    position variant's, at each head size, each a kernel of the sources."""
+    names = smoke.FLASH_BWD_WGMMA_KERNELS
+    assert len(names) == 24 and len(set(names)) == 24
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    for name in {n.split("<")[0] for n in names}:
+        assert f"\n{name}(const __grid_constant__ CUtensorMap tm_q," in text, name
+
+
+def test_bf16_bwd_consumers_wait_for_every_load_they_read():
+    """Each bf16 backward body's consumers wait on every barrier its
+    producer arms before reading what it guards: the block's resident tiles
+    (K and V in dK/dV, Q and dO in dQ) once, each ring slot's tile before
+    its products, the slot freed after them; a consumer that read a tile
+    before its copy landed would compute on the previous block's data."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    for body, resident in (("dkdv_wgmma_body", "kv_full"), ("dq_wgmma_body", "q_full")):
+        start = text.index(f"__device__ __forceinline__ void {body}(")
+        code = text[start:text.index("\n}\n", start)]
+        consumer = code[code.index("// a consumer warpgroup"):]
+        producer = code[code.index("// the producer"):code.index("// a consumer warpgroup")]
+        assert f"mbar_expect_tx({resident}," in producer
+        assert consumer.count(f"mbar_wait({resident}, 0);") == 1
+        first_product = consumer.index("wgmma_fence();")
+        assert consumer.index(f"mbar_wait({resident}, 0);") < first_product
+        assert "mbar_expect_tx(full(st)," in producer and "mbar_wait(empty(st)," in producer
+        assert consumer.count("mbar_wait(full(st") >= 2          # computed and passed items
+        assert "mbar_arrive(empty(st), lane == 0);" in consumer

@@ -340,7 +340,8 @@ def test_cpu_calls_launch_no_kernel():
 
 
 def _flash_source_constants():
-    text = (CSRC / "flash_attention.cu").read_text()
+    """The forward's constants, with those of hopper.cuh it includes."""
+    text = (CSRC / "flash_attention.cu").read_text() + (CSRC / "hopper.cuh").read_text()
     return {name: int(val) for name, val in
             re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
@@ -364,7 +365,8 @@ def test_flash_layout_constants_match_the_source(head_dim):
     assert c["SMEM_ALIGN"] == port_orch.FLASH_SMEM_ALIGN
     assert c["SMEM_LIMIT"] == port_orch.H100_SMEM_PER_BLOCK
     assert 128 * (c["PRODUCER_REGS"] + c["CONSUMERS"] * c["CONSUMER_REGS"]) <= 65536
-    text = " ".join((CSRC / "flash_attention.cu").read_text().split())
+    text = " ".join(((CSRC / "flash_attention.cu").read_text()
+                     + (CSRC / "hopper.cuh").read_text()).split())
     assert "return (D + BOX_COLS - 1) / BOX_COLS;" in text
     assert "return col_blocks<D>() * BOX_BYTES;" in text
     assert "return D > WIDE_DIM ? 1 : CONSUMERS;" in text

@@ -565,7 +565,10 @@ def test_the_sources_walk_as_the_wrappers_mirror():
     assert bwd.count("const bool by_pos = EXT && POS_TABLE;") == 4   # four bodies
     bwd_tu = (CSRC / "flash_attention_bwd_pos.cu").read_text()
     assert "#define DCO_FLASH_POS" in bwd_tu and '#include "flash_attention_bwd.cu"' in bwd_tu
-    assert bwd.count("pair_hidden<") == 4
+    # the fp32 bodies and the bf16 dK/dV walk test a 64-row Q tile against
+    # their KV rows; the bf16 dQ walk tests each KV tile against its Q tile's
+    assert bwd.count("pair_hidden<") == 3
+    assert "if (!dco_positions::tiles_hidden(q_mn, q_mx, k_mn, k_mx, window)) break;" in bwd
 
 
 # ---------------------------------------------------------------------------
