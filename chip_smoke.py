@@ -11,9 +11,10 @@ run with a non-zero exit code:
             power limit as nvidia-smi gives them.
 2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``; the
             library's ``cuobjdump -sass`` listing must show every bf16 flash
-            kernel, the forward's and the backward's, issuing wgmma fed by
-            TMA (HGMMA and UTMALDG) and no mma.sync (HMMA): the
-            ``flash_sass`` line, read after the kernels phases.
+            kernel, the forward's and the backward's, and every walk kernel
+            of the SSD backward issuing wgmma fed by TMA (HGMMA and UTMALDG)
+            and no mma.sync (HMMA): the ``flash_sass`` line, read after the
+            kernels phases.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
             card, over dtypes, head sizes, ragged and mostly-zero lengths,
             lengths at the edges of a work unit, the poisoned dead region and
@@ -45,7 +46,8 @@ run with a non-zero exit code:
             final-state gradient, and on strided views through
             ``SSDScanFn``, by the same rule at 1e-4 (``ssd_grad_err``),
             which planted faults must fail; timed at the training shapes of
-            mamba2-2.7b and zamba2-7b.  The decode kernel's slice variant
+            mamba2-2.7b and zamba2-7b, two calls bit-identical at each.  The
+            decode kernel's slice variant
             (``decode_attention_lse``, ``csrc/decode_attention_lse.cu``) at
             every decode case, cut into three slices at rows off any unit
             and one past the cache: each slice's output and log-sum-exp
@@ -532,6 +534,13 @@ FLASH_BWD_WGMMA_KERNELS = tuple(
                  "dq_wgmma_kernel", "dq_wgmma_ext_kernel", "dq_wgmma_pos_kernel"))
 
 
+# the SSD backward's walk kernels (training): each product is wgmma (TF32),
+# x and dy arrive by TMA; at every (P, N) the backward takes
+SSD_BWD_WGMMA_KERNELS = tuple(
+    f"{walk}_walk_kernel<Li{p}ELi{n}>" for p in (32, 64) for n in (16, 32, 64, 128)
+    for walk in ("c", "b", "x"))
+
+
 def cuobjdump():
     """The CUDA toolkit's ``cuobjdump``, or the copy Triton ships; None where
     neither is found."""
@@ -563,9 +572,8 @@ def sass_counts(dump, names):
 
 
 def sass_faults(counts, names):
-    """What keeps a listing's bf16 flash kernels from being the Hopper
-    design: a kernel missing from it, or one without HGMMA or UTMALDG, or
-    with HMMA."""
+    """What keeps a listing's kernels from being the Hopper design: a kernel
+    missing from it, or one without HGMMA or UTMALDG, or with HMMA."""
     faults = [f"{n}: not in the library" for n in names if n not in counts]
     for name, c in counts.items():
         if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
@@ -590,18 +598,20 @@ def start_flash_sass(library):
 
 def finish_flash_sass(started):
     """``start_flash_sass``'s listing: every bf16 flash kernel, forward
-    (FLASH_WGMMA_KERNELS) and backward (FLASH_BWD_WGMMA_KERNELS), issues
-    wgmma fed by TMA (HGMMA and UTMALDG) and no mma.sync (HMMA)."""
+    (FLASH_WGMMA_KERNELS) and backward (FLASH_BWD_WGMMA_KERNELS), and every
+    walk kernel of the SSD backward (SSD_BWD_WGMMA_KERNELS) issues wgmma fed
+    by TMA (HGMMA and UTMALDG) and no mma.sync (HMMA)."""
     proc, path = started
     _, err = proc.communicate()
     check(proc.returncode == 0, f"cuobjdump failed (exit {proc.returncode}): {err[-2000:]}")
     dump = path.read_text()
     out = {}
-    for what, names in (("forward", FLASH_WGMMA_KERNELS), ("backward", FLASH_BWD_WGMMA_KERNELS)):
+    for what, names in (("forward", FLASH_WGMMA_KERNELS), ("backward", FLASH_BWD_WGMMA_KERNELS),
+                        ("ssd_backward", SSD_BWD_WGMMA_KERNELS)):
         counts = sass_counts(dump, names)
         faults = sass_faults(counts, names)
-        check(not faults, f"the bf16 flash {what} kernels are not wgmma fed by TMA: "
-              + "; ".join(faults))
+        check(not faults, f"the {what} kernels (bf16 flash; the SSD backward's walks) are not "
+              "wgmma fed by TMA: " + "; ".join(faults))
         out[what] = dict(kernels=len(counts), **{op: sum(c[op] for c in counts.values())
                                                  for op in ("HGMMA", "UTMALDG", "HMMA")})
     emit("flash_sass", **out)
@@ -2193,17 +2203,29 @@ def check_ssd_bwd(gen):
     return worst
 
 
+def ssd_bwd_counts(b, s, h, g, p, n):
+    """(FLOP, bytes) of the SSD gradient at (B, S, H, G, P, N) as
+    ``ssd_bwd_record`` counts them for its bound."""
+    q = SSD_COUNT_Q
+    n_flops = b * h * (-(-s // q)) * (q * q * (2 * p + 3 * n) + 10 * q * p * n)
+    n_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * g * n)
+    return n_flops, n_bytes
+
+
 def ssd_bwd_record(gen, flush, path, ptxas=None):
     """The backward kernel's record at the training shape of the train phase
     ``path`` (one microbatch, ``SSD_BWD_SHAPES``, fp32 as ``mamba2_block``
     passes it), with its kernels' registers where ``ptxas`` is given:
-    its time (the three launches of one call) beside the plain version's,
-    ``torch.autograd.grad`` through ``ssd_ref``; no library call computes an
-    SSD gradient.  The bound: the larger of the bytes moved once (x, dt, A,
+    its time (the ``BWD_KERNELS`` launches of one call) beside the plain
+    version's, ``torch.autograd.grad`` through ``ssd_ref``; no library call
+    computes an SSD gradient.  Two calls on the same inputs must give
+    bit-identical gradients (no atomics).  The bound: the larger of the
+    bytes moved once (x, dt, A,
     B, C and dy read; dx, ddt, dA, dB and dC written) over the card's memory
     rate and the operations over 3xTF32's rate, counted by ``SSD_COUNT_Q``'s
     convention extended to the products the gradient needs (not the
-    kernel's, which forms dY X^T once in each walk): per (batch, head,
+    kernel's, whose two consumers of a walk each form its 64 x 64 scores and
+    whose three walks each carry a state): per (batch, head,
     sub-chunk of Q rows) two causal Q x Q products over P (dY X^T,
     (C B^T o L)^T dY) and three over N (C B^T, (dY X^T o L) B,
     (dY X^T o L)^T C), at Q^2 K FLOP each (half the square), and five of
@@ -2218,9 +2240,13 @@ def ssd_bwd_record(gen, flush, path, ptxas=None):
     x, dt, A, B, C = ssd_inputs(gen, b, s, h, g, p, n, f32)
     dy = randn(gen, (b, s, h, p), f32)
     got = ssd_scan_bwd(x, dt, A, B, C, dy)[:5] + (None,)
+    again = ssd_scan_bwd(x, dt, A, B, C, dy)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, c) for a, c in zip(got[:5], again[:5]))
+    check(identical, f"ssd bwd at {path}'s training shape: two calls differ")
     want = ssd_bwd_ref(x, dt, A, B, C, dy)[:5] + (None,)
     held = check_ssd_grads(got, want, SSD_TOL[f32], "ssd bwd at the training shape")
-    del got, want
+    del got, again, want
     leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
     y_ref, _ = ssd_ref(*leaves, chunk)
 
@@ -2228,8 +2254,7 @@ def ssd_bwd_record(gen, flush, path, ptxas=None):
         return torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)
 
     q = SSD_COUNT_Q
-    n_flops = b * h * (-(-s // q)) * (q * q * (2 * p + 3 * n) + 10 * q * p * n)
-    n_bytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel() + 4 * B.numel())
+    n_flops, n_bytes = ssd_bwd_counts(b, s, h, g, p, n)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_flops / PEAK_FP32_ACCURATE_MMA * 1e3
     ms = time_ms_events(lambda: ssd_scan_bwd(x, dt, A, B, C, dy), flush)
@@ -2244,7 +2269,10 @@ def ssd_bwd_record(gen, flush, path, ptxas=None):
         "path": path,
         "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk,
                   "count_q": q, "dtype": "float32"},
-        **kernel_usage(ptxas, (f"fwd_walk_kernel<Li{p}ELi{n}>", f"rev_walk_kernel<Li{p}ELi{n}>")),
+        **kernel_usage(ptxas, (f"prep_kernel<Li{n}>", f"c_walk_kernel<Li{p}ELi{n}>",
+                               f"b_walk_kernel<Li{p}ELi{n}>", f"x_walk_kernel<Li{p}ELi{n}>",
+                               "scan_kernel", "head_sum_kernel")),
+        "bit_identical_over_two_calls": identical,
         "flop": n_flops, "bytes": n_bytes,
         "max_abs_err": max(e for _, e in held.values()), "tol": SSD_TOL[f32],
         "tol_rule": f"|err| <= tol (|ref| + scale), scale: the larger RMS of the "

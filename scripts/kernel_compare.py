@@ -15,6 +15,9 @@
         git show <rev>:src/repro_torch/csrc/$f > reports/base_bwd/$f; done
     python3 scripts/kernel_compare.py --kernel flash_bwd --baseline reports/base_bwd
 
+    git show 377bd0d:src/repro_torch/csrc/ssd_scan_bwd.cu > reports/base_ssd_bwd/ssd_scan_bwd.cu
+    python3 scripts/kernel_compare.py --kernel ssd_bwd --baseline reports/base_ssd_bwd
+
 (``bf16_tiles.cuh`` for a tree before the Hopper backward, whose kernels were
 built on it; a later tree's sources need ``hopper.cuh`` instead.)
 
@@ -51,7 +54,13 @@ the library's ``autograd.grad`` through ``scaled_dot_product_attention`` (its
 time as timed, and its kernels' device time by the profiler beside this
 tree's, in all and by kernel: ``library_device_ms``, ``device_ms``,
 ``*kernels_ms``), the bound, two calls checked bit-identical, the host
-microseconds a call and both builds' registers and spills.  Needs one CUDA device and nvcc.
+microseconds a call and both builds' registers and spills.  The SSD backward
+(``--kernel ssd_bwd``): commit 377bd0d's FMA kernel (its three-launch C
+interface, ``Baseline.ssd_bwd_entry``) against this tree's at both training
+shapes of ``chip_smoke.SSD_BWD_SHAPES`` (``ssd_bwd_compare``): both against
+the plain version, two calls bit-identical, times in turns with CUDA events,
+the plain version's, the bound, host microseconds a call and both builds'
+registers and spills.  Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -195,6 +204,36 @@ class Baseline:
             cs.check(rc == 0, f"flash backward entry failed ({rc})")
         return call, (dq, dk, dv)
 
+    @staticmethod
+    def ssd_bwd_entry(fn, x, dt, A, B, C, dy):
+        """``fn``, the ``dco_ssd_scan_bwd`` of commit 377bd0d's FMA kernel
+        (three launches), bound to its arguments: no initial state, no
+        final-state gradient, its scratch allocated here.  Returns (the
+        call, (dx, ddt, dA, dB, dC))."""
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+        f32 = dict(dtype=torch.float32, device=x.device)
+        outs = (torch.empty((b, s, h, p), **f32), torch.empty((b, s, h), **f32),
+                torch.empty((h,), **f32), torch.empty((b, s, g, n), **f32),
+                torch.empty((b, s, g, n), **f32))
+        scratch = (torch.empty((b, h, p, n), **f32), torch.empty((b, s, h, n), **f32),
+                   torch.empty((b, s, h, n), **f32),
+                   torch.empty((b, h), dtype=torch.float64, device=x.device),
+                   torch.empty((b, h), dtype=torch.float64, device=x.device))
+        st = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                                      *C.stride()[:3])
+        args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), None,
+                dy.data_ptr(), None, *(t.data_ptr() for t in outs),
+                *(t.data_ptr() for t in scratch), b, s, h, g, p, n, st,
+                torch.cuda.current_stream().cuda_stream)
+
+        def call():
+            rc = fn(*args)
+            cs.check(rc == 0, f"baseline ssd backward entry failed ({rc})")
+        call.buffers = outs + scratch   # alive as long as the call: the kernel writes them
+        return call, outs
+
     def ssd(self, x, dt, A, B, C):
         """The SSD interface (fp32 dt and A, no initial state)."""
         b, s, h, p = x.shape
@@ -232,9 +271,9 @@ def host_us(fn, calls=200):
     return (t1 - t0) / calls * 1e6
 
 
-def host_in_turns(new, old):
+def host_in_turns(new, old, calls=200):
     """``host_us`` of ``new`` and ``old``, timed old, new, new, old."""
-    turns = [host_us(fn) for fn in (old, new, new, old)]
+    turns = [host_us(fn, calls) for fn in (old, new, new, old)]
     return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
 
 
@@ -485,22 +524,124 @@ def flash_bwd_compare(base, gen, flush):
         del q, k, v, do, o, lse, ql, kl, vl, lib_out
 
 
-def bwd_ptxas(base):
-    """Registers and spills of both builds' backward kernels (``-Xptxas -v``):
-    {"new": {kernel: usage}, "baseline": {...}}."""
+def bwd_ptxas(base, marks=("dkdv", "dq_", "delta_kernel")):
+    """Registers and spills of both builds' kernels whose names hold one of
+    ``marks`` (``-Xptxas -v``; the flash backward's by default): {"new":
+    {kernel: usage}, "baseline": {...}}."""
     from repro_torch.kernels import build
     logs = {"new": Path(build.build(verbose=True)).with_suffix(".log"),
             "baseline": Path(base.path).with_suffix(".log")}
     return {which: {n: u for n, u in cs.ptxas_usage(path.read_text()).items()
-                    if "dkdv" in n or "dq_" in n or "delta_kernel" in n}
+                    if any(m in n for m in marks)}
             for which, path in logs.items()}
+
+
+SSD_BWD_MARKS = ("walk_kernel", "prep_kernel", "scan_kernel", "head_sum_kernel")
+
+
+def ssd_bwd_entry(x, dt, A, B, C, dy):
+    """This tree's ``dco_ssd_scan_bwd`` bound to its arguments as
+    ``ops.ssd_scan_bwd`` allocates them (no initial state, no final-state
+    gradient): a call of it is the C entry alone.  Returns (the call, (dx,
+    ddt, dA, dB, dC))."""
+    from repro_torch.kernels.ssd_scan import ops
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    f64 = dict(dtype=torch.float64, device=x.device)
+    outs = (torch.empty((b, s, h, p), **f32), torch.empty((b, s, h), **f32),
+            torch.empty((h,), **f32), torch.empty((b, s, g, n), **f32),
+            torch.empty((b, s, g, n), **f32))
+    scratch = (torch.empty((b, h, p, n), **f32), torch.empty((b, s, h, n), **f32),
+               torch.empty((b, s, h, n), **f32), torch.empty((b, h), **f64),
+               torch.empty((b, h), **f64), torch.empty((6, b, h, s), **f64),
+               torch.empty((b * g * -(-s // ops.SUB_CHUNK) * ops.bwd_prep_bytes(n),),
+                           dtype=torch.uint8, device=x.device))
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), None,
+            dy.data_ptr(), None, *(t.data_ptr() for t in outs),
+            *(t.data_ptr() for t in scratch), b, s, h, g, p, n, ops._strides(x, dt, B, C),
+            torch.cuda.current_stream().cuda_stream)
+    fn = ops._kernel("dco_ssd_scan_bwd")
+
+    def call():
+        rc = fn(*args)
+        cs.check(rc == 0, f"ssd backward entry failed ({rc})")
+    call.buffers = outs + scratch   # alive as long as the call: the kernel writes them
+    return call, outs
+
+
+def ssd_bwd_compare(base, gen, flush):
+    """One line a training shape of ``chip_smoke.SSD_BWD_SHAPES``: both
+    backwards against the plain version ``ssd_bwd_ref`` by
+    ``chip_smoke.ssd_grad_err``, this tree's checked bit-identical over two
+    calls, each one's time in turns (old, new, new, old;
+    ``chip_smoke.time_ms_events``), the plain version's (autograd through
+    ``ssd_ref``), the bound (``chip_smoke.ssd_bwd_counts``), TFLOP/s of the
+    counted operations, and the host microseconds a call: the wrapper
+    ``ssd_scan_bwd`` whole, and each library's C entry alone in turns."""
+    from repro_torch.kernels import ssd_bwd_ref
+    from repro_torch.kernels import ssd_ref
+    from repro_torch.kernels import ssd_scan_bwd
+    f32 = torch.float32
+    for path, shape in cs.SSD_BWD_SHAPES.items():
+        b, s, h, g, p, n = (shape[k] for k in ("b", "s", "h", "g", "p", "n"))
+        x, dt, A, B, C = cs.ssd_inputs(gen, b, s, h, g, p, n, f32)
+        dy = cs.randn(gen, (b, s, h, p), f32)
+        old_call, old_out = base.ssd_bwd_entry(base.lib.dco_ssd_scan_bwd, x, dt, A, B, C, dy)
+
+        def new():
+            return ssd_scan_bwd(x, dt, A, B, C, dy)
+
+        def old():
+            old_call()
+            return old_out
+
+        want = ssd_bwd_ref(x, dt, A, B, C, dy)[:5] + (None,)
+        got = new()
+        again = new()
+        torch.cuda.synchronize()
+        identical = all(torch.equal(u, v) for u, v in zip(got[:5], again[:5]))
+        cs.check(identical, f"ssd bwd {path}: two calls differ")
+        held = cs.check_ssd_grads(got[:5] + (None,), want, cs.SSD_TOL[f32], f"ssd bwd {path}")
+        base_held = cs.check_ssd_grads(tuple(old()) + (None,), want, cs.SSD_TOL[f32],
+                                       f"baseline ssd bwd {path}")
+        del got, again, want
+        n_flops, n_bytes = cs.ssd_bwd_counts(b, s, h, g, p, n)
+        t_bytes = n_bytes / cs.PEAK_BYTES * 1e3
+        t_ops = n_flops / cs.PEAK_FP32_ACCURATE_MMA * 1e3
+        turns = [cs.time_ms_events(fn, flush) for fn in (old, new, new, old)]
+        ms, base_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+        y_ref, _ = ssd_ref(*leaves, shape["chunk"])
+        plain_ms = cs.time_ms_events(
+            lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True), flush)
+        del y_ref, leaves
+        # 50 calls: 300 launches of this tree's kernel stay inside the launch
+        # queue, so the host does not wait on the card (200 calls did)
+        entry_new = ssd_bwd_entry(x, dt, A, B, C, dy)[0]
+        entry, baseline_entry = host_in_turns(entry_new, old_call, calls=50)
+        rec = {"shape_name": path, "B": b, "S": s, "H": h, "G": g, "P": p, "N": n,
+               "worst_ratio": {k: r for k, (r, _) in held.items()},
+               "baseline_worst_ratio": {k: r for k, (r, _) in base_held.items()},
+               "bit_identical_over_two_calls": identical,
+               "ms_in_turns": ms, "baseline_ms": base_ms, "turns_ms": turns,
+               "speedup": base_ms / ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "tflops": n_flops / ms * 1e-9, "baseline_tflops": n_flops / base_ms * 1e-9,
+               "host_us": {"wrapper": host_us(new, 50), "entry": entry,
+                           "baseline_entry": baseline_entry}}
+        rec["device_ms"], rec["kernels_ms"] = device_ms(new)
+        print(json.dumps(rec), flush=True)
+        del x, dt, A, B, C, dy
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR", required=True,
                     help="directory holding the earlier kernels' sources")
-    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "flash", "flash_bwd"),
+    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "flash", "flash_bwd",
+                                          "ssd_bwd"),
                     default="both")
     ap.add_argument("--baseline-chunks", choices=("mma_sync", "this_tree"), default="mma_sync",
                     help="flash: the Q tiles a chunk of the earlier kernel, as the mma.sync "
@@ -518,7 +659,8 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    base = Baseline(args.baseline, verbose=args.kernel == "flash_bwd", chunks=args.baseline_chunks)
+    base = Baseline(args.baseline, verbose=args.kernel in ("flash_bwd", "ssd_bwd", "ssd"),
+                    chunks=args.baseline_chunks)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -535,6 +677,8 @@ def main() -> None:
                 lambda: decode_attention(q, k, v, cl, rows_per_split=r), flush)
                 for r in FIXED_ROWS}
             print(json.dumps({"shape_name": name, **rec}), flush=True)
+    if args.kernel == "ssd":
+        print(json.dumps({"ptxas": bwd_ptxas(base, ("ssd_scan_kernel",))}), flush=True)
     if args.kernel in ("ssd", "both"):
         for s in cs.SSD_PROMPTS:
             x, dt, A, B, C = cs.ssd_inputs(gen, 1, s, 80, 1, 64, 128, f32)
@@ -552,6 +696,10 @@ def main() -> None:
     if args.kernel == "flash_bwd":
         print(json.dumps({"ptxas": bwd_ptxas(base)}), flush=True)
         flash_bwd_compare(base, gen, flush)
+    if args.kernel == "ssd_bwd":
+        print(json.dumps({"ptxas": bwd_ptxas(base, SSD_BWD_MARKS + ("fwd_walk", "rev_walk"))}),
+              flush=True)
+        ssd_bwd_compare(base, gen, flush)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,15 @@
 
     python3 scripts/kernel_timeline.py            # both kernels, at the serving shapes
     python3 scripts/kernel_timeline.py --kernel ssd
+    python3 scripts/kernel_timeline.py --kernel ssd_bwd --baseline reports/base_ssd_bwd
+    python3 scripts/kernel_timeline.py --kernel wgmma
 
-Builds instrumented copies of ``src/repro_torch/csrc/decode_attention.cu`` and
-``ssd_scan.cu`` (under ``build/timeline/``; the sources in the tree are not
-touched): at fixed places, marked by comments of the source, a thread reads the
-card's ``%globaltimer`` (nanoseconds) into a device array that the host reads
-back after one launch.  One JSON line per shape:
+Builds instrumented copies of ``src/repro_torch/csrc/decode_attention.cu``,
+``ssd_scan.cu`` and ``ssd_scan_bwd.cu`` (under ``build/timeline/``; the
+sources in the tree are not touched): at fixed places, marked by comments of
+the source, a thread reads the card's ``%globaltimer`` (nanoseconds) into a
+device array that the host reads back after one launch.  One JSON line per
+shape:
 
 * decode (thread 0 of every block, its first work item): from the earliest
   block start to q in registers, to the first step's rows landed, to the end of
@@ -20,7 +23,19 @@ back after one launch.  One JSON line per shape:
 * mma (``--kernel mma``): the rate of back-to-back ``mma.sync`` products with
   no loads, TF32 m16n8k8 (the SSD kernel's) and bf16 m16n8k16 (the flash
   kernel's), 8 independent accumulators a warp, 4 to 16 warps an SM, one
-  block on each SM: the ceiling of a kernel built on ``mma.sync``.
+  block on each SM: the ceiling of a kernel built on ``mma.sync``;
+* SSD backward (``--kernel ssd_bwd [--baseline DIR]``): at both training
+  shapes, commit 377bd0d's FMA kernel from DIR/ssd_scan_bwd.cu (thread 0 of
+  block (0, 0) at each phase of each sub-chunk of its two walks, and every
+  block's first and last stamp: each kernel's span), then this tree's wgmma
+  kernel (the first thread of each consumer warpgroup of block (0, 0) in
+  each of the three walks); the median nanoseconds of each phase a
+  sub-chunk;
+* wgmma (``--kernel wgmma``): TF32 wgmma with a register A and a K-major
+  swizzled B against float64 (the fragment layout the SSD backward uses,
+  with the K order permuted on both sides, and 3xTF32), whether the tensor
+  cores truncate or round an fp32 operand, and the rate of the backward's
+  product() pattern with no loads (two warpgroups an SM).
 
 The stamps cost a few instructions at each place; the launch is timed with CUDA
 events beside the stamps.  Needs one CUDA device and nvcc, like the kernels.
@@ -46,7 +61,7 @@ import chip_smoke
 
 STAMP = ('do {{ if ({cond}) {{ unsigned long long t_; asm volatile("mov.u64 %0, '
          '%%globaltimer;" : "=l"(t_) :: "memory"); dco_timeline[{index}] = t_; }} }} while (0);')
-SLOTS = 1 << 16
+SLOTS = 1 << 17
 
 # (anchor line in the source, where the stamp goes, stamp number, extra condition)
 FIRST = " && item == blockIdx.x"
@@ -80,13 +95,20 @@ SSD_PHASES = ["C B^T", "C state^T + barrier", "scores + barrier", "y", "state",
               "barrier + next rows"]
 
 
-def instrument(src: str, marks, cond: str, index: str) -> str:
+def instrument(src: str, marks, cond: str = "", index: str = "") -> str:
+    """``src`` with a stamp at each mark: (anchor, "before" or "after", k,
+    extra condition), the stamp's condition ``cond`` + extra and its slot
+    ``index`` with k filled in; or (anchor, where, condition, slot) where
+    ``cond`` is empty, each mark with its own."""
     out = src.replace("namespace {\n", "namespace {\n__device__ unsigned long long "
                       f"dco_timeline[{SLOTS}];\n", 1)
     for anchor, where, k, extra in marks:
-        if out.count(anchor) != 1:
+        every = where.endswith("*")   # at each place the anchor stands (one per walk)
+        where = where.rstrip("*")
+        if out.count(anchor) != 1 and not (every and out.count(anchor) > 1):
             raise RuntimeError(f"anchor not found once in the source: {anchor!r}")
-        stamp = "  " + STAMP.format(cond=cond + extra, index=index.format(k=k))
+        stamp = "  " + (STAMP.format(cond=cond + extra, index=index.format(k=k)) if cond
+                        else STAMP.format(cond=k, index=extra))
         out = out.replace(anchor, f"{stamp}\n{anchor}" if where == "before"
                           else f"{anchor}\n{stamp}")
     return out + ('\nextern "C" int dco_timeline_read(void* host) {\n'
@@ -99,21 +121,25 @@ def instrument(src: str, marks, cond: str, index: str) -> str:
                   "\n}\n")
 
 
-def build(name: str, src: str) -> ctypes.CDLL:
+def build(name: str, src: str, headers: Path = None) -> ctypes.CDLL:
+    """``src`` built alone into a library of its own (with the ``*.cuh`` of
+    ``headers`` beside it)."""
     from repro_torch.kernels import build as kbuild
     d = kbuild.build_dir() / "timeline" / name
     d.mkdir(parents=True, exist_ok=True)
     (d / f"{name}.cu").write_text(src)
+    for hdr in sorted(headers.glob("*.cuh")) if headers else ():
+        (d / hdr.name).write_text(hdr.read_text())
     return ctypes.CDLL(str(kbuild.build(csrc=d)))
 
 
 def on_wrapper(ops, lib, name: str) -> None:
     """Point the wrapper module ``ops`` at ``name`` of the instrumented
     library ``lib``, which has the same C interface as the package's own."""
-    real = ops._kernel()
+    real = ops._kernel(name)
     fn = getattr(lib, name)
     fn.argtypes, fn.restype = real.argtypes, real.restype
-    ops._fn = fn
+    ops._fns[name] = fn
 
 
 def read(lib) -> list:
@@ -238,6 +264,196 @@ def ssd_timeline(flush, gen):
             "phase_ns_median": per_warp}), flush=True)
 
 
+# the SSD backward of commit 377bd0d (FMA): block (0, 0)'s thread 0 at each
+# phase of every 64-row sub-chunk of its two walks (slots c * 8 + k of the
+# forward walk, 512 + c * 8 + k of the reverse), and every block's first and
+# last stamp (the forward walk's from 2048, the reverse's from 4096 and the
+# head sums' from 8192, two a block)
+SSD_BWD_ONE = "blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && c0 < 64 * 64"
+SSD_BWD_REV_ONE = "blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && c < 64"
+SSD_BWD_SPAN = "threadIdx.x == 0"
+FMA_BWD_MARKS = [
+    ("  for (int c0 = 0; c0 < S; c0 += Q) {\n    const int valid = min(Q, S - c0);", "after",
+     SSD_BWD_ONE, "(c0 / 64) * 8 + 0"),
+    ("    if (tid < 32) chunk_cumsum(dts, a, cum2, ecum, w, tot, true);", "before",
+     SSD_BWD_ONE, "(c0 / 64) * 8 + 1"),
+    ("    // ML[t][s] = dt_s L[t, s] (dy_t . x_s), zero above the diagonal", "before",
+     SSD_BWD_ONE, "(c0 / 64) * 8 + 2"),
+    ("    // dC^h = diag(exp(cum)) DY ST + ML Bs", "before", SSD_BWD_ONE, "(c0 / 64) * 8 + 3"),
+    ("    __syncthreads();  // every read of the old state is done", "after", SSD_BWD_ONE,
+     "(c0 / 64) * 8 + 4"),
+    ("    __syncthreads();  // the next sub-chunk overwrites the tiles\n  }\n\n  // <dFinal",
+     "before", SSD_BWD_ONE, "(c0 / 64) * 8 + 5"),
+    ("  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;\n  const float a = A[h];",
+     "after", SSD_BWD_SPAN, "2048 + 2 * (blockIdx.y * H + blockIdx.x)"),
+    ("    fdot[b * H + h] = s;", "after", SSD_BWD_SPAN,
+     "2048 + 2 * (blockIdx.y * H + blockIdx.x) + 1"),
+    ("    const int c0 = c * Q;\n    const int valid = min(Q, S - c0);", "after",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 0"),
+    ("    if (tid < 32) chunk_cumsum(dts, a, cum2, ecum, w, tot, false);", "before",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 1"),
+    ("    // SL[t'][t] = L[t', t] (C_t' . B_t) and ML[t'][t] = dt_t L[t', t] (dy_t' . x_t),",
+     "before", SSD_BWD_REV_ONE, "512 + c * 8 + 2"),
+    ("    // dXD = diag(w) B R^T + SL^T DY; dx = dXD dt, dxdx_t = dXD_t . x_t", "before",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 3"),
+    ("    // dB^h = diag(w dt) X R + ML^T Cs; dcum_t = C_t . dC^h_t - B_t . dB^h_t", "before",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 4"),
+    ("    __syncthreads();  // every read of R is done; dxdx and dcum are ready", "after",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 5"),
+    ("    // warp 0: da = the reverse running sum of dcum, from the carry; ddt and dA", "before",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 6"),
+    ("    __syncthreads();  // the next sub-chunk overwrites the tiles; R is updated", "after",
+     SSD_BWD_REV_ONE, "512 + c * 8 + 7"),
+    ("  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, lane = tid % 32;\n"
+     "  const float a = A[h];", "after", SSD_BWD_SPAN, "4096 + 2 * (blockIdx.y * H + blockIdx.x)"),
+    ("  if (dinit != nullptr)\n    for (int i = tid; i < P * N; i += THREADS) dinit", "before",
+     SSD_BWD_SPAN, "4096 + 2 * (blockIdx.y * H + blockIdx.x) + 1"),
+    ("  const int rep = H / G;\n  if (i < 2 * n_out) {", "before", SSD_BWD_SPAN,
+     "8192 + 2 * blockIdx.x"),
+    ("    (is_c ? dC : dB)[i] = s;", "after", SSD_BWD_SPAN, "8192 + 2 * blockIdx.x + 1"),
+]
+FMA_BWD_PHASES = {
+    "forward walk": (0, ["loads", "cumsum", "scores dY X^T", "dC^h (two products)",
+                         "state update + barrier"]),
+    "reverse walk": (512, ["loads", "cumsum", "scores C B^T, dY X^T", "dXD (two products)",
+                           "dB^h (two products) + dcum", "R update", "dcum scan, ddt"]),
+}
+
+
+# the wgmma SSD backward (this tree): the first thread of each consumer
+# warpgroup of block (0, 0) at each phase of every sub-chunk of the three
+# walks (slots (2 W + consumer) * 512 + n * 8 + k, W the walk, n the
+# sub-chunk in walk order), and every block's first consumer thread at its
+# walk's start and end (from 4096 + 2048 W, two a block)
+WG_BWD_ONE = ("blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x == 0 || threadIdx.x == 128) "
+              "&& n < 64")
+WG_BWD_AT = "(W * 2 + threadIdx.x / 128) * 512 + n * 8 + {k}"
+WG_BWD_MARKS = [
+    ("    mbar_wait(full(stg), (n / STAGES) & 1);", "after", WG_BWD_ONE, WG_BWD_AT.format(k=0)),
+    ("    consumer_sync();  // the tiles and dts are written", "after", WG_BWD_ONE,
+     WG_BWD_AT.format(k=1)),
+    ("      consumer_sync();  // cum2, ecum, w and tot are ready", "before*", WG_BWD_ONE,
+     WG_BWD_AT.format(k=2)),
+    ("      consumer_sync();  // cum2, ecum, w and tot are ready", "after*", WG_BWD_ONE,
+     WG_BWD_AT.format(k=3)),
+    ("[&](int ks, float (&v)[4]) { acc_frag<64>(sc, ks, v); });", "after*", WG_BWD_ONE,
+     WG_BWD_AT.format(k=4)),
+    ("      // ST = exp(tot) ST + X^T diag(dt w) B", "before", WG_BWD_ONE, WG_BWD_AT.format(k=5)),
+    ("      // R = exp(tot) R + dY^T diag(exp(cum)) C", "before", WG_BWD_ONE,
+     WG_BWD_AT.format(k=5)),
+    ("      // R^T = exp(tot) R^T + C^T diag(exp(cum)) dY, 64 rows of N at a time", "before",
+     WG_BWD_ONE, WG_BWD_AT.format(k=5)),
+    ("    consumer_sync();  // every read of the staged rows and the B tiles is done", "before",
+     WG_BWD_ONE, WG_BWD_AT.format(k=6)),
+    ("    write_state_tile(sacc);\n    fence_proxy_async();", "after", WG_BWD_ONE,
+     WG_BWD_AT.format(k=7)),
+    ("  const int ctid = threadIdx.x;", "after", "threadIdx.x == 0",
+     "4096 + W * 2048 + 2 * (blockIdx.y * H + blockIdx.x)"),
+    ("  if constexpr (W == C_WALK) {\n    // <dFinal", "before", "threadIdx.x == 0",
+     "4096 + W * 2048 + 2 * (blockIdx.y * H + blockIdx.x) + 1"),
+]
+WG_BWD_PHASES = ["tiles + dt (and ring wait)", "products on staged rows", "wait for the cumsum",
+                 "decays + intra-chunk product", "epilogue (out, fp64 partials)",
+                 "state product", "barrier + state tile"]
+WALKS = ("c_walk", "b_walk", "x_walk")
+
+
+def spans(t, first, n):
+    """(kernel span ns, median block ns) of the blocks whose first and last
+    stamps sit at ``first + 2 i`` and ``+ 1``, i < n (blocks that stamped)."""
+    pairs = [(t[first + 2 * i], t[first + 2 * i + 1]) for i in range(n)]
+    pairs = [(a, b) for a, b in pairs if a and b >= a]
+    if not pairs:
+        return None, None
+    return (max(b for _, b in pairs) - min(a for a, _ in pairs),
+            int(statistics.median(b - a for a, b in pairs)))
+
+
+def ssd_bwd_timeline(flush, gen, baseline):
+    """The SSD backward's phases at both training shapes
+    (``chip_smoke.SSD_BWD_SHAPES``): commit 377bd0d's FMA kernel from
+    ``baseline``/ssd_scan_bwd.cu where given, then this tree's."""
+    from repro_torch.kernels import ssd_bwd_ref
+    if baseline is not None:
+        fma_bwd_timeline(flush, gen, baseline)
+    from repro_torch.kernels.ssd_scan import ops
+    csrc = ROOT / "src/repro_torch/csrc"
+    lib = build("ssd_scan_bwd", instrument((csrc / "ssd_scan_bwd.cu").read_text(), WG_BWD_MARKS),
+                headers=csrc)
+    on_wrapper(ops, lib, "dco_ssd_scan_bwd")
+    for path, shape in chip_smoke.SSD_BWD_SHAPES.items():
+        b, s, h, g, p, n = (shape[k] for k in ("b", "s", "h", "g", "p", "n"))
+        x, dt, A, B, C = chip_smoke.ssd_inputs(gen, b, s, h, g, p, n, torch.float32)
+        dy = chip_smoke.randn(gen, (b, s, h, p), torch.float32)
+        got = ops.ssd_scan_bwd(x, dt, A, B, C, dy)
+        torch.cuda.synchronize()
+        want = ssd_bwd_ref(x, dt, A, B, C, dy)
+        held = chip_smoke.check_ssd_grads(got[:5] + (None,), want[:5] + (None,),
+                                          chip_smoke.SSD_TOL[torch.float32],
+                                          "instrumented ssd bwd")
+        del got, want
+        ms = flushed_launch(lib, lambda: ops.ssd_scan_bwd(x, dt, A, B, C, dy), flush)
+        t = read(lib)
+        n_sub = -(-s // 64)
+        phases, kernels = {}, {}
+        for wk, walk in enumerate(WALKS):
+            for cw in range(2):
+                base = (2 * wk + cw) * 512
+                durs = {name: [] for name in WG_BWD_PHASES}
+                for c in range(n_sub):
+                    row = [t[base + c * 8 + k] for k in range(len(WG_BWD_PHASES) + 1)]
+                    for k, name in enumerate(WG_BWD_PHASES):
+                        durs[name].append(row[k + 1] - row[k])
+                phases[f"{walk} consumer {cw}"] = {k: int(statistics.median(v))
+                                                   for k, v in durs.items()}
+            kernels[walk] = dict(zip(("span_ns", "block_ns_median"),
+                                     spans(t, 4096 + 2048 * wk, b * h)))
+        print(json.dumps({
+            "kernel": "ssd_scan_bwd (wgmma)", "path": path, "shape": shape, "event_ms": ms,
+            "worst_ratio": {k: r for k, (r, _) in held.items()}, "kernels": kernels,
+            "sub_chunk_phase_ns_median": phases}), flush=True)
+
+
+def fma_bwd_timeline(flush, gen, baseline):
+    """The phases of commit 377bd0d's FMA kernel from ``baseline``/ssd_scan_bwd.cu."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from kernel_compare import Baseline
+    from repro_torch.kernels import ssd_bwd_ref
+    src = (Path(baseline) / "ssd_scan_bwd.cu").read_text()
+    lib = build("ssd_scan_bwd_fma", instrument(src, FMA_BWD_MARKS))
+    for path, shape in chip_smoke.SSD_BWD_SHAPES.items():
+        b, s, h, g, p, n = (shape[k] for k in ("b", "s", "h", "g", "p", "n"))
+        x, dt, A, B, C = chip_smoke.ssd_inputs(gen, b, s, h, g, p, n, torch.float32)
+        dy = chip_smoke.randn(gen, (b, s, h, p), torch.float32)
+        call, outs = Baseline.ssd_bwd_entry(lib.dco_ssd_scan_bwd, x, dt, A, B, C, dy)
+        call()
+        torch.cuda.synchronize()
+        want = ssd_bwd_ref(x, dt, A, B, C, dy)
+        held = chip_smoke.check_ssd_grads(tuple(outs) + (None,), want[:5] + (None,),
+                                          chip_smoke.SSD_TOL[torch.float32],
+                                          "instrumented FMA ssd bwd")
+        del want
+        ms = flushed_launch(lib, call, flush)
+        t = read(lib)
+        n_sub = -(-s // 64)
+        phases = {}
+        for walk, (base, names) in FMA_BWD_PHASES.items():
+            durs = {name: [] for name in names}
+            for c in range(n_sub):
+                row = [t[base + c * 8 + k] for k in range(len(names) + 1)]
+                for k, name in enumerate(names):
+                    durs[name].append(row[k + 1] - row[k])
+            phases[walk] = {k: int(statistics.median(v)) for k, v in durs.items()}
+        n_head = (2 * b * s * g * n + h + 255) // 256
+        kernels = {name: dict(zip(("span_ns", "block_ns_median"), spans(t, first, cnt)))
+                   for name, first, cnt in (("fwd_walk", 2048, b * h), ("rev_walk", 4096, b * h),
+                                            ("head_sum", 8192, n_head))}
+        print(json.dumps({
+            "kernel": "ssd_scan_bwd (FMA, commit 377bd0d)", "path": path, "shape": shape,
+            "event_ms": ms, "worst_ratio": {k: r for k, (r, _) in held.items()},
+            "kernels": kernels, "sub_chunk_phase_ns_median": phases}), flush=True)
+
+
 MMA_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -272,6 +488,198 @@ extern "C" int dco_mma_rate(int kind, int blocks, int warps, int iters, void* ou
 """
 
 
+WGMMA_SRC = r"""
+#include "hopper.cuh"
+#include <cuda_runtime.h>
+using namespace dco_hopper;
+
+__device__ __forceinline__ int swoff(int rows, int r, int c) {
+  return (c / 32) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// D (64 x N) = A (64 x K) B (K x N) by TF32 wgmma, A from registers, B a
+// K-major 128-byte-swizzled tile written here.  MODE 0: A's fragment columns
+// t, t + 4 and B in order; 1: columns 2t, 2t + 1 (an accumulator's) and K
+// permuted in B to match; 2: 3xTF32, both split into hi and lo (mode 0's
+// order).  Modes 0 and 1 hand the fp32 values over as they are.
+template <int N>
+__global__ void layout_kernel(const float* A, const float* B, float* D, int K, int mode) {
+  extern __shared__ unsigned char sm[];
+  const uint32_t s0 = smem_addr(sm);
+  const uint32_t base = (s0 + 1023) & ~1023u;
+  unsigned char* bp = sm + (base - s0);
+  const int tb = N * 128 * (K / 32);
+  for (int i = threadIdx.x; i < N * K; i += 128) {
+    const int n = i / K, k = i % K;
+    const float v = B[k * N + n];
+    const int kk = mode == 1 ? ((k & ~7) | (((k & 7) >> 1) + 4 * (k & 1))) : k;
+    uint32_t hi = __float_as_uint(v), lo = 0;
+    if (mode == 2) {
+      hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+      lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+    }
+    *(uint32_t*)(bp + swoff(N, n, kk)) = hi;
+    *(uint32_t*)(bp + tb + swoff(N, n, kk)) = lo;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  float d[N / 2];
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r = 16 * w + g;
+  for (int ks = 0; ks < K / 8; ++ks) {
+    const int c0 = 8 * ks + (mode == 1 ? 2 * t : t), c1 = mode == 1 ? c0 + 1 : c0 + 4;
+    const float av[4] = {A[r * K + c0], A[(r + 8) * K + c0], A[r * K + c1], A[(r + 8) * K + c1]};
+    uint32_t ah[4], al[4];
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = __float_as_uint(av[i]);
+      al[i] = 0;
+      if (mode == 2) {
+        ah[i] = (__float_as_uint(av[i]) + 0x1000u) & 0xffffe000u;
+        al[i] = (__float_as_uint(av[i] - __uint_as_float(ah[i])) + 0x1000u) & 0xffffe000u;
+      }
+    }
+    const int boff = (ks / 4) * N * 128 + (ks % 4) * 32;
+    wgmma_fence();
+    wgmma_tf32<N>(d, ah, smem_desc(base + boff), 1);
+    wgmma_tf32<N>(d, al, smem_desc(base + boff), 1);
+    wgmma_tf32<N>(d, ah, smem_desc(base + tb + boff), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  for (int j = 0; j < N / 8; ++j) {
+    D[r * N + 8 * j + 2 * t] = d[4 * j];
+    D[r * N + 8 * j + 2 * t + 1] = d[4 * j + 1];
+    D[(r + 8) * N + 8 * j + 2 * t] = d[4 * j + 2];
+    D[(r + 8) * N + 8 * j + 2 * t + 1] = d[4 * j + 3];
+  }
+}
+
+// Back-to-back 3xTF32 k-steps as ssd_scan_bwd.cu's product() issues them
+// (K = 64, batches of four k-steps, a wait after each), two warpgroups a
+// block, one block an SM, fragments held in registers: the ceiling of that
+// pattern.
+template <int N>
+__global__ void __launch_bounds__(256, 1) rate_kernel(float* out, int iters) {
+  extern __shared__ unsigned char sm[];
+  const uint32_t s0 = smem_addr(sm);
+  const uint32_t base = (s0 + 1023) & ~1023u;
+  unsigned char* bp = sm + (base - s0);
+  const int box = N * 128, half = 2 * box;
+  for (int i = threadIdx.x; i < 2 * half / 4; i += 256)
+    reinterpret_cast<uint32_t*>(bp)[i] = 0x3f800000u ^ (i & 0x1fff);
+  fence_proxy_async();
+  __syncthreads();
+  float d[N / 2];
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  uint32_t hi[8][4], lo[8][4];
+  for (int k = 0; k < 8; ++k)
+    for (int e = 0; e < 4; ++e) {
+      hi[k][e] = 0x3f800000u + threadIdx.x + k;
+      lo[k][e] = 0x33800000u + e;
+    }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int kb = 0; kb < 8; kb += 4) {
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ks = kb + i;
+        const uint32_t at = base + (ks >> 2) * box + (ks & 3) * 32;
+        wgmma_tf32<N>(d, hi[ks], smem_desc(at), 1);
+        wgmma_tf32<N>(d, lo[ks], smem_desc(at), 1);
+        wgmma_tf32<N>(d, hi[ks], smem_desc(at + half), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  }
+  float s = 0.f;
+  for (int i = 0; i < N / 2; ++i) s += d[i];
+  out[blockIdx.x * 256 + threadIdx.x] = s;
+}
+
+extern "C" int dco_wgmma_layout(const float* A, const float* B, float* D, int N, int K, int mode) {
+  const int smem = 1024 + 2 * N * 128 * (K / 32);
+  if (N == 64) {
+    cudaFuncSetAttribute(layout_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    layout_kernel<64><<<1, 128, smem>>>(A, B, D, K, mode);
+  } else {
+    cudaFuncSetAttribute(layout_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    layout_kernel<128><<<1, 128, smem>>>(A, B, D, K, mode);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dco_wgmma_rate(int n, float* out, int blocks, int iters) {
+  const int smem = 1024 + 4 * n * 128 * 2;
+  if (n == 32) {
+    cudaFuncSetAttribute(rate_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    rate_kernel<32><<<blocks, 256, smem>>>(out, iters);
+  } else if (n == 64) {
+    cudaFuncSetAttribute(rate_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    rate_kernel<64><<<blocks, 256, smem>>>(out, iters);
+  } else {
+    cudaFuncSetAttribute(rate_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    rate_kernel<128><<<blocks, 256, smem>>>(out, iters);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def wgmma_probe():
+    """What the SSD backward's products rest on: TF32 wgmma with a register
+    A and a K-major swizzled B against float64 (the fragment layout as the
+    header of csrc/ssd_scan_bwd.cu states it, with the K order permuted on
+    both sides, and 3xTF32), whether the tensor cores truncate an fp32
+    operand to TF32 or round it, and the rate of product()'s pattern."""
+    lib = build("wgmma_probe", WGMMA_SRC, headers=ROOT / "src/repro_torch/csrc")
+    lib.dco_wgmma_layout.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.dco_wgmma_rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def tf32(t, how):
+        u = t.view(torch.int32)
+        return ((u if how == "truncated" else u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    for n in (64, 128):
+        a = torch.randn(64, 64, device="cuda", generator=gen)
+        b = torch.randn(64, n, device="cuda", generator=gen)
+        ref = a.double() @ b.double()
+        rec = {"n": n, "k": 64}
+        for mode, name in ((0, "in_order"), (1, "k_permuted"), (2, "3xtf32")):
+            d = torch.zeros(64, n, device="cuda")
+            if lib.dco_wgmma_layout(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, 64, mode) != 0:
+                raise RuntimeError("wgmma layout probe failed to launch")
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            if mode == 2:
+                rec["3xtf32_vs_fp64"] = float((d.double() - ref).abs().max()) / scale
+                continue
+            for how in ("truncated", "rounded"):
+                want = tf32(a, how).double() @ tf32(b, how).double()
+                rec[f"{name}_vs_{how}_inputs"] = float((d.double() - want).abs().max()) / scale
+        print(json.dumps({"wgmma_layout": rec}), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(sms * 256, device="cuda")
+    iters = 2000
+    for n in (32, 64, 128):
+        lib.dco_wgmma_rate(n, out.data_ptr(), sms, 10)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if lib.dco_wgmma_rate(n, out.data_ptr(), sms, iters) != 0:
+            raise RuntimeError("wgmma rate probe failed to launch")
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        flop = sms * 2 * iters * 8 * 3 * 2 * 64 * n * 8   # two warpgroups a block
+        print(json.dumps({"wgmma_tf32_rate": {"n": n, "ms": ms, "tflops": flop / ms * 1e-9}}),
+              flush=True)
+
+
 def mma_rate():
     lib = build("mma_rate", MMA_SRC)
     fn = lib.dco_mma_rate
@@ -299,7 +707,10 @@ def mma_rate():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "mma"), default="both")
+    ap.add_argument("--kernel", choices=("decode", "ssd", "both", "mma", "ssd_bwd", "wgmma"),
+                    default="both")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="ssd_bwd: the directory of commit 377bd0d's ssd_scan_bwd.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timeline: needs a CUDA device")
@@ -313,6 +724,10 @@ def main() -> None:
         ssd_timeline(flush, gen)
     if args.kernel == "mma":
         mma_rate()
+    if args.kernel == "ssd_bwd":
+        ssd_bwd_timeline(flush, gen, args.baseline)
+    if args.kernel == "wgmma":
+        wgmma_probe()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ logs: an earlier tree's source against this tree's build log.
     python3 scripts/ptxas_compare.py old_ptxas.log new_ptxas.log
     python3 scripts/ptxas_compare.py --kernel flash old_flash.log new_ptxas.log
     python3 scripts/ptxas_compare.py --kernel flash_bwd old_bwd.log new_ptxas.log
+    python3 scripts/ptxas_compare.py --kernel ssd old_ssd.log new_ptxas.log
+    python3 scripts/ptxas_compare.py --kernel ssd_bwd old_ssd_bwd.log new_ptxas.log
 
 The build log has a ``== <source>`` line before each source's output.
 ``--kernel decode`` (the default): the serving kernels are those of
@@ -23,6 +25,13 @@ the bf16 ones, whose names changed with the Hopper kernels: the earlier
 ``dq_wgmma*``), the variant those of ``flash_attention_bwd_pos.cu``; an
 earlier ``flash_attention_bwd.cu`` needs its headers beside it, and
 ``scripts/kernel_compare.py --kernel flash_bwd`` prints both builds' maps.
+``--kernel ssd``: the SSD forward's ``ssd_scan_kernel`` of ``ssd_scan.cu``
+(this tree's includes ``tf32.cuh``).  ``--kernel ssd_bwd``: the SSD
+backward's kernels of ``ssd_scan_bwd.cu``, whose names changed with the
+wgmma kernel: the FMA kernel's ``fwd_walk_kernel`` / ``rev_walk_kernel``
+(commit 377bd0d) are listed beside today's ``prep_kernel`` and
+``c_walk_kernel`` / ``b_walk_kernel`` / ``x_walk_kernel``; neither has a
+variant source.
 Prints how many kernels of both logs keep the earlier registers and spills,
 each that does not, the kernels of one log only, and the variant's range and
 spills.
@@ -43,6 +52,10 @@ KERNELS = {
                    "dkdv_wgmma_kernel", "dkdv_wgmma_ext_kernel", "dkdv_wgmma_pos_kernel",
                    "dq_wgmma_kernel", "dq_wgmma_ext_kernel", "dq_wgmma_pos_kernel"),
                   "flash_attention_bwd.cu", "flash_attention_bwd_pos.cu"),
+    "ssd": (("ssd_scan_kernel",), "ssd_scan.cu", None),
+    # the FMA kernel's walks (commit 377bd0d) beside the wgmma ones
+    "ssd_bwd": (("fwd_walk_kernel", "rev_walk_kernel", "prep_kernel", "c_walk_kernel",
+                 "b_walk_kernel", "x_walk_kernel"), "ssd_scan_bwd.cu", None),
 }
 
 
@@ -86,7 +99,7 @@ def main() -> None:
     old = usage(args.old.read_text(), names)
     text = args.new.read_text()
     new = usage(text, names, serving)
-    sliced = usage(text, names, variant)
+    sliced = usage(text, names, variant) if variant else {}
     if args.kernel == "flash_bwd":   # the earlier log: its serving source's kernels only
         old = usage(args.old.read_text(), names, serving) or old
     both = [k for k in old if k in new]

@@ -10,8 +10,8 @@ JSON object: wall time per step, device-busy time and idle share, and device
 time by kind of kernel: the flash forward (the forward and its recomputation
 under remat: ``flash_mma_lse_kernel``), the flash backward (``delta_kernel``
 and the dK/dV and dQ kernels), the SSD forward and its recomputation
-(``ssd_scan_kernel``), the SSD backward (its forward walk, reverse walk and
-head sums), the weight products (cuBLAS's GEMM kernels) and everything else
+(``ssd_scan_kernel``), the SSD backward (its tile preparation, three walks,
+dcum scan and head sums), the weight products (cuBLAS's GEMM kernels) and everything else
 (elementwise, reductions, the embedding's backward, copies).  Beside it, timed alone with
 CUDA events on the same state: ``adamw_update`` on gradients of the
 parameters' shapes, and ``lm_loss`` forward + backward on logits of the
@@ -55,7 +55,8 @@ from repro_torch.tree import tree_map
 KINDS = (("flash_forward", re.compile(r"flash_mma")),
          ("flash_backward", re.compile(r"dkdv_|dq_(mma_)?(ext_)?kernel|delta_kernel")),
          ("ssd_forward", re.compile(r"ssd_scan_kernel")),
-         ("ssd_backward", re.compile(r"fwd_walk_kernel|rev_walk_kernel|head_sum_kernel")),
+         ("ssd_backward", re.compile(r"prep_kernel|[cbx]_walk_kernel|scan_kernel\(|"
+                                     r"head_sum_kernel")),
          ("weight_products", re.compile(r"gemm|nvjet|xmma|cutlass|s16816|Kernel2")))
 
 

@@ -17,8 +17,9 @@ from .ref import ssd_ref
 
 LAUNCHES = [0]                 # forward kernel launches made by this module
 BWD_LAUNCHES = [0]             # backward kernel launches made by this module
-BWD_KERNELS = 3                # kernels a dco_ssd_scan_bwd call launches: forward walk,
-                               # reverse walk, head sums
+BWD_KERNELS = 6                # kernels a dco_ssd_scan_bwd call launches: the B and C
+                               # tiles, the dC^h, dB^h and dx walks, the dcum scan, the
+                               # head sums
 P_SLICE = 32                   # columns of P one block owns (csrc/ssd_scan.cu: PS)
 SUB_CHUNK = 64                 # rows of the kernel's sub-chunk (csrc/ssd_scan.cu: Q)
 D_STATES = (16, 32, 64, 128)   # state sizes N the kernels are compiled for
@@ -28,9 +29,20 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # strides, stream
 ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 # dco_ssd_scan_bwd: x, dt, A, B, C, init, dy, dfinal, dx, ddt, dA, dB, dC, dinit,
-# dch, dbh, fdot, da_part; B, S, H, G, P, N; strides, stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+# dch, dbh, fdot, da_part, parts, prep; B, S, H, G, P, N; strides, stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 _fns = {}
+
+
+def bwd_prep_bytes(n: int) -> int:
+    """Bytes of the backward's prepared B and C tiles of one (batch, group,
+    sub-chunk) (csrc/ssd_scan_bwd.cu: ``prep_bytes<N>()``): B^T and C^T,
+    N rows of SUB_CHUNK values, and C, SUB_CHUNK rows of N values in boxes
+    of 32, each as its TF32 hi and lo parts in 4-byte words; then B's rows,
+    fp32 in the same boxes."""
+    rows_by_k = n * 128 * (SUB_CHUNK // 32)
+    boxes = SUB_CHUNK * 128 * -(-n // 32)
+    return 2 * (2 * rows_by_k) + 2 * boxes + boxes
 
 
 def _kernel(name: str = "dco_ssd_scan"):
@@ -230,6 +242,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     dbh = torch.empty((b, s, h, n), **f32)
     fdot = torch.empty((b, h), dtype=torch.float64, device=dev)
     da_part = torch.empty((b, h), dtype=torch.float64, device=dev)
+    parts = torch.empty((6, b, h, s), dtype=torch.float64, device=dev)
+    prep = torch.empty((b * g * -(-s // SUB_CHUNK) * bwd_prep_bytes(n),), dtype=torch.uint8,
+                       device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -240,7 +255,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             ptr(init), dy.data_ptr(), ptr(dfinal), dx.data_ptr(), ddt.data_ptr(),
             dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dinit.data_ptr(), dch.data_ptr(),
-            dbh.data_ptr(), fdot.data_ptr(), da_part.data_ptr(), b, s, h, g, p, n,
+            dbh.data_ptr(), fdot.data_ptr(), da_part.data_ptr(), parts.data_ptr(),
+            prep.data_ptr(), b, s, h, g, p, n,
             _strides(x, dt, B, C), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed (code {rc})")
