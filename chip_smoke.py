@@ -11,15 +11,19 @@ run with a non-zero exit code:
             power limit as nvidia-smi gives them.
 2. build    compiles ``src/repro_torch/csrc/*.cu`` into ``build/``; the
             library's ``cuobjdump -sass`` listing must show every bf16 flash
-            kernel, the forward's and the backward's, and every walk kernel
+            kernel, the forward's and the backward's, every bf16 decode
+            kernel, the serving one's and the slice's, and every walk kernel
             of the SSD backward issuing wgmma fed by TMA (HGMMA and UTMALDG)
             and no mma.sync (HMMA): the ``flash_sass`` line, read after the
-            kernels phases.
+            kernels phases.  The decode kernels' registers and spills (the
+            ``decode_ptxas`` line): no spill in a bf16 serving one.
 3. kernels  each hand-written kernel against its plain PyTorch version on the
             card, over dtypes, head sizes, ragged and mostly-zero lengths,
             lengths at the edges of a work unit, the poisoned dead region and
-            one work unit against many (decode, whose merge counters must be
-            back at 0), the pinned/streamed splits, GQA groups, softcap and
+            one work unit against many, GQA groups 1-8 and 64, pool views at
+            an odd row offset (decode, whose fp32 kernel's merge counters
+            must be back at 0; two calls bit-identical at every timed decode
+            shape), the pinned/streamed splits, GQA groups, softcap and
             chunkings (flash, whose bf16 outputs must be bit-identical across
             splits and chunkings), and group counts, initial states and
             strided views (SSD scan); times each kernel at the serving path's shapes
@@ -534,6 +538,13 @@ FLASH_BWD_WGMMA_KERNELS = tuple(
                  "dq_wgmma_kernel", "dq_wgmma_ext_kernel", "dq_wgmma_pos_kernel"))
 
 
+# the bf16 decode kernels, the serving one's and (slice:) the slice kernel's,
+# with and without a softcap: wgmma fed by TMA at every head size
+DECODE_WGMMA_KERNELS = tuple(
+    f"{unit}decode_wgmma_kernel<Li{d}ELb{cap}>" for unit in ("", "slice:")
+    for d in (64, 112, 128, 256) for cap in (0, 1))
+
+
 # the SSD backward's walk kernels (training): each product is wgmma (TF32),
 # x and dy arrive by TMA; at every (P, N) the backward takes
 SSD_BWD_WGMMA_KERNELS = tuple(
@@ -564,7 +575,10 @@ def sass_counts(dump, names):
     its code holds."""
     counts = {}
     for chunk in dump.split("Function : ")[1:]:
-        name = kernel_name(chunk.split("\n", 1)[0].strip())
+        mangled = chunk.split("\n", 1)[0].strip()
+        name = kernel_name(mangled)
+        if "decode_attention_lse_cu" in mangled:   # the slice kernel's unit
+            name = f"slice:{name}"
         if name in names:
             counts[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
                             for op in ("HGMMA", "UTMALDG", "HMMA")}
@@ -598,20 +612,22 @@ def start_flash_sass(library):
 
 def finish_flash_sass(started):
     """``start_flash_sass``'s listing: every bf16 flash kernel, forward
-    (FLASH_WGMMA_KERNELS) and backward (FLASH_BWD_WGMMA_KERNELS), and every
-    walk kernel of the SSD backward (SSD_BWD_WGMMA_KERNELS) issues wgmma fed
-    by TMA (HGMMA and UTMALDG) and no mma.sync (HMMA)."""
+    (FLASH_WGMMA_KERNELS) and backward (FLASH_BWD_WGMMA_KERNELS), every bf16
+    decode kernel (DECODE_WGMMA_KERNELS) and every walk kernel of the SSD
+    backward (SSD_BWD_WGMMA_KERNELS) issues wgmma fed by TMA (HGMMA and
+    UTMALDG) and no mma.sync (HMMA)."""
     proc, path = started
     _, err = proc.communicate()
     check(proc.returncode == 0, f"cuobjdump failed (exit {proc.returncode}): {err[-2000:]}")
     dump = path.read_text()
     out = {}
     for what, names in (("forward", FLASH_WGMMA_KERNELS), ("backward", FLASH_BWD_WGMMA_KERNELS),
+                        ("decode", DECODE_WGMMA_KERNELS),
                         ("ssd_backward", SSD_BWD_WGMMA_KERNELS)):
         counts = sass_counts(dump, names)
         faults = sass_faults(counts, names)
-        check(not faults, f"the {what} kernels (bf16 flash; the SSD backward's walks) are not "
-              "wgmma fed by TMA: " + "; ".join(faults))
+        check(not faults, f"the {what} kernels (bf16 flash and decode; the SSD backward's "
+              "walks) are not wgmma fed by TMA: " + "; ".join(faults))
         out[what] = dict(kernels=len(counts), **{op: sum(c[op] for c in counts.values())
                                                  for op in ("HGMMA", "UTMALDG", "HMMA")})
     emit("flash_sass", **out)
@@ -682,6 +698,8 @@ def decode_cases():
         # (MHA, 32 heads of 64)
         (8, 2048, 28, 4, 128, bf, main_lens),
         (8, 2048, 28, 4, 128, f32, main_lens),
+        (8, 2048, 28, 4, 128, bf, [0, 0, 801, 0, 0, 0, 0, 0]),   # group 7's serving call
+        (2, 700, 128, 2, 128, bf, [700, 129]),   # group 64: the whole packed tile
         (8, 2048, 32, 32, 64, bf, main_lens),
         (8, 2048, 32, 32, 64, f32, main_lens),
     ] + gemma2_decode_cases() + gemma7b_decode_cases()
@@ -752,17 +770,21 @@ def check_decode(gen):
                 check(n > 0 or bool((out[i] == 0).all()),
                       "decode: cache_len 0 must give zeros")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-    # a strided view of a larger pool, one work unit against many
+    # a strided view of a larger pool (a layer of the engine's stacked pool),
+    # one work unit against many; also from an odd row of it, group 7
     pool_k = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
     pool_v = randn(gen, (2, 4, 700, 2, 128), torch.bfloat16)
-    q = randn(gen, (4, 6, 128), torch.bfloat16)
-    cl = torch.tensor([700, 0, 123, 17], dtype=torch.int32, device="cuda")
-    ref = decode_attention_ref(q, pool_k[1], pool_v[1], cl)
     step = decode_ops.STEP_ROWS
-    for rows in (-(-700 // step) * step, step, 3 * step):
-        out = decode_attention(q, pool_k[1], pool_v[1], cl, rows_per_split=rows)
-        close(out, ref, TOL[torch.bfloat16], f"decode pool view, {rows} rows a unit")
-        check(bool((out[1] == 0).all()), "decode: cache_len 0 must give zeros")
+    for heads, first in ((6, 0), (14, 3)):
+        q = randn(gen, (4, heads, 128), torch.bfloat16)
+        kv = pool_k[1][:, first:], pool_v[1][:, first:]
+        cl = torch.tensor([700 - first, 0, 123, 17], dtype=torch.int32, device="cuda")
+        ref = decode_attention_ref(q, *kv, cl)
+        for rows in (None, -(-700 // step) * step, step, 3 * step):
+            out = decode_attention(q, *kv, cl, rows_per_split=rows)
+            close(out, ref, TOL[torch.bfloat16],
+                  f"decode pool view from row {first}, group {heads // 2}, {rows} rows a unit")
+            check(bool((out[1] == 0).all()), "decode: cache_len 0 must give zeros")
     # rows at or past cache_len are dead: poisoning them changes nothing
     for h, g, d in ((4, 2, 64), (16, 16, 256)):
         q = randn(gen, (1, h, d), torch.float32)
@@ -1164,8 +1186,10 @@ def decode_record(q, k, v, cl, flush, window=None, softcap=None, scale=None):
                                               scale=scale)
 
     ref = decode_attention_ref(q, k, v, cl, **kw)
-    err = close(decode_attention(q, k, v, cl, **kw), ref, TOL[bf],
-                f"decode at {lens}, window {window}, softcap {softcap}")
+    out = decode_attention(q, k, v, cl, **kw)
+    err = close(out, ref, TOL[bf], f"decode at {lens}, window {window}, softcap {softcap}")
+    check(torch.equal(out, decode_attention(q, k, v, cl, **kw)),
+          f"decode at {lens}: two calls differ")
     # the library call gives NaN for a row with no valid key: compare the rest
     live = cl > 0
     lib_ref = ref if softcap is None else decode_attention_ref(q, k, v, cl, window=window,
@@ -1183,7 +1207,7 @@ def decode_record(q, k, v, cl, flush, window=None, softcap=None, scale=None):
         "shape": {"B": b, "S": s, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "cache_len": lens, "window": window, "softcap": softcap, "scale": scale,
                   "live_rows": n_live, "rows_chosen": plan.rows_for(lens)},
-        "max_abs_err": err, "tol": TOL[bf],
+        "max_abs_err": err, "tol": TOL[bf], "bit_identical": True,
         "ms": time_ms(lambda: decode_attention(q, k, v, cl, **kw), flush),
         "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, cl, **kw), flush),
         "library_ms": lib_ms if softcap is None else None,
@@ -1231,6 +1255,8 @@ def decode_lse_record(gen, flush):
     (o, lse), (ro, rl) = kernel(), plain()
     err = max(close(o, ro, TOL[bf], "decode_lse at the timed shape"),
               close_lse(lse, rl, TOL[bf], "decode_lse lse at the timed shape"))
+    o2, lse2 = kernel()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), "decode_lse: two calls differ")
     lo, ll = lib()
     close(lo.reshape(1, h, d), ro, TOL[bf], "library decode with lse vs plain")
     close(ll.reshape(1, h), rl, TOL[bf], "library log-sum-exp vs plain")
@@ -1243,7 +1269,7 @@ def decode_lse_record(gen, flush):
         "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
         "shape": {"B": 1, "S": rows, "H": h, "G": g, "D": d, "dtype": "bfloat16",
                   "row_offset": off, "cache_len": [whole], "live_rows": rows},
-        "max_abs_err": err, "tol": TOL[bf],
+        "max_abs_err": err, "tol": TOL[bf], "bit_identical": True,
         "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
         "library_ms": time_ms(lib, flush), "library": "aten._scaled_dot_product_flash_attention",
         "bound_ms": max(t_bytes, t_ops),
@@ -2470,6 +2496,22 @@ def check_flash_positions_bwd(gen):
     return dict(worst=worst, planted_min_ratio=min(planted))
 
 
+def check_decode_registers(ptxas):
+    """The decode kernels' registers and spills (every kernel of both
+    decode units, fp32's FMA ones too): no spill in a bf16 serving kernel
+    (``decode_wgmma_kernel``).  Fails where the build gave no report."""
+    check(bool(ptxas), "no ptxas report of the build: the decode kernels' registers "
+          "cannot be checked")
+    decode = {n: v for n, v in sorted(ptxas.items()) if "decode_" in n}
+    serving = {n: v for n, v in decode.items() if n.startswith("decode_wgmma_kernel<")}
+    check(len(serving) == len(DECODE_WGMMA_KERNELS) // 2,
+          f"bf16 serving decode kernels missing from the report: {sorted(serving)}")
+    spilled = {n: v for n, v in serving.items() if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spilled, f"a bf16 serving decode kernel spills: {spilled}")
+    emit("decode_ptxas", kernels=decode)
+    return decode
+
+
 def check_serving_registers(ptxas):
     """The serving flash kernels' registers and spills against
     SERVING_FLASH_PTXAS; fails where the build gave no ptxas report."""
@@ -2663,6 +2705,7 @@ def phase_kernels(ptxas=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    check_decode_registers(ptxas)
     worst_decode = check_decode(gen)
     worst_flash = check_flash(gen)
     worst_ssd = check_ssd(gen)

@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Time the decode, SSD and flash kernels against an earlier tree's, in one run.
 
-    git show <rev>:src/repro_torch/csrc/decode_attention.cu > reports/base/decode_attention.cu
+    mkdir -p reports/base_decode
+    git show 25f5216:src/repro_torch/csrc/decode_attention.cu > reports/base_decode/decode_attention.cu
+    git show 25f5216:src/repro_torch/csrc/decode_attention_lse.cu > reports/base_decode/decode_attention_lse.cu
+    git show 25f5216:src/repro_torch/kernels/decode_attention/ops.py > reports/base_decode/ops.py
+    python3 scripts/kernel_compare.py --kernel decode --baseline reports/base_decode
+
     git show <rev>:src/repro_torch/csrc/ssd_scan.cu > reports/base/ssd_scan.cu
-    python3 scripts/kernel_compare.py --baseline reports/base
+    python3 scripts/kernel_compare.py --kernel ssd --baseline reports/base
 
     for f in flash_attention.cu flash_attention_pos.cu bf16_tiles.cuh positions.cuh; do
         git show <rev>:src/repro_torch/csrc/$f > reports/base/$f; done
@@ -25,28 +30,36 @@ The earlier sources go in a directory of their own (never under ``csrc/``:
 ``kernels/build.py`` links every ``csrc/*.cu`` into one library, and two copies
 would clash on their ``extern "C"`` names); they are built into a library of
 their own and called through their own C interfaces, which ``Baseline`` knows
-for the earlier trees' two-launch decode kernel (with ``n_splits``), SSD
-kernel (with no ring-depth argument) and flash forward (the interface of
+for commit 25f5216's one-launch decode kernel and its slice variant
+(``dco_decode_attention`` / ``_lse`` of that tree's ``ops.ARGTYPES``), the SSD
+kernel (with no ring-depth argument), the flash forward (the interface of
 today's, with the tiles a chunk that the mma.sync kernel of commit ba0963a
-chose) and flash backward (today's ``dco_flash_attention_bwd`` interface, the
-same for the mma.sync kernel of commit c50a149).
+chose) and the flash backward (today's ``dco_flash_attention_bwd`` interface,
+the same for the mma.sync kernel of commit c50a149).  For decode the
+directory also holds that tree's decode ``ops.py``, whose wrapper is loaded
+beside this tree's and times the earlier kernel as that tree called it.
 
 One JSON line per shape, on the inputs and with the timing of ``chip_smoke.py``
 (``decode_record`` / ``ssd_record`` / ``flash_record``: CUDA-graph replay, L2
 rewritten before each call): this tree's record (ms, plain, library, bound),
 the earlier kernel's ``baseline_ms``, both timed in turns (old, new, new, old:
-``turns_ms``), and for decode the time at each fixed ``rows_per_split`` beside
-the rows the kernel chose; for flash also both kernels with nothing pinned, in
-turns, this tree's at other tiles a chunk, and the host microseconds a call.  Decode runs on the engine's pool (8 slots x 2048
-rows, llama3.2-3b heads, bf16) at mixed positions, a serving call's one live
-position group of 801 and of 97 rows, and every slot full; SSD at mamba2-2.7b's
-prompts of 1024 and 256 tokens; the flash forward (both kernels at the
-``pinned_rows`` this tree's planner gives) at every path's prefill of 1024 and
-256 tokens (``ATTN_SHAPES``, with the path's softcap, scale and window),
-gemma2-27b's 5120-token prefills as a local and a global layer, also without
-the softcap, the forward with the LSE at four training shapes
-(``BWD_SHAPES``) and the position variant at qwen2-vl-7b's 1024 tokens in
-both modes.  The flash backward (``--kernel flash_bwd``): both kernels
+``turns_ms``).  Decode (``--kernel decode``): both builds' decode kernels'
+registers and spills, then every decode shape of PERF.md's table
+(``DECODE_SHAPES``: each path's heads on its pool at mixed positions and at a
+serving call's one live group of 801 rows; llama3.2-3b also at one group of
+97 rows and with every slot full; gemma2-27b's pool as a local and a global
+layer and its one live group) and the slice kernel at its ``kvseq`` shape,
+this tree's time at fixed rows a unit (llama3.2-3b), and the host
+microseconds a call (``host_us``: both wrappers, and both C entries alone,
+each pair in turns).  For flash also both kernels with nothing pinned, in
+turns, this tree's at other tiles a chunk, and the host microseconds a call.
+SSD at mamba2-2.7b's prompts of 1024 and 256 tokens; the flash forward (both
+kernels at the ``pinned_rows`` this tree's planner gives) at every path's
+prefill of 1024 and 256 tokens (``ATTN_SHAPES``, with the path's softcap,
+scale and window), gemma2-27b's 5120-token prefills as a local and a global
+layer, also without the softcap, the forward with the LSE at four training
+shapes (``BWD_SHAPES``) and the position variant at qwen2-vl-7b's 1024 tokens
+in both modes.  The flash backward (``--kernel flash_bwd``): both kernels
 against the plain version at every training shape of ``chip_smoke.BWD_SHAPES``
 and with a positions table at llama3.2-3b's (``flash_bwd_compare``), timed in
 turns with CUDA events as ``chip_smoke.flash_bwd_record`` times them, with
@@ -80,13 +93,16 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs
 
-DECODE_SHAPES = {
-    "ragged": cs.DECODE_RAGGED,
-    "one group of 801": cs.DECODE_ONE_GROUP,
-    "one group of 97": [0, 0, 97, 0, 0, 0, 0, 0],
-    "full": [2048] * 8,
-}
-FIXED_ROWS = (32, 64, 128, 256, 512)
+# every decode shape of PERF.md's kernel table: (path, cache_len, a local
+# layer's window) on the path's pool (8 slots x 2048 rows; gemma2-27b's 6144)
+DECODE_SHAPES = [
+    (path, lens, False) for path in ("llama3.2-3b", "zamba2-7b", "deepseek-moe-16b", "gemma-7b",
+                                     "qwen2-vl-7b", "mistral-nemo-12b", "musicgen-large")
+    for lens in (cs.DECODE_RAGGED, cs.DECODE_ONE_GROUP)] + [
+    ("llama3.2-3b", [0, 0, 97, 0, 0, 0, 0, 0], False), ("llama3.2-3b", [2048] * 8, False),
+    ("gemma2-27b", cs.GEMMA2_DECODE_RAGGED, True), ("gemma2-27b", cs.GEMMA2_DECODE_RAGGED, False),
+    ("gemma2-27b", cs.GEMMA2_DECODE_ONE_GROUP, True)]
+FIXED_ROWS = (64, 128, 256, 512)
 
 
 class Baseline:
@@ -99,8 +115,6 @@ class Baseline:
         self.path = build.build(verbose=verbose, csrc=Path(csrc).resolve())
         self.lib = ctypes.CDLL(str(self.path))
         for name, types in (
-                ("dco_decode_attention", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
                 ("dco_ssd_scan", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p] * 2),
                 ("dco_flash_attention", ops.ARGTYPES),
@@ -110,23 +124,53 @@ class Baseline:
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.chunks = chunks
 
-    def decode(self, q, k, v, cl):
-        """The two-launch decode interface: the valid range cut into n_splits
-        pieces (two blocks an SM, 64 rows a piece at least, 32 pieces at most),
-        a partial kernel and a combine kernel."""
+    @staticmethod
+    def decode_entry(fn, q, k, v, cl, *, lse=None, row_offset=0, window=None, softcap=None,
+                     scale=None, rows_per_split=None):
+        """``fn``, the one-launch ``dco_decode_attention`` of commit 25f5216
+        (or its slice variant ``dco_decode_attention_lse`` where ``lse`` is
+        given), bound to its arguments as that tree's wrapper bound them:
+        ``heads_per_block`` query heads a block (the group up to 4, 1 above
+        head_dim 128, else a divisor), R chosen on the device unless
+        ``rows_per_split``, two work items an SM, scratch for every unit's
+        partial and merge counters zeroed here once.  A call of it is the C
+        entry alone.  Returns (the call, its output)."""
         b, h, d = q.shape
         _, s, g, _ = k.shape
-        n_splits = max(1, min(-(-2 * self.sms // (b * g)), s // 64, 32))
-        out = torch.empty_like(q)
-        scratch = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32, device="cuda")
+        group, cap = h // g, (1 if d > 128 else 4)
+        hpb = group if group <= cap else next(x for x in range(cap, 0, -1) if group % x == 0)
+        min_rows = rows_per_split or max(128, -(-(-(-s // 1024)) // 32) * 32)
+        units = -(-s // min_rows)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        head_blocks = h // hpb
+        blocks, target = min(b * head_blocks * units, 2 * sms), 2 * sms
+        out = torch.empty(q.shape, dtype=torch.float32 if lse is not None else q.dtype,
+                          device=q.device)
+        scratch = torch.empty(b * h * units * (d + 2), dtype=torch.float32, device=q.device)
+        counters = torch.zeros(b * head_blocks, dtype=torch.int32, device=q.device)
         st = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                      *v.stride()[:3])
-        rc = self.lib.dco_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), 0 if q.dtype == torch.bfloat16 else 1, b, s, h, g, d,
-            n_splits, 1.0 / d ** 0.5, st, torch.cuda.current_stream().cuda_stream)
-        cs.check(rc == 0, f"baseline decode launch failed ({rc})")
-        return out
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr())
+        shape = (0 if q.dtype == torch.bfloat16 else 1, b, s, h, g, d, hpb,
+                 rows_per_split or 0, min_rows, target, blocks, int(window or 0))
+        tail = (float(scale or d ** -0.5), float(softcap or 0.0), st,
+                torch.cuda.current_stream().cuda_stream)
+        if lse is None:
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [
+                ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+            args = head + (scratch.data_ptr(), counters.data_ptr()) + shape + tail
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [
+                ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+            args = (head + (lse.data_ptr(), scratch.data_ptr(), counters.data_ptr()) + shape
+                    + (row_offset,) + tail)
+        fn.restype = ctypes.c_int
+
+        def call():
+            rc = fn(*args)
+            cs.check(rc == 0, f"baseline decode entry failed ({rc})")
+        call.buffers = (out, scratch, counters, st)   # alive as long as the call
+        return call, out
 
     @staticmethod
     def mma_sync_tile_rows(group, d):
@@ -636,6 +680,116 @@ def ssd_bwd_compare(base, gen, flush):
         del x, dt, A, B, C, dy
 
 
+def parent_decode_ops(base, csrc):
+    """The decode wrapper module of the earlier tree (``csrc/ops.py``, as
+    ``git show <rev>:src/repro_torch/kernels/decode_attention/ops.py`` gives
+    it), loaded beside this tree's and pointed at the earlier library: its
+    calls are the earlier tree's calls, Python and all."""
+    import importlib.util
+    path = Path(csrc) / "ops.py"
+    if not path.exists():
+        raise SystemExit(f"kernel_compare: {path} is missing (the earlier tree's decode ops.py)")
+    name = "repro_torch.kernels.decode_attention.parent_ops"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    mod.__package__ = "repro_torch.kernels.decode_attention"
+    spec.loader.exec_module(mod)
+    for fn_name, types in (("dco_decode_attention", mod.ARGTYPES),
+                           ("dco_decode_attention_lse", mod.LSE_ARGTYPES)):
+        fn = getattr(base.lib, fn_name)
+        fn.argtypes, fn.restype = types, ctypes.c_int
+        mod._fns[fn_name] = fn
+    return mod
+
+
+def tree_decode_entry(q, k, v, cl, *, window=None, softcap=None, scale=None):
+    """This tree's bf16 ``dco_decode_attention`` bound to its arguments as
+    the wrapper binds them: a call of it is the C entry alone (the tensor
+    maps from the entry's cache).  Returns (the call, its output)."""
+    from repro_torch.kernels.decode_attention import ops
+    b, h, d = q.shape
+    _, s, g, _ = k.shape
+    plan = ops.wgmma_plan(b, s, h, g, d, None, window=window,
+                          cluster_room=ops._cluster_room(q.device, d, h // g))
+    out = torch.empty_like(q)
+    st = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), out.data_ptr(), None, None,
+            0, b, s, h, g, d, h // g, plan.rows, 0, plan.target, 0, plan.units, plan.window,
+            float(scale or d ** -0.5), float(softcap or 0.0), st,
+            torch.cuda.current_stream().cuda_stream)
+    fn = ops._kernel()
+
+    def call():
+        rc = fn(*args)
+        cs.check(rc == 0, f"decode entry failed ({rc})")
+    call.buffers = (out, st)
+    return call, out
+
+
+def decode_compare(base, parent, gen, flush):
+    """Every shape of DECODE_SHAPES and the slice kernel's ``kvseq`` shape:
+    this tree's record (``decode_record``: ms, plain, library, bound, two
+    calls bit-identical), the earlier kernel against the plain version, both
+    timed in turns (old, new, new, old) through their own wrappers, this
+    tree's at fixed rows a unit (llama3.2-3b), and the host microseconds a
+    call: both wrappers and both C entries, each pair in turns."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import decode_attention_lse
+    from repro_torch.kernels import decode_attention_lse_ref
+    from repro_torch.kernels import decode_attention_ref
+    bf = torch.bfloat16
+    for path, lens, local in DECODE_SHAPES:
+        h, g, d = cs.ATTN_SHAPES[path]
+        timed = cs.ATTN_TIMED.get(path, {})
+        kw = {key: timed[key] for key in ("softcap", "scale") if key in timed}
+        if local:
+            kw["window"] = timed["window"]
+        pool = {"s": timed["pool"]} if "pool" in timed else {}
+        q, k, v, cl = cs.decode_inputs(gen, lens, h, g, d, **pool)
+        rec = cs.decode_record(q, k, v, cl, flush, **kw)
+
+        def old():
+            return parent.decode_attention(q, k, v, cl, **kw)
+        cs.close(old(), decode_attention_ref(q, k, v, cl, **kw), cs.TOL[bf],
+                 f"baseline decode at {path} {lens}")
+
+        def new():
+            return decode_attention(q, k, v, cl, **kw)
+        rec.update(in_turns(new, old, flush))
+        if path == "llama3.2-3b":
+            rec["ms_fixed_rows"] = {str(r): cs.time_ms(
+                lambda: decode_attention(q, k, v, cl, rows_per_split=r), flush)
+                for r in FIXED_ROWS}
+        entry_new = tree_decode_entry(q, k, v, cl, **kw)[0]
+        entry_old = base.decode_entry(base.lib.dco_decode_attention, q, k, v, cl, **kw)[0]
+        rec["host_us"] = dict(zip(("entry", "baseline_entry"),
+                                  host_in_turns(entry_new, entry_old)))
+        rec["host_us"].update(zip(("wrapper", "baseline_wrapper"), host_in_turns(new, old)))
+        print(json.dumps({"shape_name": f"{path} {lens}{' local' if local else ''}", **rec}),
+              flush=True)
+    # the slice kernel at its kvseq shape (chip_smoke.LSE_TIMED)
+    rec = cs.decode_lse_record(gen, flush)
+    t = cs.LSE_TIMED
+    q = cs.randn(gen, (1, t["h"], t["d"]), bf)
+    k = cs.randn(gen, (1, t["rows"], t["g"], t["d"]), bf)
+    v = cs.randn(gen, (1, t["rows"], t["g"], t["d"]), bf)
+    cl = torch.tensor([t["whole"]], dtype=torch.int32, device="cuda")
+    off = t["whole"] - t["rows"]
+
+    def new_lse():
+        return decode_attention_lse(q, k, v, cl, row_offset=off)
+
+    def old_lse():
+        return parent.decode_attention_lse(q, k, v, cl, row_offset=off)
+    ro, rl = decode_attention_lse_ref(q, k, v, cl, row_offset=off)
+    o, lse = old_lse()
+    cs.close(o, ro, cs.TOL[bf], "baseline decode_lse output")
+    cs.close_lse(lse, rl, cs.TOL[bf], "baseline decode_lse lse")
+    rec.update(in_turns(new_lse, old_lse, flush))
+    rec["host_us"] = dict(zip(("wrapper", "baseline_wrapper"), host_in_turns(new_lse, old_lse)))
+    print(json.dumps({"shape_name": "kvseq slice", **rec}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR", required=True,
@@ -650,8 +804,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_compare: needs a CUDA device")
-    from repro_torch.kernels import decode_attention
-    from repro_torch.kernels import decode_attention_ref
     from repro_torch.kernels import ssd_ref
     from repro_torch.kernels import ssd_scan
     torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py's device phase
@@ -659,24 +811,16 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    base = Baseline(args.baseline, verbose=args.kernel in ("flash_bwd", "ssd_bwd", "ssd"),
+    base = Baseline(args.baseline,
+                    verbose=args.kernel in ("flash_bwd", "ssd_bwd", "ssd", "decode", "both"),
                     chunks=args.baseline_chunks)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     bf, f32 = torch.bfloat16, torch.float32
     if args.kernel in ("decode", "both"):
-        for name, lens in DECODE_SHAPES.items():
-            q, k, v, cl = cs.decode_inputs(gen, lens, *cs.ATTN_SHAPES["llama3.2-3b"])
-            rec = cs.decode_record(q, k, v, cl, flush)
-            cs.close(base.decode(q, k, v, cl), decode_attention_ref(q, k, v, cl), cs.TOL[bf],
-                     f"baseline decode at {name}")
-            rec.update(in_turns(lambda: decode_attention(q, k, v, cl),
-                                lambda: base.decode(q, k, v, cl), flush))
-            rec["ms_fixed_rows"] = {str(r): cs.time_ms(
-                lambda: decode_attention(q, k, v, cl, rows_per_split=r), flush)
-                for r in FIXED_ROWS}
-            print(json.dumps({"shape_name": name, **rec}), flush=True)
+        print(json.dumps({"ptxas": bwd_ptxas(base, ("decode_",))}), flush=True)
+        decode_compare(base, parent_decode_ops(base, args.baseline), gen, flush)
     if args.kernel == "ssd":
         print(json.dumps({"ptxas": bwd_ptxas(base, ("ssd_scan_kernel",))}), flush=True)
     if args.kernel in ("ssd", "both"):

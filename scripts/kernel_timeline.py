@@ -65,7 +65,8 @@ SLOTS = 1 << 17
 
 # (anchor line in the source, where the stamp goes, stamp number, extra condition)
 FIRST = " && item == blockIdx.x"
-DECODE_MARKS = [
+# the parent's kernel (commit 25f5216: FMA lane groups, per-call R, counter merge)
+PARENT_DECODE_MARKS = [
     ("  // R: the caller's, or chosen from this call's lengths (every block reads",
      "before", 0, ""),
     ("  float m[HPB], l[HPB], acc[HPB][EPL];", "before", 1, FIRST),
@@ -78,8 +79,29 @@ DECODE_MARKS = [
     ("    for (int e = 0; e < 4; ++e) a.out[(bh0 + hh) * D + 4 * d4 + e] = Vec<T>::to(x[e]);"
      "\n  }", "after", 6, FIRST),
 ]
-DECODE_PHASES = ["to q", "to the first rows", "row loop", "block merge and partial",
-                 "partial counted", "last unit's merge"]
+PARENT_DECODE_PHASES = ["to q", "to the first rows", "row loop", "block merge and partial",
+                        "partial counted", "last unit's merge"]
+# this tree's bf16 kernel (TMA + wgmma, a cluster a (batch row, KV head)):
+# the first thread of every block, the one that issues its copies (slot
+# block * 8 + k)
+WGMMA_BLOCK = "(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z))"
+WGMMA_DECODE_MARKS = [
+    ("  if (threadIdx.x == 0) {\n    mbar_init(q_full, 1);", "before", 0, ""),
+    ("  if (rank == 0 || n_tiles > 0) mbar_wait(q_full, 0);", "after", 1, ""),
+    ("    mbar_wait(k_full(st), lap & 1);", "after", 2, " && n == 0"),
+    ("  // the tile loop's end", "before", 3, ""),
+    ("  cluster_arrive();  // the partials written, released to the cluster", "before", 4, ""),
+    ("  const uint32_t pm_s = smem_addr(pm), pl_s = smem_addr(pl), pacc_s = smem_addr(pacc);",
+     "before", 5, ""),
+    ("  cluster_arrive();  // no block leaves while another reads its partial", "before", 6, ""),
+]
+WGMMA_DECODE_PHASES = ["to q", "to the first K tile", "tile loop", "partial written",
+                       "cluster barrier", "merge"]
+# the decode shapes stamped: (path, cache_len) on the engine's pool of 8 x 2048 rows
+DECODE_TIMELINE_SHAPES = [
+    ("llama3.2-3b", chip_smoke.DECODE_RAGGED), ("llama3.2-3b", chip_smoke.DECODE_ONE_GROUP),
+    ("llama3.2-3b", [0, 0, 97, 0, 0, 0, 0, 0]), ("llama3.2-3b", [2048] * 8),
+    ("qwen2-vl-7b", chip_smoke.DECODE_RAGGED), ("zamba2-7b", chip_smoke.DECODE_RAGGED)]
 SSD_MARKS = [
     ("    __syncthreads();  // sub-chunk c has landed for every thread", "after", 0, ""),
     ("    // 3. C state^T with the state of the rows before this sub-chunk", "before", 1, ""),
@@ -164,29 +186,80 @@ def flushed_launch(lib, fn, flush):
     return start.elapsed_time(end)
 
 
-def decode_timeline(flush, gen):
-    from repro_torch.kernels.decode_attention import ops
+def decode_timeline(flush, gen, baseline=None):
+    """``baseline``: the parent's kernel from DIR/decode_attention.cu, called
+    through its own one-launch interface; else this tree's."""
+    if baseline is None:
+        return wgmma_decode_timeline(flush, gen)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from kernel_compare import Baseline
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    src = (ROOT / "src/repro_torch/csrc/decode_attention.cu").read_text()
-    src = instrument(src, DECODE_MARKS, "threadIdx.x == 0 && blockIdx.x < 8192",
+    src = (Path(baseline) / "decode_attention.cu").read_text()
+    src = instrument(src, PARENT_DECODE_MARKS, "threadIdx.x == 0 && blockIdx.x < 8192",
                      "blockIdx.x * 8 + {k}")
     # attend_unit's stamps need the item: pass it in
-    for old, new in (("    attend_unit<T, D, HPB>(a, ", "    attend_unit<T, D, HPB>(item, a, "),
+    for old, new in (("    attend_unit<T, D, HPB, CAP>(a, ",
+                      "    attend_unit<T, D, HPB, CAP>(item, a, "),
                      ("__device__ __forceinline__ void attend_unit(const Args<T>& a,",
                       "__device__ __forceinline__ void attend_unit(int item, const Args<T>& a,")):
         if src.count(old) != 1:
             raise RuntimeError(f"not found once in the source: {old!r}")
         src = src.replace(old, new)
-    lib = build("decode_attention", src)
+    lib = build("decode_attention_parent", src)
+    for path, lens in DECODE_TIMELINE_SHAPES:
+        h, g, d = chip_smoke.ATTN_SHAPES[path]
+        q, k, v, cl = chip_smoke.decode_inputs(gen, lens, h, g, d)
+        call, out = Baseline.decode_entry(lib.dco_decode_attention, q, k, v, cl)
+        call()
+        torch.cuda.synchronize()
+        err = float((out.float() - decode_attention_ref(q, k, v, cl).float()).abs().max())
+        ms = flushed_launch(lib, call, flush)
+        t = read(lib)
+        starts = [t[i * 8] for i in range(8192) if t[i * 8]]
+        t0 = min(starts)
+        phases = {name: [] for name in PARENT_DECODE_PHASES}
+        ends = []
+        for i in range(len(starts)):
+            stamps = [t[i * 8 + j] for j in range(7)]
+            if not all(stamps[:4]):
+                continue                                     # a cache_len 0 item
+            for j, name in enumerate(PARENT_DECODE_PHASES[:3]):
+                phases[name].append(stamps[j + 1] - (stamps[j] if j else t0))
+            if stamps[4]:                                    # a unit of several
+                phases["block merge and partial"].append(stamps[4] - stamps[3])
+                if stamps[5]:                                # the unit that merged
+                    phases["partial counted"].append(stamps[5] - stamps[4])
+                    phases["last unit's merge"].append(stamps[6] - stamps[5])
+                    ends.append(stamps[6] - t0)
+        print(json.dumps({
+            "kernel": "decode_attention (parent)", "path": path, "cache_len": lens,
+            "event_ms": ms, "max_abs_err": err, "blocks": len(starts),
+            "busy_blocks": len(phases["to q"]),
+            "block_start_spread_ns": max(starts) - t0,
+            "phase_ns_median_max": {k2: [int(statistics.median(v2)), int(max(v2))]
+                                    for k2, v2 in phases.items() if v2},
+            "merge_end_ns_max": max(ends) if ends else None}), flush=True)
+
+
+def wgmma_decode_timeline(flush, gen):
+    """This tree's bf16 kernel through the wrapper, stamped at
+    WGMMA_DECODE_MARKS: per block from the earliest block start to q landed,
+    to the first K tile, the tile loop, the partial written, the cluster's
+    barrier and the block's share of the merge."""
+    from repro_torch.kernels.build import CSRC
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    src = instrument((CSRC / "decode_attention.cu").read_text(), WGMMA_DECODE_MARKS,
+                     f"threadIdx.x == 0 && {WGMMA_BLOCK} < 8192",
+                     f"{WGMMA_BLOCK} * 8 + {{k}}")
+    lib = build("decode_attention", src, CSRC)
     on_wrapper(ops, lib, "dco_decode_attention")
-    b, s, h, g, d = 8, 2048, 24, 8, 128
-    q = torch.randn((b, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((b, s, g, d), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((b, s, g, d), generator=gen, device="cuda").to(torch.bfloat16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for lens in (chip_smoke.DECODE_RAGGED, chip_smoke.DECODE_ONE_GROUP):
-        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        plan = ops.decode_plan(b, s, h, g, d, None, sms)
+    for path, lens in DECODE_TIMELINE_SHAPES:
+        h, g, d = chip_smoke.ATTN_SHAPES[path]
+        q, k, v, cl = chip_smoke.decode_inputs(gen, lens, h, g, d)
+        plan = ops.wgmma_plan(8, k.shape[1], h, g, d, sm_count=sms,
+                              cluster_room=ops._cluster_room(q.device, d, h // g))
 
         def launch():
             ops.decode_attention(q, k, v, cl)
@@ -196,25 +269,30 @@ def decode_timeline(flush, gen):
         err = float((out.float() - decode_attention_ref(q, k, v, cl).float()).abs().max())
         ms = flushed_launch(lib, launch, flush)
         t = read(lib)
-        n_items = len(plan.items(lens))
-        blocks = min(n_items, plan.blocks)
-        t0 = min(t[i * 8] for i in range(blocks))
-        phases = {name: [] for name in DECODE_PHASES}
-        for i in range(blocks):
-            stamps = [t[i * 8 + j] for j in range(7)]
-            if not all(stamps[:5]):
-                continue                                     # a cache_len 0 item
-            for j, name in enumerate(DECODE_PHASES[:4]):
-                phases[name].append(stamps[j + 1] - (stamps[j] if j else t0))
-            if stamps[5]:                                    # the unit that merged
-                phases["partial counted"].append(stamps[5] - stamps[4])
-        ends = [t[i * 8 + 6] - t0 for i in range(blocks) if t[i * 8 + 6] > t0]
-        merges = [t[i * 8 + 6] - t[i * 8 + 5] for i in range(blocks)
-                  if t[i * 8 + 6] > t[i * 8 + 5] > 0]
-        phases["last unit's merge"] = merges
+        n_blocks = plan.units * g * 8
+        starts = [t[i * 8] for i in range(n_blocks) if t[i * 8]]
+        t0 = min(starts)
+        phases = {name: [] for name in WGMMA_DECODE_PHASES}
+        ends = []
+        for i in range(n_blocks):
+            st = [t[i * 8 + j] for j in range(7)]
+            if not st[2]:
+                continue                                  # a block with no rows
+            phases["to q"].append(st[1] - t0)
+            phases["to the first K tile"].append(st[2] - st[1])
+            phases["tile loop"].append(st[3] - st[2])
+            if st[4]:
+                phases["partial written"].append(st[4] - st[3])
+                phases["cluster barrier"].append(st[5] - st[4])
+                phases["merge"].append(st[6] - st[5])
+                ends.append(st[6] - t0)
+            else:
+                ends.append(st[3] - t0)
         print(json.dumps({
-            "kernel": "decode_attention", "cache_len": lens, "rows": plan.rows_for(lens),
-            "event_ms": ms, "max_abs_err": err, "busy_blocks": len(phases["to q"]),
+            "kernel": "decode_attention (wgmma)", "path": path, "cache_len": lens,
+            "units": plan.units, "event_ms": ms, "max_abs_err": err, "blocks": len(starts),
+            "busy_blocks": len(phases["to q"]),
+            "block_start_spread_ns": max(starts) - t0,
             "phase_ns_median_max": {k2: [int(statistics.median(v2)), int(max(v2))]
                                     for k2, v2 in phases.items() if v2},
             "end_ns_max": max(ends) if ends else None}), flush=True)
@@ -710,7 +788,8 @@ def main() -> None:
     ap.add_argument("--kernel", choices=("decode", "ssd", "both", "mma", "ssd_bwd", "wgmma"),
                     default="both")
     ap.add_argument("--baseline", metavar="DIR",
-                    help="ssd_bwd: the directory of commit 377bd0d's ssd_scan_bwd.cu")
+                    help="ssd_bwd: the directory of commit 377bd0d's ssd_scan_bwd.cu; "
+                         "decode: of commit 25f5216's decode_attention.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timeline: needs a CUDA device")
@@ -719,7 +798,7 @@ def main() -> None:
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     if args.kernel in ("decode", "both"):
-        decode_timeline(flush, gen)
+        decode_timeline(flush, gen, args.baseline)
     if args.kernel in ("ssd", "both"):
         ssd_timeline(flush, gen)
     if args.kernel == "mma":

@@ -1,10 +1,12 @@
 // Hopper's own instructions (sm_90a) for the flash-attention kernels and the
 // SSD scan's backward: TMA copies (tensor maps and bulk), mbarriers, wgmma
 // with its shared-memory descriptors (bf16, and TF32 with a register A),
-// setmaxnreg, and on the host the tensor maps TMA reads through.  The flash
-// forward (flash_attention.cu) and backward (flash_attention_bwd.cu) and the
-// SSD backward (ssd_scan_bwd.cu) are built on them; each includes this header
-// once, and a position variant includes its file again.
+// setmaxnreg, thread-block cluster barriers and distributed shared memory,
+// and on the host the tensor maps TMA reads through.  The flash forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), the SSD
+// backward (ssd_scan_bwd.cu) and the bf16 decode kernel
+// (decode_attention.cu) are built on them; each includes this header once,
+// and a position or slice variant includes its file again.
 //
 // Layout shared by both kernels: a bf16 tile of 64 rows is staged as
 // col_blocks<D>() boxes of 64 rows x 128 bytes (64 head-dim columns), one
@@ -130,6 +132,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, u
       : "memory");
 }
 
+// One box of a 3-d tensor map at coordinates (column, head, batch), as tma_load.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                            int col, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(head), "r"(batch)
+      : "memory");
+}
+
 // One box of a 1-d tensor map from element `at` on, as tma_load.
 __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap& map, uint32_t bar,
                                             int at) {
@@ -226,6 +238,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The thread-block cluster's barrier, in two halves: every thread of every
+// block of the cluster arrives (its shared-memory writes released to the
+// cluster), then waits for all of them (acquiring theirs).  Warp-uniform.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory offset in block `rank` of this
+// cluster (distributed shared memory), for ld_cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // Make this thread's writes to shared memory visible to the async proxy
@@ -371,6 +417,23 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int heads, int 
   const cuuint32_t box[4] = {BOX_COLS, (cuuint32_t)box_heads, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a bf16 (B, heads, D) tensor read through its strides (in
+// elements), as 3-d (D, heads, B) with the 128-byte swizzle; a box is 64
+// columns of `box_heads` heads of one batch row.
+inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int D, int heads, int B,
+                          long long head_stride, long long batch_stride, int box_heads) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {2ull * head_stride, 2ull * batch_stride};
+  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_heads, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

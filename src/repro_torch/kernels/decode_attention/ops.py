@@ -2,12 +2,19 @@
 whole cache (csrc/decode_attention.cu), and ``decode_attention_lse`` over one
 rank's slice of a sequence-sharded cache, which also gives each row's
 log-sum-exp for the merge across ranks (``sharding.comm.merge_attention``;
-csrc/decode_attention_lse.cu, the same body compiled as the slice's)."""
+csrc/decode_attention_lse.cu, the same bodies compiled as the slice's).
+
+bf16 runs the TMA + ``wgmma`` kernel: a GQA group's query heads are the rows
+of one 64-row product tile, and the C blocks of a (batch row, KV head)
+(``WgmmaPlan``) cut its live 64-row tiles and merge their partials as one
+thread-block cluster.  fp32 runs the FMA kernel with its per-call R
+(``DecodePlan``)."""
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable
 from typing import Dict
 from typing import List
 from typing import NamedTuple
@@ -25,8 +32,14 @@ from .ref import decode_attention_ref
 
 LAUNCHES = [0]                 # kernel launches made by decode_attention
 LSE_LAUNCHES = [0]             # kernel launches made by decode_attention_lse
-STEP_ROWS = 32                 # rows a block scores a step (csrc: STEP_ROWS)
-MAX_HPB = 4                    # query heads a block at most (csrc: MAX_HPB)
+TILE_ROWS = 64                 # bf16: cache rows of a K/V tile (csrc: W_TILE)
+MAX_GROUP = 64                 # bf16: query heads a KV head at most (csrc: W_MAX_GROUP)
+MAX_UNITS_A_HEAD = 8           # bf16: blocks of a (batch row, KV head) (csrc: W_MAX_UNITS)
+MIN_UNIT_TILES = 2             # bf16: tiles a unit at least, cut by the kernel (csrc: W_MIN_UNIT_TILES)
+SMALL_GROUP = 8                # bf16: groups up to this stage q in 8 rows (csrc: W_SMALL_GROUP)
+UNIT_TILES_AT_MOST = 8         # bf16: tiles a block of a sequence as long as the cache, at most
+STEP_ROWS = 32                 # fp32: rows a block scores a step (csrc: STEP_ROWS)
+MAX_HPB = 4                    # fp32: query heads a block at most (csrc: MAX_HPB)
 MAX_HPB_WIDE = 1               # ... above head_dim 128 (csrc: MAX_HPB_WIDE)
 BLOCKS_PER_SM = 3              # blocks an SM can hold (csrc: BLOCKS_PER_SM)
 MAX_UNITS = 1024               # units a sequence at most (csrc: MAX_UNITS)
@@ -37,16 +50,19 @@ HEAD_DIMS = (64, 112, 128, 256)   # head sizes the kernel is compiled for
 LANES_PER_ROW = 8              # lanes that share a row's chunks (csrc: LANES_PER_ROW)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C interface dco_decode_attention: q, k, v, cache_len, out, scratch,
-# counters; dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, window;
-# scale, softcap; strides, stream
-ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+# counters; dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, units,
+# window; scale, softcap; strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
 # dco_decode_attention_lse: q, k, v, cache_len, out, lse, scratch, counters;
-# dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, window, row_offset;
-# scale, softcap; strides, stream
-LSE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+# dtype, B, S, H, G, D, hpb, rows, min_rows, target, blocks, units, window,
+# row_offset; scale, softcap; strides, stream
+LSE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
 _fns: Dict[str, object] = {}
+# clusters of 1 .. MAX_UNITS_A_HEAD blocks the card runs at once, by
+# (device index, head size, group of at most SMALL_GROUP)
+_rooms: Dict[Tuple[Optional[int], int, bool], List[int]] = {}
 # merge counters of each (device, stream); zeroed once, when allocated
 _counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _retired: List[torch.Tensor] = []   # outgrown counters: a captured graph may hold them
@@ -203,6 +219,141 @@ def decode_plan(b: int, s: int, h: int, g: int, d: int,
                       window=window or 0, row_offset=row_offset)
 
 
+def bf16_blocks_per_sm(d: int) -> int:
+    """Blocks of the bf16 kernel an SM holds (csrc's w_blocks_per_sm)."""
+    return 1 if d > 128 else 3
+
+
+def units_for(b: int, g: int, s: int, cluster_room: Callable[[int], int],
+              window: int = 0) -> int:
+    """C, the blocks of one (batch row, KV head) in the bf16 kernel (its
+    thread-block cluster): the most, up to MAX_UNITS_A_HEAD, whose B * G
+    clusters the card runs at once (``cluster_room(C)``: clusters of C
+    blocks that fit at once), but at least 2, and at least enough that a
+    sequence as long as the cache (or the window) holds gives no block more
+    than UNIT_TILES_AT_MOST tiles; no more than such a sequence can give
+    work (MIN_UNIT_TILES tiles a block).  From shapes alone: the host never
+    reads ``cache_len``; the kernel cuts each call's rows on the card."""
+    wave = max([c for c in range(2, MAX_UNITS_A_HEAD + 1) if b * g <= cluster_room(c)],
+               default=2)
+    tiles = -(-min(s, window or s) // TILE_ROWS)
+    units = max(wave, min(MAX_UNITS_A_HEAD, -(-tiles // UNIT_TILES_AT_MOST)))
+    return max(1, min(units, -(-tiles // MIN_UNIT_TILES)))
+
+
+def estimated_room(d: int, sm_count: int = 132) -> Callable[[int], int]:
+    """Clusters of C blocks a card of ``sm_count`` SMs holds at once if they
+    packed its SMs perfectly: the plan's default where no card is asked
+    (on the card the wrapper asks it, ``dco_decode_clusters``)."""
+    return lambda c: bf16_blocks_per_sm(d) * sm_count // c
+
+
+class WgmmaPlan(NamedTuple):
+    """How the bf16 kernel cuts one call: grid (units, G, B), the ``units``
+    blocks of a (batch row, KV head) reading its live rows in tiles of
+    TILE_ROWS rows from the first live one.  The live tiles are cut into
+    units of ``per`` tiles: by default as csrc's span_of, from the call's
+    lengths (``unit_tiles``: the least R, at least MIN_UNIT_TILES, that
+    keeps the call's blocks with rows within ``target``; ceil(tiles / R)
+    units, at most ``units``, cutting them evenly: one unit a block at
+    most); with ``rows`` (``rows_per_split`` rounded up to whole tiles)
+    units of rows / TILE_ROWS tiles, block r taking units r, r + units, ...
+    Blocks with tiles (``active``) merge their partials in block order; one
+    alone writes the output.  The window and a slice's row offset are as
+    ``DecodePlan``'s."""
+    units: int           # C: blocks a (batch row, KV head), the cluster's size
+    rows: int            # rows a unit, a multiple of TILE_ROWS, or 0: cut per call
+    group: int           # query heads a KV head: rows of the packed tile
+    capacity: int        # S: rows of the cache; cache_len is clamped to it
+    batch: int
+    kv_heads: int
+    target: int          # blocks with rows a call at most, where the kernel cuts
+    window: int = 0
+    row_offset: Optional[int] = None
+
+    def span(self, length: int) -> Tuple[int, int]:
+        """(first live row, end) of a sequence of ``length`` on this cache's
+        rows, as ``DecodePlan.span``."""
+        return DecodePlan.span(self, length)
+
+    def tiles(self, length: int) -> int:
+        lo, end = self.span(length)
+        return -(-(end - lo) // TILE_ROWS)
+
+    def unit_tiles(self, lengths: Sequence[int]) -> int:
+        """R, the least tiles of a unit the kernel cuts for a call at
+        ``lengths`` (csrc's span_of)."""
+        total = sum(self.tiles(n) for n in lengths)
+        live = sum(self.tiles(n) > 0 for n in lengths)
+        spare = max(self.target - live * self.kv_heads, 1)
+        return max(MIN_UNIT_TILES, -(-self.kv_heads * total // spare))
+
+    def cut(self, length: int, lengths: Sequence[int]) -> Tuple[int, int, int]:
+        """(tiles, tiles a unit, units) of a sequence of ``length`` in a call
+        at ``lengths``."""
+        tiles = self.tiles(length)
+        if self.rows:
+            per = self.rows // TILE_ROWS
+        else:
+            units = min(self.units, -(-tiles // self.unit_tiles(lengths)))
+            per = -(-tiles // units) if units else 1
+        return tiles, per, -(-tiles // per)
+
+    def active(self, length: int, lengths: Sequence[int]) -> int:
+        """Blocks of the (batch row, KV head) that hold rows."""
+        return min(self.units, self.cut(length, lengths)[2])
+
+    def block_tiles(self, rank: int, length: int, lengths: Sequence[int]) -> List[int]:
+        """The tiles block ``rank`` reads, in its order: units rank,
+        rank + units, ..."""
+        tiles, per, n_units = self.cut(length, lengths)
+        return [t for u in range(rank, n_units, self.units)
+                for t in range(u * per, min(tiles, (u + 1) * per))]
+
+    def tile_rows(self, tile: int, length: int) -> range:
+        """The live cache rows of ``tile``; its box reads TILE_ROWS rows
+        from the first, the rest past the end masked (and zeroed in V)."""
+        lo, end = self.span(length)
+        return range(lo + tile * TILE_ROWS, min(end, lo + (tile + 1) * TILE_ROWS))
+
+
+def wgmma_plan(b: int, s: int, h: int, g: int, d: int,
+               rows_per_split: Optional[int] = None, sm_count: int = 132,
+               window: Optional[int] = None, row_offset: Optional[int] = None,
+               cluster_room: Optional[Callable[[int], int]] = None) -> WgmmaPlan:
+    """The bf16 kernel's plan; raises where the group exceeds the packed
+    tile's MAX_GROUP rows (before any launch).  ``cluster_room`` (see
+    ``units_for``) defaults to ``estimated_room(d, sm_count)``; the target
+    is the blocks of one-block clusters the card holds at once."""
+    if rows_per_split is not None and (rows_per_split <= 0 or rows_per_split % STEP_ROWS):
+        raise ValueError(f"rows_per_split must be a positive multiple of {STEP_ROWS}, "
+                         f"got {rows_per_split}")
+    group = h // g
+    if group > MAX_GROUP:
+        raise ValueError(f"the bf16 decode kernel packs at most {MAX_GROUP} query heads a "
+                         f"KV head into its product tile's rows, got {group}")
+    room = cluster_room or estimated_room(d, sm_count)
+    return WgmmaPlan(units=units_for(b, g, s, room, window or 0),
+                     rows=_round_up(rows_per_split, TILE_ROWS) if rows_per_split else 0,
+                     group=group, capacity=s, batch=b, kv_heads=g, target=room(1),
+                     window=window or 0, row_offset=row_offset)
+
+
+def _cluster_room(device: torch.device, d: int, group: int) -> Callable[[int], int]:
+    """Clusters of C blocks of the bf16 kernel that ``device`` runs at once,
+    asked of the card once for each (device, head size, staged q's rows)."""
+    key = (device.index, d, group <= SMALL_GROUP)
+    room = _rooms.get(key)
+    if room is None:
+        fn = _kernel("dco_decode_clusters", [ctypes.c_int] * 3)
+        with torch.cuda.device(device):
+            room = [fn(d, group, c) for c in range(1, MAX_UNITS_A_HEAD + 1)]
+        if min(room) < 1:
+            raise RuntimeError(f"the card could not size the decode kernel's clusters: {room}")
+        _rooms[key] = room
+    return lambda c: room[c - 1]
+
+
 def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """Zeroed ints for the merge counters of one (device, stream): the kernel
     sets each counter it used back to 0, so they are zeroed only here, once.
@@ -252,12 +403,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     before the softmax.
 
     ``rows_per_split`` (a multiple of ``STEP_ROWS``) fixes the rows of one
-    work unit, which the kernel otherwise chooses per call from ``cache_len``;
-    it changes the schedule, not the result.  On a CUDA tensor this launches
-    the kernel (one launch) or raises; on a CPU tensor it computes the plain
-    version.  Each (device, stream) has merge counters of its own.  The
-    kernel has no backward: on the card a call that autograd would record
-    raises ``NotImplementedError`` rather than give a detached result."""
+    work unit, which the kernels otherwise cut: bf16 rounds it up to whole
+    64-row tiles (``WgmmaPlan``), fp32 takes it as its R instead of one
+    chosen per call from ``cache_len`` (``DecodePlan``); it changes the
+    schedule, not the result.  On a CUDA tensor this launches the kernel
+    (one launch) or raises: bf16 takes at most ``MAX_GROUP`` query heads a
+    KV head; on a CPU tensor it computes the plain version.  Each (device,
+    stream) has the fp32 kernel's merge counters of its own.  The kernel has
+    no backward: on the card a call that autograd would record raises
+    ``NotImplementedError`` rather than give a detached result."""
     _check(q, k, v, cache_len)
     _check_options(window, softcap)
     if not q.is_cuda:
@@ -326,26 +480,33 @@ def _launch(q, k, v, cache_len, out, lse, row_offset, scale, window, softcap,
                              "head_dim; it needs stride 1 there and 16-byte "
                              "aligned rows")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = decode_plan(b, s, h, g, d, rows_per_split, sms, window, row_offset)
     lens = cache_len if cache_len.dtype == torch.int32 else cache_len.to(torch.int32)
     lens = lens.contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2))
+    if q.dtype == torch.bfloat16:
+        wplan = wgmma_plan(b, s, h, g, d, rows_per_split, sms, window, row_offset,
+                           _cluster_room(q.device, d, h // g))
+        scratch = None    # the blocks merge in their cluster: no scratch, no counters
+        shape = (0, b, s, h, g, d, h // g, wplan.rows, 0, wplan.target, 0, wplan.units,
+                 wplan.window)
+    else:
+        plan = decode_plan(b, s, h, g, d, rows_per_split, sms, window, row_offset)
+        scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=q.device)
+        shape = (1, b, s, h, g, d, plan.hpb, plan.fixed_rows, plan.min_rows, plan.target,
+                 plan.blocks, 0, plan.window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        counters = _counter_buffer(q.device, stream, plan.counters)
         head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr())
-        shape = (_DTYPES[q.dtype], b, s, h, g, d, plan.hpb, plan.fixed_rows, plan.min_rows,
-                 plan.target, plan.blocks, plan.window)
+        part = (None, None) if scratch is None else (
+            scratch.data_ptr(), _counter_buffer(q.device, stream, plan.counters).data_ptr())
         tail = (float(scale), float(softcap or 0.0), strides, stream)
         if lse is None:
-            rc = _kernel()(*head, scratch.data_ptr(), counters.data_ptr(), *shape, *tail)
+            rc = _kernel()(*head, *part, *shape, *tail)
         else:
             rc = _kernel("dco_decode_attention_lse", LSE_ARGTYPES)(
-                *head, lse.data_ptr(), scratch.data_ptr(), counters.data_ptr(), *shape,
-                row_offset, *tail)
+                *head, lse.data_ptr(), *part, *shape, row_offset, *tail)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")

@@ -11,6 +11,7 @@ import ctypes
 import importlib.util
 import re
 
+from _torch_decode_wgmma import emulate_wgmma
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -861,7 +862,10 @@ def test_decode_rows_per_split_must_be_whole_steps():
 
 def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132, window=None,
                    softcap=None):
-    """The kernel's arithmetic in torch: per work item (a unit of live rows), 16
+    """The kernel's arithmetic in torch.  bf16 runs the TMA + wgmma kernel,
+    emulated by ``_torch_decode_wgmma.emulate_wgmma`` (64-row tiles, P
+    rounded to bf16, the blocks of a (batch row, KV head) merged); fp32 the
+    FMA kernel, emulated here: per work item (a unit of live rows), 16
     lane groups scoring 2 rows a step (rows start + 32 t + 16 r + lane group;
     each of a group's 8 lanes sums over the chunks of the row it owns)
     in log2 units with one max and one rescale a step; lane groups merged into
@@ -870,6 +874,9 @@ def emulate_decode(q, k, v, cache_len, rows_per_split=None, sm_count=132, window
     2^(m_i - M) / max(sum_i l_i 2^(m_i - M), 1e-30).  With a softcap, q is
     scaled by scale / softcap and a lane group's sum s becomes
     tanh(s) * softcap * log2(e)."""
+    if q.dtype == torch.bfloat16:
+        return emulate_wgmma(q, k, v, cache_len, rows_per_split=rows_per_split,
+                             sm_count=sm_count, window=window, softcap=softcap)
     b, h, d = q.shape
     _, s, g, _ = k.shape
     plan = decode_ops.decode_plan(b, s, h, g, d, rows_per_split, sm_count, window)

@@ -442,15 +442,16 @@ def test_bwd_walk_shared_memory_fits_a_block(p, n):
 
 def test_every_tma_box_is_a_multiple_of_16_bytes():
     """TMA moves boxes whose innermost extent is a multiple of 16 bytes: the
-    tensor maps of csrc/hopper.cuh (bf16 boxes of BOX_COLS columns, fp32
-    boxes of 32), the 1-d boxes the flash backward asks for (STATS_BOX fp32
-    values) and the SSD backward's bulk copies of its prepared tiles."""
+    tensor maps of csrc/hopper.cuh (bf16 boxes of BOX_COLS columns, 4-d and,
+    for decode's q, 3-d; fp32 boxes of 32), the 1-d boxes the flash backward
+    asks for (STATS_BOX fp32 values) and the SSD backward's bulk copies of
+    its prepared tiles."""
     hop = (CSRC / "hopper.cuh").read_text()
     consts = _source_ints(hop)
     consts.update(_source_ints((CSRC / "flash_attention_bwd.cu").read_text()))
     boxes = re.findall(r"const cuuint32_t box(?:es)?\[\d\] = \{(\w+|\(cuuint32_t\)box)", hop)
     kinds = re.findall(r"CU_TENSOR_MAP_DATA_TYPE_(\w+), \d", hop)
-    assert len(boxes) == len(kinds) == 3
+    assert len(boxes) == len(kinds) == 4
     size = {"BFLOAT16": 2, "FLOAT32": 4}
     for box, kind in zip(boxes, kinds):
         inner = consts["STATS_BOX"] if box == "(cuuint32_t)box" else int(consts.get(box, box))
